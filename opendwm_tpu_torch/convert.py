@@ -1,0 +1,208 @@
+"""Weight bridge from the JAX package's flax params to port state dicts.
+
+The inverses of ``opendwm_tpu/convert/torch_import.py``'s
+``convert_ctsd_dit`` and ``convert_autoencoder_kl``: a nested dict of
+numpy arrays (``{"params": {...}}`` or the inner tree) becomes a flat
+``{reference_name: np.ndarray}`` dict that ``load_state_dict`` takes
+(through :func:`to_torch`). Rules, reversed:
+
+- flax Dense ``kernel`` (in, out) → Linear ``weight`` (out, in);
+- flax Conv ``kernel`` (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh, kw);
+- LayerNorm/GroupNorm/RMSNorm ``scale`` → ``weight``, ``bias`` → ``bias``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _tree(params: Mapping) -> Mapping:
+    return params["params"] if "params" in params else params
+
+
+def _get(tree: Mapping, path: str):
+    node = tree
+    for p in path.split("/"):
+        node = node[p]
+    return node
+
+
+def _has(tree: Mapping, path: str) -> bool:
+    try:
+        _get(tree, path)
+    except KeyError:
+        return False
+    return True
+
+
+def _linear(tree, sd, src: str, dst: str):
+    node = _get(tree, src)
+    sd[f"{dst}.weight"] = np.asarray(node["kernel"]).T
+    sd[f"{dst}.bias"] = np.asarray(node["bias"])
+
+
+def _conv(tree, sd, src: str, dst: str):
+    node = _get(tree, src)
+    sd[f"{dst}.weight"] = np.asarray(node["kernel"]).transpose(3, 2, 0, 1)
+    sd[f"{dst}.bias"] = np.asarray(node["bias"])
+
+
+def _norm(tree, sd, src: str, dst: str):
+    node = _get(tree, src)
+    sd[f"{dst}.weight"] = np.asarray(node["scale"])
+    if "bias" in node:
+        sd[f"{dst}.bias"] = np.asarray(node["bias"])
+
+
+def _count(tree, prefix: str) -> int:
+    """Number of ``{prefix}_{i}`` entries, i = 0, 1, ..."""
+    n = 0
+    while f"{prefix}_{n}" in tree:
+        n += 1
+    return n
+
+
+def _attention(tree, sd, src, dst):
+    for p in ("to_q", "to_k", "to_v"):
+        _linear(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+    _linear(tree, sd, f"{src}/to_out", f"{dst}.to_out.0")
+    for p in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+        if _has(tree, f"{src}/{p}"):
+            _norm(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+    for p in ("add_q_proj", "add_k_proj", "add_v_proj", "to_add_out"):
+        if _has(tree, f"{src}/{p}"):
+            _linear(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+
+
+def _feed_forward(tree, sd, src, dst):
+    _linear(tree, sd, f"{src}/proj_in", f"{dst}.net.0.proj")
+    _linear(tree, sd, f"{src}/proj_out", f"{dst}.net.2")
+
+
+def _vt_block(tree, sd, src, dst):
+    for p in ("norm_in", "norm1", "norm3"):
+        _norm(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+    _feed_forward(tree, sd, f"{src}/ff_in", f"{dst}.ff_in")
+    _attention(tree, sd, f"{src}/attn1", f"{dst}.attn1")
+    _feed_forward(tree, sd, f"{src}/ff", f"{dst}.ff")
+
+
+_DIT_TOP_LEVEL = re.compile(
+    r"(pos_embed|context_embedder|time_text_embed|view_embedding|"
+    r"transformer_blocks_\d+|crossview_transformer_blocks_\d+|"
+    r"temporal_transformer_blocks_\d+|view_pos_embeds_\d+|"
+    r"time_pos_embeds_\d+|view_mixers_\d+|time_mixers_\d+|norm_out|proj_out)"
+)
+
+
+def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
+    """Flax ``DiTCrossviewTemporal`` params → reference state dict (numpy)."""
+    tree = _tree(params)
+    unknown = [k for k in tree if not _DIT_TOP_LEVEL.fullmatch(k)]
+    if unknown:
+        raise NotImplementedError(
+            f"params outside the ported slice: {sorted(unknown)}")
+    sd: dict = {}
+    _conv(tree, sd, "pos_embed/proj", "pos_embed.proj")
+    _linear(tree, sd, "context_embedder", "context_embedder")
+    for name in ("timestep_embedder", "text_embedder"):
+        for lin in ("linear_1", "linear_2"):
+            _linear(tree, sd, f"time_text_embed/{name}/{lin}",
+                    f"time_text_embed.{name}.{lin}")
+    if "view_embedding" in tree:
+        for lin in ("linear_1", "linear_2"):
+            _linear(tree, sd, f"view_embedding/{lin}", f"view_embedding.{lin}")
+
+    for i in range(num_layers):
+        src, dst = f"transformer_blocks_{i}", f"transformer_blocks.{i}"
+        _linear(tree, sd, f"{src}/norm1/linear", f"{dst}.norm1.linear")
+        _linear(tree, sd, f"{src}/norm1_context/linear",
+                f"{dst}.norm1_context.linear")
+        _attention(tree, sd, f"{src}/attn", f"{dst}.attn")
+        if _has(tree, f"{src}/attn2"):
+            _attention(tree, sd, f"{src}/attn2", f"{dst}.attn2")
+        _feed_forward(tree, sd, f"{src}/ff", f"{dst}.ff")
+        if _has(tree, f"{src}/ff_context"):
+            _feed_forward(tree, sd, f"{src}/ff_context", f"{dst}.ff_context")
+
+    for kind in ("crossview_transformer_blocks", "temporal_transformer_blocks"):
+        for j in range(_count(tree, kind)):
+            _vt_block(tree, sd, f"{kind}_{j}", f"{kind}.{j}")
+    for kind in ("view_pos_embeds", "time_pos_embeds"):
+        for j in range(_count(tree, kind)):
+            for lin in ("linear_1", "linear_2"):
+                _linear(tree, sd, f"{kind}_{j}/{lin}", f"{kind}.{j}.{lin}")
+    for kind in ("view_mixers", "time_mixers"):
+        for j in range(_count(tree, kind)):
+            node = tree[f"{kind}_{j}"]
+            key = "mix_factor" if "mix_factor" in node else "scale"
+            sd[f"{kind}.{j}.{key}"] = np.asarray(node[key])
+
+    _linear(tree, sd, "norm_out/linear", "norm_out.linear")
+    _linear(tree, sd, "proj_out", "proj_out")
+    return sd
+
+
+def _resnet(tree, sd, src, dst):
+    for p in ("norm1", "norm2"):
+        _norm(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+    for p in ("conv1", "conv2", "conv_shortcut"):
+        if _has(tree, f"{src}/{p}"):
+            _conv(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+
+
+def _vae_attention(tree, sd, src, dst):
+    _norm(tree, sd, f"{src}/group_norm", f"{dst}.group_norm")
+    for p in ("to_q", "to_k", "to_v"):
+        _linear(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+    _linear(tree, sd, f"{src}/to_out", f"{dst}.to_out.0")
+
+
+def _blocks(tree, kind: str) -> dict[int, list[int]]:
+    """``{kind}_{i}_resnet_{j}`` names → {i: [j, ...]} (kind: up / down)."""
+    found: dict[int, list[int]] = {}
+    for name in tree:
+        m = re.fullmatch(rf"{kind}_(\d+)_resnet_(\d+)", name)
+        if m:
+            found.setdefault(int(m.group(1)), []).append(int(m.group(2)))
+    return {i: sorted(js) for i, js in sorted(found.items())}
+
+
+def vae_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``AutoencoderKL`` params → diffusers state dict (numpy), encoder
+    included when the params hold one."""
+    tree = _tree(params)
+    sd: dict = {}
+    for part, kind, blocks, sampler in (
+        ("encoder", "down", "down_blocks", "downsamplers"),
+        ("decoder", "up", "up_blocks", "upsamplers"),
+    ):
+        if part not in tree:
+            continue
+        sub = tree[part]
+        _conv(sub, sd, "conv_in", f"{part}.conv_in")
+        for i, js in _blocks(sub, kind).items():
+            for j in js:
+                _resnet(sub, sd, f"{kind}_{i}_resnet_{j}",
+                        f"{part}.{blocks}.{i}.resnets.{j}")
+            name = f"{kind}_{i}_{'downsample' if kind == 'down' else 'upsample'}"
+            if name in sub:
+                _conv(sub, sd, name, f"{part}.{blocks}.{i}.{sampler}.0.conv")
+        for j in (0, 1):
+            _resnet(sub, sd, f"mid_resnet_{j}", f"{part}.mid_block.resnets.{j}")
+        _vae_attention(sub, sd, "mid_attn", f"{part}.mid_block.attentions.0")
+        _norm(sub, sd, "conv_norm_out", f"{part}.conv_norm_out")
+        _conv(sub, sd, "conv_out", f"{part}.conv_out")
+    for name in ("quant_conv", "post_quant_conv"):
+        if name in tree:
+            _conv(tree, sd, name, name)
+    return sd
+
+
+def to_torch(state_dict: Mapping[str, np.ndarray]) -> dict:
+    """numpy state dict → tensors (copies, so the source may be read-only)."""
+    return {k: torch.tensor(np.asarray(v)) for k, v in state_dict.items()}

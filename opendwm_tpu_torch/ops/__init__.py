@@ -1,0 +1,20 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version."""
+
+from __future__ import annotations
+
+from opendwm_tpu_torch.ops import flash_tail, fused_adaln
+
+
+def reset_launch_counts() -> None:
+    flash_tail.reset_launches()
+    fused_adaln.reset_launches()
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by kernel."""
+    return {
+        "flash_tail": flash_tail.launches,
+        "flash_tail_by_seq": dict(flash_tail.launches_by_seq),
+        "adaln_modulate": fused_adaln.launches,
+        "residual_adaln_modulate": fused_adaln.res_launches,
+    }

@@ -1,0 +1,393 @@
+"""CTSD serving path (``opendwm_tpu/pipelines/ctsd.py``), in PyTorch.
+
+Ported: condition assembly (text, layout images, numeric camera/action
+ids, the cross-view/temporal disable switches), flow-match Euler sampling
+with classifier-free guidance and reference-latent injection (``ctsd`` and
+``diffusion_forcing`` styles), the autoregressive window rollout and the
+VAE decode. The JAX ``lax.scan`` over steps is a Python loop here.
+Initial noise comes from an explicit ``torch.Generator`` or is handed in
+(``noise``), so a test can feed the JAX package's draw.
+
+Training (``loss_fn``, ``train_step``, ``make_input_for_prediction``)
+waits for ROADMAP Queue 1 item 5; the training, optimizer and sharding
+keys of a config are accepted and stored.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+
+from opendwm_tpu_torch.config import register
+
+
+def _index(values: Sequence[int], device) -> torch.Tensor:
+    return torch.as_tensor(list(values), dtype=torch.long, device=device)
+
+
+def get_camera_transform_ids(batch: dict, common_config: dict):
+    """Selected intrinsics normalised by image size, then selected
+    extrinsic entries (reference ctsd.py:85-95)."""
+    intr = batch["camera_intrinsics"]
+    intr = intr.reshape(*intr.shape[:-2], 9)
+    tr = batch["camera_transforms"]
+    tr = tr.reshape(*tr.shape[:-2], 16)
+    ii = _index(common_config["camera_intrinsic_embedding_indices"], intr.device)
+    di = _index(common_config["camera_intrinsic_denom_embedding_indices"],
+                intr.device)
+    ti = _index(common_config["camera_transform_embedding_indices"], tr.device)
+    return torch.cat(
+        [intr[..., ii] / batch["image_size"][..., di], tr[..., ti]], -1
+    )
+
+
+def get_action_ids(batch: dict, common_config: dict, action_condition_mask):
+    """Speed (km/h) and steering from ego pose deltas (reference
+    ctsd.py:97-159); unconditioned samples get -1000 sentinels."""
+    ego = batch["ego_transforms"]
+    ego = ego[:, :, _index(common_config["camera_ego_sensor_indices"],
+                           ego.device)]
+    eye = torch.eye(4, dtype=ego.dtype, device=ego.device)
+    is_conditioned = (ego - eye).sum(dim=(1, 2, 3, 4)).abs() > 1e-3
+    if action_condition_mask is not None:
+        is_conditioned = is_conditioned & action_condition_mask
+    rel = torch.linalg.solve(ego[:, :-1], ego[:, 1:])
+    rel = torch.cat([rel[:, :1], rel], dim=1)
+    dist = torch.linalg.norm(rel[..., :3, 3], dim=-1, keepdim=True)
+    speed = 3.6 * dist * batch["fps"][:, None, None, None]
+    angles = torch.atan2(
+        rel[..., 1, 0:1] - rel[..., 0, 1:2],
+        rel[..., 0, 0:1] + rel[..., 1, 1:2],
+    )
+    wheel_base, steering_ratio = 2.7, 14.0
+    steering = torch.where(
+        dist.abs() > 0.01,
+        angles / dist.clamp(min=1e-6) * wheel_base * steering_ratio,
+        -1000.0,
+    )
+    ids = torch.cat([speed, steering], -1)
+    return torch.where(is_conditioned[:, None, None, None], ids, -1000.0)
+
+
+def added_time_ids_count(common_config: dict) -> Optional[int]:
+    """How many numeric ids ``get_conditions`` assembles per view, or None
+    when the batch carries precomputed ids."""
+    mode = common_config.get("added_time_ids")
+    if mode not in ("fps_camera_transforms", "fps_camera_transforms_action"):
+        return None
+    count = 1 + len(common_config["camera_intrinsic_embedding_indices"]) + \
+        len(common_config["camera_transform_embedding_indices"])
+    return count + 2 if mode == "fps_camera_transforms_action" else count
+
+
+def get_conditions(
+    batch: dict,
+    common_config: dict,
+    *,
+    text_condition_mask=None,
+    box_condition_mask=None,
+    hdmap_condition_mask=None,
+    action_condition_mask=None,
+    do_classifier_free_guidance: bool = False,
+) -> dict:
+    """Assemble model kwargs from a canonical batch dict of tensors.
+
+    The batch carries pre-encoded text (``encoder_hidden_states``,
+    ``pooled_projections``, optional ``uncond_*``) and channel-last layout
+    rasters (``3dbox_images``, ``hdmap_images``). With CFG the
+    unconditional half leads.
+    """
+    if common_config.get("explicit_view_modeling", False):
+        raise NotImplementedError(
+            "explicit view modeling is not ported yet (ROADMAP Queue 1, "
+            "item 3)")
+    if common_config.get("enable_depth_branch", False):
+        raise NotImplementedError(
+            "the depth branch is not ported yet (ROADMAP Queue 1, item 9)")
+    conds: dict[str, Any] = {}
+    cfg = do_classifier_free_guidance
+    uncond_color = common_config.get("uncondition_image_color", 0.0)
+
+    for key, uncond_key, mask_shape in (
+        ("encoder_hidden_states", "uncond_encoder_hidden_states",
+         (-1, 1, 1, 1, 1)),
+        ("pooled_projections", "uncond_pooled_projections", (-1, 1, 1, 1)),
+    ):
+        val = batch.get(key)
+        if val is None:
+            continue
+        uncond = batch.get(uncond_key)
+        if uncond is None:
+            uncond = torch.zeros_like(val)
+        if text_condition_mask is not None:
+            val = torch.where(text_condition_mask.reshape(mask_shape), val,
+                              uncond)
+        conds[key] = torch.cat([uncond, val]) if cfg else val
+
+    images = []
+    for key, mask in (
+        ("3dbox_images", box_condition_mask),
+        ("hdmap_images", hdmap_condition_mask),
+    ):
+        img = batch.get(key)
+        if img is not None:
+            if mask is not None:
+                img = torch.where(mask.reshape(-1, 1, 1, 1, 1, 1), img,
+                                  uncond_color)
+            images.append(img)
+    if images:
+        cond_img = torch.cat(images, -1)
+        if cfg:
+            cond_img = torch.cat(
+                [torch.full_like(cond_img, uncond_color), cond_img])
+        conds["condition_image_tensor"] = cond_img
+
+    added_mode = common_config.get("added_time_ids")
+    if added_mode is None and "added_time_ids" in batch:
+        ids = batch["added_time_ids"]
+        conds["added_time_ids"] = torch.cat([ids, ids]) if cfg else ids
+    if added_mode in ("fps_camera_transforms", "fps_camera_transforms_action"):
+        b, t, v = batch["camera_transforms"].shape[:3]
+        fps = batch["fps"][:, None, None, None].expand(b, t, v, 1)
+        parts = [fps.to(batch["camera_transforms"].dtype),
+                 get_camera_transform_ids(batch, common_config)]
+        if added_mode == "fps_camera_transforms_action":
+            parts.append(
+                get_action_ids(batch, common_config, action_condition_mask))
+        ids = torch.cat(parts, -1)
+        if cfg:
+            uncond = ids
+            if added_mode == "fps_camera_transforms_action":
+                uncond = torch.cat(
+                    [ids[..., :-2], torch.full_like(ids[..., -2:], -1000.0)],
+                    -1)
+            ids = torch.cat([uncond, ids])
+        conds["added_time_ids"] = ids
+
+    for key in ("latents", "vae_images", "encoder_hidden_states",
+                "pooled_projections", "camera_transforms", "fps"):
+        if isinstance(batch.get(key), torch.Tensor):
+            ref = batch[key]
+            break
+    else:
+        ref = next(v for v in batch.values() if isinstance(v, torch.Tensor))
+    bb = 2 * ref.shape[0] if cfg else ref.shape[0]
+    for name in ("disable_crossview", "disable_temporal"):
+        conds[name] = torch.full((bb,), bool(common_config.get(name, False)),
+                                 device=ref.device)
+    return conds
+
+
+# Batch keys whose axis 1 is the frame axis; only these are window-sliced.
+TIME_INDEXED_KEYS = frozenset({
+    "latents", "vae_images", "images",
+    "3dbox_images", "hdmap_images",
+    "encoder_hidden_states", "pooled_projections",
+    "uncond_encoder_hidden_states", "uncond_pooled_projections",
+    "camera_intrinsics", "camera_transforms", "ego_transforms",
+    "added_time_ids", "image_segmentation", "depth_images",
+})
+
+
+def slice_batch_time_window(batch: dict, start: int, length: int) -> dict:
+    """Per-window view of a long-horizon batch: time-indexed entries with
+    more than ``length`` frames are sliced to ``[start, start + length)``
+    (clamped so a ragged last window reuses the tail); the rest pass."""
+    out = {}
+    for key, val in batch.items():
+        if (
+            key in TIME_INDEXED_KEYS
+            and isinstance(val, torch.Tensor) and val.ndim >= 2
+            and val.shape[1] > length
+        ):
+            s = max(0, min(start, val.shape[1] - length))
+            out[key] = val[:, s:s + length]
+        else:
+            out[key] = val
+    return out
+
+
+@register("CTSDPipeline", aliases=("dwm.pipelines.ctsd.CrossviewTemporalSD",))
+class CTSDPipeline:
+    """Inference pipeline of the crossview-temporal MMDiT on canonical
+    latent-space batches (``model_type`` ``"sd3"``: flow matching)."""
+
+    def __init__(
+        self,
+        model,
+        train_scheduler,
+        test_scheduler,
+        common_config: Optional[dict] = None,
+        training_config: Optional[dict] = None,
+        inference_config: Optional[dict] = None,
+        optimizer_config: Optional[dict] = None,
+        lr_scheduler_config: Optional[dict] = None,
+        mesh=None,
+        model_type: str = "sd3",
+        sharding_policy: Optional[str] = None,
+        sharding_min_size: Optional[int] = None,
+    ):
+        if model_type != "sd3":
+            raise NotImplementedError(
+                f"model_type={model_type!r} (the UNet family) is not ported "
+                "yet (ROADMAP Queue 1, item 9)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "device meshes are not ported yet (ROADMAP Queue 1, item 13)")
+        self.model = model
+        self.train_scheduler = train_scheduler
+        self.test_scheduler = test_scheduler
+        self.common_config = common_config or {}
+        self.training_config = training_config or {}
+        self.inference_config = inference_config or {}
+        self.optimizer_config = optimizer_config
+        self.lr_scheduler_config = lr_scheduler_config
+        self.model_type = model_type
+        self.sharding_policy = sharding_policy
+        self.sharding_min_size = sharding_min_size
+        self.vae = None
+        count = added_time_ids_count(self.common_config)
+        if count is not None and \
+                getattr(model, "perspective_modeling_type", "") == "implicit":
+            model.set_view_embedding_width(256 * count)
+
+    def set_vae(self, vae) -> None:
+        """Attach an ``AutoencoderKL`` for ``decode_latents``."""
+        self.vae = vae
+
+    @torch.inference_mode()
+    def decode_latents(self, latents, chunk_size: Optional[int] = None):
+        if self.vae is None:
+            return latents
+        return self.vae.decode_from_scaled(latents, chunk_size=chunk_size)
+
+    @torch.inference_mode()
+    def inference_pipeline(
+        self,
+        batch: dict,
+        latent_shape: tuple,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+        image_latents: Optional[torch.Tensor] = None,
+        reference_frame_count: int = 0,
+    ) -> torch.Tensor:
+        """Full-sequence (or diffusion-forcing) denoise → fp32 latents.
+
+        CFG doubles the batch; reference latents are injected at timestep 0
+        each step (reference ctsd.py:1496-1575)."""
+        ic = self.inference_config
+        n_steps = ic["inference_steps"]
+        guidance_scale = ic.get("guidance_scale", 1.0)
+        do_cfg = "guidance_scale" in ic
+        b, t, v = latent_shape[:3]
+        df_mode = self.common_config.get(
+            "frame_prediction_style") == "diffusion_forcing"
+        sched = self.test_scheduler
+        if not hasattr(sched, "inference_sigmas"):
+            raise NotImplementedError(
+                "only flow-matching sampling is ported (DDPM/DDIM: ROADMAP "
+                "Queue 1, item 9)")
+        device = self.model.proj_out.weight.device
+        conds = get_conditions(batch, self.common_config,
+                               do_classifier_free_guidance=do_cfg)
+        ts_table = torch.as_tensor(sched.inference_timesteps(n_steps),
+                                   device=device)
+
+        if df_mode and image_latents is not None:
+            latents = image_latents
+        elif noise is not None:
+            latents = noise.to(device=device, dtype=torch.float32)
+        else:
+            latents = torch.randn(latent_shape, generator=generator,
+                                  device=device, dtype=torch.float32)
+        if tuple(latents.shape) != tuple(latent_shape):
+            raise ValueError(f"initial latents {tuple(latents.shape)} != "
+                             f"latent_shape {tuple(latent_shape)}")
+
+        frames = torch.arange(t, device=device)
+        if df_mode:
+            clear = ic.get("clear_reference_frame_count", 0)
+            if n_steps % (t - clear):
+                raise ValueError("diffusion forcing needs inference_steps "
+                                 "divisible by the non-reference frames")
+            frame_offsets = frames * (n_steps // (t - clear))
+        inject = not df_mode and image_latents is not None and \
+            reference_frame_count > 0
+        ref_mask = (frames < reference_frame_count)[None, :, None]
+
+        for i in range(n_steps):
+            if df_mode:
+                idx = (i - frame_offsets).clamp(min=0).clamp(max=i)
+                step_indices = idx[None, :, None].expand(b, t, v)
+                timesteps = ts_table[step_indices]
+            else:
+                step_indices = torch.full((b, t, v), i, device=device)
+                timesteps = ts_table[step_indices]
+
+            model_input = latents
+            if inject:
+                model_input = torch.where(ref_mask[..., None, None, None],
+                                          image_latents, model_input)
+                timesteps = torch.where(ref_mask, 0.0, timesteps)
+            if do_cfg:
+                model_input = torch.cat([model_input, model_input])
+                timesteps = torch.cat([timesteps, timesteps])
+
+            pred = self.model(sample=model_input, timestep=timesteps, **conds)
+            if do_cfg:
+                uncond, cond = pred.chunk(2)
+                pred = uncond + guidance_scale * (cond - uncond)
+
+            staged = sched.step_by_indices(pred, step_indices, latents,
+                                           n_steps)
+            if df_mode:
+                in_range = (i - frame_offsets >= 0)[None, :, None, None,
+                                                    None, None]
+                latents = torch.where(in_range, staged, latents)
+            else:
+                latents = staged
+
+        if inject:
+            latents = torch.where(ref_mask[..., None, None, None],
+                                  image_latents, latents)
+        return latents
+
+    def autoregressive_inference_pipeline(
+        self,
+        batch: dict,
+        latent_shape: tuple,
+        total_frames: int,
+        reference_frame_count: int = 1,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Sequence[torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """Long-video rollout: denoise a window of t frames, slide forward
+        by ``t - reference_frame_count`` carrying the last frames as
+        reference latents; conditions are re-sliced per window by absolute
+        frame range (reference ctsd.py:1656-1833). ``noise``, if given,
+        holds one initial-noise tensor per window."""
+        b, t, v = latent_shape[:3]
+        stride = t - reference_frame_count
+        n_windows = max(1, -(-(total_frames - t) // stride) + 1)
+        if noise is not None and len(noise) != n_windows:
+            raise ValueError(f"{n_windows} windows need {n_windows} noise "
+                             f"tensors, got {len(noise)}")
+        outputs = []
+        image_latents = None
+        for w in range(n_windows):
+            lat = self.inference_pipeline(
+                slice_batch_time_window(batch, w * stride, t), latent_shape,
+                generator=generator,
+                noise=None if noise is None else noise[w],
+                image_latents=image_latents,
+                reference_frame_count=(
+                    reference_frame_count if image_latents is not None else 0
+                ),
+            )
+            outputs.append(lat if w == 0 else lat[:, reference_frame_count:])
+            tail = lat[:, -reference_frame_count:]
+            pad = torch.zeros((b, stride) + tuple(lat.shape[2:]),
+                              dtype=lat.dtype, device=lat.device)
+            image_latents = torch.cat([tail, pad], 1)
+        return torch.cat(outputs, 1)[:, :total_frames]
