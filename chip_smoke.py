@@ -1,52 +1,77 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CTSD-3.5 serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's CTSD-3.5 serving and training paths on one GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py
+Run from the root of a checkout:  python3 chip_smoke.py [--profile-train]
 
 Phases; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernel from ``opendwm_tpu_torch/csrc`` (nvcc) and the
+2. build: the CUDA kernels from ``opendwm_tpu_torch/csrc`` (nvcc) and the
    Triton kernels;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
-   same inputs, at the shapes the serving path gives it, in bf16 (the
-   attention kernel also in fp32), with both times;
+   same inputs, at the shapes the serving and training paths give it, in
+   bf16 (the attention kernels also in fp32), with both times: K1 (and
+   its variant that writes the log-sum-exp for the backward), K2 (the
+   attention backward), K3, K4;
 4. tiny model: the kernel path end to end (fp32, small widths) against
-   the plain path on the CPU;
-5. slice: ``configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json`` at full
-   width (24 layers, 24x64 heads, bf16) with random weights drawn on the
-   card from a seed; a 2-window autoregressive rollout of 1 x 6 frames x 6
-   views of 32x56 latents with CFG 4.0 (the one cut: inference_steps
-   40 -> 4), then the SD3.5 VAE decode to 256x448 frames. Every kernel of
-   the path must have launched during the rollout.
+   the plain path on the CPU; then one AdamW train step of a tiny model
+   with remat on, the same way;
+5. serving slice: ``configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json``
+   at full width (24 layers, 24x64 heads, bf16) with random weights drawn
+   on the card from a seed; a 2-window autoregressive rollout of 1 x 6
+   frames x 6 views of 32x56 latents with CFG 4.0 (the one cut:
+   inference_steps 40 -> 4), then the SD3.5 VAE decode to 256x448 frames.
+   Every kernel of the path must have launched during the rollout;
+6. train slice: the same config at full width and depth, fp32 master
+   weights under bf16 compute, remat as the config sets it, AdamW (lr 5e-5,
+   wd 0.01, clip 1.0, fp32 moments); 3 ``train_step`` calls on a synthetic
+   batch of the same geometry with an explicit generator, steps 2 and 3
+   timed. K1, K2 (at s = 602, 448, 168), K3 and K4 must have launched in
+   the timed steps; launches are also counted by phase (forward; backward
+   with the remat recompute) on one extra, untimed pass.
+   ``--profile-train`` adds one ``torch.profiler`` step and prints its
+   device time by kernel family.
 
 The line before the last is the kernels JSON; the last is the device JSON.
 """
 
 from __future__ import annotations
 
+import copy
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# Before CUDA initialises: 60 GB of training state in few large blocks
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json"
+TINY_CONFIG = REPO / "configs/ctsd/ctsd_35_6views_video_synthetic.json"
 SEED = 0
 STEPS = 4  # cut from the config's 40
 WINDOWS = 2
 FRAMES, VIEWS, LAT_H, LAT_W, TEXT_TOKENS = 6, 6, 32, 56, 154
 DECODE_CHUNK = 12  # frames per VAE decode call
 ATTN_SHAPES = ((72, 602), (72, 448), (192, 168))  # (batch, seq); 24x64 heads
+TRAIN_ATTN_SHAPES = ((36, 602), (36, 448), (96, 168))  # batch 1, no CFG
+TRAIN_STEPS = 3  # steps 2 and 3 are timed
 ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536))
 # Tolerances on |kernel - plain| / max(1, |plain|), elementwise: absolute
 # for outputs below 1, relative above, because one bf16 ulp is 2^-7 of the
 # value (0.0625 at 16) and the two versions may round an fp32 result that
 # differs in its last bits to neighbouring bf16 values.
 ATTN_TOL, ADALN_TOL, FP32_TOL, TINY_TOL = 2e-2, 3e-2, 1e-4, 1e-3
+# K2 in bf16: ||kernel - plain|| / ||plain|| per gradient, the bar recorded
+# for the JAX kernel (docs/PARITY.md): dS is rounded to bf16 at other
+# points, and delta comes from dO.O instead of dP.P.
+K2_REL_TOL = 6e-3
 
 
 def log(msg: str) -> None:
@@ -55,6 +80,11 @@ def log(msg: str) -> None:
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def rel_err(a, b) -> float:
+    b = b.float()
+    return ((a.float() - b).norm() / b.norm()).item()
 
 
 def max_err(a, b) -> float:
@@ -125,6 +155,60 @@ def check_attention(dev, flash_tail):
     if not err <= FP32_TOL:
         fail(f"flash_tail disagrees in fp32: {err}")
     return rows
+
+
+def check_attention_backward(dev, flash_tail):
+    """K2 against the plain backward at the training shapes, bf16, and one
+    fp32 shape; K1 with the log-sum-exp against the serving K1 at s602."""
+    g = torch.Generator(dev).manual_seed(SEED + 2)
+    scale = 64 ** -0.5
+    rows = []
+    cases = [(b, s, torch.bfloat16) for b, s in TRAIN_ATTN_SHAPES] + \
+        [(TRAIN_ATTN_SHAPES[2][0], TRAIN_ATTN_SHAPES[2][1], torch.float32)]
+    for b, s, dtype in cases:
+        q, k, v, do = (torch.randn(b, s, 24, 64, generator=g, device=dev,
+                                   dtype=dtype) for _ in range(4))
+        out, lse = flash_tail.tail_masked_attention_forward(q, k, v, scale)
+        grads = flash_tail.tail_masked_attention_backward(q, k, v, out, do,
+                                                          lse, scale)
+        ref = flash_tail.tail_masked_attention_backward_plain(q, k, v, do,
+                                                              scale)
+        errs = [max_err(a, r) for a, r in zip(grads, ref)]
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        if dtype == torch.float32:
+            scaled = max(scaled_err(a, r) for a, r in zip(grads, ref))
+            log(f"K2 flash_tail backward fp32 ({b},{s},24,64): max_abs_err "
+                f"{max(errs):.3e}, scaled {scaled:.3e} (tol {FP32_TOL})")
+            if not scaled <= FP32_TOL:
+                fail(f"flash_tail backward disagrees in fp32: {scaled}")
+            continue
+        rels = [rel_err(a, r) for a, r in zip(grads, ref)]
+        ms, plain_ms = time_pair(
+            lambda: flash_tail.tail_masked_attention_backward(
+                q, k, v, out, do, lse, scale),
+            lambda: flash_tail.tail_masked_attention_backward_plain(
+                q, k, v, do, scale))
+        log(f"K2 flash_tail backward {tag} ({b},{s},24,64): rel err dq/dk/dv "
+            f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} (tol {K2_REL_TOL}), "
+            f"max_abs_err {max(errs):.3e}, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms")
+        if not max(rels) <= K2_REL_TOL:
+            fail(f"flash_tail backward disagrees at s={s}: {rels}")
+        rows.append({"shape": [b, s, 24, 64], "dtype": tag,
+                     "max_abs_err": max(errs), "rel_err": rels, "ms": ms,
+                     "plain_ms": plain_ms})
+        del q, k, v, do, out, lse, grads, ref
+    torch.cuda.empty_cache()
+
+    b, s = ATTN_SHAPES[0]
+    q, k, v = (torch.randn(b, s, 24, 64, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    lse_ms, serve_ms = time_pair(
+        lambda: flash_tail.tail_masked_attention_forward(q, k, v, scale),
+        lambda: flash_tail.tail_masked_attention(q, k, v, scale))
+    log(f"K1 flash_tail bf16 ({b},{s},24,64): with the log-sum-exp "
+        f"{lse_ms:.3f} ms, serving launch {serve_ms:.3f} ms")
+    return rows, {"lse_ms": lse_ms, "serving_ms": serve_ms}
 
 
 def check_adaln(dev, fused_adaln):
@@ -200,6 +284,49 @@ def check_tiny_model(dev, DiTCrossviewTemporal):
         f"max_abs_err {err:.3e} (tol {TINY_TOL})")
     if not err <= TINY_TOL:
         fail(f"tiny model disagrees: {err}")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def check_tiny_train_step(dev, create_instance_from_config,
+                          draw_training_randoms):
+    """One AdamW step of a tiny model with remat on: the kernel path on the
+    card against the plain path on the CPU, fp32, on the same draws."""
+    cfg = json.loads(TINY_CONFIG.read_text())["pipeline"]
+    cfg["model"].update(
+        num_layers=3, dual_attention_layers=[0], crossview_block_layers=[1],
+        temporal_block_layers=[2], param_dtype=torch.float32,
+        gradient_checkpointing=True, crossview_gradient_checkpointing=True,
+        temporal_gradient_checkpointing=True)
+    torch.manual_seed(SEED)
+    ref_pipe = create_instance_from_config(cfg)
+    pipe = copy.deepcopy(ref_pipe)
+    pipe.model.to(dev)
+    g = torch.Generator().manual_seed(SEED)
+    batch = {  # 96 latent + 40 text tokens: a 136-token joint attention
+        "latents": torch.randn(1, 2, 2, 16, 24, 16, generator=g),
+        "encoder_hidden_states": torch.randn(1, 2, 2, 40, 24, generator=g),
+        "pooled_projections": torch.randn(1, 2, 2, 16, generator=g),
+    }
+    draws = draw_training_randoms(batch["latents"].shape,
+                                  ref_pipe.training_config,
+                                  ref_pipe.common_config, g)
+    _, ref = ref_pipe.train_step(ref_pipe.init_state(), batch, draws=draws)
+    _, out = pipe.train_step(pipe.init_state(), _to(batch, dev),
+                             draws=_to(draws, dev))
+    loss_err = abs(out["sd_loss"].item() - ref["sd_loss"].item())
+    param_err = max(max_err(a.detach().cpu(), b.detach()) for a, b in
+                    zip(pipe.model.parameters(), ref_pipe.model.parameters()))
+    log(f"tiny train step (remat, AdamW), kernels on the card vs plain on "
+        f"the CPU (fp32): loss {out['sd_loss'].item():.6f} vs "
+        f"{ref['sd_loss'].item():.6f}, max_abs_err loss {loss_err:.3e}, "
+        f"updated params {param_err:.3e} (tol {TINY_TOL})")
+    if not (loss_err <= TINY_TOL and param_err <= TINY_TOL):
+        fail(f"tiny train step disagrees: {loss_err}, {param_err}")
 
 
 def random_init_(module, gen) -> None:
@@ -331,6 +458,146 @@ def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions):
     return counts
 
 
+def _kernel_time_table(prof, step_s: float) -> str:
+    """Device time of one profiled step by kernel family, and the top
+    kernels, from the kernel entries of ``key_averages`` (operator entries
+    also carry their kernels' time and are skipped)."""
+    from torch.autograd import DeviceType
+
+    families = (  # matched in order, case-insensitively
+        ("K1/K2 flash_tail (CUDA)", ("flash_tail",)),
+        ("K3/K4 fused AdaLN (Triton)", ("_adaln_kernel",)),
+        ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
+        ("AdamW (fused)", ("adam", "fusedoptimizer")),
+        ("reduce (norms, sums)", ("reduce",)),
+        ("copy / cat / cast", ("copy", "cat", "memcpy", "memset")),
+        ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    )
+    sums: dict = {}
+    kernels = []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA or \
+                getattr(evt, "is_user_annotation", False):
+            continue  # operators, and annotation ranges on the GPU timeline
+        t = evt.self_device_time_total
+        kernels.append((t, evt.count, evt.key))
+        name = evt.key.lower()
+        fam = next((f for f, keys in families
+                    if any(k in name for k in keys)), "other")
+        sums[fam] = sums.get(fam, 0.0) + t
+    total = sum(sums.values())
+    lines = [f"one train step: wall {step_s * 1e3:.1f} ms, device kernel "
+             f"time {total / 1e3:.1f} ms ({100 * total / 1e6 / step_s:.1f}% "
+             f"busy)"]
+    for fam, t in sorted(sums.items(), key=lambda kv: -kv[1]):
+        lines.append(f"  {fam:28s} {t / 1e3:9.1f} ms  {100 * t / total:5.1f}%")
+    lines.append("top kernels (self device ms, calls, name):")
+    for t, n, key in sorted(kernels, reverse=True)[:25]:
+        lines.append(f"  {t / 1e3:9.2f} {n:6d}  {key[:110]}")
+    return "\n".join(lines)
+
+
+def run_train_slice(dev, create_instance_from_config, ops,
+                    profile: bool = False):
+    """``train_step`` at full width and depth on a synthetic batch."""
+    cfg = json.loads(CONFIG.read_text())["pipeline"]
+    cfg["model"]["param_dtype"] = torch.float32
+    mc, oc, tc = cfg["model"], cfg["optimizer_config"], cfg["training_config"]
+    log(f"train: AdamW lr {oc['lr']}, weight decay {oc['weight_decay']}, "
+        f"clip {tc['max_norm_for_grad_clip']}, fp32 moments; remat: joint "
+        f"blocks {mc.get('gradient_checkpointing', False)} (layers "
+        f"{mc.get('remat_block_layers', 'all')}), cross-view "
+        f"{mc.get('crossview_gradient_checkpointing', False)}, temporal "
+        f"{mc.get('temporal_gradient_checkpointing', False)}")
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+    model = pipe.model
+    gen = torch.Generator(dev).manual_seed(SEED)
+    model.to_empty(device=dev)
+    random_init_(model, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train: {len(model.transformer_blocks)} joint blocks, width "
+        f"{model.inner_dim}, {n_params / 1e9:.3f}B params in fp32, compute "
+        f"{model.dtype}; reckoned state {n_params * 16 / 1e9:.1f} GB = "
+        f"{n_params * 16 / 2**30:.1f} GiB (4 B param + 4 B grad + 8 B "
+        f"AdamW moments)")
+    state = pipe.init_state()
+    batch = make_batch(dev, gen)
+    batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W, 16,
+                                   generator=gen, device=dev)
+    generator = torch.Generator(dev).manual_seed(SEED + 1)
+    names, params = zip(*model.named_parameters())
+    heads_before = [p.detach().reshape(-1)[:256].clone() for p in params]
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = pipe.train_step(state, batch, generator)
+        out = (metrics["sd_loss"].item(), metrics["grad_norm"].item())
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0,) + out
+
+    records = [step()]  # step 1 also allocates the AdamW moments
+    # Launches by phase, on one untimed forward + backward (no update).
+    ops.reset_launch_counts()
+    loss, _ = pipe.loss_fn(batch, torch.Generator(dev).manual_seed(SEED + 2))
+    torch.cuda.synchronize()
+    forward_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    backward_counts = ops.launch_counts()
+    del loss
+    for p in params:
+        p.grad = None
+    log(f"train launches, forward: {json.dumps(forward_counts)}")
+    log(f"train launches, backward (with the remat recompute): "
+        f"{json.dumps(backward_counts)}")
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    records += [step() for _ in range(TRAIN_STEPS - 1)]
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    moved = [not torch.equal(p.detach().reshape(-1)[:256], h)
+             for p, h in zip(params, heads_before)]
+    changed = sum(moved)
+    unchanged = [n for n, m in zip(names, moved) if not m]
+    s_per_step = sum(r[0] for r in records[1:]) / (len(records) - 1)
+    for i, (dt, loss_v, gn) in enumerate(records, 1):
+        log(f"train step {i}: {dt:.3f} s, sd_loss {loss_v:.6f}, grad_norm "
+            f"{gn:.4f}{' (warm-up)' if i == 1 else ''}")
+    log(f"train: {s_per_step:.3f} s per step (steps 2-{TRAIN_STEPS}), "
+        f"{FRAMES / s_per_step:.2f} 6-view frames/s; peak memory "
+        f"{peak_gib:.2f} GiB; parameters changed: {changed} of "
+        f"{len(params)} tensors (unchanged: {unchanged[:5]})")
+    log(f"launches during the timed train steps: {json.dumps(counts)}")
+    if not all(torch.isfinite(torch.tensor(r[1:])).all() for r in records):
+        fail("a train loss or gradient norm is not finite")
+    # The last block's context queries get no gradient (its context output
+    # is dropped), so their zero biases cannot move; all else must.
+    if changed < 0.99 * len(params):
+        fail(f"only {changed} of {len(params)} parameters changed")
+    for s in (602, 448, 168):
+        if counts["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"flash_tail never launched at s={s} in the train steps")
+        if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
+            fail(f"the K2 backward never launched at s={s} in the train "
+                 "steps")
+    if counts["adaln_modulate"] == 0 or counts["residual_adaln_modulate"] == 0:
+        fail("a fused AdaLN kernel never launched in the train steps")
+
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as profiler
+
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            dt = step()[0]
+        log(_kernel_time_table(prof, dt))
+    return counts, {"s_per_step": s_per_step, "peak_gib": peak_gib}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -339,7 +606,10 @@ def main() -> None:
     from opendwm_tpu_torch.models.autoencoders import sd35_vae
     from opendwm_tpu_torch.models.mmdit import DiTCrossviewTemporal
     from opendwm_tpu_torch.ops import _build, flash_tail, fused_adaln
-    from opendwm_tpu_torch.pipelines.ctsd import get_conditions
+    from opendwm_tpu_torch.pipelines.ctsd import (
+        draw_training_randoms,
+        get_conditions,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -359,33 +629,44 @@ def main() -> None:
             log(f"  ptxas: {line.strip()}")
 
     attn_rows = check_attention(dev, flash_tail)
+    bwd_rows, lse_timing = check_attention_backward(dev, flash_tail)
     adaln_rows = check_adaln(dev, fused_adaln)
     check_tiny_model(dev, DiTCrossviewTemporal)
-    counts = run_slice(dev, create_instance_from_config, sd35_vae, ops,
-                       get_conditions)
+    check_tiny_train_step(dev, create_instance_from_config,
+                          draw_training_randoms)
+    serve = run_slice(dev, create_instance_from_config, sd35_vae, ops,
+                      get_conditions)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train, _ = run_train_slice(dev, create_instance_from_config, ops,
+                               profile="--profile-train" in sys.argv[1:])
 
-    def entry(name, route, source, replaces, launches, rows):
+    def entry(name, route, source, replaces, key, rows, **extra):
+        by_path = {"serve": serve.get(key, 0), "train": train.get(key, 0)}
         return {
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
-            "shapes": rows,
+            **extra, "shapes": rows,
         }
 
+    csrc = "opendwm_tpu_torch/csrc/flash_tail.cu"
+    triton_src = "opendwm_tpu_torch/ops/fused_adaln.py"
     kernels = [
-        entry("flash_tail_forward", "cuda",
-              "opendwm_tpu_torch/csrc/flash_tail.cu",
-              "opendwm_tpu/ops/flash_tail.py:55", counts["flash_tail"],
-              attn_rows),
-        entry("adaln_modulate", "triton",
-              "opendwm_tpu_torch/ops/fused_adaln.py",
-              "opendwm_tpu/ops/fused_adaln.py:45", counts["adaln_modulate"],
+        entry("flash_tail_forward", "cuda", csrc,
+              "opendwm_tpu/ops/flash_tail.py:55", "flash_tail", attn_rows,
+              lse_ms=lse_timing["lse_ms"],
+              serving_ms_beside_lse=lse_timing["serving_ms"]),
+        entry("flash_tail_backward", "cuda", csrc,
+              "opendwm_tpu/ops/flash_tail.py:125", "flash_tail_backward",
+              bwd_rows),
+        entry("adaln_modulate", "triton", triton_src,
+              "opendwm_tpu/ops/fused_adaln.py:45", "adaln_modulate",
               adaln_rows["adaln_modulate"]),
-        entry("residual_adaln_modulate", "triton",
-              "opendwm_tpu_torch/ops/fused_adaln.py",
-              "opendwm_tpu/ops/fused_adaln.py:133",
-              counts["residual_adaln_modulate"],
+        entry("residual_adaln_modulate", "triton", triton_src,
+              "opendwm_tpu/ops/fused_adaln.py:133", "residual_adaln_modulate",
               adaln_rows["residual_adaln_modulate"]),
     ]
     log(f"card: {card}")

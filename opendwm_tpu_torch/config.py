@@ -48,6 +48,13 @@ _LAZY_MODULES: dict[str, str] = {
     "DiTCrossviewTemporal": "opendwm_tpu_torch.models.mmdit",
     "FlowMatchEulerScheduler": "opendwm_tpu_torch.schedulers",
     "AutoencoderKL": "opendwm_tpu_torch.models.autoencoders",
+    "torch.optim.lr_scheduler": "opendwm_tpu_torch.pipelines.optim",
+    "CosineAnnealingLR": "opendwm_tpu_torch.pipelines.optim",
+    "ExponentialLR": "opendwm_tpu_torch.pipelines.optim",
+    "LinearLR": "opendwm_tpu_torch.pipelines.optim",
+    "SyntheticCTSDDataset": "opendwm_tpu_torch.datasets.synthetic",
+    "dwm.datasets.common": "opendwm_tpu_torch.datasets.common",
+    "CollateFnIgnoring": "opendwm_tpu_torch.datasets.common",
 }
 
 
@@ -70,7 +77,7 @@ def get_class(class_name: str):
         return get_class(_ALIASES[class_name])
     raise KeyError(
         f"{class_name!r} has no PyTorch port yet (opendwm_tpu_torch covers "
-        "the CTSD-3.5 serving path; see ROADMAP.md Queue 1)."
+        "the CTSD-3.5 serving and training paths; see ROADMAP.md Queue 1)."
     )
 
 

@@ -9,6 +9,11 @@ numpy arrays (``{"params": {...}}`` or the inner tree) becomes a flat
 - flax Dense ``kernel`` (in, out) → Linear ``weight`` (out, in);
 - flax Conv ``kernel`` (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh, kw);
 - LayerNorm/GroupNorm/RMSNorm ``scale`` → ``weight``, ``bias`` → ``bias``.
+
+The way back, for the DiT: ``flax_param_name`` names a port parameter as
+the JAX package's trees name it (its ``freezing_pattern`` regexes are
+written against those names), and ``dit_flax_from_state_dict`` maps a
+port state dict (weights or gradients) onto the flax tree.
 """
 
 from __future__ import annotations
@@ -145,6 +150,50 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
     _linear(tree, sd, "norm_out/linear", "norm_out.linear")
     _linear(tree, sd, "proj_out", "proj_out")
     return sd
+
+
+# Port module-path pieces → flax ones (the reverse of the rules above).
+_FLAX_PIECES = (
+    (re.compile(r"^((?:crossview_|temporal_)?transformer_blocks|"
+                r"view_pos_embeds|time_pos_embeds|view_mixers|"
+                r"time_mixers)\.(\d+)\."), r"\1_\2."),
+    (re.compile(r"\.to_out\.0\."), ".to_out."),
+    (re.compile(r"\.net\.0\.proj\."), ".proj_in."),
+    (re.compile(r"\.net\.2\."), ".proj_out."),
+)
+
+
+def flax_param_name(name: str, ndim: int) -> str:
+    """The JAX package's dotted name of DiT parameter ``name`` (``ndim``:
+    its rank): ``transformer_blocks.0.ff.net.0.proj.weight`` →
+    ``transformer_blocks_0.ff.proj_in.kernel``."""
+    for pattern, repl in _FLAX_PIECES:
+        name = pattern.sub(repl, name)
+    head, _, leaf = name.rpartition(".")
+    if leaf == "weight":
+        leaf = "kernel" if ndim >= 2 else "scale"
+    return f"{head}.{leaf}"
+
+
+def dit_flax_from_state_dict(state_dict: Mapping) -> dict:
+    """Port DiT state dict (tensors or arrays; weights or their gradients)
+    → the flax ``{"params": tree}`` of numpy arrays, inverting
+    ``dit_state_dict_from_flax``."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().float().numpy()
+        value = np.asarray(value)
+        if value.ndim == 2:
+            value = value.T
+        elif value.ndim == 4:
+            value = value.transpose(2, 3, 1, 0)
+        *path, leaf = flax_param_name(name, value.ndim).split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return {"params": tree}
 
 
 def _resnet(tree, sd, src, dst):

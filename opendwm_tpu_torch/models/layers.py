@@ -5,6 +5,12 @@ plus the OpenDWM additions, as in ``tests/torch_oracle_mmdit.py``), so a
 released checkpoint loads with ``load_state_dict``. Activations are
 channel-last and attention is BSHD, as in the JAX package.
 
+Mixed precision as flax's ``dtype``: ``Linear``, ``Conv2d`` and
+``LayerNorm`` cast their input and parameters to ``compute_dtype`` at each
+call (``set_compute_dtype``), so parameters may live in another dtype
+(fp32 master weights) than the computation (bf16). RMSNorm scales and
+mixer factors are applied in fp32 and cast, as in the JAX layers.
+
 Not ported yet: ``QDense``/``QConv`` (int8 serving, ROADMAP Queue 1 item
 6) and ``TemporalBasicTransformerBlock`` (the UNet family, item 9).
 """
@@ -20,6 +26,52 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from opendwm_tpu_torch.ops.attention import dot_product_attention
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (``None``: the weight's
+    dtype); input, weight and bias are cast to it, as flax ``Dense`` does."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.weight.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype``, as ``Linear``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computing in ``compute_dtype``, as ``Linear``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        return F.layer_norm(x.to(dt), self.normalized_shape,
+                            self.weight.to(dt), self.bias.to(dt), self.eps)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Make every ``Linear``/``Conv2d``/``LayerNorm`` under ``module``
+    compute in ``dtype`` whatever dtype its parameters are kept in."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv2d, LayerNorm)):
+            m.compute_dtype = dtype
 
 
 def timestep_embedding(
@@ -100,11 +152,11 @@ class TimestepEmbedding(nn.Module):
     def __init__(self, in_dim: int, time_embed_dim: int,
                  out_dim: Optional[int] = None):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, out_dim or time_embed_dim)
+        self.linear_1 = Linear(in_dim, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, out_dim or time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
-        x = self.linear_1(sample.to(self.linear_1.weight.dtype))
+        x = self.linear_1(sample)
         return self.linear_2(F.silu(x))
 
 
@@ -126,7 +178,7 @@ class RMSNorm(nn.Module):
 class _GELUProj(nn.Module):
     def __init__(self, dim: int, inner: int, approximate: str):
         super().__init__()
-        self.proj = nn.Linear(dim, inner)
+        self.proj = Linear(dim, inner)
         self.approximate = approximate
 
     def forward(self, x):
@@ -136,7 +188,7 @@ class _GELUProj(nn.Module):
 class _GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = Linear(dim, inner * 2)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -159,7 +211,7 @@ class FeedForward(nn.Module):
         else:
             raise ValueError(f"Unknown activation {activation!r}")
         self.net = nn.ModuleList(
-            [act, nn.Dropout(0.0), nn.Linear(inner, dim_out or dim)]
+            [act, nn.Dropout(0.0), Linear(inner, dim_out or dim)]
         )
 
     def forward(self, x):
@@ -181,22 +233,22 @@ class Attention(nn.Module):
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
         self.joint, self.context_pre_only = joint, context_pre_only
-        self.to_q = nn.Linear(dim, inner)
-        self.to_k = nn.Linear(dim, inner)
-        self.to_v = nn.Linear(dim, inner)
-        self.to_out = nn.ModuleList([nn.Linear(inner, out_dim or dim)])
+        self.to_q = Linear(dim, inner)
+        self.to_k = Linear(dim, inner)
+        self.to_v = Linear(dim, inner)
+        self.to_out = nn.ModuleList([Linear(inner, out_dim or dim)])
         if qk_norm == "rms_norm":
             self.norm_q = RMSNorm(head_dim)
             self.norm_k = RMSNorm(head_dim)
         if joint:
-            self.add_q_proj = nn.Linear(dim, inner)
-            self.add_k_proj = nn.Linear(dim, inner)
-            self.add_v_proj = nn.Linear(dim, inner)
+            self.add_q_proj = Linear(dim, inner)
+            self.add_k_proj = Linear(dim, inner)
+            self.add_v_proj = Linear(dim, inner)
             if qk_norm == "rms_norm":
                 self.norm_added_q = RMSNorm(head_dim)
                 self.norm_added_k = RMSNorm(head_dim)
             if not context_pre_only:
-                self.to_add_out = nn.Linear(inner, dim)
+                self.to_add_out = Linear(inner, dim)
 
     def _heads(self, x):
         return x.reshape(x.shape[0], x.shape[1], self.heads, self.head_dim)
@@ -250,7 +302,7 @@ class PatchEmbed(nn.Module):
     def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
                  pos_embed_max_size: int = 384, base_size: int = 64):
         super().__init__()
-        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size,
+        self.proj = Conv2d(in_channels, embed_dim, patch_size,
                               stride=patch_size)
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -327,11 +379,11 @@ class VTSelfAttentionBlock(nn.Module):
     def __init__(self, dim: int, heads: int, head_dim: int,
                  qk_norm: Optional[str] = None):
         super().__init__()
-        self.norm_in = nn.LayerNorm(dim, eps=1e-5)
+        self.norm_in = LayerNorm(dim, eps=1e-5)
         self.ff_in = FeedForward(dim, activation="geglu")
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, heads, head_dim, qk_norm=qk_norm)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm3 = LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim, activation="geglu")
 
     def forward(self, x, mask=None):

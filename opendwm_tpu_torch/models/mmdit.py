@@ -7,18 +7,30 @@ Ported: the SD3.5 joint-block backbone (dual attention, qk-RMSNorm,
 the fused AdaLN kernels (``ops/fused_adaln.py``), which the JAX model
 writes out in jnp; its XLA-only optimisation barriers have no counterpart.
 
+Training as the JAX model trains: parameters may be kept in
+``param_dtype`` (fp32 master weights) while every Linear, Conv and norm
+computes in ``dtype`` (bf16), as flax's ``param_dtype``/``dtype`` split
+does; and the remat flags rematerialise the same blocks as ``nn.remat``
+does there (``torch.utils.checkpoint``, non-reentrant), with the
+``"dots"``/``"dots_no_batch"`` policies as selective checkpointing that
+saves the matrix products. Remat changes memory, never values.
+
 Options outside the slice raise ``NotImplementedError`` naming their
-ROADMAP item. Remat flags are accepted and do nothing: the port serves
-(inference) only so far.
+ROADMAP item.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.models.layers import (
@@ -26,10 +38,12 @@ from opendwm_tpu_torch.models.layers import (
     Attention,
     CombinedTimestepTextProjEmbeddings,
     FeedForward,
+    Linear,
     Mixer,
     PatchEmbed,
     TimestepEmbedding,
     VTSelfAttentionBlock,
+    set_compute_dtype,
     timestep_embedding,
 )
 from opendwm_tpu_torch.ops.fused_adaln import (
@@ -44,11 +58,11 @@ class Modulation(nn.Module):
 
     def __init__(self, dim: int, n_chunks: int):
         super().__init__()
-        self.linear = nn.Linear(dim, n_chunks * dim)
+        self.linear = Linear(dim, n_chunks * dim)
         self.n_chunks = n_chunks
 
     def forward(self, emb: torch.Tensor):
-        mod = self.linear(F.silu(emb.to(self.linear.weight.dtype)))
+        mod = self.linear(F.silu(emb.to(self.linear.dtype)))
         return mod.chunk(self.n_chunks, dim=-1)
 
 
@@ -111,6 +125,29 @@ class JointTransformerBlock(nn.Module):
         return x, context
 
 
+# Ops whose outputs the remat policies save (jax.checkpoint_policies
+# dots_saveable / dots_with_no_batch_dims_saveable); the rest is recomputed.
+_REMAT_SAVED_OPS = {
+    None: None,
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default),
+}
+
+
+def _checkpointed(module: nn.Module, saved_ops, *args, **kwargs):
+    """``module(*args, **kwargs)``, rematerialised in the backward when a
+    gradient is being recorded; ``saved_ops`` are kept instead."""
+    if not torch.is_grad_enabled():
+        return module(*args, **kwargs)
+    extra = {}
+    if saved_ops is not None:
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(saved_ops))
+    return checkpoint(module, *args, use_reentrant=False, **extra, **kwargs)
+
+
 def _not_ported(option: str, item: str):
     return NotImplementedError(
         f"{option} is not ported to PyTorch yet (ROADMAP Queue 1, {item})"
@@ -134,7 +171,8 @@ class DiTCrossviewTemporal(nn.Module):
       disable_crossview / disable_temporal: (b,) bool AlphaBlender overrides
 
     Keyword names follow the reference JSON config. ``dtype`` is the dtype
-    of the parameters and of the computation.
+    of the computation; ``param_dtype`` that of the parameters (default:
+    ``dtype``; training keeps fp32 master weights under a bf16 ``dtype``).
     """
 
     def __init__(
@@ -173,6 +211,7 @@ class DiTCrossviewTemporal(nn.Module):
         remat_block_layers: Optional[Sequence[int]] = None,
         remat_policy: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
+        param_dtype: Optional[torch.dtype] = None,
         attention_backend: Optional[str] = None,
         quantization: Optional[str] = None,
         sequence_parallel_axis: Optional[str] = None,
@@ -204,6 +243,8 @@ class DiTCrossviewTemporal(nn.Module):
         if attention_backend is not None:
             raise ValueError("attention_backend is a JAX dispatch hint; the "
                              "port dispatches by shape and device")
+        if remat_policy not in _REMAT_SAVED_OPS:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
         dim = attention_head_dim * num_attention_heads
         self.patch_size = patch_size
         self.num_layers = num_layers
@@ -216,13 +257,20 @@ class DiTCrossviewTemporal(nn.Module):
         self.disable_view_emb_on_temporal_module = \
             disable_view_emb_on_temporal_module
         self.perspective_modeling_type = perspective_modeling_type
+        self.gradient_checkpointing = gradient_checkpointing
+        self.crossview_gradient_checkpointing = \
+            crossview_gradient_checkpointing
+        self.temporal_gradient_checkpointing = temporal_gradient_checkpointing
+        self.remat_block_layers = None if remat_block_layers is None \
+            else list(remat_block_layers)
+        self.remat_saved_ops = _REMAT_SAVED_OPS[remat_policy]
 
         self.pos_embed = PatchEmbed(
             patch_size, in_channels, dim, pos_embed_max_size,
             base_size=sample_size // patch_size,
         )
-        self.context_embedder = nn.Linear(joint_attention_dim,
-                                          caption_projection_dim)
+        self.context_embedder = Linear(joint_attention_dim,
+                                       caption_projection_dim)
         self.time_text_embed = CombinedTimestepTextProjEmbeddings(
             dim, pooled_projection_dim
         )
@@ -271,12 +319,26 @@ class DiTCrossviewTemporal(nn.Module):
                 [TimestepEmbedding(dim, dim * 4, dim) for _ in ids])
             self.time_mixers = nn.ModuleList([mixer() for _ in ids])
         self.norm_out = Modulation(dim, 2)
-        self.proj_out = nn.Linear(dim, patch_size * patch_size * out_channels)
-        self.to(dtype)
+        self.proj_out = Linear(dim, patch_size * patch_size * out_channels)
+        self.to(param_dtype or dtype)
+        self._dtype = dtype
+        set_compute_dtype(self, dtype)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.proj_out.weight.dtype
+        """The compute dtype."""
+        return self._dtype
+
+    def _remat(self, module: nn.Module, flag: bool):
+        """``module``, or a call of it rematerialised in the backward."""
+        if not flag:
+            return module
+        return functools.partial(_checkpointed, module, self.remat_saved_ops)
+
+    def _remat_block(self, i: int) -> bool:
+        """Joint block ``i`` is rematerialised (``mmdit.py:508-511``)."""
+        return self.gradient_checkpointing and (
+            self.remat_block_layers is None or i in self.remat_block_layers)
 
     def set_view_embedding_width(self, width: int) -> None:
         """Rebuild ``view_embedding`` for ``width`` input features.
@@ -287,6 +349,7 @@ class DiTCrossviewTemporal(nn.Module):
         old = self.view_embedding
         if old.linear_1.in_features != width:
             new = TimestepEmbedding(width, self.inner_dim)
+            set_compute_dtype(new, self.dtype)
             self.view_embedding = new.to(device=old.linear_1.weight.device,
                                          dtype=old.linear_1.weight.dtype)
 
@@ -346,7 +409,8 @@ class DiTCrossviewTemporal(nn.Module):
         shape = (b, t, v, gh, gw, dim)
 
         for i, block in enumerate(self.transformer_blocks):
-            x, ctx = block(x.contiguous(), ctx, temb)
+            x, ctx = self._remat(block, self._remat_block(i))(
+                x.contiguous(), ctx, temb)
 
             if self.enable_temporal and i in self.temporal_block_layers:
                 j = self.temporal_block_layers.index(i)
@@ -362,7 +426,9 @@ class DiTCrossviewTemporal(nn.Module):
                 ):
                     seq_emb = seq_emb + view_cam_emb
                 x = self._temporal_branch(
-                    self.temporal_transformer_blocks[j], self.time_mixers[j],
+                    self._remat(self.temporal_transformer_blocks[j],
+                                self.temporal_gradient_checkpointing),
+                    self.time_mixers[j],
                     x, seq_emb, shape, disable_temporal,
                 )
 
@@ -376,7 +442,9 @@ class DiTCrossviewTemporal(nn.Module):
                 if view_cam_emb is not None:
                     view_emb = view_emb + view_cam_emb
                 x = self._crossview_branch(
-                    self.crossview_transformer_blocks[j], self.view_mixers[j],
+                    self._remat(self.crossview_transformer_blocks[j],
+                                self.crossview_gradient_checkpointing),
+                    self.view_mixers[j],
                     x, view_emb, shape, disable_crossview,
                     crossview_attention_mask,
                 )

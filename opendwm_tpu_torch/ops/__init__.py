@@ -15,6 +15,10 @@ def launch_counts() -> dict:
     return {
         "flash_tail": flash_tail.launches,
         "flash_tail_by_seq": dict(flash_tail.launches_by_seq),
+        "flash_tail_with_lse": flash_tail.lse_launches,
+        "flash_tail_backward": flash_tail.backward_launches,
+        "flash_tail_backward_by_seq": dict(
+            flash_tail.backward_launches_by_seq),
         "adaln_modulate": fused_adaln.launches,
         "residual_adaln_modulate": fused_adaln.res_launches,
     }

@@ -1,25 +1,30 @@
-"""CTSD serving path (``opendwm_tpu/pipelines/ctsd.py``), in PyTorch.
+"""CTSD pipeline (``opendwm_tpu/pipelines/ctsd.py``), in PyTorch.
 
 Ported: condition assembly (text, layout images, numeric camera/action
 ids, the cross-view/temporal disable switches), flow-match Euler sampling
 with classifier-free guidance and reference-latent injection (``ctsd`` and
 ``diffusion_forcing`` styles), the autoregressive window rollout and the
-VAE decode. The JAX ``lax.scan`` over steps is a Python loop here.
-Initial noise comes from an explicit ``torch.Generator`` or is handed in
-(``noise``), so a test can feed the JAX package's draw.
+VAE decode; and the flow-matching (``sd3``) training step: reference-frame
+and diffusion-forcing input construction, condition dropout, the loss,
+AdamW with clipping, freezing and accumulation. The JAX ``lax.scan`` over
+steps is a Python loop here.
 
-Training (``loss_fn``, ``train_step``, ``make_input_for_prediction``)
-waits for ROADMAP Queue 1 item 5; the training, optimizer and sharding
-keys of a config are accepted and stored.
+Randomness comes from an explicit ``torch.Generator``, and every draw can
+be handed in instead: initial noise (``noise``) for sampling, and the
+whole set of training draws (``draw_training_randoms`` →
+``loss_from_draws``), so a test can feed both packages the JAX draws.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Sequence
 
 import torch
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.pipelines import optim
+from opendwm_tpu_torch.schedulers import FlowMatchEulerScheduler
 
 
 def _index(values: Sequence[int], device) -> torch.Tensor:
@@ -208,9 +213,152 @@ def slice_batch_time_window(batch: dict, start: int, length: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training draws and reference-frame input construction (ctsd.py:309-423)
+# ---------------------------------------------------------------------------
+
+def draw_prediction_randoms(shape, generator=None, device=None) -> dict:
+    """The seven draws of ``make_input_for_prediction`` for latents of
+    ``shape`` (b, t, v, ...), in the JAX package's split order."""
+    b, t, v = shape[:3]
+
+    def normal(*s):
+        return torch.randn(s, generator=generator, device=device)
+
+    def uniform(*s):
+        return torch.rand(s, generator=generator, device=device)
+
+    return {
+        "scale": normal(b, t, 1, 1, 1, 1),
+        "offset": normal(b, t, 1, 1, 1, 1),
+        "task": uniform(b, 1, 1),
+        "image": uniform(b),
+        "all_visible": uniform(b, 1, 1),
+        "partial_visible": uniform(b, t, v),
+        "count": uniform(b, 1, 1),
+    }
+
+
+def make_input_for_prediction(
+    draws: dict,
+    noisy_input: torch.Tensor,
+    latents: torch.Tensor,
+    timesteps: torch.Tensor,
+    training_config: dict,
+    common_config: dict,
+    reference_latent_count=0,
+):
+    """Returns (model_input, timesteps, extra_conditions, ref_indicator).
+
+    Styles (``common_config["frame_prediction_style"]``), as the JAX
+    package's: ``None`` passes through; ``"diffusion_forcing"`` may flag
+    image-generation samples (temporal off) and scales/offsets the other
+    samples' input; ``"ctsd"`` splits generation from prediction tasks and
+    replaces the first k frames of prediction tasks by clean latents at
+    timestep 0. ``reference_latent_count`` is a count or a
+    ``{count: probability}`` dict. ``draws``: ``draw_prediction_randoms``.
+    """
+    b, t, v = latents.shape[:3]
+    tc = training_config
+    scale_std = tc.get("reference_frame_scale_std")
+    offset_std = tc.get("reference_frame_offset_std")
+    rf_scale = draws["scale"] * scale_std + 1 if scale_std is not None \
+        else 1.0
+    rf_offset = draws["offset"] * offset_std if offset_std is not None \
+        else 0.0
+    no_ref = torch.zeros((b, t, v), dtype=torch.bool, device=latents.device)
+
+    style = common_config.get("frame_prediction_style")
+    if style is None:
+        return noisy_input, timesteps, {}, no_ref
+
+    image_draw = draws["image"].reshape(b)
+    if style == "diffusion_forcing":
+        disable_temporal = image_draw < tc.get("image_generation_ratio", 0.0)
+        made = torch.where(disable_temporal[:, None, None, None, None, None],
+                           noisy_input, noisy_input * rf_scale + rf_offset)
+        return made, timesteps, {"disable_temporal": disable_temporal}, no_ref
+
+    if style != "ctsd":
+        raise ValueError(f"Unknown frame_prediction_style {style!r}")
+
+    generation_task = draws["task"] < tc.get("generation_task_ratio", 0.0)
+    disable_temporal = (
+        image_draw.reshape(b, 1, 1) < tc.get("image_generation_ratio", 0.0)
+    ) & generation_task
+    all_visible = draws["all_visible"] < tc.get(
+        "all_reference_visible_ratio", 0.0)
+    partial_visible = draws["partial_visible"] < tc.get(
+        "reference_visible_rate", 1.0)
+
+    if isinstance(reference_latent_count, dict):
+        counts = torch.tensor([int(c) for c in reference_latent_count],
+                              device=latents.device)
+        cumsum = torch.cumsum(torch.tensor(
+            [float(p) for p in reference_latent_count.values()],
+            dtype=torch.float32, device=latents.device), 0)
+        idx = torch.searchsorted(cumsum, draws["count"].reshape(-1))
+        ref_count = counts[idx.clamp(0, len(counts) - 1)].reshape(b, 1, 1)
+    else:
+        ref_count = torch.full((b, 1, 1), int(reference_latent_count),
+                               device=latents.device)
+
+    within_count = torch.arange(t, device=latents.device)[None, :, None] \
+        < ref_count
+    ref_indicator = ~generation_task & (all_visible | partial_visible) & \
+        within_count
+    made = torch.where(ref_indicator[..., None, None, None],
+                       latents * rf_scale + rf_offset, noisy_input)
+    made_t = torch.where(ref_indicator, torch.zeros_like(timesteps),
+                         timesteps)
+    return made, made_t, {"disable_temporal": disable_temporal.reshape(b)}, \
+        ref_indicator
+
+
+def draw_training_randoms(batch_shape, training_config: dict,
+                          common_config: dict, generator=None,
+                          device=None) -> dict:
+    """Everything ``CTSDPipeline.loss_fn`` draws for latents of
+    ``batch_shape`` (b, t, v, h, w, c), in the JAX package's order
+    (``ctsd.py:547``): noise; the scheduler's normal or uniform draw per
+    sample (per frame under diffusion forcing); the text, box, map and
+    action condition-mask uniforms; the prediction draws."""
+    b, t = batch_shape[:2]
+    df_mode = common_config.get(
+        "frame_prediction_style") == "diffusion_forcing"
+    return {
+        "noise": torch.randn(tuple(batch_shape), generator=generator,
+                             device=device),
+        "time": FlowMatchEulerScheduler.draw_for_indices(
+            (b, t) if df_mode else (b,), generator, device,
+            training_config.get("weighting_scheme", "logit_normal")),
+        **{key: torch.rand((b,), generator=generator, device=device)
+           for key in ("text", "box", "map", "action")},
+        "prediction": draw_prediction_randoms(batch_shape, generator, device),
+    }
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The training state: the step, the model (fp32 master weights), its
+    AdamW optimizer and LR scheduler; and, with gradient accumulation, the
+    accumulator."""
+
+    step: int
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    lr_scheduler: Any
+    accumulator: Optional[optim.GradientAccumulator] = None
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1, {item})")
+
+
 @register("CTSDPipeline", aliases=("dwm.pipelines.ctsd.CrossviewTemporalSD",))
 class CTSDPipeline:
-    """Inference pipeline of the crossview-temporal MMDiT on canonical
+    """Training and inference of the crossview-temporal MMDiT on canonical
     latent-space batches (``model_type`` ``"sd3"``: flow matching)."""
 
     def __init__(
@@ -229,12 +377,11 @@ class CTSDPipeline:
         sharding_min_size: Optional[int] = None,
     ):
         if model_type != "sd3":
-            raise NotImplementedError(
-                f"model_type={model_type!r} (the UNet family) is not ported "
-                "yet (ROADMAP Queue 1, item 9)")
+            raise _not_ported(
+                f"model_type={model_type!r} (the UNet family and its DDPM "
+                "objective)", "item 9")
         if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported yet (ROADMAP Queue 1, item 13)")
+            raise _not_ported("device meshes", "item 13")
         self.model = model
         self.train_scheduler = train_scheduler
         self.test_scheduler = test_scheduler
@@ -251,6 +398,128 @@ class CTSDPipeline:
         if count is not None and \
                 getattr(model, "perspective_modeling_type", "") == "implicit":
             model.set_view_embedding_width(256 * count)
+
+    # -- training ----------------------------------------------------------
+
+    def init_state(self) -> TrainState:
+        """A ``TrainState`` around ``self.model``, which must hold fp32
+        master weights (``param_dtype=torch.float32``); the compute dtype
+        is the model's ``dtype``."""
+        model = self.model
+        low = sorted({str(p.dtype) for p in model.parameters()
+                      if p.dtype != torch.float32})
+        if low:
+            raise ValueError(
+                f"training needs fp32 master weights, the model holds {low}; "
+                "build it with param_dtype=torch.float32")
+        tc = self.training_config
+        trainable, _ = optim.split_trainable(model,
+                                             tc.get("freezing_pattern"))
+        optimizer, lr_scheduler = optim.build_optimizer(
+            trainable, self.optimizer_config, self.lr_scheduler_config)
+        accum = tc.get("gradient_accumulation_steps")
+        model.train()
+        return TrainState(
+            step=0, model=model, optimizer=optimizer,
+            lr_scheduler=lr_scheduler,
+            accumulator=optim.GradientAccumulator(accum)
+            if accum and accum > 1 else None,
+        )
+
+    def shard_state(self, state: TrainState):
+        raise _not_ported("sharding the train state", "item 13")
+
+    def state_shardings(self, state: TrainState):
+        raise _not_ported("train-state shardings", "item 13")
+
+    def loss_fn(self, batch: dict, generator=None):
+        """(loss, metrics) of one batch; draws from ``generator``."""
+        latents = self._latents(batch)
+        draws = draw_training_randoms(latents.shape, self.training_config,
+                                      self.common_config, generator,
+                                      latents.device)
+        return self.loss_from_draws(batch, draws)
+
+    def _latents(self, batch: dict) -> torch.Tensor:
+        if "latents" not in batch:
+            raise _not_ported("encoding vae_images to latents (the VAE "
+                              "encoder)", "item 4")
+        return batch["latents"]
+
+    def loss_from_draws(self, batch: dict, draws: dict):
+        """The flow-matching loss of ``ctsd.py:541-642`` on given draws
+        (``draw_training_randoms``): (loss, {"sd_loss": loss})."""
+        if "depth_frustum_range" in self.common_config:
+            raise _not_ported("the depth loss", "items 4 and 9")
+        latents = self._latents(batch)
+        b, t, v = latents.shape[:3]
+        tc = self.training_config
+        sched = self.train_scheduler
+        indices = sched.indices_from_draw(
+            draws["time"],
+            weighting_scheme=tc.get("weighting_scheme", "logit_normal"))
+        sigmas = sched.sigmas_at(indices)
+        timesteps = sched.timesteps_at(indices)
+        while sigmas.ndim < latents.ndim:
+            sigmas = sigmas[..., None]
+        noisy = sigmas * draws["noise"].to(latents.dtype) + \
+            (1.0 - sigmas) * latents
+        target = latents
+        while timesteps.ndim < 3:
+            timesteps = timesteps[..., None].repeat_interleave(
+                latents.shape[timesteps.ndim], -1)
+
+        masks = {
+            f"{name}_condition_mask": draws[key] < tc.get(ratio, 1.0)
+            for name, key, ratio in (
+                ("text", "text", "text_prompt_condition_ratio"),
+                ("box", "box", "3dbox_condition_ratio"),
+                ("hdmap", "map", "hdmap_condition_ratio"),
+                ("action", "action", "action_condition_ratio"),
+            )
+        }
+        conds = get_conditions(batch, self.common_config, **masks)
+        noisy, timesteps, extra, ref_indicator = make_input_for_prediction(
+            draws["prediction"], noisy, latents, timesteps, tc,
+            self.common_config, tc.get("reference_latent_count", 0))
+        conds.update(extra)
+
+        pred = self.model(sample=noisy, timestep=timesteps, **conds)
+        pred_latent = pred * (-sigmas) + noisy
+        if tc.get("disable_reference_frame_loss", False):
+            keep = ~ref_indicator[..., None, None, None]
+            pred_latent = pred_latent * keep
+            target = target * keep
+        loss = ((pred_latent.float() - target.float()) ** 2).mean()
+        return loss, {"sd_loss": loss}
+
+    def train_step(self, state: TrainState, batch: dict, generator=None,
+                   draws: Optional[dict] = None):
+        """One step: loss and gradients of every parameter, the global
+        gradient norm before clipping, then (every k-th step under
+        accumulation) clip the trainable gradients and apply AdamW.
+        ``draws`` (``draw_training_randoms``) replaces the generator's.
+        Updates ``state`` in place and returns ``(state, metrics)``."""
+        model = state.model
+        for p in model.parameters():
+            p.grad = None
+        if draws is None:
+            loss, metrics = self.loss_fn(batch, generator)
+        else:
+            loss, metrics = self.loss_from_draws(batch, draws)
+        loss.backward()
+        params = list(model.parameters())
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = optim.global_norm(
+            [p.grad for p in params if p.grad is not None])
+
+        optim.apply_gradients(
+            state.optimizer, state.lr_scheduler, state.accumulator,
+            self.training_config.get("max_norm_for_grad_clip"))
+        for p in params:
+            p.grad = None
+        state.step += 1
+        return state, metrics
 
     def set_vae(self, vae) -> None:
         """Attach an ``AutoencoderKL`` for ``decode_latents``."""

@@ -66,11 +66,30 @@ class FlowMatchEulerScheduler:
         weighting_scheme: str = "logit_normal",
     ) -> torch.Tensor:
         """Draw sigma ladder indices via SD3's logit-normal density."""
+        return self.indices_from_draw(
+            self.draw_for_indices(shape, generator, device, weighting_scheme),
+            logit_mean, logit_std, weighting_scheme)
+
+    @staticmethod
+    def draw_for_indices(shape, generator: torch.Generator | None = None,
+                         device=None, weighting_scheme: str = "logit_normal"):
+        """The random draw behind ``sample_train_indices``: standard normal
+        for ``logit_normal``, uniform on [0, 1) for ``uniform``."""
         if weighting_scheme == "logit_normal":
-            u = torch.sigmoid(logit_mean + logit_std * torch.randn(
-                shape, generator=generator, device=device))
+            return torch.randn(shape, generator=generator, device=device)
+        if weighting_scheme == "uniform":
+            return torch.rand(shape, generator=generator, device=device)
+        raise ValueError(weighting_scheme)
+
+    def indices_from_draw(self, draw: torch.Tensor, logit_mean: float = 0.0,
+                          logit_std: float = 1.0,
+                          weighting_scheme: str = "logit_normal"):
+        """Sigma ladder indices from a ``draw_for_indices`` draw (so a test
+        can hand in the JAX package's draw)."""
+        if weighting_scheme == "logit_normal":
+            u = torch.sigmoid(logit_mean + logit_std * draw)
         elif weighting_scheme == "uniform":
-            u = torch.rand(shape, generator=generator, device=device)
+            u = draw
         else:
             raise ValueError(weighting_scheme)
         idx = (u * self.num_train_timesteps).to(torch.int64)
