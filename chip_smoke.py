@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CTSD-3.5 serving and training paths on one GPU.
+"""Drive the PyTorch port's CTSD-3.5 serving and training paths and its
+CTSD-2.1 UNet serving path on one GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py [--profile-train]
+Run from the root of a checkout:
+    python3 chip_smoke.py [--profile-train] [--profile-unet]
 
 Phases; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels from ``opendwm_tpu_torch/csrc`` (nvcc) and the
-   Triton kernels;
+2. build: the CUDA kernels from ``opendwm_tpu_torch/csrc`` (one nvcc per
+   source, all at once) and the Triton kernels;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
    same inputs, at the shapes the serving and training paths give it, in
    bf16 (the attention kernels also in fp32), with both times: K1 (and
-   its variant that writes the log-sum-exp for the backward), K2 (the
-   attention backward), K3, K4;
-4. tiny model: the kernel path end to end (fp32, small widths) against
-   the plain path on the CPU; then one AdamW train step of a tiny model
-   with remat on, the same way;
+   its variant that writes the log-sum-exp for the backward) at the DiT's
+   and the UNet's shapes, K2 (the attention backward), K3, K4, K7 (flash
+   attention at the UNet's 1792 tokens, at 6400 and causal with q != kv);
+4. tiny models: the kernel path end to end (fp32, small widths) against
+   the plain path on the CPU: the DiT, one AdamW train step of the DiT
+   with remat on, and the UNet;
 5. serving slice: ``configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json``
    at full width (24 layers, 24x64 heads, bf16) with random weights drawn
    on the card from a seed; a 2-window autoregressive rollout of 1 x 6
@@ -30,9 +33,20 @@ Phases; any failure raises and exits non-zero:
    the timed steps; launches are also counted by phase (forward; backward
    with the remat recompute) on one extra, untimed pass.
    ``--profile-train`` adds one ``torch.profiler`` step and prints its
-   device time by kernel family.
+   device time by kernel family;
+7. UNet serving slice: ``configs/ctsd/multi_datasets/ctsd_21_tirda_nwao.json``
+   at full width (320/640/1280/1280 channels, 5/10/20/20 x 64 heads, rowwise
+   cross-view and temporal branches, bf16) with random weights drawn on the
+   card from a seed; a 2-window autoregressive rollout of 1 x 6 frames x 6
+   views of 32x56x4 latents with 77 x 1024 text tokens, DDIM v-prediction
+   with CFG 3.0 (the one cut: inference_steps 50 -> 4), then the SD2.1 VAE
+   decode to 256x448 frames. K7 must have launched at (72, 1792, 5, 64) and
+   K1 at s = 336, 448, 168 during the rollout. ``--profile-unet`` adds one
+   ``torch.profiler`` CFG forward and prints its device time by kernel
+   family.
 
-The line before the last is the kernels JSON; the last is the device JSON.
+Each slice is freed before the next. The line before the last is the
+kernels JSON; the last is the device JSON.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ import torch  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json"
+UNET_CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_21_tirda_nwao.json"
 TINY_CONFIG = REPO / "configs/ctsd/ctsd_35_6views_video_synthetic.json"
 SEED = 0
 STEPS = 4  # cut from the config's 40
@@ -63,6 +78,13 @@ ATTN_SHAPES = ((72, 602), (72, 448), (192, 168))  # (batch, seq); 24x64 heads
 TRAIN_ATTN_SHAPES = ((36, 602), (36, 448), (96, 168))  # batch 1, no CFG
 TRAIN_STEPS = 3  # steps 2 and 3 are timed
 ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536))
+# The UNet at the CFG batch: K1 at the level-0 branches (384 x 336), level-1
+# self-attention (72 x 448) and branches (192 x 168); K7 at the level-0
+# self-attention (72 x 1792) and at the 80x80 LiDAR BEV latents (6400).
+UNET_TEXT_TOKENS, UNET_TEXT_DIM, UNET_LAT_C = 77, 1024, 4
+UNET_K1_SHAPES = ((384, 336, 5), (72, 448, 10), (192, 168, 10))
+K7_SHAPES = ((72, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
+             (8, 1792, 3584, 5, True))  # (batch, q, kv, heads, causal)
 # Tolerances on |kernel - plain| / max(1, |plain|), elementwise: absolute
 # for outputs below 1, relative above, because one bf16 ulp is 2^-7 of the
 # value (0.0625 at 16) and the two versions may round an fp32 result that
@@ -211,6 +233,70 @@ def check_attention_backward(dev, flash_tail):
     return rows, {"lse_ms": lse_ms, "serving_ms": serve_ms}
 
 
+def check_unet_attention(dev, flash_tail, flash_attention):
+    """K1 at the UNet's shapes and K7 at its own, each against its plain
+    version in bf16 with both times; K7 also in fp32."""
+    g = torch.Generator(dev).manual_seed(SEED + 3)
+    k1_rows, k7_rows = [], []
+    scale = 64 ** -0.5
+    for b, s, h in UNET_K1_SHAPES:
+        q, k, v = (torch.randn(b, s, h, 64, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        out = flash_tail.tail_masked_attention(q, k, v, scale)
+        ref = flash_tail.tail_masked_attention_plain(q, k, v, scale)
+        err, rel = max_err(out, ref), scaled_err(out, ref)
+        del out, ref
+        ms, plain_ms = time_pair(
+            lambda: flash_tail.tail_masked_attention(q, k, v, scale),
+            lambda: flash_tail.tail_masked_attention_plain(q, k, v, scale))
+        log(f"K1 flash_tail bf16 ({b},{s},{h},64) [UNet]: max_abs_err "
+            f"{err:.3e}, scaled {rel:.3e} (tol {ATTN_TOL}), kernel {ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms")
+        if not rel <= ATTN_TOL:
+            fail(f"flash_tail disagrees at the UNet's {(b, s, h)}: {rel}")
+        k1_rows.append({"shape": [b, s, h, 64], "dtype": "bf16",
+                        "max_abs_err": err, "scaled_err": rel, "ms": ms,
+                        "plain_ms": plain_ms})
+        del q, k, v
+
+    for b, sq, sk, h, causal in K7_SHAPES:
+        q = torch.randn(b, sq, h, 64, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(b, sk, h, 64, generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+
+        def kernel():
+            return flash_attention.flash_attention(q, k, v, scale, causal)
+
+        def plain():
+            return flash_attention.flash_attention_plain(q, k, v, scale,
+                                                         causal)
+
+        out, ref = kernel(), plain()
+        err, rel = max_err(out, ref), scaled_err(out, ref)
+        del out, ref
+        ms, plain_ms = time_pair(kernel, plain)
+        tag = f"({b},{sq},{sk},{h},64){' causal' if causal else ''}"
+        log(f"K7 flash_attention bf16 {tag}: max_abs_err {err:.3e}, scaled "
+            f"{rel:.3e} (tol {ATTN_TOL}), kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms")
+        if not rel <= ATTN_TOL:
+            fail(f"flash_attention disagrees at {tag}: {rel}")
+        k7_rows.append({"shape": [b, sq, sk, h, 64], "causal": causal,
+                        "dtype": "bf16", "max_abs_err": err,
+                        "scaled_err": rel, "ms": ms, "plain_ms": plain_ms})
+        if sq == 1792:  # the UNet's shapes, also in fp32
+            q, k, v = q.float(), k.float(), v.float()
+            err = scaled_err(kernel(), plain())
+            log(f"K7 flash_attention fp32 {tag}: scaled err {err:.3e} "
+                f"(tol {FP32_TOL})")
+            if not err <= FP32_TOL:
+                fail(f"flash_attention disagrees in fp32 at {tag}: {err}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return k1_rows, k7_rows
+
+
 def check_adaln(dev, fused_adaln):
     g = torch.Generator(dev).manual_seed(SEED + 1)
     rows = {"adaln_modulate": [], "residual_adaln_modulate": []}
@@ -286,6 +372,39 @@ def check_tiny_model(dev, DiTCrossviewTemporal):
         fail(f"tiny model disagrees: {err}")
 
 
+def check_tiny_unet(dev, UNetCrossviewTemporal, flash_attention, flash_tail):
+    """The UNet's kernel path (card, fp32) vs its plain path (CPU): 16x24
+    latents give a 384-token self-attention (K7) and, over 6 views, a
+    144-token rowwise cross-view attention (K1)."""
+    torch.manual_seed(SEED)
+    model = UNetCrossviewTemporal(
+        in_channels=4, out_channels=4, block_out_channels=(8, 16, 16),
+        layers_per_block=1, num_attention_heads=(2, 2, 2),
+        cross_attention_dim=12, addition_time_embed_dim=8,
+        projection_class_embeddings_input_dim=24, merge_factor=2.0,
+        enable_rowwise_crossview=True, enable_rowwise_temporal=True).eval()
+    g = torch.Generator().manual_seed(SEED)
+    args = dict(
+        sample=torch.randn(1, 2, 6, 16, 24, 4, generator=g),
+        timestep=torch.randint(0, 1000, (1, 2, 6), generator=g),
+        encoder_hidden_states=torch.randn(1, 2, 6, 5, 12, generator=g),
+        added_time_ids=torch.randn(1, 2, 6, 3, generator=g),
+    )
+    with torch.no_grad():
+        ref = model(**args)
+        flash_attention.reset_launches()
+        flash_tail.reset_launches()
+        out = model.to(dev)(**{k: a.to(dev) for k, a in args.items()}).cpu()
+    k7, k1 = flash_attention.launches, flash_tail.launches
+    err = max_err(out, ref)
+    log(f"tiny UNet, kernels on the card vs plain on the CPU (fp32): "
+        f"max_abs_err {err:.3e} (tol {TINY_TOL}); K7 launches {k7}, K1 {k1}")
+    if not err <= TINY_TOL:
+        fail(f"tiny UNet disagrees: {err}")
+    if k7 != 3 or k1 != 3:
+        fail(f"tiny UNet launched K7 {k7} and K1 {k1} times, not 3 and 3")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -344,9 +463,11 @@ def random_init_(module, gen) -> None:
                 p.zero_()
 
 
-def make_batch(dev, gen) -> dict:
+def make_batch(dev, gen, text_tokens: int = TEXT_TOKENS,
+               text_dim: int = 4096, pooled_dim: int | None = 2048) -> dict:
     """One canonical latent-space batch: 6 frames x 6 views, pre-encoded
-    text (154 tokens, 4096 wide; pooled 2048) and ring cameras."""
+    text (the DiT's 154 tokens, 4096 wide, pooled 2048 by default) and ring
+    cameras."""
     b, t, v = 1, FRAMES, VIEWS
     w_img, h_img = 8 * LAT_W, 8 * LAT_H
     intr = torch.zeros(b, t, v, 3, 3, device=dev)
@@ -358,11 +479,15 @@ def make_batch(dev, gen) -> dict:
     cam[..., 1, 0], cam[..., 1, 1] = yaw.sin(), yaw.cos()
     cam[..., 0, 3], cam[..., 1, 3] = 1.5 * yaw.cos(), 1.5 * yaw.sin()
     cam[..., 2, 3] = 1.6
-    return {
+    batch = {
         "encoder_hidden_states": torch.randn(
-            b, t, v, TEXT_TOKENS, 4096, generator=gen, device=dev),
-        "pooled_projections": torch.randn(b, t, v, 2048, generator=gen,
-                                          device=dev),
+            b, t, v, text_tokens, text_dim, generator=gen, device=dev),
+    }
+    if pooled_dim is not None:
+        batch["pooled_projections"] = torch.randn(
+            b, t, v, pooled_dim, generator=gen, device=dev)
+    return {
+        **batch,
         "camera_intrinsics": intr,
         "camera_transforms": cam,
         "image_size": torch.tensor([float(w_img), float(h_img)],
@@ -458,7 +583,119 @@ def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions):
     return counts
 
 
-def _kernel_time_table(prof, step_s: float) -> str:
+def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
+                   get_conditions, profile: bool = False):
+    """The CTSD-2.1 UNet serving path at full width: a 2-window rollout
+    with DDIM and CFG, then the SD2.1 VAE decode."""
+    cfg = json.loads(UNET_CONFIG.read_text())["pipeline"]
+    ic = cfg["inference_config"]
+    log(f"unet cut: inference_steps {ic['inference_steps']} -> {STEPS}")
+    ic["inference_steps"] = STEPS
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+        vae = sd21_vae(dtype=torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    for module in (pipe.model, vae):
+        module.to_empty(device=dev)
+        random_init_(module, gen)
+        module.eval()
+    pipe.set_vae(vae)
+    model = pipe.model
+    mc = cfg["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"unet denoiser: {UNET_CONFIG.relative_to(REPO)}, channels "
+        f"{mc['block_out_channels']}, heads {mc['num_attention_heads']} x 64, "
+        f"rowwise cross-view {mc['enable_rowwise_crossview']}, rowwise "
+        f"temporal {mc['enable_rowwise_temporal']}, {n_params / 1e9:.3f}B "
+        f"params, {model.dtype}; {type(pipe.test_scheduler).__name__} "
+        f"{pipe.test_scheduler.prediction_type}, guidance "
+        f"{ic['guidance_scale']}")
+
+    batch = make_batch(dev, gen, UNET_TEXT_TOKENS, UNET_TEXT_DIM, None)
+    latent_shape = (1, FRAMES, VIEWS, LAT_H, LAT_W, UNET_LAT_C)
+    total_frames = FRAMES + (WINDOWS - 1) * (FRAMES - 1)
+
+    conds = get_conditions(batch, pipe.common_config,
+                           do_classifier_free_guidance=True)
+    sample = torch.randn((2,) + latent_shape[1:], generator=gen, device=dev)
+    timestep = torch.full((2, FRAMES, VIEWS), 500, device=dev)
+    fwd_s = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(sample=sample, timestep=timestep, **conds)
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as profiler
+
+            with profiler(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(sample=sample, timestep=timestep, **conds)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            log(_kernel_time_table(prof, dt, "UNet CFG forward"))
+    if out.shape != sample.shape or not torch.isfinite(out).all():
+        fail("UNet forward output is not finite or has the wrong shape")
+    del out, sample, conds
+    forward_s = min(fwd_s[1:])
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latents = pipe.autoregressive_inference_pipeline(
+        batch, latent_shape, total_frames=total_frames,
+        reference_frame_count=1, generator=gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    frames = pipe.decode_latents(latents, chunk_size=DECODE_CHUNK)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    want_latents = (1, total_frames, VIEWS, LAT_H, LAT_W, UNET_LAT_C)
+    want_frames = (1, total_frames, VIEWS, 8 * LAT_H, 8 * LAT_W, 3)
+    if tuple(latents.shape) != want_latents or \
+            not torch.isfinite(latents).all():
+        fail(f"unet rollout latents {tuple(latents.shape)} not "
+             "finite/expected")
+    if tuple(frames.shape) != want_frames or not torch.isfinite(frames).all():
+        fail(f"unet decoded frames {tuple(frames.shape)} not finite/expected")
+    forwards = WINDOWS * STEPS
+    rollout_s, decode_s = t1 - t0, t2 - t1
+    frame_s = (rollout_s + decode_s) / total_frames
+    log(f"unet rollout: {WINDOWS} windows x {STEPS} steps = {forwards} CFG "
+        f"forwards, {total_frames} frames x {VIEWS} views, latents "
+        f"{want_latents}, {rollout_s:.3f} s ({rollout_s / forwards:.3f} s "
+        f"per step); latent range [{latents.min().item():.3f}, "
+        f"{latents.max().item():.3f}]")
+    log(f"unet decode: frames {want_frames} {frames.dtype}, {decode_s:.3f} "
+        f"s; frame range [{frames.min().item():.3f}, "
+        f"{frames.max().item():.3f}]")
+    log(f"unet forward (CFG batch 2 x {FRAMES * VIEWS} view-frames): "
+        f"{forward_s:.4f} s; per generated frame ({VIEWS} views, rollout + "
+        f"decode): {frame_s:.4f} s; peak memory {peak_gib:.2f} GiB")
+    log(f"launches during the unet rollout: {json.dumps(counts)}")
+    k7_key = f"{2 * FRAMES * VIEWS},{LAT_H * LAT_W},{LAT_H * LAT_W},5,64"
+    k7 = counts["flash_attention_by_shape"].get(k7_key, 0)
+    log(f"K7 at ({k7_key}): {k7} launches, {k7 / forwards:g} per CFG "
+        f"forward")
+    if k7 == 0:
+        fail(f"flash_attention never launched at ({k7_key}) on the unet path")
+    for s in (336, 448, 168):
+        if counts["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"flash_tail never launched at s={s} on the unet path")
+    return counts, {"forward_s": forward_s, "frame_s": frame_s,
+                    "peak_gib": peak_gib}
+
+
+def _kernel_time_table(prof, step_s: float, what: str = "train step") -> str:
     """Device time of one profiled step by kernel family, and the top
     kernels, from the kernel entries of ``key_averages`` (operator entries
     also carry their kernels' time and are skipped)."""
@@ -466,7 +703,10 @@ def _kernel_time_table(prof, step_s: float) -> str:
 
     families = (  # matched in order, case-insensitively
         ("K1/K2 flash_tail (CUDA)", ("flash_tail",)),
+        ("K7 flash_attention (CUDA)", ("flash_attention",)),
         ("K3/K4 fused AdaLN (Triton)", ("_adaln_kernel",)),
+        ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "implicit")),
+        ("group norm", ("group_norm", "groupnorm")),
         ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
         ("AdamW (fused)", ("adam", "fusedoptimizer")),
         ("reduce (norms, sums)", ("reduce",)),
@@ -486,7 +726,7 @@ def _kernel_time_table(prof, step_s: float) -> str:
                     if any(k in name for k in keys)), "other")
         sums[fam] = sums.get(fam, 0.0) + t
     total = sum(sums.values())
-    lines = [f"one train step: wall {step_s * 1e3:.1f} ms, device kernel "
+    lines = [f"one {what}: wall {step_s * 1e3:.1f} ms, device kernel "
              f"time {total / 1e3:.1f} ms ({100 * total / 1e6 / step_s:.1f}% "
              f"busy)"]
     for fam, t in sorted(sums.items(), key=lambda kv: -kv[1]):
@@ -603,9 +843,15 @@ def main() -> None:
         fail("no CUDA device")
     from opendwm_tpu_torch import ops
     from opendwm_tpu_torch.config import create_instance_from_config
-    from opendwm_tpu_torch.models.autoencoders import sd35_vae
+    from opendwm_tpu_torch.models.autoencoders import sd21_vae, sd35_vae
     from opendwm_tpu_torch.models.mmdit import DiTCrossviewTemporal
-    from opendwm_tpu_torch.ops import _build, flash_tail, fused_adaln
+    from opendwm_tpu_torch.models.unet import UNetCrossviewTemporal
+    from opendwm_tpu_torch.ops import (
+        _build,
+        flash_attention,
+        flash_tail,
+        fused_adaln,
+    )
     from opendwm_tpu_torch.pipelines.ctsd import (
         draw_training_randoms,
         get_conditions,
@@ -620,29 +866,42 @@ def main() -> None:
         f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
+    _build.build_all(["flash_tail.cu", "flash_attention.cu"])
     flash_tail.build()
+    flash_attention.build()
     fused_adaln.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a + triton "
-        f"import), sources under {Path(_build.CSRC).relative_to(REPO)}")
-    for line in _build.build_logs.get("flash_tail.cu", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, one process "
+        f"per source, + triton import), sources under "
+        f"{Path(_build.CSRC).relative_to(REPO)}")
+    for source, text in _build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {source}: {line.strip()}")
 
     attn_rows = check_attention(dev, flash_tail)
     bwd_rows, lse_timing = check_attention_backward(dev, flash_tail)
+    unet_k1_rows, k7_rows = check_unet_attention(dev, flash_tail,
+                                                 flash_attention)
     adaln_rows = check_adaln(dev, fused_adaln)
     check_tiny_model(dev, DiTCrossviewTemporal)
     check_tiny_train_step(dev, create_instance_from_config,
                           draw_training_randoms)
+    check_tiny_unet(dev, UNetCrossviewTemporal, flash_attention, flash_tail)
     serve = run_slice(dev, create_instance_from_config, sd35_vae, ops,
                       get_conditions)
+    gc.collect()
+    torch.cuda.empty_cache()
+    unet, _ = run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
+                             get_conditions,
+                             profile="--profile-unet" in sys.argv[1:])
     gc.collect()
     torch.cuda.empty_cache()
     train, _ = run_train_slice(dev, create_instance_from_config, ops,
                                profile="--profile-train" in sys.argv[1:])
 
     def entry(name, route, source, replaces, key, rows, **extra):
-        by_path = {"serve": serve.get(key, 0), "train": train.get(key, 0)}
+        by_path = {"serve": serve.get(key, 0), "train": train.get(key, 0),
+                   "unet_serve": unet.get(key, 0)}
         return {
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -656,7 +915,8 @@ def main() -> None:
     triton_src = "opendwm_tpu_torch/ops/fused_adaln.py"
     kernels = [
         entry("flash_tail_forward", "cuda", csrc,
-              "opendwm_tpu/ops/flash_tail.py:55", "flash_tail", attn_rows,
+              "opendwm_tpu/ops/flash_tail.py:55", "flash_tail",
+              attn_rows + unet_k1_rows,
               lse_ms=lse_timing["lse_ms"],
               serving_ms_beside_lse=lse_timing["serving_ms"]),
         entry("flash_tail_backward", "cuda", csrc,
@@ -668,6 +928,9 @@ def main() -> None:
         entry("residual_adaln_modulate", "triton", triton_src,
               "opendwm_tpu/ops/fused_adaln.py:133", "residual_adaln_modulate",
               adaln_rows["residual_adaln_modulate"]),
+        entry("flash_attention_forward", "cuda",
+              "opendwm_tpu_torch/csrc/flash_attention.cu",
+              "opendwm_tpu/ops/attention.py:151", "flash_attention", k7_rows),
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

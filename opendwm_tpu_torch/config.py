@@ -40,13 +40,19 @@ def register(name: str | None = None, aliases: tuple[str, ...] = ()):
 # Reference module path (or short name) → the port module registering it.
 _LAZY_MODULES: dict[str, str] = {
     "dwm.models.crossview_temporal_dit": "opendwm_tpu_torch.models.mmdit",
+    "dwm.models.crossview_temporal_unet": "opendwm_tpu_torch.models.unet",
     "dwm.schedulers.temporal_independent": "opendwm_tpu_torch.schedulers",
     "diffusers.FlowMatchEulerDiscreteScheduler": "opendwm_tpu_torch.schedulers",
+    "diffusers.DDPMScheduler": "opendwm_tpu_torch.schedulers",
+    "diffusers.DDIMScheduler": "opendwm_tpu_torch.schedulers",
     "diffusers.AutoencoderKL": "opendwm_tpu_torch.models.autoencoders",
     "dwm.pipelines.ctsd": "opendwm_tpu_torch.pipelines.ctsd",
     "CTSDPipeline": "opendwm_tpu_torch.pipelines.ctsd",
     "DiTCrossviewTemporal": "opendwm_tpu_torch.models.mmdit",
+    "UNetCrossviewTemporal": "opendwm_tpu_torch.models.unet",
     "FlowMatchEulerScheduler": "opendwm_tpu_torch.schedulers",
+    "DDPMScheduler": "opendwm_tpu_torch.schedulers",
+    "DDIMScheduler": "opendwm_tpu_torch.schedulers",
     "AutoencoderKL": "opendwm_tpu_torch.models.autoencoders",
     "torch.optim.lr_scheduler": "opendwm_tpu_torch.pipelines.optim",
     "CosineAnnealingLR": "opendwm_tpu_torch.pipelines.optim",
@@ -77,7 +83,8 @@ def get_class(class_name: str):
         return get_class(_ALIASES[class_name])
     raise KeyError(
         f"{class_name!r} has no PyTorch port yet (opendwm_tpu_torch covers "
-        "the CTSD-3.5 serving and training paths; see ROADMAP.md Queue 1)."
+        "the CTSD-3.5 serving and training paths and the CTSD-2.1 serving "
+        "path; see ROADMAP.md Queue 1)."
     )
 
 

@@ -1,13 +1,15 @@
 """Weight bridge from the JAX package's flax params to port state dicts.
 
 The inverses of ``opendwm_tpu/convert/torch_import.py``'s
-``convert_ctsd_dit`` and ``convert_autoencoder_kl``: a nested dict of
+``convert_ctsd_dit``, ``convert_ctsd_unet`` and ``convert_autoencoder_kl``:
+a nested dict of
 numpy arrays (``{"params": {...}}`` or the inner tree) becomes a flat
 ``{reference_name: np.ndarray}`` dict that ``load_state_dict`` takes
 (through :func:`to_torch`). Rules, reversed:
 
 - flax Dense ``kernel`` (in, out) → Linear ``weight`` (out, in);
-- flax Conv ``kernel`` (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh, kw);
+- flax Conv ``kernel`` (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh, kw),
+  and (kt, kh, kw, in, out) → Conv3d ``weight`` (out, in, kt, kh, kw);
 - LayerNorm/GroupNorm/RMSNorm ``scale`` → ``weight``, ``bias`` → ``bias``.
 
 The way back, for the DiT: ``flax_param_name`` names a port parameter as
@@ -249,6 +251,57 @@ def vae_state_dict_from_flax(params: Mapping) -> dict:
     for name in ("quant_conv", "post_quant_conv"):
         if name in tree:
             _conv(tree, sd, name, name)
+    return sd
+
+
+# UNet flax module names → reference state-dict pieces.
+_UNET_LISTS = ("down_blocks", "up_blocks", "resnets", "attentions",
+               "transformer_blocks", "crossview_transformer_blocks",
+               "temporal_transformer_blocks")
+_UNET_RENAMES = {"downsample": "downsamplers.0.conv",
+                 "upsample": "upsamplers.0.conv", "to_out": "to_out.0"}
+
+
+def _unet_piece(parent: str, name: str) -> str:
+    m = re.fullmatch(r"(.+)_(\d+)", name)
+    if m and m.group(1) in _UNET_LISTS:
+        return f"{m.group(1)}.{m.group(2)}"
+    if parent in ("ff", "ff_in"):
+        return {"proj_in": "net.0.proj", "proj_out": "net.2"}[name]
+    return _UNET_RENAMES.get(name, name)
+
+
+def _leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    """A flax leaf as the torch parameter (name, value)."""
+    if name == "kernel":
+        axes = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[value.ndim]
+        return "weight", value.transpose(axes)
+    return {"scale": "weight"}.get(name, name), value
+
+
+def unet_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``UNetCrossviewTemporal`` params → reference state dict (numpy),
+    Conv3d kernels included. The reference's q/k/v projections have no
+    bias: the flax model's (zero after ``convert_ctsd_unet``) are dropped,
+    and a nonzero one raises."""
+    sd: dict = {}
+
+    def walk(node, path: list[str]):
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                parent = path[-1] if path else ""
+                walk(value, path + [_unet_piece(parent, name)])
+                continue
+            leaf, value = _leaf(name, np.asarray(value))
+            if leaf == "bias" and path[-1] in ("to_q", "to_k", "to_v"):
+                if np.any(value != 0):
+                    raise ValueError(
+                        f"{'.'.join(path)} has a nonzero bias; the reference "
+                        "UNet's q/k/v projections have none")
+                continue
+            sd[".".join(path + [leaf])] = value
+
+    walk(_tree(params), [])
     return sd
 
 

@@ -197,6 +197,11 @@ class AutoencoderKL(nn.Module):
         return out.reshape(*lead, *out.shape[1:])
 
 
+def sd21_vae(dtype: torch.dtype = torch.float32) -> AutoencoderKL:
+    return AutoencoderKL(latent_channels=4, use_quant_conv=True,
+                         scaling_factor=0.18215, dtype=dtype)
+
+
 def sd35_vae(dtype: torch.dtype = torch.float32,
              quantization: Optional[str] = None) -> AutoencoderKL:
     return AutoencoderKL(latent_channels=16, use_quant_conv=False,

@@ -1,18 +1,20 @@
-"""Shared layers of the MMDiT (``opendwm_tpu/models/layers.py``), in PyTorch.
+"""Shared layers of the MMDiT and the UNet (``opendwm_tpu/models/layers.py``),
+in PyTorch.
 
 Parameter names are the reference state-dict names (diffusers 0.31 naming
 plus the OpenDWM additions, as in ``tests/torch_oracle_mmdit.py``), so a
 released checkpoint loads with ``load_state_dict``. Activations are
 channel-last and attention is BSHD, as in the JAX package.
 
-Mixed precision as flax's ``dtype``: ``Linear``, ``Conv2d`` and
-``LayerNorm`` cast their input and parameters to ``compute_dtype`` at each
-call (``set_compute_dtype``), so parameters may live in another dtype
-(fp32 master weights) than the computation (bf16). RMSNorm scales and
-mixer factors are applied in fp32 and cast, as in the JAX layers.
+Mixed precision as flax's ``dtype``: ``Linear``, ``Conv2d``, ``Conv3d``,
+``LayerNorm`` and ``GroupNorm`` cast their input and parameters to
+``compute_dtype`` at each call (``set_compute_dtype``), so parameters may
+live in another dtype (fp32 master weights) than the computation (bf16).
+RMSNorm scales and mixer factors are applied in fp32 and cast, as in the
+JAX layers. ``GroupNorm`` takes channel-last input, as flax's does.
 
 Not ported yet: ``QDense``/``QConv`` (int8 serving, ROADMAP Queue 1 item
-6) and ``TemporalBasicTransformerBlock`` (the UNet family, item 9).
+6).
 """
 
 from __future__ import annotations
@@ -55,6 +57,31 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` computing in ``compute_dtype``, as ``Linear``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` over channel-last ``(N, ..., C)`` input, computing in
+    ``compute_dtype``: statistics pool per leading index over every other
+    axis, as flax's ``GroupNorm`` does."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        y = F.group_norm(x.to(dt).movedim(-1, 1), self.num_groups,
+                         self.weight.to(dt), self.bias.to(dt), self.eps)
+        return y.movedim(1, -1)
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` computing in ``compute_dtype``, as ``Linear``."""
 
@@ -67,10 +94,11 @@ class LayerNorm(nn.LayerNorm):
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
-    """Make every ``Linear``/``Conv2d``/``LayerNorm`` under ``module``
-    compute in ``dtype`` whatever dtype its parameters are kept in."""
+    """Make every ``Linear``/``Conv2d``/``Conv3d``/``LayerNorm``/
+    ``GroupNorm`` under ``module`` compute in ``dtype`` whatever dtype its
+    parameters are kept in."""
     for m in module.modules():
-        if isinstance(m, (Linear, Conv2d, LayerNorm)):
+        if isinstance(m, (Linear, Conv2d, Conv3d, LayerNorm, GroupNorm)):
             m.compute_dtype = dtype
 
 
@@ -219,23 +247,28 @@ class FeedForward(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention, or MMDiT joint attention (``joint``) where
-    the context stream carries its own projections (``add_*_proj``), the two
-    streams attend over their concatenated tokens (sample first) and split.
-    ``context_pre_only`` drops the context output projection."""
+    """Multi-head self-attention; cross-attention when called with a
+    ``context`` (keys and values from it, ``context_dim`` wide); or MMDiT
+    joint attention (``joint``) where the context stream carries its own
+    projections (``add_*_proj``), the two streams attend over their
+    concatenated tokens (sample first) and split. ``context_pre_only``
+    drops the context output projection. ``qkv_bias=False`` gives the
+    reference UNet's bias-free q/k/v projections."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
                  qk_norm: Optional[str] = None, out_dim: Optional[int] = None,
-                 joint: bool = False, context_pre_only: bool = False):
+                 joint: bool = False, context_pre_only: bool = False,
+                 context_dim: Optional[int] = None, qkv_bias: bool = True):
         super().__init__()
         if qk_norm not in (None, "rms_norm"):
             raise ValueError(f"Unsupported qk_norm {qk_norm!r}")
         inner = heads * head_dim
+        kv_dim = context_dim or dim
         self.heads, self.head_dim = heads, head_dim
         self.joint, self.context_pre_only = joint, context_pre_only
-        self.to_q = Linear(dim, inner)
-        self.to_k = Linear(dim, inner)
-        self.to_v = Linear(dim, inner)
+        self.to_q = Linear(dim, inner, bias=qkv_bias)
+        self.to_k = Linear(kv_dim, inner, bias=qkv_bias)
+        self.to_v = Linear(kv_dim, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([Linear(inner, out_dim or dim)])
         if qk_norm == "rms_norm":
             self.norm_q = RMSNorm(head_dim)
@@ -253,20 +286,22 @@ class Attention(nn.Module):
     def _heads(self, x):
         return x.reshape(x.shape[0], x.shape[1], self.heads, self.head_dim)
 
-    def _qkv(self, x, to_q, to_k, to_v, norm_q, norm_k):
-        q, k, v = self._heads(to_q(x)), self._heads(to_k(x)), \
-            self._heads(to_v(x))
+    def _qkv(self, x, kv, to_q, to_k, to_v, norm_q, norm_k):
+        q, k, v = self._heads(to_q(x)), self._heads(to_k(kv)), \
+            self._heads(to_v(kv))
         if norm_q is not None:
             q, k = norm_q(q), norm_k(k)
         return q, k, v
 
     def forward(self, x, context=None, mask=None):
-        q, k, v = self._qkv(x, self.to_q, self.to_k, self.to_v,
+        kv = x if self.joint or context is None else context
+        q, k, v = self._qkv(x, kv, self.to_q, self.to_k, self.to_v,
                             getattr(self, "norm_q", None),
                             getattr(self, "norm_k", None))
         if self.joint:
             cq, ck, cv = self._qkv(
-                context, self.add_q_proj, self.add_k_proj, self.add_v_proj,
+                context, context, self.add_q_proj, self.add_k_proj,
+                self.add_v_proj,
                 getattr(self, "norm_added_q", None),
                 getattr(self, "norm_added_k", None),
             )
@@ -377,16 +412,43 @@ class VTSelfAttentionBlock(nn.Module):
     temporal branches (reference crossview_temporal.py:536-582)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
-                 qk_norm: Optional[str] = None):
+                 qk_norm: Optional[str] = None, qkv_bias: bool = True):
         super().__init__()
         self.norm_in = LayerNorm(dim, eps=1e-5)
         self.ff_in = FeedForward(dim, activation="geglu")
         self.norm1 = LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, head_dim, qk_norm=qk_norm)
+        self.attn1 = Attention(dim, heads, head_dim, qk_norm=qk_norm,
+                               qkv_bias=qkv_bias)
         self.norm3 = LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim, activation="geglu")
 
     def forward(self, x, mask=None):
         h = x + self.ff_in(self.norm_in(x))
         h = h + self.attn1(self.norm1(h), mask=mask)
+        return h + self.ff(self.norm3(h))
+
+
+class TemporalBasicTransformerBlock(VTSelfAttentionBlock):
+    """The UNet's cross-view and temporal branch block
+    (``layers.py:552-592``, reference crossview_temporal.py:167-266): the
+    same ff_in → self-attention → ff block with the reference's bias-free
+    q/k/v, and an optional cross-attention after the self-attention.
+    Attention runs over axis 1: callers reshape so that it is the axis to
+    attend over."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 use_cross_attention: bool = False,
+                 cross_attention_dim: Optional[int] = None):
+        super().__init__(dim, heads, head_dim, qkv_bias=False)
+        self.use_cross_attention = use_cross_attention
+        if use_cross_attention:
+            self.norm2 = LayerNorm(dim, eps=1e-5)
+            self.attn2 = Attention(dim, heads, head_dim, qkv_bias=False,
+                                   context_dim=cross_attention_dim)
+
+    def forward(self, x, context=None, mask=None):
+        h = x + self.ff_in(self.norm_in(x))
+        h = h + self.attn1(self.norm1(h), mask=mask)
+        if self.use_cross_attention:
+            h = h + self.attn2(self.norm2(h), context=context)
         return h + self.ff(self.norm3(h))

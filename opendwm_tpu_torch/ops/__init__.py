@@ -2,10 +2,11 @@
 
 from __future__ import annotations
 
-from opendwm_tpu_torch.ops import flash_tail, fused_adaln
+from opendwm_tpu_torch.ops import flash_attention, flash_tail, fused_adaln
 
 
 def reset_launch_counts() -> None:
+    flash_attention.reset_launches()
     flash_tail.reset_launches()
     fused_adaln.reset_launches()
 
@@ -13,6 +14,10 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel."""
     return {
+        "flash_attention": flash_attention.launches,
+        "flash_attention_by_shape": {
+            ",".join(map(str, k)): n
+            for k, n in flash_attention.launches_by_shape.items()},
         "flash_tail": flash_tail.launches,
         "flash_tail_by_seq": dict(flash_tail.launches_by_seq),
         "flash_tail_with_lse": flash_tail.lse_launches,

@@ -4,7 +4,8 @@ Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into a
 plain-C shared library (no PyTorch headers, so a build takes seconds),
 loaded with ``ctypes``. Libraries go to ``build/kernels/`` at the root of
 the checkout (git-ignored), named by a hash of their source, so a changed
-source is rebuilt and an unchanged one is reused.
+source is rebuilt and an unchanged one is reused. ``build_all`` runs one
+nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -34,12 +35,20 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def load_library(source_name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source_name>`` for sm_90a (if not built yet) and load it."""
+def _paths(source_name: str) -> tuple[Path, Path]:
     src = CSRC / source_name
     digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
-    if not lib.exists():
+    return src, BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build_all(source_names) -> None:
+    """Compile every ``csrc/<name>`` not built yet for sm_90a, one nvcc
+    process per source, all started together."""
+    jobs = []
+    for name in source_names:
+        src, lib = _paths(name)
+        if lib.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [
@@ -47,11 +56,22 @@ def load_library(source_name: str) -> ctypes.CDLL:
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v", "-o", str(tmp), str(src),
         ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, src, lib, tmp, proc))
+    failed = []
+    for name, src, lib, tmp, proc in jobs:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}"
-            )
-        build_logs[source_name] = proc.stderr
+            failed.append(f"nvcc failed for {src}:\n{out}\n{err}")
+            continue
+        build_logs[name] = err
         os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(source_name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source_name>`` for sm_90a (if not built yet) and load it."""
+    build_all([source_name])
+    return ctypes.CDLL(str(_paths(source_name)[1]))

@@ -1,18 +1,17 @@
 """Attention dispatch over BSHD tensors (``opendwm_tpu/ops/attention.py``).
 
-Dispatch rules, as the JAX package's:
+Dispatch rules, in the JAX package's order (its TPU branches):
 
-- the tail-masked kernel (``ops/flash_tail.py``) for self-attention shapes
-  that meet ``flash_tail.supported`` with no bias and no causal mask; its
-  wrapper runs the plain version on CPU tensors;
+- the flash kernel (``ops/flash_attention.py``, K7) for unbiased shapes
+  whose sequence lengths are multiples of 128 (``flash_attention.supported``),
+  causal or not; its causal mask is top-left, as the TPU kernel's;
 - the tiny-sequence form for ``q_seq == kv_seq <= 16`` (the temporal
   ``pointwise`` branch attends over t frames per token), all in fp32;
-- plain math with an fp32 softmax otherwise.
+- the tail-masked kernel (``ops/flash_tail.py``, K1) for self-attention
+  shapes that meet ``flash_tail.supported`` with no bias and no causal mask;
+- plain math with an fp32 softmax otherwise (causal masked bottom-right).
 
-The JAX package's stock-flash branch (sequence lengths that are multiples
-of 128, causal allowed) waits for its kernel (ROADMAP Queue 2, item K7);
-until then those shapes take the plain path, as they do in the JAX
-package off the TPU.
+The kernels' wrappers run their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import math
 
 import torch
 
-from opendwm_tpu_torch.ops import flash_tail
+from opendwm_tpu_torch.ops import flash_attention, flash_tail
 
 _TINY_MAX_SEQ = 16
 
@@ -64,6 +63,9 @@ def dot_product_attention(q, k, v, bias=None, scale=None, is_causal=False):
         k = k.repeat_interleave(reps, dim=2)
         v = v.repeat_interleave(reps, dim=2)
     q_seq, kv_seq = q.shape[1], k.shape[1]
+    if bias is None and flash_attention.supported(q_seq, kv_seq, q.shape[-1]):
+        return flash_attention.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), scale, is_causal)
     if (
         not is_causal
         and (bias is None or bias.ndim == 4)

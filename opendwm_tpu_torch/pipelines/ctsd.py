@@ -1,10 +1,11 @@
 """CTSD pipeline (``opendwm_tpu/pipelines/ctsd.py``), in PyTorch.
 
 Ported: condition assembly (text, layout images, numeric camera/action
-ids, the cross-view/temporal disable switches), flow-match Euler sampling
-with classifier-free guidance and reference-latent injection (``ctsd`` and
-``diffusion_forcing`` styles), the autoregressive window rollout and the
-VAE decode; and the flow-matching (``sd3``) training step: reference-frame
+ids, the cross-view/temporal disable switches), sampling with
+classifier-free guidance and reference-latent injection (flow-match Euler
+for the MMDiT, ``ctsd`` and ``diffusion_forcing`` styles; DDIM for the UNet,
+``model_type="unet"``), the autoregressive window rollout and the VAE
+decode; and the flow-matching (``sd3``) training step: reference-frame
 and diffusion-forcing input construction, condition dropout, the loss,
 AdamW with clipping, freezing and accumulation. The JAX ``lax.scan`` over
 steps is a Python loop here.
@@ -358,8 +359,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @register("CTSDPipeline", aliases=("dwm.pipelines.ctsd.CrossviewTemporalSD",))
 class CTSDPipeline:
-    """Training and inference of the crossview-temporal MMDiT on canonical
-    latent-space batches (``model_type`` ``"sd3"``: flow matching)."""
+    """Training and inference of the crossview-temporal denoisers on
+    canonical latent-space batches. ``model_type`` ``"sd3"``: the MMDiT,
+    flow matching; ``"unet"``: the UNet, DDIM sampling (its DDPM training
+    objective is not ported yet)."""
 
     def __init__(
         self,
@@ -376,10 +379,8 @@ class CTSDPipeline:
         sharding_policy: Optional[str] = None,
         sharding_min_size: Optional[int] = None,
     ):
-        if model_type != "sd3":
-            raise _not_ported(
-                f"model_type={model_type!r} (the UNet family and its DDPM "
-                "objective)", "item 9")
+        if model_type not in ("sd3", "unet"):
+            raise ValueError(f"unknown model_type {model_type!r}")
         if mesh is not None:
             raise _not_ported("device meshes", "item 13")
         self.model = model
@@ -398,6 +399,9 @@ class CTSDPipeline:
         if count is not None and \
                 getattr(model, "perspective_modeling_type", "") == "implicit":
             model.set_view_embedding_width(256 * count)
+        if count is not None and hasattr(model, "set_add_embedding_width"):
+            model.set_add_embedding_width(
+                model.addition_time_embed_dim * count)
 
     # -- training ----------------------------------------------------------
 
@@ -449,6 +453,8 @@ class CTSDPipeline:
     def loss_from_draws(self, batch: dict, draws: dict):
         """The flow-matching loss of ``ctsd.py:541-642`` on given draws
         (``draw_training_randoms``): (loss, {"sd_loss": loss})."""
+        if self.model_type == "unet":
+            raise _not_ported("the UNet's DDPM training objective", "item 9")
         if "depth_frustum_range" in self.common_config:
             raise _not_ported("the depth loss", "items 4 and 9")
         latents = self._latents(batch)
@@ -544,7 +550,11 @@ class CTSDPipeline:
         """Full-sequence (or diffusion-forcing) denoise → fp32 latents.
 
         CFG doubles the batch; reference latents are injected at timestep 0
-        each step (reference ctsd.py:1496-1575)."""
+        each step (reference ctsd.py:1496-1575). A flow-match scheduler
+        steps by ladder index, a DDIM scheduler by integer timestep: the
+        injected frames' timestep 0 stays an integer (the JAX package
+        turns it into a float and cannot index its tables with it; the
+        stepped values of those frames are overwritten either way)."""
         ic = self.inference_config
         n_steps = ic["inference_steps"]
         guidance_scale = ic.get("guidance_scale", 1.0)
@@ -553,15 +563,19 @@ class CTSDPipeline:
         df_mode = self.common_config.get(
             "frame_prediction_style") == "diffusion_forcing"
         sched = self.test_scheduler
-        if not hasattr(sched, "inference_sigmas"):
-            raise NotImplementedError(
-                "only flow-matching sampling is ported (DDPM/DDIM: ROADMAP "
-                "Queue 1, item 9)")
-        device = self.model.proj_out.weight.device
+        is_flow = hasattr(sched, "inference_sigmas")
+        if not is_flow and not hasattr(sched, "timesteps"):
+            raise ValueError(f"{type(sched).__name__} cannot sample: the "
+                             "pipeline samples with flow matching or DDIM")
+        if df_mode and not is_flow:
+            raise ValueError("diffusion forcing steps by ladder index and "
+                             "needs the flow-match scheduler")
+        device = next(self.model.parameters()).device
         conds = get_conditions(batch, self.common_config,
                                do_classifier_free_guidance=do_cfg)
-        ts_table = torch.as_tensor(sched.inference_timesteps(n_steps),
-                                   device=device)
+        ts_table = torch.as_tensor(
+            sched.inference_timesteps(n_steps) if is_flow
+            else sched.timesteps(n_steps), device=device)
 
         if df_mode and image_latents is not None:
             latents = image_latents
@@ -598,18 +612,22 @@ class CTSDPipeline:
             if inject:
                 model_input = torch.where(ref_mask[..., None, None, None],
                                           image_latents, model_input)
-                timesteps = torch.where(ref_mask, 0.0, timesteps)
+                timesteps = torch.where(ref_mask, 0, timesteps)
+            ts_input = timesteps
             if do_cfg:
                 model_input = torch.cat([model_input, model_input])
-                timesteps = torch.cat([timesteps, timesteps])
+                ts_input = torch.cat([timesteps, timesteps])
 
-            pred = self.model(sample=model_input, timestep=timesteps, **conds)
+            pred = self.model(sample=model_input, timestep=ts_input, **conds)
             if do_cfg:
                 uncond, cond = pred.chunk(2)
                 pred = uncond + guidance_scale * (cond - uncond)
 
-            staged = sched.step_by_indices(pred, step_indices, latents,
-                                           n_steps)
+            if is_flow:
+                staged = sched.step_by_indices(pred, step_indices, latents,
+                                               n_steps)
+            else:
+                staged = sched.step(pred, timesteps, latents, n_steps)
             if df_mode:
                 in_range = (i - frame_offsets >= 0)[None, :, None, None,
                                                     None, None]

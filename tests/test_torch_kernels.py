@@ -14,7 +14,8 @@ the bar of ``perf/exp_tailvar.py``) and 3e-2 (normalisations). The
 attention backward (K2) in bf16 is held to a relative error
 ``||kernel - plain|| / ||plain||`` of 0.6% per gradient, the bar recorded
 for the JAX kernel (``docs/PARITY.md``): its dS is rounded to bf16 at other
-points than the plain version's, and its delta comes from dO.O.
+points than the plain version's, and its delta comes from dO.O. K7 (flash
+attention) is held to the attention bars.
 """
 
 import copy
@@ -26,7 +27,8 @@ import torch
 
 from opendwm_tpu_torch.config import create_instance_from_config
 from opendwm_tpu_torch.models.mmdit import DiTCrossviewTemporal
-from opendwm_tpu_torch.ops import flash_tail, fused_adaln
+from opendwm_tpu_torch.models.unet import UNetCrossviewTemporal
+from opendwm_tpu_torch.ops import flash_attention, flash_tail, fused_adaln
 from opendwm_tpu_torch.pipelines.ctsd import draw_training_randoms
 
 REPO = Path(__file__).resolve().parents[1]
@@ -235,3 +237,67 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
     for (name, a), b in zip(card.model.named_parameters(),
                             pipe.model.parameters()):
         assert (a.detach().cpu() - b.detach()).abs().max().item() <= 1e-3, name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize(
+    "q_seq,kv_seq,head_dim,causal",
+    [(1792, 1792, 64, False), (256, 256, 64, True), (128, 384, 64, True),
+     (384, 128, 64, True), (256, 512, 128, False), (256, 256, 128, True),
+     (256, 256, 256, False), (256, 384, 256, True), (200, 130, 40, True)],
+)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, q_seq,
+                                              kv_seq, head_dim, causal):
+    """K7 against its plain version: the UNet's shape, causal (top-left)
+    with q shorter and longer than kv, head dims 64/128/256, and one
+    ragged case that the dispatcher never sends (masked tails)."""
+    g = torch.Generator(cuda).manual_seed(q_seq + kv_seq + head_dim)
+    q = torch.randn(2, q_seq, 3, head_dim, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, kv_seq, 3, head_dim, generator=g, device=cuda)
+            .to(dtype) for _ in range(2))
+    scale = head_dim ** -0.5
+    out = flash_attention.flash_attention(q, k, v, scale, causal)
+    ref = flash_attention.flash_attention_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _scaled_err(out, ref) <= tol
+
+
+def test_flash_attention_counts_and_refuses_grad(cuda):
+    flash_attention.reset_launches()
+    q = torch.randn(1, 256, 2, 64, device=cuda)
+    flash_attention.flash_attention(q, q, q, 0.125)
+    assert flash_attention.launches_by_shape == {(1, 256, 256, 2, 64): 1}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention.flash_attention(q.requires_grad_(), q, q, 0.125)
+
+
+def test_tiny_unet_on_card_matches_cpu(cuda):
+    """The UNet's kernel path end to end (fp32): 16x24 latents make the
+    level-0 self-attention 384 tokens (K7) and, over 6 views, the rowwise
+    cross-view attention 144 tokens (K1); the rest is plain math."""
+    torch.manual_seed(0)
+    model = UNetCrossviewTemporal(
+        in_channels=4, out_channels=4, block_out_channels=(8, 16, 16),
+        layers_per_block=1, num_attention_heads=(2, 2, 2),
+        cross_attention_dim=12, addition_time_embed_dim=8,
+        projection_class_embeddings_input_dim=24, merge_factor=2.0,
+        enable_rowwise_crossview=True, enable_rowwise_temporal=True).eval()
+    g = torch.Generator().manual_seed(0)
+    b, t, v = 1, 2, 6
+    args = dict(
+        sample=torch.randn(b, t, v, 16, 24, 4, generator=g),
+        timestep=torch.randint(0, 1000, (b, t, v), generator=g),
+        encoder_hidden_states=torch.randn(b, t, v, 5, 12, generator=g),
+        added_time_ids=torch.randn(b, t, v, 3, generator=g),
+    )
+    flash_attention.reset_launches()
+    flash_tail.reset_launches()
+    with torch.no_grad():
+        ref = model(**args)
+        out = model.to(cuda)(**{k: a.to(cuda) for k, a in args.items()})
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_shape == {(12, 384, 384, 2, 4): 3}
+    assert flash_tail.launches_by_seq == {144: 3}
+    assert (out.cpu() - ref).abs().max().item() <= 1e-3

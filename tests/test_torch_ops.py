@@ -1,5 +1,8 @@
 """Port kernels' plain versions vs the JAX package's Pallas kernels.
 
+K7 (``ops/flash_attention.py``) is held against the JAX dispatcher forced
+to its stock Pallas flash attention (``backend="pallas"``).
+
 The Pallas kernels run in interpret mode on the CPU (``pallas_call`` is
 patched for the test only). The port's wrappers take their plain version
 on CPU tensors; the Hopper kernels themselves are checked on the card
@@ -28,7 +31,12 @@ from opendwm_tpu.ops import attention as jax_attention
 from opendwm_tpu.ops import flash_tail as jax_flash_tail
 from opendwm_tpu.ops import fused_adaln as jax_fused_adaln
 from opendwm_tpu_torch import ops
-from opendwm_tpu_torch.ops import attention, flash_tail, fused_adaln
+from opendwm_tpu_torch.ops import (
+    attention,
+    flash_attention,
+    flash_tail,
+    fused_adaln,
+)
 
 TOL = 1e-5
 
@@ -242,13 +250,15 @@ def test_cpu_path_launches_no_kernel():
     ops.reset_launch_counts()
     rng = np.random.default_rng(0)
     q = torch.from_numpy(_randn(rng, 1, 130, 2, 8))
+    q256 = torch.from_numpy(_randn(rng, 1, 256, 2, 8))
     x = torch.from_numpy(_randn(rng, 1, 3, 128))
     m = torch.from_numpy(_randn(rng, 1, 128))
     attention.dot_product_attention(q, q, q)
+    attention.dot_product_attention(q256, q256, q256, is_causal=True)
     fused_adaln.adaln_modulate(x, m, m)
     fused_adaln.residual_adaln_modulate(x, x, m, m, m)
     counts = ops.launch_counts()
-    assert counts["flash_tail"] == 0
+    assert counts["flash_tail"] == counts["flash_attention"] == 0
     assert counts["adaln_modulate"] == counts["residual_adaln_modulate"] == 0
 
 
@@ -256,6 +266,9 @@ def test_wrappers_refuse_other_devices():
     t = torch.empty(1, 130, 2, 8, device="meta")
     with pytest.raises(ValueError):
         flash_tail.tail_masked_attention(t, t, t, 0.3)
+    t = torch.empty(1, 256, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(t, t, t, 0.3)
     x = torch.empty(1, 3, 128, device="meta")
     with pytest.raises(ValueError):
         fused_adaln.adaln_modulate(x, x[:, 0], x[:, 0])
@@ -274,10 +287,14 @@ def test_port_imports_no_jax():
         "from opendwm_tpu_torch import checkpoint, config, convert, ops, "
         "train\n"
         "from opendwm_tpu_torch.datasets import common, synthetic\n"
-        "from opendwm_tpu_torch.models import autoencoders, layers, mmdit\n"
+        "from opendwm_tpu_torch.models import autoencoders, layers, mmdit, "
+        "unet\n"
         "from opendwm_tpu_torch.pipelines import ctsd, optim\n"
-        "from opendwm_tpu_torch.schedulers import FlowMatchEulerScheduler\n"
+        "from opendwm_tpu_torch.schedulers import DDIMScheduler, "
+        "FlowMatchEulerScheduler\n"
         "q = torch.randn(1, 130, 2, 8)\n"
+        "ops.attention.dot_product_attention(q, q, q)\n"
+        "q = torch.randn(1, 256, 2, 8)\n"
         "ops.attention.dot_product_attention(q, q, q)\n"
         "config.create_instance_from_config({'_class_name': "
         "'FlowMatchEulerScheduler', 'shift': 3.0})\n"
@@ -287,3 +304,70 @@ def test_port_imports_no_jax():
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=Path(__file__).resolve().parents[1])
+
+
+def _jax_pallas_flash(q, k, v, causal):
+    """The JAX dispatcher forced to its stock Pallas flash attention (K7)."""
+    return jax_attention.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), is_causal=causal,
+        backend="pallas")
+
+
+@pytest.mark.parametrize(
+    "shape,kv_seq,causal",
+    [
+        ((2, 256, 2, 64), 256, False),  # the UNet's form (1792 at full size)
+        ((2, 128, 2, 64), 256, True),   # causal, q shorter than kv
+        ((1, 256, 2, 128), 384, False),  # D 128, kv longer
+    ],
+)
+def test_flash_attention_plain_matches_pallas(interpret_pallas, shape,
+                                              kv_seq, causal):
+    """K7's plain version, and the port's dispatcher, against the Pallas
+    flash attention (interpret mode), fp32."""
+    rng = np.random.default_rng(kv_seq + causal)
+    b, q_seq, h, d = shape
+    q = _randn(rng, *shape)
+    k, v = _randn(rng, b, kv_seq, h, d), _randn(rng, b, kv_seq, h, d)
+    ref = _jax_pallas_flash(q, k, v, causal)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    plain = flash_attention.flash_attention_plain(tq, tk, tv, d ** -0.5,
+                                                  causal)
+    routed = attention.dot_product_attention(tq, tk, tv, is_causal=causal)
+    assert plain.shape == routed.shape == ref.shape
+    assert _max_err(plain, ref) <= TOL
+    assert _max_err(routed, ref) <= TOL
+
+
+def test_flash_attention_supported_matches_jax():
+    """``supported`` is ``_can_use_flash``'s shape rule (no bias, the
+    ``pallas`` hint), over a grid of lengths and head dims."""
+    for q_seq in (64, 127, 128, 200, 256, 1792, 6400):
+        for kv_seq in (77, 128, 256, 1792):
+            for d in (16, 64, 256, 320):
+                q = np.empty((1, q_seq, 1, d), np.float32)
+                k = np.empty((1, kv_seq, 1, d), np.float32)
+                assert flash_attention.supported(q_seq, kv_seq, d) == \
+                    jax_attention._can_use_flash(q, k, None, "pallas"), \
+                    (q_seq, kv_seq, d)
+
+
+def test_flash_attention_causal_is_top_left(interpret_pallas):
+    """Pins an oddity of the JAX package: with q_seq != kv_seq its Pallas
+    flash attention masks causal attention top-left (key j visible to
+    query i iff j <= i), its XLA fallback bottom-right (j <= i + kv - q).
+    The port's K7 and its plain version follow the kernel; the port's
+    plain branch for other lengths follows the fallback."""
+    rng = np.random.default_rng(31)
+    q = _randn(rng, 1, 256, 2, 32)
+    k, v = _randn(rng, 1, 512, 2, 32), _randn(rng, 1, 512, 2, 32)
+    flash = _jax_pallas_flash(q, k, v, True)
+    xla = jax_attention.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), is_causal=True,
+        backend="xla")
+    assert _max_err(flash, xla) > 0.5  # 2.37 here: the two masks differ
+    port = attention.dot_product_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), is_causal=True)
+    assert _max_err(port, flash) <= TOL
+    # the first query sees key 0 alone under the top-left mask
+    np.testing.assert_allclose(np.asarray(flash)[:, 0], v[:, 0], atol=TOL)
