@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CTSD-3.5 serving and training paths and its
-CTSD-2.1 UNet serving path on one GPU.
+CTSD-2.1 UNet serving and training paths on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-train] [--profile-unet]
+                          [--profile-unet-train]
 
 Phases; any failure raises and exits non-zero:
 
@@ -15,10 +16,19 @@ Phases; any failure raises and exits non-zero:
    bf16 (the attention kernels also in fp32), with both times: K1 (and
    its variant that writes the log-sum-exp for the backward) at the DiT's
    and the UNet's shapes, K2 (the attention backward), K3, K4, K7 (flash
-   attention at the UNet's 1792 tokens, at 6400 and causal with q != kv);
+   attention at the UNet's 1792 tokens, at 6400 and causal with q != kv;
+   its backward at the UNet's training shape (36 x 1792), at 6400 and
+   causal with q shorter and longer than kv, and its forward with the
+   log-sum-exp against the serving launch). Beside each kernel's time: its
+   plain version's, the least time the card could take for the same work
+   (``bound_ms``), and the time of one PyTorch call that computes the same
+   function (``library_ms``: ``scaled_dot_product_attention`` or its
+   backward for the attention kernels; none for the AdaLN ones). The card's
+   clocks are logged between phases;
 4. tiny models: the kernel path end to end (fp32, small widths) against
    the plain path on the CPU: the DiT, one AdamW train step of the DiT
-   with remat on, and the UNet;
+   with remat on, the UNet, and one AdamW train step of the UNet with remat
+   on (the train steps through their loss, every gradient and the update);
 5. serving slice: ``configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json``
    at full width (24 layers, 24x64 heads, bf16) with random weights drawn
    on the card from a seed; a 2-window autoregressive rollout of 1 x 6
@@ -32,8 +42,8 @@ Phases; any failure raises and exits non-zero:
    timed. K1, K2 (at s = 602, 448, 168), K3 and K4 must have launched in
    the timed steps; launches are also counted by phase (forward; backward
    with the remat recompute) on one extra, untimed pass.
-   ``--profile-train`` adds one ``torch.profiler`` step and prints its
-   device time by kernel family;
+   ``--profile-train`` adds 3 more steps, then 3 under ``torch.profiler``,
+   and prints their device time by kernel family;
 7. UNet serving slice: ``configs/ctsd/multi_datasets/ctsd_21_tirda_nwao.json``
    at full width (320/640/1280/1280 channels, 5/10/20/20 x 64 heads, rowwise
    cross-view and temporal branches, bf16) with random weights drawn on the
@@ -43,7 +53,17 @@ Phases; any failure raises and exits non-zero:
    decode to 256x448 frames. K7 must have launched at (72, 1792, 5, 64) and
    K1 at s = 336, 448, 168 during the rollout. ``--profile-unet`` adds one
    ``torch.profiler`` CFG forward and prints its device time by kernel
-   family.
+   family;
+8. UNet train slice: the CTSD-2.1 config at full width and depth, fp32
+   master weights under bf16 compute, remat as the config sets it (every
+   resnet and transformer model), AdamW (lr 5e-5, wd 0.01, clip 1.0, fp32
+   moments), DDPM v-prediction; 3 ``train_step`` calls on a synthetic batch
+   of 1 x 6 frames x 6 views of 32x56x4 latents with 77 x 1024 text tokens
+   and an explicit generator, steps 2 and 3 timed. K7 and its backward at
+   (36, 1792, 5, 64), K1 and K2 at s = 336, 448, 168 must have launched in
+   the timed steps; launches are also counted by phase on one extra,
+   untimed pass. ``--profile-unet-train`` adds 3 more steps, then 3
+   under ``torch.profiler``.
 
 Each slice is freed before the next. The line before the last is the
 kernels JSON; the last is the device JSON.
@@ -77,6 +97,7 @@ DECODE_CHUNK = 12  # frames per VAE decode call
 ATTN_SHAPES = ((72, 602), (72, 448), (192, 168))  # (batch, seq); 24x64 heads
 TRAIN_ATTN_SHAPES = ((36, 602), (36, 448), (96, 168))  # batch 1, no CFG
 TRAIN_STEPS = 3  # steps 2 and 3 are timed
+PROFILE_STEPS = 3  # with --profile-train/-unet-train: 3 more, then 3 profiled
 ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536))
 # The UNet at the CFG batch: K1 at the level-0 branches (384 x 336), level-1
 # self-attention (72 x 448) and branches (192 x 168); K7 at the level-0
@@ -85,6 +106,16 @@ UNET_TEXT_TOKENS, UNET_TEXT_DIM, UNET_LAT_C = 77, 1024, 4
 UNET_K1_SHAPES = ((384, 336, 5), (72, 448, 10), (192, 168, 10))
 K7_SHAPES = ((72, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
              (8, 1792, 3584, 5, True))  # (batch, q, kv, heads, causal)
+# The K7 backward at the UNet's training batch (1 x 36 view-frames, no
+# CFG), at the LiDAR UNet's BEV tokens, and causal with q shorter and
+# longer than kv; fp32 at a small causal shape.
+K7_BWD_SHAPES = ((36, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
+                 (8, 1792, 3584, 5, True), (8, 3584, 1792, 5, True))
+K7_BWD_FP32 = (2, 384, 256, 5, True)
+# The stock Pallas flash attention that K7 replaces (jax 0.9.0): its
+# backward is _flash_attention_bwd_dkv (:941) and _flash_attention_bwd_dq
+# (:1287).
+STOCK_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # Tolerances on |kernel - plain| / max(1, |plain|), elementwise: absolute
 # for outputs below 1, relative above, because one bf16 ulp is 2^-7 of the
 # value (0.0625 at 16) and the two versions may round an fp32 result that
@@ -94,6 +125,11 @@ ATTN_TOL, ADALN_TOL, FP32_TOL, TINY_TOL = 2e-2, 3e-2, 1e-4, 1e-3
 # for the JAX kernel (docs/PARITY.md): dS is rounded to bf16 at other
 # points, and delta comes from dO.O instead of dP.P.
 K2_REL_TOL = 6e-3
+# Published peaks of one H100 SXM (dense): bf16 on the tensor cores, fp32
+# outside them, HBM3 bytes/s. bound_ms is the larger of operations over the
+# peak for their type and bytes (each input read once, each output written
+# once) over the memory rate.
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -119,23 +155,122 @@ def scaled_err(a, b) -> float:
     return ((a.float() - b).abs() / b.abs().clamp(min=1.0)).max().item()
 
 
+def time_ms(fn, iters: int = 10) -> float:
+    """ms per call of ``fn``: CUDA events around ``iters`` calls after 2
+    warm-ups."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_pair(kernel, plain, iters: int = 10):
     """ms per call of each, timed in turns plain, kernel, kernel, plain."""
-
-    def ms(fn):
-        for _ in range(2):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    p1, k1, k2, p2 = ms(plain), ms(kernel), ms(kernel), ms(plain)
+    p1, k1, k2, p2 = (time_ms(fn, iters) for fn in (plain, kernel, kernel,
+                                                    plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    """(ms, what bounds it): the least time the card could take."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def visible_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs that attend: all, or under the top-left causal
+    mask those with key <= query."""
+    if not causal:
+        return sq * sk
+    n = min(sq, sk)
+    return n * (n + 1) // 2 + (sq - n) * sk
+
+
+def attention_bound(b, sq, sk, h, d, causal=False, backward=False):
+    """bf16 attention: the forward does 2 products over the visible pairs
+    (QK^T, PV), reads q, k, v and writes o; the backward does 5 (S, dP, dV,
+    dK, dQ), reads q, k, v, o, dO and the fp32 lse and writes dq, dk, dv."""
+    products = 5 if backward else 2
+    flops = 2 * products * b * h * visible_pairs(sq, sk, causal) * d
+    q_elems, kv_elems = b * sq * h * d, b * sk * h * d
+    nbytes = 2 * (2 * q_elems + 2 * kv_elems)
+    if backward:
+        nbytes = 2 * (4 * q_elems + 4 * kv_elems) + 4 * b * h * sq
+    return bound(flops, nbytes)
+
+
+def adaln_bound(n, l, d, residual=False):
+    """bf16 AdaLN: K3 reads x, scale, shift and writes y, ~8 fp32
+    operations an element (statistics, normalisation, modulation); K4 also
+    reads delta and gate and writes x', ~10 an element."""
+    big, small = (4, 3) if residual else (2, 2)
+    nbytes = 2 * (big * n * l * d + small * n * d)
+    return bound((10 if residual else 8) * n * l * d, nbytes, PEAK_FP32)
+
+
+def sdpa_ms(q, k, v, scale, causal=False, do=None, ref=None):
+    """ms of one PyTorch call computing the same function on the same
+    inputs (BHSD views of them): ``scaled_dot_product_attention``, or with
+    ``do`` its backward from its own forward's output and log-sum-exp:
+    the flash kernel's, or for causal with q != kv, where the flash kernel
+    masks bottom-right, the memory-efficient kernel's, whose ``is_causal``
+    is top-left as K7's. With ``ref`` (the plain dq, dk, dv) it logs the
+    relative error of the library's gradients. Timed as a yardstick; the
+    port never calls it. None, with the reason logged, if the call is
+    refused."""
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        if do is None:
+            return time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale))
+        dot = do.transpose(1, 2)
+        if causal and q.shape[1] != k.shape[1]:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            qt, kt, vt = (x.detach().requires_grad_() for x in (qt, kt, vt))
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                out = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=scale)
+
+            def backward():
+                return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+        else:
+            aten = torch.ops.aten
+            out, lse, cq, ck, mq, mk, seed, offset = \
+                aten._scaled_dot_product_flash_attention(
+                    qt, kt, vt, 0.0, causal, False, scale=scale)[:8]
+
+            def backward():
+                return aten._scaled_dot_product_flash_attention_backward(
+                    dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal,
+                    seed, offset, scale=scale)[:3]
+        if ref is not None:
+            rels = [rel_err(a.transpose(1, 2), r)
+                    for a, r in zip(backward(), ref)]
+            log(f"  library backward vs plain: rel err dq/dk/dv "
+                f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e}")
+        return time_ms(backward)
+    except RuntimeError as err:
+        log(f"  library call not measured: {str(err).splitlines()[0][:200]}")
+        return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def yardsticks(ms, plain_ms, library_ms, bound_pair) -> dict:
+    """The numbers kept beside each kernel row."""
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_pair[0], "bound_by": bound_pair[1]}
 
 
 def card_line() -> str:
@@ -145,6 +280,18 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def log_clocks(when: str) -> None:
+    """The card's SM clock and its maximum, temperature, power draw and
+    active clock-event reasons (a bit mask; 0x0 for none), as nvidia-smi
+    reads them: times from one run are comparable only at one clock."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+         "power.draw,clocks_event_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    log(f"clocks {when}: "
+        f"{out.stdout.strip() or 'unread: ' + out.stderr.strip()[:200]}")
 
 
 def check_attention(dev, flash_tail):
@@ -160,14 +307,16 @@ def check_attention(dev, flash_tail):
         ms, plain_ms = time_pair(
             lambda: flash_tail.tail_masked_attention(q, k, v, scale),
             lambda: flash_tail.tail_masked_attention_plain(q, k, v, scale))
+        lib_ms = sdpa_ms(q, k, v, scale)
         log(f"K1 flash_tail bf16 ({b},{s},24,64): max_abs_err {err:.3e}, "
             f"scaled {rel:.3e} (tol {ATTN_TOL}), kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms")
+            f"{plain_ms:.3f} ms, sdpa {fmt_ms(lib_ms)}")
         if not rel <= ATTN_TOL:
             fail(f"flash_tail disagrees at s={s}: {rel}")
         rows.append({"shape": [b, s, 24, 64], "dtype": "bf16",
-                     "max_abs_err": err, "scaled_err": rel, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "max_abs_err": err, "scaled_err": rel,
+                     **yardsticks(ms, plain_ms, lib_ms,
+                                  attention_bound(b, s, s, 24, 64))})
     q, k, v = (torch.randn(192, 168, 24, 64, generator=g, device=dev)
                for _ in range(3))
     err = max_err(flash_tail.tail_masked_attention(q, k, v, 0.125),
@@ -210,15 +359,18 @@ def check_attention_backward(dev, flash_tail):
                 q, k, v, out, do, lse, scale),
             lambda: flash_tail.tail_masked_attention_backward_plain(
                 q, k, v, do, scale))
+        lib_ms = sdpa_ms(q, k, v, scale, do=do)
         log(f"K2 flash_tail backward {tag} ({b},{s},24,64): rel err dq/dk/dv "
             f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} (tol {K2_REL_TOL}), "
             f"max_abs_err {max(errs):.3e}, kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms")
+            f"{plain_ms:.3f} ms, sdpa flash backward {fmt_ms(lib_ms)}")
         if not max(rels) <= K2_REL_TOL:
             fail(f"flash_tail backward disagrees at s={s}: {rels}")
         rows.append({"shape": [b, s, 24, 64], "dtype": tag,
-                     "max_abs_err": max(errs), "rel_err": rels, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "max_abs_err": max(errs), "rel_err": rels,
+                     **yardsticks(ms, plain_ms, lib_ms,
+                                  attention_bound(b, s, s, 24, 64,
+                                                  backward=True))})
         del q, k, v, do, out, lse, grads, ref
     torch.cuda.empty_cache()
 
@@ -249,14 +401,16 @@ def check_unet_attention(dev, flash_tail, flash_attention):
         ms, plain_ms = time_pair(
             lambda: flash_tail.tail_masked_attention(q, k, v, scale),
             lambda: flash_tail.tail_masked_attention_plain(q, k, v, scale))
+        lib_ms = sdpa_ms(q, k, v, scale)
         log(f"K1 flash_tail bf16 ({b},{s},{h},64) [UNet]: max_abs_err "
             f"{err:.3e}, scaled {rel:.3e} (tol {ATTN_TOL}), kernel {ms:.3f} "
-            f"ms, plain {plain_ms:.3f} ms")
+            f"ms, plain {plain_ms:.3f} ms, sdpa {fmt_ms(lib_ms)}")
         if not rel <= ATTN_TOL:
             fail(f"flash_tail disagrees at the UNet's {(b, s, h)}: {rel}")
         k1_rows.append({"shape": [b, s, h, 64], "dtype": "bf16",
-                        "max_abs_err": err, "scaled_err": rel, "ms": ms,
-                        "plain_ms": plain_ms})
+                        "max_abs_err": err, "scaled_err": rel,
+                        **yardsticks(ms, plain_ms, lib_ms,
+                                     attention_bound(b, s, s, h, 64))})
         del q, k, v
 
     for b, sq, sk, h, causal in K7_SHAPES:
@@ -276,15 +430,19 @@ def check_unet_attention(dev, flash_tail, flash_attention):
         err, rel = max_err(out, ref), scaled_err(out, ref)
         del out, ref
         ms, plain_ms = time_pair(kernel, plain)
+        lib_ms = sdpa_ms(q, k, v, scale, causal)
         tag = f"({b},{sq},{sk},{h},64){' causal' if causal else ''}"
         log(f"K7 flash_attention bf16 {tag}: max_abs_err {err:.3e}, scaled "
             f"{rel:.3e} (tol {ATTN_TOL}), kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms")
+            f"{plain_ms:.3f} ms, sdpa {fmt_ms(lib_ms)}")
         if not rel <= ATTN_TOL:
             fail(f"flash_attention disagrees at {tag}: {rel}")
         k7_rows.append({"shape": [b, sq, sk, h, 64], "causal": causal,
                         "dtype": "bf16", "max_abs_err": err,
-                        "scaled_err": rel, "ms": ms, "plain_ms": plain_ms})
+                        "scaled_err": rel,
+                        **yardsticks(ms, plain_ms, lib_ms,
+                                     attention_bound(b, sq, sk, h, 64,
+                                                     causal))})
         if sq == 1792:  # the UNet's shapes, also in fp32
             q, k, v = q.float(), k.float(), v.float()
             err = scaled_err(kernel(), plain())
@@ -295,6 +453,77 @@ def check_unet_attention(dev, flash_tail, flash_attention):
         del q, k, v
         torch.cuda.empty_cache()
     return k1_rows, k7_rows
+
+
+def check_flash_attention_backward(dev, flash_attention):
+    """The K7 backward against its plain version (each from its own
+    forward's output and log-sum-exp) at ``K7_BWD_SHAPES`` in bf16, with
+    both times, the relative error of each gradient and the time of the
+    library's flash backward; fp32 at ``K7_BWD_FP32``. Then K7 with the
+    log-sum-exp against the serving launch at the training shape."""
+    g = torch.Generator(dev).manual_seed(SEED + 4)
+    scale = 64 ** -0.5
+    rows = []
+    for (b, sq, sk, h, causal), dtype in \
+            [(s, torch.bfloat16) for s in K7_BWD_SHAPES] + \
+            [(K7_BWD_FP32, torch.float32)]:
+        q, do = (torch.randn(b, sq, h, 64, generator=g, device=dev,
+                             dtype=dtype) for _ in range(2))
+        k, v = (torch.randn(b, sk, h, 64, generator=g, device=dev,
+                            dtype=dtype) for _ in range(2))
+        out, lse = flash_attention.flash_attention_forward(q, k, v, scale,
+                                                           causal)
+        ref_out, ref_lse = flash_attention.flash_attention_forward_plain(
+            q, k, v, scale, causal)
+
+        def kernel():
+            return flash_attention.flash_attention_backward(
+                q, k, v, out, do, lse, scale, causal)
+
+        def plain():
+            return flash_attention.flash_attention_backward_plain(
+                q, k, v, ref_out, ref_lse, do, scale, causal)
+
+        grads, ref = kernel(), plain()
+        errs = [max_err(a, r) for a, r in zip(grads, ref)]
+        tag = f"({b},{sq},{sk},{h},64){' causal' if causal else ''}"
+        if dtype == torch.float32:
+            scaled = max(scaled_err(a, r) for a, r in zip(grads, ref))
+            log(f"K7 flash_attention backward fp32 {tag}: max_abs_err "
+                f"{max(errs):.3e}, scaled {scaled:.3e} (tol {FP32_TOL})")
+            if not scaled <= FP32_TOL:
+                fail(f"flash_attention backward disagrees in fp32 at {tag}: "
+                     f"{scaled}")
+            continue
+        rels = [rel_err(a, r) for a, r in zip(grads, ref)]
+        lib_ms = sdpa_ms(q, k, v, scale, causal, do=do, ref=ref)
+        del grads, ref
+        torch.cuda.empty_cache()
+        ms, plain_ms = time_pair(kernel, plain)
+        log(f"K7 flash_attention backward bf16 {tag}: rel err dq/dk/dv "
+            f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} (tol {K2_REL_TOL}), "
+            f"max_abs_err {max(errs):.3e}, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, sdpa backward {fmt_ms(lib_ms)}")
+        if not max(rels) <= K2_REL_TOL:
+            fail(f"flash_attention backward disagrees at {tag}: {rels}")
+        rows.append({"shape": [b, sq, sk, h, 64], "causal": causal,
+                     "dtype": "bf16", "max_abs_err": max(errs),
+                     "rel_err": rels,
+                     **yardsticks(ms, plain_ms, lib_ms,
+                                  attention_bound(b, sq, sk, h, 64, causal,
+                                                  backward=True))})
+        del q, k, v, do, out, lse, ref_out, ref_lse
+        torch.cuda.empty_cache()
+
+    b, sq, sk, h, _ = K7_BWD_SHAPES[0]
+    q, k, v = (torch.randn(b, sq, h, 64, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    lse_ms, serve_ms = time_pair(
+        lambda: flash_attention.flash_attention_forward(q, k, v, scale),
+        lambda: flash_attention.flash_attention(q, k, v, scale))
+    log(f"K7 flash_attention bf16 ({b},{sq},{sk},{h},64): with the "
+        f"log-sum-exp {lse_ms:.3f} ms, serving launch {serve_ms:.3f} ms")
+    return rows, {"lse_ms": lse_ms, "serving_ms": serve_ms}
 
 
 def check_adaln(dev, fused_adaln):
@@ -336,9 +565,11 @@ def check_adaln(dev, fused_adaln):
             log(f"{name} bf16 ({n},{l},{d}): max_abs_err {err:.3e}, scaled "
                 f"{rel:.3e} (tol {tol}), kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.3f} ms")
-            rows[name].append({"shape": [n, l, d], "dtype": "bf16",
-                               "max_abs_err": err, "scaled_err": rel,
-                               "ms": ms, "plain_ms": plain_ms})
+            rows[name].append({
+                "shape": [n, l, d], "dtype": "bf16", "max_abs_err": err,
+                "scaled_err": rel,
+                **yardsticks(ms, plain_ms, None, adaln_bound(
+                    n, l, d, residual=name.startswith("residual")))})
     return rows
 
 
@@ -411,6 +642,80 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def _one_step(pipe, batch, draws) -> dict:
+    """One ``train_step``: its metrics, the gradients the optimizer received
+    (after clipping), its learning rate, and each parameter before and
+    after, on the CPU."""
+    state = pipe.init_state()
+    params = list(pipe.model.parameters())
+    before = [p.detach().cpu().clone() for p in params]
+    seen = {}
+
+    def grab(optimizer, *_):
+        seen["lr"] = optimizer.param_groups[0]["lr"]
+        seen["grads"] = [torch.zeros(p.shape) if p.grad is None
+                         else p.grad.detach().cpu().clone() for p in params]
+
+    hook = state.optimizer.register_step_pre_hook(grab)
+    _, metrics = pipe.train_step(state, batch, draws=draws)
+    hook.remove()
+    return {**seen, "metrics": {k: v.item() for k, v in metrics.items()},
+            "before": before, "after": [p.detach().cpu() for p in params]}
+
+
+def step_errors(out: dict, ref: dict) -> dict:
+    """How far one train step (``_one_step``) is from the reference's on
+    the same model and draws. ``loss`` and ``grad_norm``: relative.
+    ``grad``: the largest of max|g - g_ref| over the largest |g_ref| of its
+    tensor, or over 1% of the largest of all if that is more (a gradient
+    far below the rest is a sum of cancelling terms whose rounding scales
+    with the terms). ``update`` (in units of the learning rate): the largest
+    gap between the two updates where the gradient is at least ten times
+    that bar, so its sign is certain; there AdamW's first step moves by
+    about lr (sign of g) plus the decay, so a wrong sign shows as 2. Two
+    fp32 ulps of the parameter are allowed for rounding. ``update_any``:
+    the same over every entry (at most 2 plus rounding). ``certain``: the
+    share of entries whose sign is certain."""
+    lr = ref["lr"]
+    top = max(g.abs().max().item() for g in ref["grads"])
+    grad = update = update_any = 0.0
+    certain = total = 0
+    for g, gr, b, a, ar in zip(out["grads"], ref["grads"], ref["before"],
+                               out["after"], ref["after"]):
+        bar = max(gr.abs().max().item(), 1e-2 * top)
+        grad = max(grad, (g - gr).abs().max().item() / bar)
+        sure = gr.abs() > 10 * TINY_TOL * bar
+        ulp = torch.nextafter(b.abs(), torch.tensor(float("inf"))) - b.abs()
+        gap = (a - ar).abs() - 2 * ulp  # both started from b
+        update_any = max(update_any, gap.max().item() / lr)
+        if sure.any():
+            update = max(update, gap[sure].max().item() / lr)
+        certain += int(sure.sum())
+        total += sure.numel()
+    m, mr = out["metrics"], ref["metrics"]
+    return {"loss": abs(m["sd_loss"] - mr["sd_loss"]) / mr["sd_loss"],
+            "grad_norm": abs(m["grad_norm"] - mr["grad_norm"])
+            / mr["grad_norm"],
+            "grad": grad, "update": update, "update_any": update_any,
+            "certain": certain / total}
+
+
+def check_step_errors(errs: dict, what: str) -> None:
+    """Loss, gradient norm and every gradient to ``TINY_TOL``; the update
+    to 1% of the learning rate where the gradient's sign is certain, on at
+    least half the entries."""
+    log(f"{what}, kernels on the card vs plain on the CPU (fp32): rel err "
+        f"loss {errs['loss']:.2e}, grad norm {errs['grad_norm']:.2e}, "
+        f"gradients {errs['grad']:.2e} (tol {TINY_TOL}); update gap "
+        f"{errs['update']:.2e} lr where the sign is certain "
+        f"({100 * errs['certain']:.1f}% of entries; tol 1e-2), "
+        f"{errs['update_any']:.2e} lr anywhere (tol 2.02)")
+    if not (errs["loss"] <= TINY_TOL and errs["grad_norm"] <= TINY_TOL
+            and errs["grad"] <= TINY_TOL and errs["update"] <= 1e-2
+            and errs["update_any"] <= 2.02 and errs["certain"] >= 0.5):
+        fail(f"{what} disagrees: {errs}")
+
+
 def check_tiny_train_step(dev, create_instance_from_config,
                           draw_training_randoms):
     """One AdamW step of a tiny model with remat on: the kernel path on the
@@ -434,18 +739,51 @@ def check_tiny_train_step(dev, create_instance_from_config,
     draws = draw_training_randoms(batch["latents"].shape,
                                   ref_pipe.training_config,
                                   ref_pipe.common_config, g)
-    _, ref = ref_pipe.train_step(ref_pipe.init_state(), batch, draws=draws)
-    _, out = pipe.train_step(pipe.init_state(), _to(batch, dev),
-                             draws=_to(draws, dev))
-    loss_err = abs(out["sd_loss"].item() - ref["sd_loss"].item())
-    param_err = max(max_err(a.detach().cpu(), b.detach()) for a, b in
-                    zip(pipe.model.parameters(), ref_pipe.model.parameters()))
-    log(f"tiny train step (remat, AdamW), kernels on the card vs plain on "
-        f"the CPU (fp32): loss {out['sd_loss'].item():.6f} vs "
-        f"{ref['sd_loss'].item():.6f}, max_abs_err loss {loss_err:.3e}, "
-        f"updated params {param_err:.3e} (tol {TINY_TOL})")
-    if not (loss_err <= TINY_TOL and param_err <= TINY_TOL):
-        fail(f"tiny train step disagrees: {loss_err}, {param_err}")
+    ref = _one_step(ref_pipe, batch, draws)
+    out = _one_step(pipe, _to(batch, dev), _to(draws, dev))
+    check_step_errors(step_errors(out, ref), "tiny train step (remat, AdamW)")
+
+
+def check_tiny_unet_train_step(dev, create_instance_from_config,
+                               draw_training_randoms, flash_attention,
+                               flash_tail):
+    """One AdamW step of a tiny UNet with remat on: the kernel path on the
+    card (K7 and its backward at 384 tokens, K1 and K2 at 144) against the
+    plain path on the CPU, fp32, on the same draws."""
+    cfg = json.loads(UNET_CONFIG.read_text())["pipeline"]
+    cfg["model"] = dict(
+        _class_name=cfg["model"]["_class_name"], in_channels=4,
+        out_channels=4, block_out_channels=[8, 16, 16], layers_per_block=1,
+        num_attention_heads=[2, 2, 2], cross_attention_dim=12,
+        addition_time_embed_dim=8, merge_factor=2.0,
+        enable_rowwise_crossview=True, enable_rowwise_temporal=True,
+        gradient_checkpointing=True, param_dtype=torch.float32)
+    cfg["common_config"].pop("added_time_ids")
+    cfg["training_config"]["reference_latent_count"] = 1
+    torch.manual_seed(SEED)
+    ref_pipe = create_instance_from_config(cfg)
+    pipe = copy.deepcopy(ref_pipe)
+    pipe.model.to(dev)
+    g = torch.Generator().manual_seed(SEED)
+    batch = {"latents": torch.randn(1, 2, 6, 16, 24, 4, generator=g),
+             "encoder_hidden_states": torch.randn(1, 2, 6, 5, 12,
+                                                  generator=g)}
+    draws = draw_training_randoms(batch["latents"].shape,
+                                  ref_pipe.training_config,
+                                  ref_pipe.common_config, g,
+                                  scheduler=ref_pipe.train_scheduler)
+    ref = _one_step(ref_pipe, batch, draws)
+    flash_attention.reset_launches()
+    flash_tail.reset_launches()
+    out = _one_step(pipe, _to(batch, dev), _to(draws, dev))
+    k7_bwd = dict(flash_attention.backward_launches_by_shape)
+    k2 = dict(flash_tail.backward_launches_by_seq)
+    log(f"tiny UNet train step: K7 backward launches {k7_bwd}, K2 {k2}")
+    check_step_errors(step_errors(out, ref), "tiny UNet train step (remat, "
+                      "AdamW, DDPM v-prediction)")
+    if k7_bwd != {(12, 384, 384, 2, 4): 3} or k2 != {144: 3}:
+        fail(f"tiny UNet train step launched the K7 backward {k7_bwd} and "
+             f"K2 {k2}, not 3 and 3")
 
 
 def random_init_(module, gen) -> None:
@@ -695,10 +1033,13 @@ def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
                     "peak_gib": peak_gib}
 
 
-def _kernel_time_table(prof, step_s: float, what: str = "train step") -> str:
-    """Device time of one profiled step by kernel family, and the top
-    kernels, from the kernel entries of ``key_averages`` (operator entries
-    also carry their kernels' time and are skipped)."""
+def _kernel_time_table(prof, step_s: float, what: str = "train step",
+                       steps: int = 1) -> str:
+    """Device time of ``steps`` profiled steps (``step_s``: their wall
+    time in all) by kernel family, and the top kernels, from the kernel
+    entries of ``key_averages`` (operator entries also carry their
+    kernels' time and are skipped). The busy share is the device time over
+    the same steps' wall time, both under the profiler."""
     from torch.autograd import DeviceType
 
     families = (  # matched in order, case-insensitively
@@ -726,9 +1067,9 @@ def _kernel_time_table(prof, step_s: float, what: str = "train step") -> str:
                     if any(k in name for k in keys)), "other")
         sums[fam] = sums.get(fam, 0.0) + t
     total = sum(sums.values())
-    lines = [f"one {what}: wall {step_s * 1e3:.1f} ms, device kernel "
-             f"time {total / 1e3:.1f} ms ({100 * total / 1e6 / step_s:.1f}% "
-             f"busy)"]
+    lines = [f"{steps} x {what}: wall {step_s * 1e3 / steps:.1f} ms, device "
+             f"kernel time {total / 1e3 / steps:.1f} ms a step "
+             f"({100 * total / 1e6 / step_s:.1f}% busy under the profiler)"]
     for fam, t in sorted(sums.items(), key=lambda kv: -kv[1]):
         lines.append(f"  {fam:28s} {t / 1e3:9.1f} ms  {100 * t / total:5.1f}%")
     lines.append("top kernels (self device ms, calls, name):")
@@ -761,12 +1102,31 @@ def run_train_slice(dev, create_instance_from_config, ops,
         f"{model.dtype}; reckoned state {n_params * 16 / 1e9:.1f} GB = "
         f"{n_params * 16 / 2**30:.1f} GiB (4 B param + 4 B grad + 8 B "
         f"AdamW moments)")
-    state = pipe.init_state()
     batch = make_batch(dev, gen)
     batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W, 16,
                                    generator=gen, device=dev)
+    counts, metrics = drive_train(dev, pipe, batch, ops, "train", profile)
+    for s in (602, 448, 168):
+        if counts["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"flash_tail never launched at s={s} in the train steps")
+        if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
+            fail(f"the K2 backward never launched at s={s} in the train "
+                 "steps")
+    if counts["adaln_modulate"] == 0 or counts["residual_adaln_modulate"] == 0:
+        fail("a fused AdaLN kernel never launched in the train steps")
+    return counts, metrics
+
+
+def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False):
+    """``TRAIN_STEPS`` train steps of ``pipe`` on ``batch`` with an explicit
+    generator, steps 2 onward timed; between step 1 and the timed steps, the
+    launches by phase on one untimed forward + backward (no update). Fails
+    on a non-finite loss or gradient norm, or if fewer than 99% of the
+    parameters changed. Returns the launches of the timed steps and
+    {s_per_step, peak_gib}."""
+    state = pipe.init_state()
     generator = torch.Generator(dev).manual_seed(SEED + 1)
-    names, params = zip(*model.named_parameters())
+    names, params = zip(*pipe.model.named_parameters())
     heads_before = [p.detach().reshape(-1)[:256].clone() for p in params]
 
     def step():
@@ -778,7 +1138,6 @@ def run_train_slice(dev, create_instance_from_config, ops,
         return (time.perf_counter() - t0,) + out
 
     records = [step()]  # step 1 also allocates the AdamW moments
-    # Launches by phase, on one untimed forward + backward (no update).
     ops.reset_launch_counts()
     loss, _ = pipe.loss_fn(batch, torch.Generator(dev).manual_seed(SEED + 2))
     torch.cuda.synchronize()
@@ -790,8 +1149,8 @@ def run_train_slice(dev, create_instance_from_config, ops,
     del loss
     for p in params:
         p.grad = None
-    log(f"train launches, forward: {json.dumps(forward_counts)}")
-    log(f"train launches, backward (with the remat recompute): "
+    log(f"{tag} launches, forward: {json.dumps(forward_counts)}")
+    log(f"{tag} launches, backward (with the remat recompute): "
         f"{json.dumps(backward_counts)}")
 
     ops.reset_launch_counts()
@@ -805,37 +1164,81 @@ def run_train_slice(dev, create_instance_from_config, ops,
     unchanged = [n for n, m in zip(names, moved) if not m]
     s_per_step = sum(r[0] for r in records[1:]) / (len(records) - 1)
     for i, (dt, loss_v, gn) in enumerate(records, 1):
-        log(f"train step {i}: {dt:.3f} s, sd_loss {loss_v:.6f}, grad_norm "
+        log(f"{tag} step {i}: {dt:.3f} s, sd_loss {loss_v:.6f}, grad_norm "
             f"{gn:.4f}{' (warm-up)' if i == 1 else ''}")
-    log(f"train: {s_per_step:.3f} s per step (steps 2-{TRAIN_STEPS}), "
+    log(f"{tag}: {s_per_step:.3f} s per step (steps 2-{TRAIN_STEPS}), "
         f"{FRAMES / s_per_step:.2f} 6-view frames/s; peak memory "
         f"{peak_gib:.2f} GiB; parameters changed: {changed} of "
         f"{len(params)} tensors (unchanged: {unchanged[:5]})")
-    log(f"launches during the timed train steps: {json.dumps(counts)}")
+    log(f"launches during the timed {tag} steps: {json.dumps(counts)}")
     if not all(torch.isfinite(torch.tensor(r[1:])).all() for r in records):
-        fail("a train loss or gradient norm is not finite")
-    # The last block's context queries get no gradient (its context output
-    # is dropped), so their zero biases cannot move; all else must.
+        fail(f"a {tag} loss or gradient norm is not finite")
+    # A parameter without a gradient and at zero (a bias whose output is
+    # dropped) cannot move; all else must.
     if changed < 0.99 * len(params):
         fail(f"only {changed} of {len(params)} parameters changed")
-    for s in (602, 448, 168):
-        if counts["flash_tail_by_seq"].get(s, 0) == 0:
-            fail(f"flash_tail never launched at s={s} in the train steps")
-        if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
-            fail(f"the K2 backward never launched at s={s} in the train "
-                 "steps")
-    if counts["adaln_modulate"] == 0 or counts["residual_adaln_modulate"] == 0:
-        fail("a fused AdaLN kernel never launched in the train steps")
 
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as profiler
 
+        # more unprofiled steps beside the profiled ones, for the spread
+        walls = [step()[0] for _ in range(PROFILE_STEPS)]
+        log(f"{tag} unprofiled steps: "
+            f"{', '.join(f'{w:.3f}' for w in walls)} s, mean "
+            f"{sum(walls) / len(walls):.3f} s")
         with profiler(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
-            dt = step()[0]
-        log(_kernel_time_table(prof, dt))
+            walls = [step()[0] for _ in range(PROFILE_STEPS)]
+        log(f"{tag} profiled steps: "
+            f"{', '.join(f'{w:.3f}' for w in walls)} s")
+        log(_kernel_time_table(prof, sum(walls), f"{tag} step", len(walls)))
     return counts, {"s_per_step": s_per_step, "peak_gib": peak_gib}
+
+
+def run_unet_train_slice(dev, create_instance_from_config, ops,
+                         profile: bool = False):
+    """The CTSD-2.1 UNet's ``train_step`` at full width and depth on a
+    synthetic batch: DDPM v-prediction, fp32 masters, remat as the config
+    sets it."""
+    cfg = json.loads(UNET_CONFIG.read_text())["pipeline"]
+    cfg["model"]["param_dtype"] = torch.float32
+    mc, oc, tc = cfg["model"], cfg["optimizer_config"], cfg["training_config"]
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+    model = pipe.model
+    gen = torch.Generator(dev).manual_seed(SEED)
+    model.to_empty(device=dev)
+    random_init_(model, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"unet train: {UNET_CONFIG.relative_to(REPO)}, channels "
+        f"{mc['block_out_channels']}, {n_params / 1e9:.3f}B params in fp32, "
+        f"compute {model.dtype}; {type(pipe.train_scheduler).__name__} "
+        f"{pipe.train_scheduler.prediction_type}; AdamW lr {oc['lr']}, "
+        f"weight decay {oc['weight_decay']}, clip "
+        f"{tc['max_norm_for_grad_clip']}, fp32 moments; remat "
+        f"{mc.get('gradient_checkpointing', False)}; reckoned state "
+        f"{n_params * 16 / 2**30:.1f} GiB (4 B param + 4 B grad + 8 B AdamW "
+        f"moments)")
+    batch = make_batch(dev, gen, UNET_TEXT_TOKENS, UNET_TEXT_DIM, None)
+    batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W,
+                                   UNET_LAT_C, generator=gen, device=dev)
+    counts, metrics = drive_train(dev, pipe, batch, ops, "unet train",
+                                  profile)
+    k7_key = f"{FRAMES * VIEWS},{LAT_H * LAT_W},{LAT_H * LAT_W},5,64"
+    for what in ("flash_attention", "flash_attention_backward"):
+        n = counts[f"{what}_by_shape"].get(k7_key, 0)
+        log(f"{what} at ({k7_key}): {n} launches in {TRAIN_STEPS - 1} steps")
+        if n == 0:
+            fail(f"{what} never launched at ({k7_key}) in the unet train "
+                 "steps")
+    for s in (336, 448, 168):
+        if counts["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"flash_tail never launched at s={s} in the unet train steps")
+        if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
+            fail(f"the K2 backward never launched at s={s} in the unet train "
+                 "steps")
+    return counts, metrics
 
 
 def main() -> None:
@@ -878,41 +1281,64 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {source}: {line.strip()}")
 
+    log_clocks("before the kernel checks")
     attn_rows = check_attention(dev, flash_tail)
     bwd_rows, lse_timing = check_attention_backward(dev, flash_tail)
     unet_k1_rows, k7_rows = check_unet_attention(dev, flash_tail,
                                                  flash_attention)
+    k7_bwd_rows, k7_lse_timing = check_flash_attention_backward(
+        dev, flash_attention)
+    log_clocks("after the attention checks")
     adaln_rows = check_adaln(dev, fused_adaln)
     check_tiny_model(dev, DiTCrossviewTemporal)
     check_tiny_train_step(dev, create_instance_from_config,
                           draw_training_randoms)
     check_tiny_unet(dev, UNetCrossviewTemporal, flash_attention, flash_tail)
+    check_tiny_unet_train_step(dev, create_instance_from_config,
+                               draw_training_randoms, flash_attention,
+                               flash_tail)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the serving slice")
     serve = run_slice(dev, create_instance_from_config, sd35_vae, ops,
                       get_conditions)
     gc.collect()
     torch.cuda.empty_cache()
+    log_clocks("before the UNet serving slice")
     unet, _ = run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
                              get_conditions,
                              profile="--profile-unet" in sys.argv[1:])
     gc.collect()
     torch.cuda.empty_cache()
+    log_clocks("before the train slice")
     train, _ = run_train_slice(dev, create_instance_from_config, ops,
                                profile="--profile-train" in sys.argv[1:])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the UNet train slice")
+    unet_train, _ = run_unet_train_slice(
+        dev, create_instance_from_config, ops,
+        profile="--profile-unet-train" in sys.argv[1:])
+    log_clocks("at the end")
+    paths = {"serve": serve, "train": train, "unet_serve": unet,
+             "unet_train": unet_train}
 
     def entry(name, route, source, replaces, key, rows, **extra):
-        by_path = {"serve": serve.get(key, 0), "train": train.get(key, 0),
-                   "unet_serve": unet.get(key, 0)}
+        by_path = {path: counts.get(key, 0) for path, counts in paths.items()}
+        first = rows[0]  # the path's main shape
         return {
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
             **extra, "shapes": rows,
         }
 
     csrc = "opendwm_tpu_torch/csrc/flash_tail.cu"
     triton_src = "opendwm_tpu_torch/ops/fused_adaln.py"
+    k7_src = "opendwm_tpu_torch/csrc/flash_attention.cu"
     kernels = [
         entry("flash_tail_forward", "cuda", csrc,
               "opendwm_tpu/ops/flash_tail.py:55", "flash_tail",
@@ -928,9 +1354,13 @@ def main() -> None:
         entry("residual_adaln_modulate", "triton", triton_src,
               "opendwm_tpu/ops/fused_adaln.py:133", "residual_adaln_modulate",
               adaln_rows["residual_adaln_modulate"]),
-        entry("flash_attention_forward", "cuda",
-              "opendwm_tpu_torch/csrc/flash_attention.cu",
-              "opendwm_tpu/ops/attention.py:151", "flash_attention", k7_rows),
+        entry("flash_attention_forward", "cuda", k7_src,
+              "opendwm_tpu/ops/attention.py:151", "flash_attention", k7_rows,
+              lse_ms=k7_lse_timing["lse_ms"],
+              serving_ms_beside_lse=k7_lse_timing["serving_ms"]),
+        entry("flash_attention_backward", "cuda", k7_src,
+              f"{STOCK_FLASH}:941", "flash_attention_backward", k7_bwd_rows,
+              replaces_also=f"{STOCK_FLASH}:1287"),
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,10 +12,11 @@ numpy arrays (``{"params": {...}}`` or the inner tree) becomes a flat
   and (kt, kh, kw, in, out) → Conv3d ``weight`` (out, in, kt, kh, kw);
 - LayerNorm/GroupNorm/RMSNorm ``scale`` → ``weight``, ``bias`` → ``bias``.
 
-The way back, for the DiT: ``flax_param_name`` names a port parameter as
-the JAX package's trees name it (its ``freezing_pattern`` regexes are
-written against those names), and ``dit_flax_from_state_dict`` maps a
-port state dict (weights or gradients) onto the flax tree.
+The way back, for the DiT and the UNet: ``flax_param_name`` names a port
+parameter as the JAX package's trees name it (its ``freezing_pattern``
+regexes are written against those names), and
+``dit_flax_from_state_dict`` / ``unet_flax_from_state_dict`` map a port
+state dict (weights or gradients) onto the flax tree.
 """
 
 from __future__ import annotations
@@ -154,21 +155,29 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
     return sd
 
 
-# Port module-path pieces → flax ones (the reverse of the rules above).
+# Port module-path pieces → flax ones (the reverse of the rules of the DiT
+# and UNet bridges).
 _FLAX_PIECES = (
-    (re.compile(r"^((?:crossview_|temporal_)?transformer_blocks|"
-                r"view_pos_embeds|time_pos_embeds|view_mixers|"
-                r"time_mixers)\.(\d+)\."), r"\1_\2."),
+    (re.compile(r"(^|\.)((?:crossview_|temporal_)?transformer_blocks|"
+                r"view_pos_embeds|time_pos_embeds|view_mixers|time_mixers|"
+                r"down_blocks|up_blocks|resnets|attentions)\.(\d+)(?=\.)"),
+     r"\1\2_\3"),
     (re.compile(r"\.to_out\.0\."), ".to_out."),
     (re.compile(r"\.net\.0\.proj\."), ".proj_in."),
     (re.compile(r"\.net\.2\."), ".proj_out."),
+    (re.compile(r"\.downsamplers\.0\.conv\."), ".downsample."),
+    (re.compile(r"\.upsamplers\.0\.conv\."), ".upsample."),
 )
+# torch weight axes → flax kernel axes: Linear, Conv2d, Conv3d.
+_FLAX_AXES = {2: (1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
 
 
 def flax_param_name(name: str, ndim: int) -> str:
-    """The JAX package's dotted name of DiT parameter ``name`` (``ndim``:
-    its rank): ``transformer_blocks.0.ff.net.0.proj.weight`` →
-    ``transformer_blocks_0.ff.proj_in.kernel``."""
+    """The JAX package's dotted name of DiT or UNet parameter ``name``
+    (``ndim``: its rank): ``transformer_blocks.0.ff.net.0.proj.weight`` →
+    ``transformer_blocks_0.ff.proj_in.kernel``,
+    ``down_blocks.0.resnets.1.spatial_res_block.norm1.weight`` →
+    ``down_blocks_0.resnets_1.spatial_res_block.norm1.scale``."""
     for pattern, repl in _FLAX_PIECES:
         name = pattern.sub(repl, name)
     head, _, leaf = name.rpartition(".")
@@ -177,25 +186,42 @@ def flax_param_name(name: str, ndim: int) -> str:
     return f"{head}.{leaf}"
 
 
-def dit_flax_from_state_dict(state_dict: Mapping) -> dict:
-    """Port DiT state dict (tensors or arrays; weights or their gradients)
-    → the flax ``{"params": tree}`` of numpy arrays, inverting
-    ``dit_state_dict_from_flax``."""
+def _flax_from_state_dict(state_dict: Mapping, qkv_bias: bool) -> dict:
+    """Port state dict (tensors or arrays) → flax ``{"params": tree}`` of
+    numpy arrays; ``qkv_bias`` adds the zero q/k/v biases that the flax
+    UNet holds and the reference's has not."""
     tree: dict = {}
     for name, value in state_dict.items():
         if isinstance(value, torch.Tensor):
             value = value.detach().cpu().float().numpy()
         value = np.asarray(value)
-        if value.ndim == 2:
-            value = value.T
-        elif value.ndim == 4:
-            value = value.transpose(2, 3, 1, 0)
+        if value.ndim in _FLAX_AXES:
+            value = value.transpose(_FLAX_AXES[value.ndim])
         *path, leaf = flax_param_name(name, value.ndim).split(".")
         node = tree
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = value
+        if qkv_bias and leaf == "kernel" and path[-1] in ("to_q", "to_k",
+                                                          "to_v"):
+            node["bias"] = np.zeros(value.shape[-1], value.dtype)
     return {"params": tree}
+
+
+def dit_flax_from_state_dict(state_dict: Mapping) -> dict:
+    """Port DiT state dict (tensors or arrays; weights or their gradients)
+    → the flax ``{"params": tree}`` of numpy arrays, inverting
+    ``dit_state_dict_from_flax``."""
+    return _flax_from_state_dict(state_dict, qkv_bias=False)
+
+
+def unet_flax_from_state_dict(state_dict: Mapping) -> dict:
+    """Port UNet state dict (tensors or arrays; weights or their
+    gradients) → the flax ``{"params": tree}`` of numpy arrays, inverting
+    ``unet_state_dict_from_flax``: Conv3d kernels included, and the zero
+    q/k/v biases of the flax model put back (zero gradients too: the port
+    has no such parameter)."""
+    return _flax_from_state_dict(state_dict, qkv_bias=True)
 
 
 def _resnet(tree, sd, src, dst):

@@ -19,6 +19,7 @@ Not ported yet: ``QDense``/``QConv`` (int8 serving, ROADMAP Queue 1 item
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -26,6 +27,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from opendwm_tpu_torch.ops.attention import dot_product_attention
 
@@ -100,6 +105,19 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
     for m in module.modules():
         if isinstance(m, (Linear, Conv2d, Conv3d, LayerNorm, GroupNorm)):
             m.compute_dtype = dtype
+
+
+def checkpointed(module: nn.Module, *args, saved_ops=None, **kwargs):
+    """``module(*args, **kwargs)``, rematerialised in the backward when a
+    gradient is being recorded (``torch.utils.checkpoint``, non-reentrant:
+    flax's ``nn.remat``); the outputs of ``saved_ops`` are kept instead."""
+    if not torch.is_grad_enabled():
+        return module(*args, **kwargs)
+    extra = {}
+    if saved_ops is not None:
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(saved_ops))
+    return checkpoint(module, *args, use_reentrant=False, **extra, **kwargs)
 
 
 def timestep_embedding(

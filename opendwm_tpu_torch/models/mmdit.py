@@ -27,10 +27,6 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import (
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.models.layers import (
@@ -43,6 +39,7 @@ from opendwm_tpu_torch.models.layers import (
     PatchEmbed,
     TimestepEmbedding,
     VTSelfAttentionBlock,
+    checkpointed,
     set_compute_dtype,
     timestep_embedding,
 )
@@ -134,18 +131,6 @@ _REMAT_SAVED_OPS = {
     "dots_no_batch": (torch.ops.aten.mm.default,
                       torch.ops.aten.addmm.default),
 }
-
-
-def _checkpointed(module: nn.Module, saved_ops, *args, **kwargs):
-    """``module(*args, **kwargs)``, rematerialised in the backward when a
-    gradient is being recorded; ``saved_ops`` are kept instead."""
-    if not torch.is_grad_enabled():
-        return module(*args, **kwargs)
-    extra = {}
-    if saved_ops is not None:
-        extra["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, list(saved_ops))
-    return checkpoint(module, *args, use_reentrant=False, **extra, **kwargs)
 
 
 def _not_ported(option: str, item: str):
@@ -333,7 +318,8 @@ class DiTCrossviewTemporal(nn.Module):
         """``module``, or a call of it rematerialised in the backward."""
         if not flag:
             return module
-        return functools.partial(_checkpointed, module, self.remat_saved_ops)
+        return functools.partial(checkpointed, module,
+                                 saved_ops=self.remat_saved_ops)
 
     def _remat_block(self, i: int) -> bool:
         """Joint block ``i`` is rematerialised (``mmdit.py:508-511``)."""

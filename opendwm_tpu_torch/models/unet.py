@@ -20,6 +20,14 @@ the flash kernel (K7), the level-0 branches (336 tokens) and level-1
 attention (448 and 168 tokens) the tail-masked kernel (K1); the rest is
 plain math, as in the JAX package.
 
+Training as the JAX model trains: parameters may be kept in
+``param_dtype`` (fp32 master weights) while every Linear, Conv and norm
+computes in ``dtype`` (bf16), as flax's ``param_dtype``/``dtype`` split
+does. ``gradient_checkpointing`` rematerialises every resnet (spatial,
+temporal and their mixer) and every transformer model of the down, mid
+and up blocks in the backward (``torch.utils.checkpoint``), as diffusers'
+blocks checkpoint them; remat changes memory, never values.
+
 Options outside the slice raise ``NotImplementedError`` naming their
 ROADMAP item: the ImageAdapter (``condition_image_adapter_config``), the
 depth net and int8 serving.
@@ -45,6 +53,7 @@ from opendwm_tpu_torch.models.layers import (
     Linear,
     TemporalBasicTransformerBlock,
     TimestepEmbedding,
+    checkpointed,
     set_compute_dtype,
     timestep_embedding,
 )
@@ -58,6 +67,11 @@ def _gn(channels: int, eps: float) -> GroupNorm:
 def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """A convolution over the spatial axes of channel-last ``x``."""
     return conv(x.movedim(-1, 1)).movedim(1, -1)
+
+
+def _call(remat: bool, module: nn.Module, *args):
+    """``module(*args)``, rematerialised in the backward if ``remat``."""
+    return checkpointed(module, *args) if remat else module(*args)
 
 
 def _not_ported(option: str, item: str):
@@ -302,8 +316,10 @@ class DownBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: int, num_layers: int, add_downsample: bool,
-                 transformer: Optional[dict], resnet: dict):
+                 transformer: Optional[dict], resnet: dict,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resnets = nn.ModuleList([
             CTResBlock(in_channels if i == 0 else out_channels, out_channels,
                        temb_channels, **resnet)
@@ -318,11 +334,11 @@ class DownBlock(nn.Module):
                 crossview_attention_mask=None):
         states = []
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb, disable_temporal)
+            x = _call(self.remat, resnet, x, temb, disable_temporal)
             if self.attentions is not None:
-                x = self.attentions[i](x, context, disable_crossview,
-                                       disable_temporal,
-                                       crossview_attention_mask)
+                x = _call(self.remat, self.attentions[i], x, context,
+                          disable_crossview, disable_temporal,
+                          crossview_attention_mask)
             states.append(x)
         if self.downsamplers is not None:
             x = _per_image(self.downsamplers[0], x)
@@ -334,8 +350,9 @@ class MidBlock(nn.Module):
     """``MidBlockCT``: resnet, transformer, resnet."""
 
     def __init__(self, channels: int, temb_channels: int, transformer: dict,
-                 resnet: dict):
+                 resnet: dict, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resnets = nn.ModuleList([
             CTResBlock(channels, channels, temb_channels, **resnet)
             for _ in range(2)])
@@ -344,10 +361,11 @@ class MidBlock(nn.Module):
 
     def forward(self, x, temb, context, disable_crossview, disable_temporal,
                 crossview_attention_mask=None):
-        x = self.resnets[0](x, temb, disable_temporal)
-        x = self.attentions[0](x, context, disable_crossview, disable_temporal,
-                               crossview_attention_mask)
-        return self.resnets[1](x, temb, disable_temporal)
+        x = _call(self.remat, self.resnets[0], x, temb, disable_temporal)
+        x = _call(self.remat, self.attentions[0], x, context,
+                  disable_crossview, disable_temporal,
+                  crossview_attention_mask)
+        return _call(self.remat, self.resnets[1], x, temb, disable_temporal)
 
 
 class UpBlock(nn.Module):
@@ -356,8 +374,10 @@ class UpBlock(nn.Module):
 
     def __init__(self, in_channels: int, skip_channels: Sequence[int],
                  out_channels: int, temb_channels: int, add_upsample: bool,
-                 transformer: Optional[dict], resnet: dict):
+                 transformer: Optional[dict], resnet: dict,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         resnets = []
         for skip in skip_channels:
             resnets.append(CTResBlock(in_channels + skip, out_channels,
@@ -374,11 +394,11 @@ class UpBlock(nn.Module):
                 disable_temporal, crossview_attention_mask=None):
         for i, resnet in enumerate(self.resnets):
             x = torch.cat([x, res_states.pop()], dim=-1)
-            x = resnet(x, temb, disable_temporal)
+            x = _call(self.remat, resnet, x, temb, disable_temporal)
             if self.attentions is not None:
-                x = self.attentions[i](x, context, disable_crossview,
-                                       disable_temporal,
-                                       crossview_attention_mask)
+                x = _call(self.remat, self.attentions[i], x, context,
+                          disable_crossview, disable_temporal,
+                          crossview_attention_mask)
         if self.upsamplers is not None:
             x = _per_image(self.upsamplers[0], x)
         return x
@@ -402,9 +422,11 @@ class UNetCrossviewTemporal(nn.Module):
 
     ``add_embedding`` takes ``addition_time_embed_dim`` features per added
     time id; its width follows the ids the pipeline feeds, as the flax
-    model infers it (``set_add_embedding_width``). As in the JAX model,
-    ``gradient_checkpointing`` and ``depth_frustum_range`` are accepted and
-    not read (no training or depth net here), and a
+    model infers it (``set_add_embedding_width``). ``gradient_checkpointing``
+    is read as remat of the blocks' resnets and transformer models; the JAX
+    UNet declares it and never reads it (``opendwm_tpu/models/unet.py:519``),
+    which gives the same values. ``depth_frustum_range`` is accepted and not
+    read (no depth net here), as in the JAX model, and a
     ``condition_image_tensor`` is ignored without an image adapter.
     """
 
@@ -456,6 +478,7 @@ class UNetCrossviewTemporal(nn.Module):
 
         resnet = dict(eps=norm_eps, enable_temporal=enable_temporal,
                       merge_factor=merge_factor)
+        remat = gradient_checkpointing
 
         def transformer(ch: int, nh: int) -> dict:
             return dict(
@@ -475,19 +498,20 @@ class UNetCrossviewTemporal(nn.Module):
             downs.append(DownBlock(
                 prev, ch, temb, layers_per_block, add_downsample=not last,
                 transformer=None if last else transformer(ch, heads[i]),
-                resnet=resnet))
+                resnet=resnet, remat=remat))
             skips += [ch] * (layers_per_block + (0 if last else 1))
             prev = ch
         self.down_blocks = nn.ModuleList(downs)
         self.mid_block = MidBlock(chans[-1], temb,
-                                  transformer(chans[-1], heads[-1]), resnet)
+                                  transformer(chans[-1], heads[-1]), resnet,
+                                  remat)
         ups = []
         for i, (ch, nh) in enumerate(zip(reversed(chans), reversed(heads))):
             take = [skips.pop() for _ in range(layers_per_block + 1)]
             ups.append(UpBlock(
                 prev, take, ch, temb, add_upsample=i < n - 1,
                 transformer=None if i == 0 else transformer(ch, nh),
-                resnet=resnet))
+                resnet=resnet, remat=remat))
             prev = ch
         self.up_blocks = nn.ModuleList(ups)
         self.conv_norm_out = _gn(ch0, norm_eps)

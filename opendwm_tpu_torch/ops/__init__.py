@@ -18,6 +18,11 @@ def launch_counts() -> dict:
         "flash_attention_by_shape": {
             ",".join(map(str, k)): n
             for k, n in flash_attention.launches_by_shape.items()},
+        "flash_attention_with_lse": flash_attention.lse_launches,
+        "flash_attention_backward": flash_attention.backward_launches,
+        "flash_attention_backward_by_shape": {
+            ",".join(map(str, k)): n
+            for k, n in flash_attention.backward_launches_by_shape.items()},
         "flash_tail": flash_tail.launches,
         "flash_tail_by_seq": dict(flash_tail.launches_by_seq),
         "flash_tail_with_lse": flash_tail.lse_launches,

@@ -5,16 +5,20 @@ Replaces the stock Pallas TPU kernel
 ``opendwm_tpu/ops/attention.py:dot_product_attention`` reaches when
 ``_can_use_flash`` holds: no bias, both sequence lengths multiples of 128
 and at least 128, head_dim at most 256 (``supported`` below). It serves the
-UNet's level-0 spatial self-attention (1792 tokens at 32x56 latents).
+UNet's level-0 spatial self-attention (1792 tokens at 32x56 latents), in
+serving and training.
 
-The Hopper kernel is CUDA C++ in ``csrc/flash_attention.cu`` (design and
-what bounds it are noted there), built with nvcc at first use and called
-through ctypes. Causal masking is top-left, as the TPU kernel's: key j is
-visible to query i iff j <= i, also when q and kv lengths differ (the JAX
-package's XLA fallback masks bottom-right there). The wrapper takes the
-plain PyTorch version only for CPU tensors; for a CUDA tensor it launches
-the kernel or raises. The kernel has a forward only: its backward waits
-for the UNet training slice (ROADMAP Queue 2, K7).
+The Hopper kernels are CUDA C++ in ``csrc/flash_attention.cu`` (design and
+what bounds them are noted there), built with nvcc at first use and called
+through ctypes: the forward, and the backward that replaces the stock
+kernel's ``custom_vjp`` backward (``_flash_attention_bwd_dkv`` and
+``_flash_attention_bwd_dq``). A call that needs a gradient goes through an
+autograd Function whose forward also writes the row log-sum-exp and whose
+backward is the kernel's. Causal masking is top-left, as the TPU kernel's:
+key j is visible to query i iff j <= i, also when q and kv lengths differ
+(the JAX package's XLA fallback masks bottom-right there). The wrappers
+take the plain PyTorch versions only for CPU tensors; for a CUDA tensor
+they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -28,16 +32,23 @@ from opendwm_tpu_torch.ops import _build
 
 MIN_SEQ = 128
 MAX_HEAD_DIM = 256
+_LOG2E = 1.4426950408889634
 
-# Kernel launches, in total and by (batch, q_seq, kv_seq, heads, head_dim).
+# Kernel launches, in total and by (batch, q_seq, kv_seq, heads, head_dim):
+# the forward (with the launches that also wrote the log-sum-exp counted
+# apart) and the backward.
 launches = 0
 launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
+lse_launches = 0
+backward_launches = 0
+backward_launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, lse_launches, backward_launches
+    launches = lse_launches = backward_launches = 0
     launches_by_shape.clear()
+    backward_launches_by_shape.clear()
 
 
 def supported(q_seq: int, kv_seq: int, head_dim: int) -> bool:
@@ -50,27 +61,76 @@ def supported(q_seq: int, kv_seq: int, head_dim: int) -> bool:
     )
 
 
+def _hidden(q_len: int, k_len: int, device) -> torch.Tensor:
+    """Top-left causal mask: True where key j is hidden from query i."""
+    return torch.ones(q_len, k_len, dtype=torch.bool, device=device).triu(1)
+
+
+def _logits(q, k, scale: float, causal: bool):
+    """fp32 ``(b, h, q, k)`` scaled scores, hidden pairs at -inf."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        logits = logits.masked_fill(
+            _hidden(logits.shape[-2], logits.shape[-1], q.device),
+            float("-inf"))
+    return logits
+
+
 def flash_attention_plain(q, k, v, scale: float, causal: bool = False):
     """Plain PyTorch version over BSHD tensors: fp32 logits and softmax,
     probabilities in ``v.dtype``, output in ``q.dtype``; ``causal`` masks
     top-left (key j visible to query i iff j <= i)."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        q_len, k_len = logits.shape[-2], logits.shape[-1]
-        hidden = torch.ones(q_len, k_len, dtype=torch.bool,
-                            device=q.device).triu(1)
-        logits = logits.masked_fill(hidden, float("-inf"))
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    probs = torch.softmax(_logits(q, k, scale, causal), dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+
+
+def flash_attention_forward_plain(q, k, v, scale: float,
+                                  causal: bool = False):
+    """``(out, lse)``: the plain forward and the row log-sum-exp that the
+    kernel's forward writes for the backward, fp32 ``(b * h, q_seq)`` in
+    the log2 domain of the scaled scores."""
+    logits = _logits(q, k, scale, causal)
+    lse = torch.logsumexp(logits, dim=-1) * _LOG2E
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+    return out, lse.reshape(-1, q.shape[1])
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, scale: float,
+                                   causal: bool = False):
+    """Plain PyTorch version of the backward, step for step as the stock
+    kernel's ``_flash_attention_bwd``: ``di = rowsum(o * do)`` in fp32;
+    ``p = exp(s * scale - lse)`` from the forward's ``lse``
+    (``flash_attention_forward_plain``; the stock kernel keeps the max and
+    the sum apart), 0 where hidden; ``dv = p^T dO`` with ``p`` in
+    ``q.dtype``; ``dp = dO V^T``; ``ds = (dp - di) p scale`` in
+    ``q.dtype``; ``dq = ds K``, ``dk = ds^T Q``; products of ``q.dtype``
+    values accumulated in fp32; outputs in ``q.dtype``."""
+    dt = q.dtype
+    b, sq, h, _ = q.shape
+    logits = _logits(q, k, scale, causal)
+    p = torch.exp2(logits * _LOG2E - lse.reshape(b, h, sq, 1).float())
+    do = do.to(dt).float()
+    di = (o.float() * do).sum(-1).permute(0, 2, 1)[..., None]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    ds = ((dp - di) * p * scale).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("flash_attention.cu")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_forward.argtypes = [ptr] * 4 + [
-        i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, ptr]
-    lib.flash_attention_forward.restype = ctypes.c_int
+    shape = [i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, ptr]
+    lib.flash_attention_forward.argtypes = [ptr] * 4 + shape
+    lib.flash_attention_forward_lse.argtypes = [ptr] * 5 + shape
+    lib.flash_attention_backward.argtypes = [ptr] * 10 + shape
+    for fn in (lib.flash_attention_forward, lib.flash_attention_forward_lse,
+               lib.flash_attention_backward):
+        fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -101,39 +161,133 @@ def _check(q, k, v) -> None:
         raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM}")
 
 
-def _launch(q, k, v, scale: float, causal: bool):
-    global launches
+def _raise_on_error(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention {what} launch failed: {msg} "
+                           f"({rc})")
+
+
+def _launch(q, k, v, scale: float, causal: bool, with_lse: bool = False):
+    """K7 on CUDA tensors: ``(out, lse)``, ``lse`` None unless asked."""
+    global launches, lse_launches
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty_like(q)
+    lse = torch.empty(b * h, sq, device=q.device, dtype=torch.float32) \
+        if with_lse else None
+    lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (b, sq, sk, h, d, float(scale), int(causal),
+            int(q.dtype == torch.bfloat16), stream)
+    with torch.cuda.device(q.device):
+        if with_lse:
+            rc = lib.flash_attention_forward_lse(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *args)
+        else:
+            rc = lib.flash_attention_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *args)
+    _raise_on_error(lib, rc, "forward")
+    launches += 1
+    lse_launches += int(with_lse)
+    key = (b, sq, sk, h, d)
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    return out, lse
+
+
+def _launch_backward(q, k, v, out, do, lse, scale: float, causal: bool):
+    """The K7 backward on CUDA tensors: (dq, dk, dv) of the forward that
+    gave ``out`` and ``lse``."""
+    global backward_launches
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    for name, t, shape, dtype in (("dO", do, q.shape, q.dtype),
+                                  ("out", out, q.shape, q.dtype),
+                                  ("lse", lse, (b * h, sq), torch.float32)):
+        if t.shape != shape or t.dtype != dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must be {dtype} of shape {tuple(shape)} on "
+                f"{q.device}, not {t.dtype} {tuple(t.shape)} on {t.device}")
+    out, do, lse = out.contiguous(), do.contiguous(), lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(b * h, sq, device=q.device, dtype=torch.float32)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            sk, h, d, float(scale), int(causal),
-            int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention launch failed: {msg} ({rc})")
-    launches += 1
+        rc = lib.flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d, float(scale),
+            int(causal), int(q.dtype == torch.bfloat16), stream)
+    _raise_on_error(lib, rc, "backward")
+    backward_launches += 1
     key = (b, sq, sk, h, d)
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
-    return out
+    backward_launches_by_shape[key] = \
+        backward_launches_by_shape.get(key, 0) + 1
+    return dq, dk, dv
 
 
-def flash_attention(q, k, v, scale: float, causal: bool = False):
-    """BSHD attention: K7 on CUDA tensors, the plain version on CPU ones."""
+def _on_device(q) -> bool:
+    """False for a CPU tensor (plain version); True for CUDA; else raise."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, causal)
+        return False
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA, not "
                          f"{q.device}")
+    return True
+
+
+def flash_attention_forward(q, k, v, scale: float, causal: bool = False):
+    """``(out, lse)`` for the backward: K7 writing the row log-sum-exp on
+    CUDA tensors, ``flash_attention_forward_plain`` on CPU tensors."""
+    if _on_device(q):
+        return _launch(q, k, v, scale, causal, with_lse=True)
+    return flash_attention_forward_plain(q, k, v, scale, causal)
+
+
+def flash_attention_backward(q, k, v, out, do, lse, scale: float,
+                             causal: bool = False):
+    """(dq, dk, dv) of ``flash_attention_forward``'s ``(out, lse)``: the
+    kernel on CUDA tensors, ``flash_attention_backward_plain`` on CPU
+    tensors."""
+    if _on_device(q):
+        return _launch_backward(q, k, v, out, do, lse, scale, causal)
+    return flash_attention_backward_plain(q, k, v, out, lse, do, scale,
+                                          causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward K7 with the log-sum-exp, backward the K7 backward; the plain
+    versions of both on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        out, lse = flash_attention_forward(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, out, do, lse, ctx.scale,
+                                          ctx.causal), None, None)
+
+
+def flash_attention(q, k, v, scale: float, causal: bool = False):
+    """BSHD attention: K7 on CUDA tensors, the plain version on CPU ones.
+
+    A call that needs a gradient goes through the autograd Function (K7
+    with the log-sum-exp forward, the K7 backward)."""
+    on_device = _on_device(q)
     if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
-        raise NotImplementedError(
-            "K7's backward is not ported yet (ROADMAP Queue 2, K7: it comes "
-            "with the UNet training slice, Queue 1 item 9)")
-    return _launch(q, k, v, scale, causal)
+        return _FlashAttention.apply(q, k, v, scale, causal)
+    if not on_device:
+        return flash_attention_plain(q, k, v, scale, causal)
+    return _launch(q, k, v, scale, causal)[0]

@@ -5,10 +5,11 @@ ids, the cross-view/temporal disable switches), sampling with
 classifier-free guidance and reference-latent injection (flow-match Euler
 for the MMDiT, ``ctsd`` and ``diffusion_forcing`` styles; DDIM for the UNet,
 ``model_type="unet"``), the autoregressive window rollout and the VAE
-decode; and the flow-matching (``sd3``) training step: reference-frame
-and diffusion-forcing input construction, condition dropout, the loss,
-AdamW with clipping, freezing and accumulation. The JAX ``lax.scan`` over
-steps is a Python loop here.
+decode; and the training step of both objectives, flow matching
+(``sd3``) and DDPM (``unet``, epsilon / v / sample targets):
+reference-frame and diffusion-forcing input construction, condition
+dropout, the loss, AdamW with clipping, freezing and accumulation. The
+JAX ``lax.scan`` over steps is a Python loop here.
 
 Randomness comes from an explicit ``torch.Generator``, and every draw can
 be handed in instead: initial noise (``noise``) for sampling, and the
@@ -25,7 +26,10 @@ import torch
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.pipelines import optim
-from opendwm_tpu_torch.schedulers import FlowMatchEulerScheduler
+from opendwm_tpu_torch.schedulers import (
+    DDPMScheduler,
+    FlowMatchEulerScheduler,
+)
 
 
 def _index(values: Sequence[int], device) -> torch.Tensor:
@@ -318,21 +322,29 @@ def make_input_for_prediction(
 
 def draw_training_randoms(batch_shape, training_config: dict,
                           common_config: dict, generator=None,
-                          device=None) -> dict:
+                          device=None, scheduler=None) -> dict:
     """Everything ``CTSDPipeline.loss_fn`` draws for latents of
     ``batch_shape`` (b, t, v, h, w, c), in the JAX package's order
-    (``ctsd.py:547``): noise; the scheduler's normal or uniform draw per
-    sample (per frame under diffusion forcing); the text, box, map and
-    action condition-mask uniforms; the prediction draws."""
+    (``ctsd.py:547``): noise; the train scheduler's draw per sample (per
+    frame under diffusion forcing): integer timesteps for a
+    ``DDPMScheduler``, else the flow-match normal or uniform draw; the
+    text, box, map and action condition-mask uniforms; the prediction
+    draws."""
     b, t = batch_shape[:2]
     df_mode = common_config.get(
         "frame_prediction_style") == "diffusion_forcing"
+    t_shape = (b, t) if df_mode else (b,)
+    noise = torch.randn(tuple(batch_shape), generator=generator,
+                        device=device)
+    if isinstance(scheduler, DDPMScheduler):
+        time = scheduler.draw_train_timesteps(t_shape, generator, device)
+    else:
+        time = FlowMatchEulerScheduler.draw_for_indices(
+            t_shape, generator, device,
+            training_config.get("weighting_scheme", "logit_normal"))
     return {
-        "noise": torch.randn(tuple(batch_shape), generator=generator,
-                             device=device),
-        "time": FlowMatchEulerScheduler.draw_for_indices(
-            (b, t) if df_mode else (b,), generator, device,
-            training_config.get("weighting_scheme", "logit_normal")),
+        "noise": noise,
+        "time": time,
         **{key: torch.rand((b,), generator=generator, device=device)
            for key in ("text", "box", "map", "action")},
         "prediction": draw_prediction_randoms(batch_shape, generator, device),
@@ -361,8 +373,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class CTSDPipeline:
     """Training and inference of the crossview-temporal denoisers on
     canonical latent-space batches. ``model_type`` ``"sd3"``: the MMDiT,
-    flow matching; ``"unet"``: the UNet, DDIM sampling (its DDPM training
-    objective is not ported yet)."""
+    flow-matching training and sampling; ``"unet"``: the UNet, DDPM
+    training (the train scheduler's prediction type sets the target) and
+    DDIM sampling."""
 
     def __init__(
         self,
@@ -441,7 +454,7 @@ class CTSDPipeline:
         latents = self._latents(batch)
         draws = draw_training_randoms(latents.shape, self.training_config,
                                       self.common_config, generator,
-                                      latents.device)
+                                      latents.device, self.train_scheduler)
         return self.loss_from_draws(batch, draws)
 
     def _latents(self, batch: dict) -> torch.Tensor:
@@ -451,26 +464,30 @@ class CTSDPipeline:
         return batch["latents"]
 
     def loss_from_draws(self, batch: dict, draws: dict):
-        """The flow-matching loss of ``ctsd.py:541-642`` on given draws
-        (``draw_training_randoms``): (loss, {"sd_loss": loss})."""
-        if self.model_type == "unet":
-            raise _not_ported("the UNet's DDPM training objective", "item 9")
+        """The loss of ``ctsd.py:541-642`` on given draws
+        (``draw_training_randoms``): flow matching for ``"sd3"``, the DDPM
+        target of the train scheduler for ``"unet"``;
+        (loss, {"sd_loss": loss})."""
         if "depth_frustum_range" in self.common_config:
             raise _not_ported("the depth loss", "items 4 and 9")
         latents = self._latents(batch)
-        b, t, v = latents.shape[:3]
         tc = self.training_config
         sched = self.train_scheduler
-        indices = sched.indices_from_draw(
-            draws["time"],
-            weighting_scheme=tc.get("weighting_scheme", "logit_normal"))
-        sigmas = sched.sigmas_at(indices)
-        timesteps = sched.timesteps_at(indices)
-        while sigmas.ndim < latents.ndim:
-            sigmas = sigmas[..., None]
-        noisy = sigmas * draws["noise"].to(latents.dtype) + \
-            (1.0 - sigmas) * latents
-        target = latents
+        noise = draws["noise"].to(latents.dtype)
+        if self.model_type == "sd3":
+            indices = sched.indices_from_draw(
+                draws["time"],
+                weighting_scheme=tc.get("weighting_scheme", "logit_normal"))
+            sigmas = sched.sigmas_at(indices)
+            timesteps = sched.timesteps_at(indices)
+            while sigmas.ndim < latents.ndim:
+                sigmas = sigmas[..., None]
+            noisy = sigmas * noise + (1.0 - sigmas) * latents
+            target = latents
+        else:  # DDPM: integer timesteps
+            timesteps = draws["time"]
+            noisy = sched.add_noise(latents, noise, timesteps)
+            target = sched.training_target(latents, noise, timesteps)
         while timesteps.ndim < 3:
             timesteps = timesteps[..., None].repeat_interleave(
                 latents.shape[timesteps.ndim], -1)
@@ -491,7 +508,8 @@ class CTSDPipeline:
         conds.update(extra)
 
         pred = self.model(sample=noisy, timestep=timesteps, **conds)
-        pred_latent = pred * (-sigmas) + noisy
+        pred_latent = pred * (-sigmas) + noisy if self.model_type == "sd3" \
+            else pred
         if tc.get("disable_reference_frame_loss", False):
             keep = ~ref_indicator[..., None, None, None]
             pred_latent = pred_latent * keep

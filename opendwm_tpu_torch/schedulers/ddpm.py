@@ -91,6 +91,13 @@ class DDPMScheduler:
 
     # -- training ------------------------------------------------------------
 
+    def draw_train_timesteps(self, shape, generator=None, device=None):
+        """Integer timesteps uniform on ``[0, num_train_timesteps)``, the
+        distribution of the JAX package's ``jax.random.randint`` draw
+        (``opendwm_tpu/pipelines/ctsd.py:569``), from ``generator``."""
+        return torch.randint(0, self.num_train_timesteps, tuple(shape),
+                             generator=generator, device=device)
+
     def add_noise(self, original, noise, timesteps):
         ac = self._ac(_expand(_index(timesteps, original), original))
         ac = ac.to(original.dtype)

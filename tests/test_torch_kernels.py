@@ -15,7 +15,7 @@ attention backward (K2) in bf16 is held to a relative error
 ``||kernel - plain|| / ||plain||`` of 0.6% per gradient, the bar recorded
 for the JAX kernel (``docs/PARITY.md``): its dS is rounded to bf16 at other
 points than the plain version's, and its delta comes from dO.O. K7 (flash
-attention) is held to the attention bars.
+attention) is held to the attention bars, its backward to K2's.
 """
 
 import copy
@@ -204,6 +204,55 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def _one_step(pipe, batch, draws) -> dict:
+    """One ``train_step``: its metrics, the gradients the optimizer received
+    (after clipping), its learning rate, each parameter before and after."""
+    state = pipe.init_state()
+    params = list(pipe.model.parameters())
+    before = [p.detach().cpu().clone() for p in params]
+    seen = {}
+
+    def grab(optimizer, *_):
+        seen["lr"] = optimizer.param_groups[0]["lr"]
+        seen["grads"] = [torch.zeros(p.shape) if p.grad is None
+                         else p.grad.detach().cpu().clone() for p in params]
+
+    hook = state.optimizer.register_step_pre_hook(grab)
+    _, metrics = pipe.train_step(state, batch, draws=draws)
+    hook.remove()
+    return {**seen, "metrics": {k: v.item() for k, v in metrics.items()},
+            "before": before, "after": [p.detach().cpu() for p in params]}
+
+
+def _assert_step_matches(out: dict, ref: dict) -> None:
+    """The loss and gradient norm to 1e-3 relative; each gradient to 1e-3
+    of its largest entry, or of 1% of the largest of all gradients if that
+    is more; the update to 1% of the learning rate (plus two fp32 ulps of
+    the parameter) wherever the gradient is ten times that bar, so its sign
+    is certain (AdamW's first step moves by about lr there; a wrong sign
+    is off by 2 lr), on at least half the entries."""
+    m, mr = out["metrics"], ref["metrics"]
+    assert abs(m["sd_loss"] - mr["sd_loss"]) <= 1e-3 * mr["sd_loss"]
+    assert abs(m["grad_norm"] - mr["grad_norm"]) <= 1e-3 * mr["grad_norm"]
+    lr = ref["lr"]
+    top = max(g.abs().max().item() for g in ref["grads"])
+    certain = total = 0
+    for i, (g, gr, b, a, ar) in enumerate(zip(
+            out["grads"], ref["grads"], ref["before"], out["after"],
+            ref["after"])):
+        bar = 1e-3 * max(gr.abs().max().item(), 1e-2 * top)
+        assert (g - gr).abs().max().item() <= bar, i
+        sure = gr.abs() > 10 * bar
+        ulp = torch.nextafter(b.abs(), torch.tensor(float("inf"))) - b.abs()
+        gap = (a - ar).abs() - 2 * ulp
+        assert gap.max().item() <= 2.02 * lr, i
+        if sure.any():
+            assert gap[sure].max().item() <= 1e-2 * lr, i
+        certain += int(sure.sum())
+        total += sure.numel()
+    assert certain >= total / 2
+
+
 def test_tiny_train_step_on_card_matches_cpu(cuda):
     """One AdamW step of the tiny model, remat on: the kernel path (K1 with
     the log-sum-exp, K2, K3, K4; fp32) vs the plain path on the CPU."""
@@ -228,15 +277,10 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
     draws = draw_training_randoms(batch["latents"].shape,
                                   pipe.training_config, pipe.common_config, g)
     flash_tail.reset_launches()
-    _, ref = pipe.train_step(pipe.init_state(), batch, draws=draws)
-    _, out = card.train_step(card.init_state(), _to(batch, cuda),
-                             draws=_to(draws, cuda))
-    torch.cuda.synchronize()
+    ref = _one_step(pipe, batch, draws)
+    out = _one_step(card, _to(batch, cuda), _to(draws, cuda))
     assert flash_tail.backward_launches_by_seq.get(136, 0) == 3
-    assert abs(out["sd_loss"].item() - ref["sd_loss"].item()) <= 1e-3
-    for (name, a), b in zip(card.model.named_parameters(),
-                            pipe.model.parameters()):
-        assert (a.detach().cpu() - b.detach()).abs().max().item() <= 1e-3, name
+    _assert_step_matches(out, ref)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -264,13 +308,72 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, q_seq,
     assert _scaled_err(out, ref) <= tol
 
 
+K7_GRID = [(1792, 1792, 64, False), (256, 256, 64, True), (128, 384, 64, True),
+           (384, 128, 64, True), (256, 512, 128, False),
+           (256, 256, 128, True), (256, 256, 256, False),
+           (256, 384, 256, True), (200, 130, 40, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_seq,kv_seq,head_dim,causal", K7_GRID)
+def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, q_seq,
+                                                       kv_seq, head_dim,
+                                                       causal):
+    """The K7 backward against its plain version over the forward's grid:
+    bf16 to K2's 0.6% per gradient, fp32 to 1e-4 scaled."""
+    g = torch.Generator(cuda).manual_seed(q_seq + kv_seq + head_dim + causal)
+    q, do = (torch.randn(2, q_seq, 3, head_dim, generator=g, device=cuda)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn(2, kv_seq, 3, head_dim, generator=g, device=cuda)
+            .to(dtype) for _ in range(2))
+    scale = head_dim ** -0.5
+    out, lse = flash_attention.flash_attention_forward(q, k, v, scale, causal)
+    ref_out, ref_lse = flash_attention.flash_attention_forward_plain(
+        q, k, v, scale, causal)
+    grads = flash_attention.flash_attention_backward(q, k, v, out, do, lse,
+                                                     scale, causal)
+    ref = flash_attention.flash_attention_backward_plain(
+        q, k, v, ref_out, ref_lse, do, scale, causal)
+    torch.cuda.synchronize()
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    for a, b in zip(grads, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        if dtype == torch.bfloat16:
+            assert _rel_err(a, b) <= K2_REL_TOL
+        else:
+            assert _scaled_err(a, b) <= 1e-4
+
+
 def test_flash_attention_counts_and_refuses_grad(cuda):
+    """Launch counts: serving, then a call that needs a gradient (the
+    forward with the log-sum-exp, then the backward, matching the autograd
+    of the plain version); a backward whose dO differs from q in dtype is
+    refused."""
     flash_attention.reset_launches()
-    q = torch.randn(1, 256, 2, 64, device=cuda)
+    g = torch.Generator(cuda).manual_seed(4)
+    q = torch.randn(1, 256, 2, 64, generator=g, device=cuda)
     flash_attention.flash_attention(q, q, q, 0.125)
     assert flash_attention.launches_by_shape == {(1, 256, 256, 2, 64): 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention.flash_attention(q.requires_grad_(), q, q, 0.125)
+    assert flash_attention.lse_launches == 0
+    leaves = [torch.randn(1, 256, 2, 64, generator=g, device=cuda)
+              for _ in range(3)]
+    w = torch.randn(1, 256, 2, 64, generator=g, device=cuda)
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_() for t in leaves]
+        (fn(*xs, 0.125, True) * w).sum().backward()
+        return [x.grad for x in xs]
+
+    got = grads(flash_attention.flash_attention)
+    assert flash_attention.lse_launches == 1
+    assert flash_attention.backward_launches_by_shape == \
+        {(1, 256, 256, 2, 64): 1}
+    for a, b in zip(got, grads(flash_attention.flash_attention_plain)):
+        assert _scaled_err(a, b) <= 1e-4
+    out, lse = flash_attention.flash_attention_forward(q, q, q, 0.125)
+    with pytest.raises(ValueError, match="dO"):
+        flash_attention.flash_attention_backward(q, q, q, out, out.bfloat16(),
+                                                 lse, 0.125)
 
 
 def test_tiny_unet_on_card_matches_cpu(cuda):
@@ -301,3 +404,39 @@ def test_tiny_unet_on_card_matches_cpu(cuda):
     assert flash_attention.launches_by_shape == {(12, 384, 384, 2, 4): 3}
     assert flash_tail.launches_by_seq == {144: 3}
     assert (out.cpu() - ref).abs().max().item() <= 1e-3
+
+
+def test_tiny_unet_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step of a tiny UNet (remat on, fp32): the kernel path (K7
+    and its backward at 384 tokens, K1 and K2 at 144) on the card vs the
+    plain path on the CPU, on the same draws."""
+    cfg = json.loads((REPO / "configs/ctsd/multi_datasets/ctsd_21_tirda_nwao"
+                      ".json").read_text())["pipeline"]
+    cfg["model"] = dict(
+        _class_name=cfg["model"]["_class_name"], in_channels=4,
+        out_channels=4, block_out_channels=[8, 16, 16], layers_per_block=1,
+        num_attention_heads=[2, 2, 2], cross_attention_dim=12,
+        addition_time_embed_dim=8, merge_factor=2.0,
+        enable_rowwise_crossview=True, enable_rowwise_temporal=True,
+        gradient_checkpointing=True, param_dtype=torch.float32)
+    cfg["common_config"].pop("added_time_ids")
+    cfg["training_config"]["reference_latent_count"] = 1  # frame 1 counts
+    torch.manual_seed(0)
+    pipe = create_instance_from_config(cfg)
+    card = copy.deepcopy(pipe)
+    card.model.to(cuda)
+    g = torch.Generator().manual_seed(0)
+    batch = {"latents": torch.randn(1, 2, 6, 16, 24, 4, generator=g),
+             "encoder_hidden_states": torch.randn(1, 2, 6, 5, 12,
+                                                  generator=g)}
+    draws = draw_training_randoms(batch["latents"].shape,
+                                  pipe.training_config, pipe.common_config, g,
+                                  scheduler=pipe.train_scheduler)
+    flash_attention.reset_launches()
+    flash_tail.reset_launches()
+    ref = _one_step(pipe, batch, draws)
+    out = _one_step(card, _to(batch, cuda), _to(draws, cuda))
+    assert flash_attention.backward_launches_by_shape == \
+        {(12, 384, 384, 2, 4): 3}
+    assert flash_tail.backward_launches_by_seq == {144: 3}
+    _assert_step_matches(out, ref)

@@ -371,3 +371,43 @@ def test_flash_attention_causal_is_top_left(interpret_pallas):
     assert _max_err(port, flash) <= TOL
     # the first query sees key 0 alone under the top-left mask
     np.testing.assert_allclose(np.asarray(flash)[:, 0], v[:, 0], atol=TOL)
+
+
+@pytest.mark.parametrize(
+    "q_seq,kv_seq,head_dim,causal",
+    [
+        (256, 256, 64, False),  # the UNet's form (1792 at full size)
+        (128, 256, 64, True),   # causal, q shorter than kv
+        (256, 128, 64, True),   # causal, q longer than kv
+        (256, 256, 128, False),  # D 128
+    ],
+)
+def test_flash_attention_backward_matches_pallas_vjp(interpret_pallas, q_seq,
+                                                     kv_seq, head_dim,
+                                                     causal):
+    """K7's backward against ``jax.vjp`` of the stock Pallas flash
+    attention (its ``custom_vjp`` backward, ``_flash_attention_bwd_dkv``
+    and ``_flash_attention_bwd_dq``, in interpret mode), fp32: the plain
+    backward on the plain forward's output and log-sum-exp, and autograd
+    through the port's Function."""
+    rng = np.random.default_rng(q_seq + 2 * kv_seq + head_dim + causal)
+    q, ct = (_randn(rng, 1, q_seq, 2, head_dim) for _ in range(2))
+    k, v = (_randn(rng, 1, kv_seq, 2, head_dim) for _ in range(2))
+    scale = head_dim ** -0.5
+    ref_out, ref_grads = _jax_vjp(
+        lambda *a: _jax_pallas_flash(*a, causal), (q, k, v), (ct,))
+
+    tq, tk, tv, tct = (torch.from_numpy(a) for a in (q, k, v, ct))
+    out, lse = flash_attention.flash_attention_forward_plain(tq, tk, tv,
+                                                            scale, causal)
+    plain = flash_attention.flash_attention_backward_plain(
+        tq, tk, tv, out, lse, tct, scale, causal)
+    (port_out,), port_grads = _port_vjp(
+        lambda *a: flash_attention.flash_attention(*a, scale, causal),
+        (q, k, v), (ct,))
+    assert _max_err(out, ref_out) <= TOL
+    assert _max_err(port_out, ref_out) <= TOL
+    for grads in (plain, port_grads):
+        for a, b in zip(grads, ref_grads):
+            assert a.shape == b.shape
+            assert _scaled_err(a, b) <= TOL

@@ -49,7 +49,12 @@ from opendwm_tpu_torch.pipelines.ctsd import (
     make_input_for_prediction,
 )
 
-from torch_port_helpers import random_flax_params
+from torch_port_helpers import (
+    jax_prediction_draws,
+    jax_training_draws,
+    random_flax_params,
+    to_torch_tree,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 SYNTHETIC = REPO / "configs/ctsd/ctsd_35_6views_video_synthetic.json"
@@ -109,52 +114,6 @@ def _batch(rng, latent_hw=(H, W), text_tokens=L) -> dict:
         "fps": np.full((B,), 10.0),
     }
     return {k: v.astype(np.float32) for k, v in batch.items()}
-
-
-def _torch(tree):
-    if isinstance(tree, dict):
-        return {k: _torch(v) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree))
-
-
-def _jax_prediction_draws(key, shape, style) -> dict:
-    """``make_input_for_prediction``'s draws from ``key`` (ctsd.py:330)."""
-    b, t, v = shape[:3]
-    ks = jax.random.split(key, 7)
-    return _torch({
-        "scale": jax.random.normal(ks[0], (b, t, 1, 1, 1, 1)),
-        "offset": jax.random.normal(ks[1], (b, t, 1, 1, 1, 1)),
-        "task": jax.random.uniform(ks[2], (b, 1, 1)),
-        "image": jax.random.uniform(
-            ks[3], (b,) if style == "diffusion_forcing" else (b, 1, 1)),
-        "all_visible": jax.random.uniform(ks[4], (b, 1, 1)),
-        "partial_visible": jax.random.uniform(ks[5], (b, t, v)),
-        "count": jax.random.uniform(ks[6], (b, 1, 1)),
-    })
-
-
-def _jax_training_draws(key, shape, tc, cc) -> dict:
-    """``CTSDPipeline.loss_fn``'s draws from ``key`` (ctsd.py:542-548)."""
-    rng, _ = jax.random.split(key)  # the VAE's key
-    k_noise, k_time, k_text, k_box, k_map, k_act, k_pred = \
-        jax.random.split(rng, 7)
-    b, t = shape[:2]
-    style = cc.get("frame_prediction_style")
-    t_shape = (b, t) if style == "diffusion_forcing" else (b,)
-    if tc.get("weighting_scheme", "logit_normal") == "logit_normal":
-        time = jax.random.normal(k_time, t_shape)
-    else:
-        time = jax.random.uniform(k_time, t_shape)
-    draws = _torch({
-        "noise": jax.random.normal(k_noise, shape, jnp.float32),
-        "time": time,
-        "text": jax.random.uniform(k_text, (b,)),
-        "box": jax.random.uniform(k_box, (b,)),
-        "map": jax.random.uniform(k_map, (b,)),
-        "action": jax.random.uniform(k_act, (b,)),
-    })
-    draws["prediction"] = _jax_prediction_draws(k_pred, shape, style)
-    return draws
 
 
 def _rel_to_max(a, b) -> float:
@@ -221,7 +180,7 @@ def test_make_input_for_prediction_matches_jax(case):
             key, jnp.asarray(noisy), jnp.asarray(latents), jnp.asarray(ts),
             tc, cc, count)
         out = make_input_for_prediction(
-            _jax_prediction_draws(key, shape, style), torch.from_numpy(noisy),
+            jax_prediction_draws(key, shape, style), torch.from_numpy(noisy),
             torch.from_numpy(latents), torch.from_numpy(ts), tc, cc, count)
         np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]),
                                    atol=1e-6)
@@ -245,8 +204,8 @@ def test_loss_and_gradients_match_jax(setup, seed):
             params["params"], jbatch, key)
 
     pipe = _port_copy(port_pipe)
-    draws = _jax_training_draws(key, batch["latents"].shape, TRAINING, COMMON)
-    loss, metrics = pipe.loss_from_draws(_torch(batch), draws)
+    draws = jax_training_draws(key, batch["latents"].shape, TRAINING, COMMON)
+    loss, metrics = pipe.loss_from_draws(to_torch_tree(batch), draws)
     loss.backward()
     assert metrics["sd_loss"] is loss
     assert abs(loss.item() - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
@@ -276,8 +235,8 @@ def test_train_step_matches_jax(setup):
     pipe = _port_copy(port_pipe, param_dtype=torch.float32)
     port_state = pipe.init_state()
     port_state, metrics = pipe.train_step(
-        port_state, _torch(batch),
-        draws=_jax_training_draws(key, batch["latents"].shape, TRAINING,
+        port_state, to_torch_tree(batch),
+        draws=jax_training_draws(key, batch["latents"].shape, TRAINING,
                                   COMMON))
     assert port_state.step == 1
     grad_norm = float(ref_metrics["grad_norm"])
@@ -434,7 +393,7 @@ def _loss_grads_and_calls(pipe, batch, draws):
 def test_remat_keeps_loss_and_gradients(setup, variant):
     _, _, port_pipe, batch = setup
     flags = REMAT[variant]
-    tbatch = _torch(batch)
+    tbatch = to_torch_tree(batch)
     draws = draw_training_randoms(tbatch["latents"].shape, TRAINING, COMMON,
                                   torch.Generator().manual_seed(11))
     ref_loss, ref_grads, ref_calls = _loss_grads_and_calls(
@@ -519,7 +478,7 @@ def _tiny_pipeline(**training):
 def test_checkpoint_resume_matches_uninterrupted(tmp_path, accumulation,
                                                  save_at):
     rng = np.random.default_rng(2)
-    batches = [_torch(_batch(rng, (8, 8), 4)) for _ in range(3)]
+    batches = [to_torch_tree(_batch(rng, (8, 8), 4)) for _ in range(3)]
     pipe = _tiny_pipeline(gradient_accumulation_steps=accumulation)
     state = pipe.init_state()
     gen = torch.Generator().manual_seed(5)

@@ -340,8 +340,17 @@ def test_ctsd21_config_resolves_to_port_classes():
     assert isinstance(pipe.test_scheduler, DDIMScheduler)
     assert isinstance(pipe.train_scheduler, DDPMScheduler)
     assert pipe.test_scheduler.prediction_type == "v_prediction"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipe.loss_fn({"latents": torch.zeros(1, 1, 1, 2, 2, 4)})
+    # its tiny sibling (the same pipeline config, the tiny UNet) trains: the
+    # DDPM v-prediction loss of one batch is finite
+    cfg["model"] = dict(TINY, _class_name=cfg["model"]["_class_name"])
+    cfg["common_config"].pop("added_time_ids")
+    tiny = config.create_instance_from_config(cfg)
+    g = torch.Generator().manual_seed(0)
+    loss, _ = tiny.loss_fn({
+        "latents": torch.randn(1, 2, 2, 8, 8, 4, generator=g),
+        "encoder_hidden_states": torch.randn(1, 2, 2, 5, 12, generator=g),
+    }, g)
+    assert loss.ndim == 0 and torch.isfinite(loss)
 
 
 # -- pipeline -----------------------------------------------------------------
