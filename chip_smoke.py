@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CTSD-3.5 serving and training paths and its
-CTSD-2.1 UNet serving and training paths on one GPU.
+"""Drive the PyTorch port's CTSD-3.5 serving and training paths, its
+CTSD-2.1 UNet serving and training paths and the tail-attention tiling
+experiment on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-train] [--profile-unet]
@@ -19,12 +20,16 @@ Phases; any failure raises and exits non-zero:
    attention at the UNet's 1792 tokens, at 6400 and causal with q != kv;
    its backward at the UNet's training shape (36 x 1792), at 6400 and
    causal with q shorter and longer than kv, and its forward with the
-   log-sum-exp against the serving launch). Beside each kernel's time: its
-   plain version's, the least time the card could take for the same work
-   (``bound_ms``), and the time of one PyTorch call that computes the same
-   function (``library_ms``: ``scaled_dot_product_attention`` or its
-   backward for the attention kernels; none for the AdaLN ones). The card's
-   clocks are logged between phases;
+   log-sum-exp against the serving launch), and the tail-attention tiling
+   experiment (``opendwm_tpu_torch/perf/exp_tailvar.py``: K1, K5 at nh 2
+   and 4, K6 at bq 128 and 256 at (36, 602 | 448, 24, 64) in bf16 and at
+   (8, 602, 24, 64) in fp32; its launches are the ``tailvar`` path's).
+   Beside each kernel's time: its plain version's, the least time the
+   card could take for the same work (``bound_ms``), and the time of one
+   PyTorch call that computes the same function (``library_ms``:
+   ``scaled_dot_product_attention`` or its backward for the attention
+   kernels; none for the AdaLN ones). The card's clocks are logged
+   between phases;
 4. tiny models: the kernel path end to end (fp32, small widths) against
    the plain path on the CPU: the DiT, one AdamW train step of the DiT
    with remat on, the UNet, and one AdamW train step of the UNet with remat
@@ -85,6 +90,18 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402
 
+from opendwm_tpu_torch.perf.measure import (  # noqa: E402
+    PEAK_FP32,
+    attention_bound,
+    bound,
+    card_line,
+    max_err,
+    rel_err,
+    scaled_err,
+    time_ms,
+    time_pair,
+)
+
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json"
 UNET_CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_21_tirda_nwao.json"
@@ -112,6 +129,9 @@ K7_SHAPES = ((72, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
 K7_BWD_SHAPES = ((36, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
                  (8, 1792, 3584, 5, True), (8, 3584, 1792, 5, True))
 K7_BWD_FP32 = (2, 384, 256, 5, True)
+# The tiling experiment's fp32 check (batch, seq; 24 x 64 heads): S 602
+# pads to 640, where K6's bq 256 cuts to 128.
+TAILVAR_FP32 = (8, 602)
 # The stock Pallas flash attention that K7 replaces (jax 0.9.0): its
 # backward is _flash_attention_bwd_dkv (:941) and _flash_attention_bwd_dq
 # (:1287).
@@ -125,11 +145,6 @@ ATTN_TOL, ADALN_TOL, FP32_TOL, TINY_TOL = 2e-2, 3e-2, 1e-4, 1e-3
 # for the JAX kernel (docs/PARITY.md): dS is rounded to bf16 at other
 # points, and delta comes from dO.O instead of dP.P.
 K2_REL_TOL = 6e-3
-# Published peaks of one H100 SXM (dense): bf16 on the tensor cores, fp32
-# outside them, HBM3 bytes/s. bound_ms is the larger of operations over the
-# peak for their type and bytes (each input read once, each output written
-# once) over the memory rate.
-PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -138,72 +153,6 @@ def log(msg: str) -> None:
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def rel_err(a, b) -> float:
-    b = b.float()
-    return ((a.float() - b).norm() / b.norm()).item()
-
-
-def max_err(a, b) -> float:
-    return (a.float() - b.float()).abs().max().item()
-
-
-def scaled_err(a, b) -> float:
-    """max of |a - b| / max(1, |b|): the measure the tolerances bound."""
-    b = b.float()
-    return ((a.float() - b).abs() / b.abs().clamp(min=1.0)).max().item()
-
-
-def time_ms(fn, iters: int = 10) -> float:
-    """ms per call of ``fn``: CUDA events around ``iters`` calls after 2
-    warm-ups."""
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def time_pair(kernel, plain, iters: int = 10):
-    """ms per call of each, timed in turns plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = (time_ms(fn, iters) for fn in (plain, kernel, kernel,
-                                                    plain))
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
-    """(ms, what bounds it): the least time the card could take."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, \
-        "operations" if t_ops >= t_bytes else "bytes"
-
-
-def visible_pairs(sq: int, sk: int, causal: bool) -> int:
-    """(query, key) pairs that attend: all, or under the top-left causal
-    mask those with key <= query."""
-    if not causal:
-        return sq * sk
-    n = min(sq, sk)
-    return n * (n + 1) // 2 + (sq - n) * sk
-
-
-def attention_bound(b, sq, sk, h, d, causal=False, backward=False):
-    """bf16 attention: the forward does 2 products over the visible pairs
-    (QK^T, PV), reads q, k, v and writes o; the backward does 5 (S, dP, dV,
-    dK, dQ), reads q, k, v, o, dO and the fp32 lse and writes dq, dk, dv."""
-    products = 5 if backward else 2
-    flops = 2 * products * b * h * visible_pairs(sq, sk, causal) * d
-    q_elems, kv_elems = b * sq * h * d, b * sk * h * d
-    nbytes = 2 * (2 * q_elems + 2 * kv_elems)
-    if backward:
-        nbytes = 2 * (4 * q_elems + 4 * kv_elems) + 4 * b * h * sq
-    return bound(flops, nbytes)
 
 
 def adaln_bound(n, l, d, residual=False):
@@ -271,15 +220,6 @@ def yardsticks(ms, plain_ms, library_ms, bound_pair) -> dict:
     """The numbers kept beside each kernel row."""
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_pair[0], "bound_by": bound_pair[1]}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def log_clocks(when: str) -> None:
@@ -524,6 +464,42 @@ def check_flash_attention_backward(dev, flash_attention):
     log(f"K7 flash_attention bf16 ({b},{sq},{sk},{h},64): with the "
         f"log-sum-exp {lse_ms:.3f} ms, serving launch {serve_ms:.3f} ms")
     return rows, {"lse_ms": lse_ms, "serving_ms": serve_ms}
+
+
+def run_tailvar(dev, ops, exp_tailvar):
+    """The tail-attention tiling experiment through its run function at its
+    full shapes in bf16 and at ``TAILVAR_FP32``: K1, K5 (nh 2, 4) and K6 (bq
+    128, 256), each against the plain version (the scaled error and the
+    relative norm; K5 and K6 also bit for bit against K1), timed beside it,
+    the bound and SDPA. Returns the experiment's launches and the K5 and K6
+    rows."""
+    ops.reset_launch_counts()
+    runs = [(exp_tailvar.run(seq, label, dev), ATTN_TOL)
+            for label, seq in exp_tailvar.SHAPES.items()]
+    b, seq = TAILVAR_FP32
+    runs.append((exp_tailvar.run(seq, "fp32", dev, b=b, dtype=torch.float32),
+                 FP32_TOL))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"launches in the tiling experiment: {json.dumps(counts)}")
+    rows = {"tail_hpack": [], "tail_qsplit": []}
+    for results, tol in runs:  # each row was printed by the experiment
+        for r in results:
+            rel_tol = exp_tailvar.REL_TOL[getattr(torch, r["dtype"])]
+            if not (r["scaled_err"] <= tol and r["rel_err"] <= rel_tol
+                    and r.get("equals_k1", True)):
+                fail(f"tiling {r['variant']} {r['dtype']} {r['shape']} "
+                     f"disagrees: scaled {r['scaled_err']} (bar {tol}), "
+                     f"relative norm {r['rel_err']} (bar {rel_tol}), "
+                     f"equal to K1: {r.get('equals_k1')}")
+            if r["kernel"] in rows:
+                rows[r["kernel"]].append(r)
+    for key, want in (("tail_hpack_by_nh", (2, 4)),
+                      ("tail_qsplit_by_bq", (128, 256))):
+        for n in want:
+            if counts[key].get(n, 0) == 0:
+                fail(f"{key}[{n}] never launched in the tiling experiment")
+    return counts, rows
 
 
 def check_adaln(dev, fused_adaln):
@@ -1255,6 +1231,7 @@ def main() -> None:
         flash_tail,
         fused_adaln,
     )
+    from opendwm_tpu_torch.perf import exp_tailvar
     from opendwm_tpu_torch.pipelines.ctsd import (
         draw_training_randoms,
         get_conditions,
@@ -1288,6 +1265,7 @@ def main() -> None:
                                                  flash_attention)
     k7_bwd_rows, k7_lse_timing = check_flash_attention_backward(
         dev, flash_attention)
+    tailvar, tiling_rows = run_tailvar(dev, ops, exp_tailvar)
     log_clocks("after the attention checks")
     adaln_rows = check_adaln(dev, fused_adaln)
     check_tiny_model(dev, DiTCrossviewTemporal)
@@ -1321,7 +1299,7 @@ def main() -> None:
         profile="--profile-unet-train" in sys.argv[1:])
     log_clocks("at the end")
     paths = {"serve": serve, "train": train, "unet_serve": unet,
-             "unet_train": unet_train}
+             "unet_train": unet_train, "tailvar": tailvar}
 
     def entry(name, route, source, replaces, key, rows, **extra):
         by_path = {path: counts.get(key, 0) for path, counts in paths.items()}
@@ -1361,6 +1339,10 @@ def main() -> None:
         entry("flash_attention_backward", "cuda", k7_src,
               f"{STOCK_FLASH}:941", "flash_attention_backward", k7_bwd_rows,
               replaces_also=f"{STOCK_FLASH}:1287"),
+        entry("tail_hpack", "cuda", csrc, "perf/exp_tailvar.py:75",
+              "tail_hpack", tiling_rows["tail_hpack"]),
+        entry("tail_qsplit", "cuda", csrc, "perf/exp_tailvar.py:119",
+              "tail_qsplit", tiling_rows["tail_qsplit"]),
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,13 +2,19 @@
 
 from __future__ import annotations
 
-from opendwm_tpu_torch.ops import flash_attention, flash_tail, fused_adaln
+from opendwm_tpu_torch.ops import (
+    flash_attention,
+    flash_tail,
+    fused_adaln,
+    tail_variants,
+)
 
 
 def reset_launch_counts() -> None:
     flash_attention.reset_launches()
     flash_tail.reset_launches()
     fused_adaln.reset_launches()
+    tail_variants.reset_launches()
 
 
 def launch_counts() -> dict:
@@ -31,4 +37,8 @@ def launch_counts() -> dict:
             flash_tail.backward_launches_by_seq),
         "adaln_modulate": fused_adaln.launches,
         "residual_adaln_modulate": fused_adaln.res_launches,
+        "tail_hpack": sum(tail_variants.hpack_launches_by_nh.values()),
+        "tail_hpack_by_nh": dict(tail_variants.hpack_launches_by_nh),
+        "tail_qsplit": sum(tail_variants.qsplit_launches_by_bq.values()),
+        "tail_qsplit_by_bq": dict(tail_variants.qsplit_launches_by_bq),
     }

@@ -11,11 +11,12 @@ They serve the 602-token joint attention, the 448-token dual attention
 and the 168-token rowwise cross-view attention, in serving and training.
 
 The Hopper kernels are CUDA C++ in ``csrc/flash_tail.cu`` (design and what
-bounds them are noted there), built with nvcc at first use and called
-through ctypes. A call that needs a gradient goes through an autograd
-Function whose forward is K1 (also writing the row log-sum-exp) and whose
-backward is K2. The wrappers take the plain PyTorch versions only for CPU
-tensors; for a CUDA tensor they launch the kernel or raise.
+bounds them are noted there; the same source holds K5 and K6, other tilings
+of K1, wrapped in ``ops/tail_variants.py``), built with nvcc at first use
+and called through ctypes. A call that needs a gradient goes through an
+autograd Function whose forward is K1 (also writing the row log-sum-exp)
+and whose backward is K2. The wrappers take the plain PyTorch versions
+only for CPU tensors; for a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -96,8 +97,12 @@ def _library() -> ctypes.CDLL:
     lib.flash_tail_forward.argtypes = [ptr] * 4 + shape
     lib.flash_tail_forward_lse.argtypes = [ptr] * 5 + shape
     lib.flash_tail_backward.argtypes = [ptr] * 10 + shape
+    # K5 / K6 (ops/tail_variants.py): the shape, then nh or bq, the stream
+    lib.tail_hpack_forward.argtypes = [ptr] * 4 + shape[:-1] + [i32, ptr]
+    lib.tail_qsplit_forward.argtypes = [ptr] * 4 + shape[:-1] + [i32, ptr]
     for fn in (lib.flash_tail_forward, lib.flash_tail_forward_lse,
-               lib.flash_tail_backward):
+               lib.flash_tail_backward, lib.tail_hpack_forward,
+               lib.tail_qsplit_forward):
         fn.restype = ctypes.c_int
     lib.flash_tail_error_string.argtypes = [ctypes.c_int]
     lib.flash_tail_error_string.restype = ctypes.c_char_p

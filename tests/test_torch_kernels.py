@@ -15,10 +15,12 @@ attention backward (K2) in bf16 is held to a relative error
 ``||kernel - plain|| / ||plain||`` of 0.6% per gradient, the bar recorded
 for the JAX kernel (``docs/PARITY.md``): its dS is rounded to bf16 at other
 points than the plain version's, and its delta comes from dO.O. K7 (flash
-attention) is held to the attention bars, its backward to K2's.
+attention) is held to the attention bars, its backward to K2's, and K5 /
+K6 (the tilings of K1 in ``ops/tail_variants.py``) to the attention bars.
 """
 
 import copy
+import functools
 import json
 from pathlib import Path
 
@@ -28,7 +30,13 @@ import torch
 from opendwm_tpu_torch.config import create_instance_from_config
 from opendwm_tpu_torch.models.mmdit import DiTCrossviewTemporal
 from opendwm_tpu_torch.models.unet import UNetCrossviewTemporal
-from opendwm_tpu_torch.ops import flash_attention, flash_tail, fused_adaln
+from opendwm_tpu_torch import ops
+from opendwm_tpu_torch.ops import (
+    flash_attention,
+    flash_tail,
+    fused_adaln,
+    tail_variants,
+)
 from opendwm_tpu_torch.pipelines.ctsd import draw_training_randoms
 
 REPO = Path(__file__).resolve().parents[1]
@@ -440,3 +448,75 @@ def test_tiny_unet_train_step_on_card_matches_cpu(cuda):
         {(12, 384, 384, 2, 4): 3}
     assert flash_tail.backward_launches_by_seq == {144: 3}
     _assert_step_matches(out, ref)
+
+
+# K5 at nh 1, 2, 4 and K6 at bq 128, 256: (name, function of q, k, v, scale,
+# its plain version)
+TILINGS = [(f"hpack{nh}", functools.partial(tail_variants.tail_hpack, nh=nh),
+            tail_variants.tail_hpack_plain) for nh in (1, 2, 4)] + \
+    [(f"qsplit{bq}", functools.partial(tail_variants.tail_qsplit, bq=bq),
+      tail_variants.tail_qsplit_plain) for bq in (128, 256)]
+
+
+# The experiment's bars: scaled error, and relative norm (one bf16 ulp) at
+# outputs far below 1, where the scaled bar is as large as they are.
+TILING_TOLS = {torch.bfloat16: (2e-2, 2 ** -7), torch.float32: (1e-4, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,seq,heads,head_dim", [
+    (36, 602, 24, 64), (36, 448, 24, 64), (2, 150, 4, 40), (2, 20, 4, 16),
+    (2, 130, 4, 128)])
+def test_tail_tilings_share_k1_arithmetic(cuda, dtype, batch, seq, heads,
+                                          head_dim):
+    """K5 (nh 1, 2, 4) and K6 (bq 128, 256) at the experiment's shapes and
+    ragged ones (bq 256 runs 256-row blocks at S 448, 150 and 130, and is
+    cut to 128 at 602 and 20; D 128 with 256-row blocks reloads Q's
+    fragments), each against its plain version. K1, K5 and K6 run one
+    per-warp tile step from one source, so each query row goes through the
+    same operations in all of them: their outputs agree bit for bit, and K1
+    still matches its plain version."""
+    g = torch.Generator(cuda).manual_seed(seq + head_dim)
+    q, k, v = ((torch.randn(batch, seq, heads, head_dim, generator=g,
+                            device=cuda) * 0.5).to(dtype) for _ in range(3))
+    scale = head_dim ** -0.5
+    tol, rel_tol = TILING_TOLS[dtype]
+    out = flash_tail.tail_masked_attention(q, k, v, scale)
+    ref = flash_tail.tail_masked_attention_plain(q, k, v, scale)
+    assert _scaled_err(out, ref) <= tol
+    for name, tiling, plain in TILINGS:
+        got = tiling(q, k, v, scale)
+        ref = plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape, name
+        assert _scaled_err(got, ref) <= tol, name
+        assert _rel_err(got, ref) <= rel_tol, name
+        assert torch.equal(got, out), name
+
+
+def test_tail_tiling_launch_counts_and_checks(cuda):
+    """Each launch counts once, under its nh or the bq it ran (256 is cut
+    to 128 at S 602); bad arguments raise before any launch."""
+    ops.reset_launch_counts()
+    g = torch.Generator(cuda).manual_seed(5)
+    q = torch.randn(1, 602, 4, 64, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    q448 = q[:, :448].contiguous()
+    tail_variants.tail_hpack(q, q, q, 0.125, 2)
+    tail_variants.tail_hpack(q, q, q, 0.125, 4)
+    tail_variants.tail_qsplit(q, q, q, 0.125, 128)
+    tail_variants.tail_qsplit(q, q, q, 0.125, 256)
+    tail_variants.tail_qsplit(q448, q448, q448, 0.125, 256)
+    with pytest.raises(ValueError, match="divide"):
+        tail_variants.tail_hpack(q, q, q, 0.125, 3)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tail_variants.tail_qsplit(q, q, q, 0.125, 64)
+    strided = q448.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tail_variants.tail_qsplit(strided, q448, q448, 0.125, 128)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["tail_hpack"] == 2 and counts["tail_qsplit"] == 3
+    assert counts["tail_hpack_by_nh"] == {2: 1, 4: 1}
+    assert counts["tail_qsplit_by_bq"] == {128: 2, 256: 1}
+    assert counts["flash_tail"] == 0
