@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CTSD-3.5 serving and training paths, its
-CTSD-2.1 UNet serving and training paths and the tail-attention tiling
-experiment on one GPU.
+CTSD-2.1 UNet serving and training paths, the tail-attention tiling
+experiment and the attention shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-train] [--profile-unet]
@@ -20,16 +20,27 @@ Phases; any failure raises and exits non-zero:
    attention at the UNet's 1792 tokens, at 6400 and causal with q != kv;
    its backward at the UNet's training shape (36 x 1792), at 6400 and
    causal with q shorter and longer than kv, and its forward with the
-   log-sum-exp against the serving launch), and the tail-attention tiling
-   experiment (``opendwm_tpu_torch/perf/exp_tailvar.py``: K1, K5 at nh 2
-   and 4, K6 at bq 128 and 256 at (36, 602 | 448, 24, 64) in bf16 and at
-   (8, 602, 24, 64) in fp32; its launches are the ``tailvar`` path's).
-   Beside each kernel's time: its plain version's, the least time the
-   card could take for the same work (``bound_ms``), and the time of one
-   PyTorch call that computes the same function (``library_ms``:
+   log-sum-exp against the serving launch), K7-seg (flash attention with
+   segment ids: the shoot-out's flashpad call at (36, 640, 24, 64) with
+   the pads of S 602 in segment 1, and random ids in 1-4 segments per row
+   at (8, 1792, 24, 64), non-causal and causal, in bf16 and fp32; rows
+   that see no key of their segment against the mean of V), K7 at K1's
+   serving shapes and its backward at K2's training shapes timed beside
+   K1 and K2 (the numbers of the fold in ROADMAP Queue 2), the
+   tail-attention tiling experiment
+   (``opendwm_tpu_torch/perf/exp_tailvar.py``: K1, K5 at nh 2 and 4, K6 at
+   bq 128 and 256 at (36, 602 | 448, 24, 64) in bf16 and at (8, 602, 24,
+   64) in fp32; its launches are the ``tailvar`` path's), and the
+   attention shoot-out (``opendwm_tpu_torch/perf/exp_attn602.py``: K1, the
+   plain attention and K7-seg over S padded to a multiple of 128 at (36,
+   602 | 448, 24, 64) bf16; its launches are the ``attn602`` path's, and
+   K7-seg must have launched at (36, 640) and (36, 512) there). Beside
+   each kernel's time: its plain version's, the least time the card could
+   take for the same work (``bound_ms``), and the time of one PyTorch call
+   that computes the same function (``library_ms``:
    ``scaled_dot_product_attention`` or its backward for the attention
-   kernels; none for the AdaLN ones). The card's clocks are logged
-   between phases;
+   kernels, with the boolean same-id mask for K7-seg; none for the AdaLN
+   ones). The card's clocks are logged between phases;
 4. tiny models: the kernel path end to end (fp32, small widths) against
    the plain path on the CPU: the DiT, one AdamW train step of the DiT
    with remat on, the UNet, and one AdamW train step of the UNet with remat
@@ -55,8 +66,9 @@ Phases; any failure raises and exits non-zero:
    card from a seed; a 2-window autoregressive rollout of 1 x 6 frames x 6
    views of 32x56x4 latents with 77 x 1024 text tokens, DDIM v-prediction
    with CFG 3.0 (the one cut: inference_steps 50 -> 4), then the SD2.1 VAE
-   decode to 256x448 frames. K7 must have launched at (72, 1792, 5, 64) and
-   K1 at s = 336, 448, 168 during the rollout. ``--profile-unet`` adds one
+   decode to 256x448 frames. K7 must have launched 5 times a CFG forward,
+   all at (72, 1792, 5, 64), and K1 at s = 336, 448, 168 during the
+   rollout. ``--profile-unet`` adds one
    ``torch.profiler`` CFG forward and prints its device time by kernel
    family;
 8. UNet train slice: the CTSD-2.1 config at full width and depth, fp32
@@ -64,14 +76,16 @@ Phases; any failure raises and exits non-zero:
    resnet and transformer model), AdamW (lr 5e-5, wd 0.01, clip 1.0, fp32
    moments), DDPM v-prediction; 3 ``train_step`` calls on a synthetic batch
    of 1 x 6 frames x 6 views of 32x56x4 latents with 77 x 1024 text tokens
-   and an explicit generator, steps 2 and 3 timed. K7 and its backward at
-   (36, 1792, 5, 64), K1 and K2 at s = 336, 448, 168 must have launched in
-   the timed steps; launches are also counted by phase on one extra,
+   and an explicit generator, steps 2 and 3 timed. K7 (10 a step: forward
+   and remat recompute) and its backward (5 a step), all at (36, 1792, 5,
+   64), and K1 and K2 at s = 336, 448, 168 must have launched in the timed
+   steps; launches are also counted by phase on one extra,
    untimed pass. ``--profile-unet-train`` adds 3 more steps, then 3
    under ``torch.profiler``.
 
-Each slice is freed before the next. The line before the last is the
-kernels JSON; the last is the device JSON.
+Each slice is freed before the next. K7-seg must have launched on no path
+but the shoot-out. The line before the last is the kernels JSON; the last
+is the device JSON.
 """
 
 from __future__ import annotations
@@ -98,6 +112,7 @@ from opendwm_tpu_torch.perf.measure import (  # noqa: E402
     max_err,
     rel_err,
     scaled_err,
+    segment_attention_bound,
     time_ms,
     time_pair,
 )
@@ -129,6 +144,15 @@ K7_SHAPES = ((72, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
 K7_BWD_SHAPES = ((36, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
                  (8, 1792, 3584, 5, True), (8, 3584, 1792, 5, True))
 K7_BWD_FP32 = (2, 384, 256, 5, True)
+# K7-seg (flash attention with segment ids): the shoot-out's flashpad call
+# at S 602 padded to 640, pads in segment 1 (batch, seq, padded seq); and
+# (batch, seq) with random ids in 1-4 contiguous segments per row.
+K7_SEG_FLASHPAD = (36, 602, 640)
+K7_SEG_RANDOM = (8, 1792)
+# The UNet's level-0 self-attention (K7) in each forward: 2 down and 3 up
+# transformer models; a train step runs them forward, again in the remat
+# recompute, and backward.
+UNET_K7_PER_FORWARD = 5
 # The tiling experiment's fp32 check (batch, seq; 24 x 64 heads): S 602
 # pads to 640, where K6's bq 256 cuts to 128.
 TAILVAR_FP32 = (8, 602)
@@ -164,10 +188,12 @@ def adaln_bound(n, l, d, residual=False):
     return bound((10 if residual else 8) * n * l * d, nbytes, PEAK_FP32)
 
 
-def sdpa_ms(q, k, v, scale, causal=False, do=None, ref=None):
+def sdpa_ms(q, k, v, scale, causal=False, do=None, ref=None, mask=None):
     """ms of one PyTorch call computing the same function on the same
-    inputs (BHSD views of them): ``scaled_dot_product_attention``, or with
-    ``do`` its backward from its own forward's output and log-sum-exp:
+    inputs (BHSD views of them): ``scaled_dot_product_attention`` (with
+    ``mask``, a boolean mask of the visible pairs, in place of ``causal``),
+    or with ``do`` its backward from its own forward's output and
+    log-sum-exp:
     the flash kernel's, or for causal with q != kv, where the flash kernel
     masks bottom-right, the memory-efficient kernel's, whose ``is_causal``
     is top-left as K7's. With ``ref`` (the plain dq, dk, dv) it logs the
@@ -179,7 +205,7 @@ def sdpa_ms(q, k, v, scale, causal=False, do=None, ref=None):
     try:
         if do is None:
             return time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=scale))
+                qt, kt, vt, attn_mask=mask, is_causal=causal, scale=scale))
         dot = do.transpose(1, 2)
         if causal and q.shape[1] != k.shape[1]:
             from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -466,6 +492,161 @@ def check_flash_attention_backward(dev, flash_attention):
     return rows, {"lse_ms": lse_ms, "serving_ms": serve_ms}
 
 
+def random_segment_ids(b: int, s: int, dev, seed: int) -> torch.Tensor:
+    """int32 (b, s) ids in 1-4 contiguous segments per row, 0, 1, ... in
+    order (packed sequences): under the causal mask every query sees at
+    least itself."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.zeros(b, s, dtype=torch.int32)
+    for row in ids:
+        n = int(torch.randint(1, 5, (1,), generator=g))
+        for cut in torch.randperm(s - 1, generator=g)[:n - 1] + 1:
+            row[cut:] += 1
+    return ids.to(dev)
+
+
+def check_flash_attention_segment(dev, flash_attention):
+    """K7-seg against its plain version, each case with both times, the
+    bound over the pairs its ids leave and SDPA with the boolean same-id
+    mask (only where no row is fully hidden): the flashpad call at
+    ``K7_SEG_FLASHPAD`` in bf16 and fp32, random ids at ``K7_SEG_RANDOM``
+    non-causal and causal in both types; then rows that see no key of
+    their segment (non-causal, fp32) against the mean of V."""
+    SegmentIds = flash_attention.SegmentIds
+    g = torch.Generator(dev).manual_seed(SEED + 5)
+    scale = 64 ** -0.5
+    b, seq, padded = K7_SEG_FLASHPAD
+    pad_ids = torch.zeros(b, padded, dtype=torch.int32, device=dev)
+    pad_ids[:, seq:] = 1
+    rb, rs = K7_SEG_RANDOM
+    rand_ids = random_segment_ids(rb, rs, dev, SEED + 5)
+    hidden_q = rand_ids.clone()
+    hidden_q[:, ::5] = 99  # every fifth query shares no key's id
+    cases = [("flashpad", pad_ids, pad_ids, False, dtype, 0.5)
+             for dtype in (torch.bfloat16, torch.float32)] + \
+        [("random", rand_ids, rand_ids, causal, dtype, 1.0)
+         for dtype in (torch.bfloat16, torch.float32)
+         for causal in (False, True)] + \
+        [("hidden rows", hidden_q, rand_ids, False, torch.float32, 1.0)]
+    rows = []
+    for what, q_ids, kv_ids, causal, dtype, std in cases:
+        bq, sq = q_ids.shape
+        q, k, v = ((torch.randn(bq, sq, 24, 64, generator=g, device=dev)
+                    * std).to(dtype) for _ in range(3))
+        ids = SegmentIds(q_ids, kv_ids)
+
+        def kernel():
+            return flash_attention.flash_attention(q, k, v, scale, causal,
+                                                   segment_ids=ids)
+
+        def plain():
+            return flash_attention.flash_attention_plain(q, k, v, scale,
+                                                         causal, ids)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err, scaled, rel = max_err(out, ref), scaled_err(out, ref), \
+            rel_err(out, ref)
+        bf16 = dtype == torch.bfloat16
+        tol, rel_tol = (ATTN_TOL, 2 ** -7) if bf16 else (FP32_TOL, 1e-5)
+        tag = (f"{what} {'bf16' if bf16 else 'fp32'} ({bq},{sq},24,64)"
+               f"{' causal' if causal else ''}")
+        visible = q_ids[:, :, None] == kv_ids[:, None, :]
+        if causal:
+            visible &= torch.ones(sq, sq, dtype=torch.bool, device=dev).tril()
+        seen = visible.any(-1)
+        extra = ""
+        if not seen.all():
+            mean_v = v.float().mean(1, keepdim=True).expand_as(out)
+            hid = ~seen
+            mean_err = scaled_err(out[hid], mean_v[hid])
+            extra = (f", {int(hid.sum())} rows with no key of their segment "
+                     f"vs the mean of V {mean_err:.3e} (tol {FP32_TOL})")
+            if not mean_err <= FP32_TOL:
+                fail(f"flash_attention_segment {tag}: hidden rows are not "
+                     f"the mean of V: {mean_err}")
+        del out, ref
+        ms, plain_ms = time_pair(kernel, plain)
+        lib_ms = sdpa_ms(q, k, v, scale, mask=visible[:, None]) \
+            if seen.all() else None
+        bnd = segment_attention_bound(q_ids, kv_ids, 24, 64, causal, dtype)
+        log(f"K7-seg flash_attention_segment {tag}: max_abs_err {err:.3e}, "
+            f"scaled {scaled:.3e} (tol {tol}), rel norm {rel:.3e} (tol "
+            f"{rel_tol}){extra}, kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {bnd[0]:.3f} ms ({bnd[1]}), sdpa with the mask "
+            f"{fmt_ms(lib_ms)}")
+        if not (scaled <= tol and rel <= rel_tol):
+            fail(f"flash_attention_segment disagrees at {tag}: scaled "
+                 f"{scaled}, rel {rel}")
+        rows.append({"case": what, "shape": [bq, sq, sq, 24, 64],
+                     "causal": causal, "dtype": "bf16" if bf16 else "fp32",
+                     "max_abs_err": err, "scaled_err": scaled,
+                     "rel_err": rel,
+                     **yardsticks(ms, plain_ms, lib_ms, bnd)})
+        del q, k, v, visible
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_k7_at_tail_shapes(dev, flash_tail, flash_attention):
+    """K7 (no padding: it masks by bounds) at K1's serving shapes and its
+    backward at K2's training shapes, each against its plain version, then
+    timed beside K1 or K2 in turns (K1, K7, K7, K1): the numbers the fold
+    of the two sources' duplicated code waits on (ROADMAP Queue 2)."""
+    g = torch.Generator(dev).manual_seed(SEED + 6)
+    scale = 64 ** -0.5
+    fwd, bwd = [], []
+    for b, s in ATTN_SHAPES:
+        q, k, v = (torch.randn(b, s, 24, 64, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        scaled = scaled_err(flash_attention.flash_attention(q, k, v, scale),
+                            flash_attention.flash_attention_plain(q, k, v,
+                                                                  scale))
+        if not scaled <= ATTN_TOL:
+            fail(f"flash_attention disagrees at K1's ({b},{s}): {scaled}")
+        k7_ms, k1_ms = time_pair(
+            lambda: flash_attention.flash_attention(q, k, v, scale),
+            lambda: flash_tail.tail_masked_attention(q, k, v, scale))
+        log(f"K7 at K1's shape bf16 ({b},{s},24,64): scaled err "
+            f"{scaled:.3e} (tol {ATTN_TOL}), K7 {k7_ms:.3f} ms, K1 "
+            f"{k1_ms:.3f} ms ({k7_ms / k1_ms:.3f}x)")
+        fwd.append({"shape": [b, s, 24, 64], "scaled_err": scaled,
+                    "k7_ms": k7_ms, "k1_ms": k1_ms,
+                    "bound_ms": attention_bound(b, s, s, 24, 64)[0]})
+        del q, k, v
+    for b, s in TRAIN_ATTN_SHAPES:
+        q, k, v, do = (torch.randn(b, s, 24, 64, generator=g, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        out7, lse7 = flash_attention.flash_attention_forward(q, k, v, scale)
+        out1, lse1 = flash_tail.tail_masked_attention_forward(q, k, v, scale)
+        ref_out, ref_lse = flash_attention.flash_attention_forward_plain(
+            q, k, v, scale)
+        grads = flash_attention.flash_attention_backward(q, k, v, out7, do,
+                                                         lse7, scale)
+        ref = flash_attention.flash_attention_backward_plain(
+            q, k, v, ref_out, ref_lse, do, scale)
+        rels = [rel_err(a, r) for a, r in zip(grads, ref)]
+        del grads, ref, ref_out, ref_lse
+        if not max(rels) <= K2_REL_TOL:
+            fail(f"the K7 backward disagrees at K2's ({b},{s}): {rels}")
+        k7_ms, k2_ms = time_pair(
+            lambda: flash_attention.flash_attention_backward(
+                q, k, v, out7, do, lse7, scale),
+            lambda: flash_tail.tail_masked_attention_backward(
+                q, k, v, out1, do, lse1, scale))
+        log(f"K7 backward at K2's shape bf16 ({b},{s},24,64): rel err "
+            f"dq/dk/dv {rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} (tol "
+            f"{K2_REL_TOL}), K7 backward {k7_ms:.3f} ms, K2 {k2_ms:.3f} ms "
+            f"({k7_ms / k2_ms:.3f}x)")
+        bwd.append({"shape": [b, s, 24, 64], "rel_err": rels,
+                    "k7_ms": k7_ms, "k2_ms": k2_ms,
+                    "bound_ms": attention_bound(b, s, s, 24, 64,
+                                                backward=True)[0]})
+        del q, k, v, do, out7, lse7, out1, lse1
+        torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def run_tailvar(dev, ops, exp_tailvar):
     """The tail-attention tiling experiment through its run function at its
     full shapes in bf16 and at ``TAILVAR_FP32``: K1, K5 (nh 2, 4) and K6 (bq
@@ -500,6 +681,36 @@ def run_tailvar(dev, ops, exp_tailvar):
             if counts[key].get(n, 0) == 0:
                 fail(f"{key}[{n}] never launched in the tiling experiment")
     return counts, rows
+
+
+def run_attn602(dev, ops, exp_attn602):
+    """The attention shoot-out through its run function at its full shapes
+    in bf16: K1, the plain attention and K7-seg over the sequence padded to
+    a multiple of 128 (flashpad), each against the plain attention (it
+    raises on one that disagrees) and timed beside it, the bound and SDPA.
+    K7-seg must have launched at both padded shapes. Returns the
+    shoot-out's launches."""
+    ops.reset_launch_counts()
+    runs = [exp_attn602.run(seq, label, dev)
+            for label, seq in exp_attn602.SHAPES.items()]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"launches in the attention shoot-out: {json.dumps(counts)}")
+    for rows in runs:  # each row was printed by the shoot-out
+        for r in rows:
+            if not (r["scaled_err"] <= ATTN_TOL and
+                    r["rel_err"] <= exp_attn602.REL_TOL[torch.bfloat16]):
+                fail(f"shoot-out {r['variant']} {r['shape']} disagrees: "
+                     f"scaled {r['scaled_err']}, relative norm "
+                     f"{r['rel_err']}")
+    b, h, d = exp_attn602.B, exp_attn602.H, exp_attn602.HD
+    for seq in exp_attn602.SHAPES.values():
+        padded = -(-seq // 128) * 128
+        key = f"{b},{padded},{padded},{h},{d}"
+        if counts["flash_attention_segment_by_shape"].get(key, 0) == 0:
+            fail(f"flash_attention_segment never launched at ({key}) in the "
+                 "shoot-out")
+    return counts
 
 
 def check_adaln(dev, fused_adaln):
@@ -1000,8 +1211,10 @@ def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
     k7 = counts["flash_attention_by_shape"].get(k7_key, 0)
     log(f"K7 at ({k7_key}): {k7} launches, {k7 / forwards:g} per CFG "
         f"forward")
-    if k7 == 0:
-        fail(f"flash_attention never launched at ({k7_key}) on the unet path")
+    want = UNET_K7_PER_FORWARD * forwards
+    if k7 != want or counts["flash_attention"] != want:
+        fail(f"flash_attention launched {counts['flash_attention_by_shape']}"
+             f" on the unet path, not {want} times at ({k7_key})")
     for s in (336, 448, 168):
         if counts["flash_tail_by_seq"].get(s, 0) == 0:
             fail(f"flash_tail never launched at s={s} on the unet path")
@@ -1202,12 +1415,16 @@ def run_unet_train_slice(dev, create_instance_from_config, ops,
     counts, metrics = drive_train(dev, pipe, batch, ops, "unet train",
                                   profile)
     k7_key = f"{FRAMES * VIEWS},{LAT_H * LAT_W},{LAT_H * LAT_W},5,64"
-    for what in ("flash_attention", "flash_attention_backward"):
+    steps = TRAIN_STEPS - 1
+    # forward and remat recompute; backward
+    for what, want in (("flash_attention", 2 * UNET_K7_PER_FORWARD * steps),
+                       ("flash_attention_backward",
+                        UNET_K7_PER_FORWARD * steps)):
         n = counts[f"{what}_by_shape"].get(k7_key, 0)
-        log(f"{what} at ({k7_key}): {n} launches in {TRAIN_STEPS - 1} steps")
-        if n == 0:
-            fail(f"{what} never launched at ({k7_key}) in the unet train "
-                 "steps")
+        log(f"{what} at ({k7_key}): {n} launches in {steps} steps")
+        if n != want or counts[what] != want:
+            fail(f"{what} launched {counts[f'{what}_by_shape']} in the unet "
+                 f"train steps, not {want} times at ({k7_key})")
     for s in (336, 448, 168):
         if counts["flash_tail_by_seq"].get(s, 0) == 0:
             fail(f"flash_tail never launched at s={s} in the unet train steps")
@@ -1231,7 +1448,7 @@ def main() -> None:
         flash_tail,
         fused_adaln,
     )
-    from opendwm_tpu_torch.perf import exp_tailvar
+    from opendwm_tpu_torch.perf import exp_attn602, exp_tailvar
     from opendwm_tpu_torch.pipelines.ctsd import (
         draw_training_randoms,
         get_conditions,
@@ -1265,7 +1482,11 @@ def main() -> None:
                                                  flash_attention)
     k7_bwd_rows, k7_lse_timing = check_flash_attention_backward(
         dev, flash_attention)
+    k7_seg_rows = check_flash_attention_segment(dev, flash_attention)
+    k7_at_k1, k7_bwd_at_k2 = check_k7_at_tail_shapes(dev, flash_tail,
+                                                     flash_attention)
     tailvar, tiling_rows = run_tailvar(dev, ops, exp_tailvar)
+    attn602 = run_attn602(dev, ops, exp_attn602)
     log_clocks("after the attention checks")
     adaln_rows = check_adaln(dev, fused_adaln)
     check_tiny_model(dev, DiTCrossviewTemporal)
@@ -1299,7 +1520,13 @@ def main() -> None:
         profile="--profile-unet-train" in sys.argv[1:])
     log_clocks("at the end")
     paths = {"serve": serve, "train": train, "unet_serve": unet,
-             "unet_train": unet_train, "tailvar": tailvar}
+             "unet_train": unet_train, "tailvar": tailvar,
+             "attn602": attn602}
+    strays = {p: c["flash_attention_segment"] for p, c in paths.items()
+              if p != "attn602" and c["flash_attention_segment"]}
+    if strays:
+        fail(f"flash_attention_segment launched outside the shoot-out: "
+             f"{strays}")
 
     def entry(name, route, source, replaces, key, rows, **extra):
         by_path = {path: counts.get(key, 0) for path, counts in paths.items()}
@@ -1335,14 +1562,19 @@ def main() -> None:
         entry("flash_attention_forward", "cuda", k7_src,
               "opendwm_tpu/ops/attention.py:151", "flash_attention", k7_rows,
               lse_ms=k7_lse_timing["lse_ms"],
-              serving_ms_beside_lse=k7_lse_timing["serving_ms"]),
+              serving_ms_beside_lse=k7_lse_timing["serving_ms"],
+              at_k1_shapes=k7_at_k1),
         entry("flash_attention_backward", "cuda", k7_src,
               f"{STOCK_FLASH}:941", "flash_attention_backward", k7_bwd_rows,
-              replaces_also=f"{STOCK_FLASH}:1287"),
+              replaces_also=f"{STOCK_FLASH}:1287",
+              at_k2_shapes=k7_bwd_at_k2),
         entry("tail_hpack", "cuda", csrc, "perf/exp_tailvar.py:75",
               "tail_hpack", tiling_rows["tail_hpack"]),
         entry("tail_qsplit", "cuda", csrc, "perf/exp_tailvar.py:119",
               "tail_qsplit", tiling_rows["tail_qsplit"]),
+        entry("flash_attention_segment", "cuda", k7_src,
+              "perf/exp_attn602.py:88", "flash_attention_segment",
+              k7_seg_rows, replaces_also=f"{STOCK_FLASH}:140"),
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

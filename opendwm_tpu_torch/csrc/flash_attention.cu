@@ -45,6 +45,22 @@
 // When a gradient is needed the forward also writes the row log-sum-exp
 // (fp32, in the log2 domain of the scaled scores, (B*H, q_seq)); it is a
 // template flag, so the serving launch compiles to the same code as before.
+//
+// Segment ids (K7-seg). The stock kernel also takes int32 segment ids of the
+// queries and keys, (B, q_seq) and (B, kv_seq), and lets query i see key j
+// only where their ids are equal; perf/exp_attn602.py (v_flashpad) pads the
+// sequence to a multiple of 128 and gives the pads their own segment. The
+// stock kernel adds a finite DEFAULT_MASK_VALUE (-0.7 * FLT_MAX) to the
+// scaled logits of a pair whose ids differ, so a query whose id matches no
+// key attends to every key alike and gets the mean of V. Here the same
+// finite value is added after the scores are scaled into the log2 domain
+// (before, the product with log2(e) would overflow to -inf); keys past
+// kv_seq and above the causal diagonal keep -inf. The block loads its 64
+// query ids into shared memory once and each tile's 64 key ids with the
+// tile. The ids are a template flag of the same tile loop (the kernels
+// without them are thin wrappers of the same body, so they compile as
+// before); no instance writes the log-sum-exp with ids, since nothing
+// differentiates the shoot-out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +77,11 @@ constexpr int kBlockK = 64;  // keys per K/V tile (bf16)
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
+// The stock kernel's DEFAULT_MASK_VALUE, added to a pair whose segment ids
+// differ.
+constexpr float kSegmentMask = -0.7f * 3.402823466e38f;
+// Shared bytes of the ids of a block's 64 queries and of one key tile.
+constexpr size_t kIdBytes = 2 * 64 * sizeof(int);
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) / 128 * 128;
@@ -166,15 +187,16 @@ __device__ __forceinline__ void ld_a_frag(uint32_t (&a)[4],
 // columns {2t, 2t+1} (+8 for regs 2, 3). B (16x8): regs {0,1} hold rows
 // {2t, 2t+1} (+8 for reg 1) of column g. C (16x8, fp32): {c0, c1} are row
 // g, columns 2t, 2t+1; {c2, c3} the same columns of row g+8.
-template <int DP, bool kCausal, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
-                                __nv_bfloat16* __restrict__ o,
-                                float* __restrict__ lse, int q_seq,
-                                int kv_seq, int heads, int head_dim,
-                                float scale_log2, bool vec) {
+// The body of the bf16 forward. With kSegment, q_ids / kv_ids are the
+// (batch, q_seq) / (batch, kv_seq) segment ids, and the block keeps its
+// query ids and the tile's key ids after L::kBytes of shared memory.
+template <int DP, bool kCausal, bool kLse, bool kSegment>
+__device__ __forceinline__ void attend_bf16(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int q_seq, int kv_seq, int heads, int head_dim,
+    float scale_log2, bool vec, const int* __restrict__ q_ids,
+    const int* __restrict__ kv_ids) {
   using L = MmaLayout<DP>;
   constexpr int kLd = L::kLd;
   constexpr bool kQInRegs = DP <= 128;
@@ -182,6 +204,8 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::kK);
   __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::kV);
+  int* sQid = reinterpret_cast<int*>(smem + L::kBytes);
+  int* sKvid = sQid + kBlockQ;
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
@@ -201,6 +225,12 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<__nv_bfloat16, DP, kLd, kBlockQ>(sQ, q, q_base, row_stride, q0,
                                              q_seq, head_dim, vec, tid);
+  if constexpr (kSegment) {
+    if (tid < kBlockQ)
+      sQid[tid] = q0 + tid < q_seq
+                      ? q_ids[static_cast<size_t>(b) * q_seq + q0 + tid]
+                      : 0;
+  }
   __syncthreads();
 
   const __nv_bfloat16* wq = sQ + warp * 16 * kLd;
@@ -208,6 +238,11 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (kQInRegs) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) ld_a_frag(qf[kk], wq, kLd, kk * 16, g, t);
+  }
+  int row_id[2] = {0, 0};
+  if constexpr (kSegment) {
+    row_id[0] = sQid[warp * 16 + g];
+    row_id[1] = sQid[warp * 16 + g + 8];
   }
 
   float acc[DP / 8][4];
@@ -226,6 +261,12 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<__nv_bfloat16, DP, kLd, kBlockK>(sV, v, kv_base, row_stride,
                                                kv0, kv_seq, head_dim, vec,
                                                tid);
+    if constexpr (kSegment) {
+      if (tid < kBlockK)
+        sKvid[tid] = kv0 + tid < kv_seq
+                         ? kv_ids[static_cast<size_t>(b) * kv_seq + kv0 + tid]
+                         : 0;
+    }
     __syncthreads();
 
     // Scores S = Q K^T for 16 rows x 64 keys, as 8 C fragments.
@@ -247,17 +288,27 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // Online softmax in the log2 domain; hidden keys get -inf. Every row
-    // sees key 0 in the first tile, so m_run is finite from then on.
+    // Online softmax in the log2 domain. Keys past kv_seq and above the
+    // causal diagonal get -inf; with segment ids, a key of another segment
+    // gets the finite kSegmentMask added, as the stock kernel does. Key kv0
+    // is below kv_seq and, under the causal mask, at or before every row of
+    // the block (tiles start at multiples of 64 no later than q0), so every
+    // tile's row max is finite: m_run is finite after the first tile, whose
+    // correction is exp2(-inf) = 0. A row whose id matches no key sees
+    // kSegmentMask alone (the scores vanish beside it), so p = 1 for each
+    // key and the output is the mean of V.
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < kBlockK / 8; ++n) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = kv0 + n * 8 + 2 * t + (i & 1);
-        const float val = visible<kCausal>(rows[i >> 1], col, kv_seq)
-                              ? s[n][i] * scale_log2
-                              : -INFINITY;
+        float val = visible<kCausal>(rows[i >> 1], col, kv_seq)
+                        ? s[n][i] * scale_log2
+                        : -INFINITY;
+        if constexpr (kSegment) {
+          if (row_id[i >> 1] != sKvid[col - kv0]) val += kSegmentMask;
+        }
         s[n][i] = val;
         mx[i >> 1] = fmaxf(mx[i >> 1], val);
       }
@@ -332,6 +383,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int DP, bool kCausal, bool kLse>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ o,
+                                float* __restrict__ lse, int q_seq,
+                                int kv_seq, int heads, int head_dim,
+                                float scale_log2, bool vec) {
+  attend_bf16<DP, kCausal, kLse, false>(q, k, v, o, lse, q_seq, kv_seq, heads,
+                                        head_dim, scale_log2, vec, nullptr,
+                                        nullptr);
+}
+
+template <int DP, bool kCausal>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_segment_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                        const __nv_bfloat16* __restrict__ k,
+                                        const __nv_bfloat16* __restrict__ v,
+                                        __nv_bfloat16* __restrict__ o,
+                                        const int* __restrict__ q_ids,
+                                        const int* __restrict__ kv_ids,
+                                        int q_seq, int kv_seq, int heads,
+                                        int head_dim, float scale_log2,
+                                        bool vec) {
+  attend_bf16<DP, kCausal, false, true>(q, k, v, o, nullptr, q_seq, kv_seq,
+                                        heads, head_dim, scale_log2, vec,
+                                        q_ids, kv_ids);
+}
+
 // ---------------------------------------------------------------------------
 // fp32: the same tiling with plain FMAs, scores through shared memory
 // ---------------------------------------------------------------------------
@@ -349,14 +430,14 @@ struct F32Layout {
   static constexpr size_t kBytes = kO + align128(4 * kBlockQ * kLdO);
 };
 
-template <int DP, int BK, bool kCausal, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_f32_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               float* __restrict__ o, float* __restrict__ lse,
-                               int q_seq, int kv_seq, int heads, int head_dim,
-                               float scale_log2, bool vec) {
+// The body of the fp32 forward; segment ids as in attend_bf16.
+template <int DP, int BK, bool kCausal, bool kLse, bool kSegment>
+__device__ __forceinline__ void attend_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int q_seq, int kv_seq, int heads, int head_dim,
+    float scale_log2, bool vec, const int* __restrict__ q_ids,
+    const int* __restrict__ kv_ids) {
   using L = F32Layout<DP, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem + L::kQ);
@@ -364,6 +445,8 @@ __global__ void __launch_bounds__(kThreads)
   float* sV = reinterpret_cast<float*>(smem + L::kV);
   float* sS = reinterpret_cast<float*>(smem + L::kS);
   float* sO = reinterpret_cast<float*>(smem + L::kO);
+  int* sQid = reinterpret_cast<int*>(smem + L::kBytes);
+  int* sKvid = sQid + kBlockQ;
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
@@ -382,6 +465,12 @@ __global__ void __launch_bounds__(kThreads)
                                          q_seq, head_dim, vec, tid);
   for (int i = tid; i < kBlockQ * DP; i += kThreads)
     sO[(i / DP) * L::kLdO + i % DP] = 0.0f;
+  if constexpr (kSegment) {
+    if (tid < kBlockQ)
+      sQid[tid] = q0 + tid < q_seq
+                      ? q_ids[static_cast<size_t>(b) * q_seq + q0 + tid]
+                      : 0;
+  }
 
   // Lane owns row (lane / 2) of its warp's 16 and half of the columns.
   const int r = lane >> 1;
@@ -392,6 +481,9 @@ __global__ void __launch_bounds__(kThreads)
   float* wO = sO + (warp * 16 + r) * L::kLdO;
   float m_run = -INFINITY, l_run = 0.0f;
 
+  // As in attend_bf16: key 0 is visible to every row in the first tile, so
+  // m_run is finite after it; a later causal tile may hide all its keys
+  // from a row (32-key tiles at D 256), whose max then stays m_run.
   const int kv_end = kCausal ? min(kv_seq, q0 + kBlockQ) : kv_seq;
   for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
     __syncthreads();
@@ -399,14 +491,23 @@ __global__ void __launch_bounds__(kThreads)
                                       kv_seq, head_dim, vec, tid);
     load_tile<float, DP, L::kLdT, BK>(sV, v, kv_base, row_stride, kv0,
                                       kv_seq, head_dim, vec, tid);
+    if constexpr (kSegment) {
+      if (tid < BK)
+        sKvid[tid] = kv0 + tid < kv_seq
+                         ? kv_ids[static_cast<size_t>(b) * kv_seq + kv0 + tid]
+                         : 0;
+    }
     __syncthreads();
 
     float mx = -INFINITY;
     for (int c = half * (BK / 2); c < (half + 1) * (BK / 2); ++c) {
       float acc = 0.0f;
       for (int d = 0; d < DP; ++d) acc += wQ[d] * sK[c * L::kLdT + d];
-      const float val =
+      float val =
           visible<kCausal>(row, kv0 + c, kv_seq) ? acc * scale_log2 : -INFINITY;
+      if constexpr (kSegment) {
+        if (sQid[warp * 16 + r] != sKvid[c]) val += kSegmentMask;
+      }
       wS[c] = val;
       mx = fmaxf(mx, val);
     }
@@ -438,6 +539,35 @@ __global__ void __launch_bounds__(kThreads)
     for (int d = half * (DP / 2); d < (half + 1) * (DP / 2); ++d)
       if (d < head_dim) out[d] = wO[d] * inv;
   }
+}
+
+template <int DP, int BK, bool kCausal, bool kLse>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_f32_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ o, float* __restrict__ lse,
+                               int q_seq, int kv_seq, int heads, int head_dim,
+                               float scale_log2, bool vec) {
+  attend_f32<DP, BK, kCausal, kLse, false>(q, k, v, o, lse, q_seq, kv_seq,
+                                           heads, head_dim, scale_log2, vec,
+                                           nullptr, nullptr);
+}
+
+template <int DP, int BK, bool kCausal>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_segment_f32_kernel(const float* __restrict__ q,
+                                       const float* __restrict__ k,
+                                       const float* __restrict__ v,
+                                       float* __restrict__ o,
+                                       const int* __restrict__ q_ids,
+                                       const int* __restrict__ kv_ids,
+                                       int q_seq, int kv_seq, int heads,
+                                       int head_dim, float scale_log2,
+                                       bool vec) {
+  attend_f32<DP, BK, kCausal, false, true>(q, k, v, o, nullptr, q_seq,
+                                           kv_seq, heads, head_dim,
+                                           scale_log2, vec, q_ids, kv_ids);
 }
 
 // ---------------------------------------------------------------------------
@@ -1077,29 +1207,54 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
   return addr % 16 == 0;
 }
 
+// The forward: with the log-sum-exp if lse is given, with segment ids if
+// q_ids is given (never both).
 template <int DP, bool kCausal>
 int launch_dp(const void* q, const void* k, const void* v, void* o,
-              float* lse, int batch, int q_seq, int kv_seq, int heads,
-              int head_dim, float scale, int is_bf16, cudaStream_t stream) {
+              float* lse, const int* q_ids, const int* kv_ids, int batch,
+              int q_seq, int kv_seq, int heads, int head_dim, float scale,
+              int is_bf16, cudaStream_t stream) {
   const dim3 grid(batch * heads, (q_seq + kBlockQ - 1) / kBlockQ);
   const bool aligned = aligned16({q, k, v});
   const float scale_log2 = scale * kLog2e;
   cudaError_t err;
   if (is_bf16) {
+    using T = __nv_bfloat16;
     const bool vec = head_dim % 8 == 0 && aligned;
+    if (q_ids) {
+      auto kernel = flash_attention_segment_bf16_kernel<DP, kCausal>;
+      const size_t smem = MmaLayout<DP>::kBytes + kIdBytes;
+      if ((err = set_smem(kernel, smem)) != cudaSuccess)
+        return static_cast<int>(err);
+      kernel<<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), q_ids, kv_ids, q_seq,
+          kv_seq, heads, head_dim, scale_log2, vec);
+      return static_cast<int>(cudaGetLastError());
+    }
     auto kernel = lse ? flash_attention_bf16_kernel<DP, kCausal, true>
                       : flash_attention_bf16_kernel<DP, kCausal, false>;
     const size_t smem = MmaLayout<DP>::kBytes;
     if ((err = set_smem(kernel, smem)) != cudaSuccess)
       return static_cast<int>(err);
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        lse, q_seq, kv_seq, heads, head_dim, scale_log2, vec);
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, q_seq, kv_seq,
+        heads, head_dim, scale_log2, vec);
   } else {
     constexpr int BK = DP > 128 ? 32 : 64;
     const bool vec = head_dim % 4 == 0 && aligned;
+    if (q_ids) {
+      auto kernel = flash_attention_segment_f32_kernel<DP, BK, kCausal>;
+      const size_t smem = F32Layout<DP, BK>::kBytes + kIdBytes;
+      if ((err = set_smem(kernel, smem)) != cudaSuccess)
+        return static_cast<int>(err);
+      kernel<<<grid, kThreads, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), q_ids,
+          kv_ids, q_seq, kv_seq, heads, head_dim, scale_log2, vec);
+      return static_cast<int>(cudaGetLastError());
+    }
     auto kernel = lse ? flash_attention_f32_kernel<DP, BK, kCausal, true>
                       : flash_attention_f32_kernel<DP, BK, kCausal, false>;
     const size_t smem = F32Layout<DP, BK>::kBytes;
@@ -1115,16 +1270,40 @@ int launch_dp(const void* q, const void* k, const void* v, void* o,
 
 template <bool kCausal>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int batch, int q_seq, int kv_seq, int heads, int head_dim,
-           float scale, int is_bf16, cudaStream_t stream) {
+           const int* q_ids, const int* kv_ids, int batch, int q_seq,
+           int kv_seq, int heads, int head_dim, float scale, int is_bf16,
+           cudaStream_t stream) {
   if (head_dim <= 64)
-    return launch_dp<64, kCausal>(q, k, v, o, lse, batch, q_seq, kv_seq,
-                                  heads, head_dim, scale, is_bf16, stream);
+    return launch_dp<64, kCausal>(q, k, v, o, lse, q_ids, kv_ids, batch,
+                                  q_seq, kv_seq, heads, head_dim, scale,
+                                  is_bf16, stream);
   if (head_dim <= 128)
-    return launch_dp<128, kCausal>(q, k, v, o, lse, batch, q_seq, kv_seq,
-                                   heads, head_dim, scale, is_bf16, stream);
-  return launch_dp<256, kCausal>(q, k, v, o, lse, batch, q_seq, kv_seq,
-                                 heads, head_dim, scale, is_bf16, stream);
+    return launch_dp<128, kCausal>(q, k, v, o, lse, q_ids, kv_ids, batch,
+                                   q_seq, kv_seq, heads, head_dim, scale,
+                                   is_bf16, stream);
+  return launch_dp<256, kCausal>(q, k, v, o, lse, q_ids, kv_ids, batch,
+                                 q_seq, kv_seq, heads, head_dim, scale,
+                                 is_bf16, stream);
+}
+
+int forward(const void* q, const void* k, const void* v, void* o, void* lse,
+            const void* q_ids, const void* kv_ids, int batch, int q_seq,
+            int kv_seq, int heads, int head_dim, float scale, int causal,
+            int is_bf16, void* stream) {
+  if (batch <= 0 || q_seq <= 0 || kv_seq <= 0 || heads <= 0 ||
+      head_dim <= 0 || head_dim > 256 ||
+      (q_seq + kBlockQ - 1) / kBlockQ > 65535 ||
+      static_cast<long long>(batch) * heads > (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  const int* qi = static_cast<const int*>(q_ids);
+  const int* ki = static_cast<const int*>(kv_ids);
+  if (causal)
+    return launch<true>(q, k, v, o, l, qi, ki, batch, q_seq, kv_seq, heads,
+                        head_dim, scale, is_bf16, st);
+  return launch<false>(q, k, v, o, l, qi, ki, batch, q_seq, kv_seq, heads,
+                       head_dim, scale, is_bf16, st);
 }
 
 template <int DP, bool kCausal>
@@ -1226,18 +1405,9 @@ extern "C" int flash_attention_forward_lse(const void* q, const void* k,
                                            int heads, int head_dim,
                                            float scale, int causal,
                                            int is_bf16, void* stream) {
-  if (batch <= 0 || q_seq <= 0 || kv_seq <= 0 || heads <= 0 ||
-      head_dim <= 0 || head_dim > 256 ||
-      (q_seq + kBlockQ - 1) / kBlockQ > 65535 ||
-      static_cast<long long>(batch) * heads > (1LL << 31) - 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  if (causal)
-    return launch<true>(q, k, v, o, l, batch, q_seq, kv_seq, heads, head_dim,
-                        scale, is_bf16, st);
-  return launch<false>(q, k, v, o, l, batch, q_seq, kv_seq, heads, head_dim,
-                       scale, is_bf16, st);
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return forward(q, k, v, o, lse, nullptr, nullptr, batch, q_seq, kv_seq,
+                 heads, head_dim, scale, causal, is_bf16, stream);
 }
 
 // The serving entry: the forward without the log-sum-exp.
@@ -1246,9 +1416,22 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
                                        int q_seq, int kv_seq, int heads,
                                        int head_dim, float scale, int causal,
                                        int is_bf16, void* stream) {
-  return flash_attention_forward_lse(q, k, v, o, nullptr, batch, q_seq,
-                                     kv_seq, heads, head_dim, scale, causal,
-                                     is_bf16, stream);
+  return forward(q, k, v, o, nullptr, nullptr, nullptr, batch, q_seq, kv_seq,
+                 heads, head_dim, scale, causal, is_bf16, stream);
+}
+
+// The forward with segment ids (K7-seg): q_ids and kv_ids are contiguous
+// int32 (batch, q_seq) and (batch, kv_seq); query i sees key j only where
+// their ids are equal (a pair whose ids differ gets the stock kernel's
+// finite mask, so a query whose id no key shares gets the mean of V).
+extern "C" int flash_attention_forward_segment(
+    const void* q, const void* k, const void* v, void* o, const void* q_ids,
+    const void* kv_ids, int batch, int q_seq, int kv_seq, int heads,
+    int head_dim, float scale, int causal, int is_bf16, void* stream) {
+  if (q_ids == nullptr || kv_ids == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return forward(q, k, v, o, nullptr, q_ids, kv_ids, batch, q_seq, kv_seq,
+                 heads, head_dim, scale, causal, is_bf16, stream);
 }
 
 // dq, dk, dv of the forward above: q, k, v, o (its output), dout and the

@@ -19,12 +19,24 @@ key j is visible to query i iff j <= i, also when q and kv lengths differ
 (the JAX package's XLA fallback masks bottom-right there). The wrappers
 take the plain PyTorch versions only for CPU tensors; for a CUDA tensor
 they launch the kernel or raise.
+
+K7-seg: with ``segment_ids`` (``SegmentIds``, as the stock kernel takes
+them) query i sees key j only where their ids are equal. It serves the
+attention shoot-out (``perf/exp_attn602.py`` ``v_flashpad`` and its port
+``opendwm_tpu_torch/perf/exp_attn602.py``), which pads a sequence to a
+multiple of 128 and gives the pads segment 1; the JAX model never passes
+segment ids, so ``ops/attention.py`` does not either. As in the stock
+kernel, a pair whose ids differ gets the finite ``MASK_VALUE`` added to its
+scaled logit, not -inf, so a query whose id no key shares attends to every
+key alike (the mean of V). Its launches are counted apart from K7's. It
+has no backward: a call with segment ids that needs a gradient raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,22 +45,37 @@ from opendwm_tpu_torch.ops import _build
 MIN_SEQ = 128
 MAX_HEAD_DIM = 256
 _LOG2E = 1.4426950408889634
+# The stock kernel's DEFAULT_MASK_VALUE, added to the scaled logit of a
+# (query, key) pair whose segment ids differ.
+MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
+
+
+class SegmentIds(NamedTuple):
+    """int32 segment ids of the queries, ``(B, Sq)``, and of the keys,
+    ``(B, Skv)``: query i sees key j only where their ids are equal (the
+    stock kernel's ``SegmentIds``)."""
+
+    q: torch.Tensor
+    kv: torch.Tensor
 
 # Kernel launches, in total and by (batch, q_seq, kv_seq, heads, head_dim):
 # the forward (with the launches that also wrote the log-sum-exp counted
-# apart) and the backward.
+# apart), the backward, and the forward with segment ids (K7-seg).
 launches = 0
 launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 lse_launches = 0
 backward_launches = 0
 backward_launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
+segment_launches = 0
+segment_launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 
 
 def reset_launches() -> None:
-    global launches, lse_launches, backward_launches
-    launches = lse_launches = backward_launches = 0
+    global launches, lse_launches, backward_launches, segment_launches
+    launches = lse_launches = backward_launches = segment_launches = 0
     launches_by_shape.clear()
     backward_launches_by_shape.clear()
+    segment_launches_by_shape.clear()
 
 
 def supported(q_seq: int, kv_seq: int, head_dim: int) -> bool:
@@ -66,9 +93,14 @@ def _hidden(q_len: int, k_len: int, device) -> torch.Tensor:
     return torch.ones(q_len, k_len, dtype=torch.bool, device=device).triu(1)
 
 
-def _logits(q, k, scale: float, causal: bool):
-    """fp32 ``(b, h, q, k)`` scaled scores, hidden pairs at -inf."""
+def _logits(q, k, scale: float, causal: bool,
+            segment_ids: SegmentIds | None = None):
+    """fp32 ``(b, h, q, k)`` scaled scores: causally hidden pairs at -inf,
+    pairs of different segments plus ``MASK_VALUE``."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if segment_ids is not None:
+        same = segment_ids.q[:, None, :, None] == segment_ids.kv[:, None, None]
+        logits = logits + torch.where(same, 0.0, MASK_VALUE)
     if causal:
         logits = logits.masked_fill(
             _hidden(logits.shape[-2], logits.shape[-1], q.device),
@@ -76,11 +108,19 @@ def _logits(q, k, scale: float, causal: bool):
     return logits
 
 
-def flash_attention_plain(q, k, v, scale: float, causal: bool = False):
+def flash_attention_plain(q, k, v, scale: float, causal: bool = False,
+                          segment_ids: SegmentIds | None = None):
     """Plain PyTorch version over BSHD tensors: fp32 logits and softmax,
     probabilities in ``v.dtype``, output in ``q.dtype``; ``causal`` masks
-    top-left (key j visible to query i iff j <= i)."""
-    probs = torch.softmax(_logits(q, k, scale, causal), dim=-1).to(v.dtype)
+    top-left (key j visible to query i iff j <= i); ``segment_ids`` add
+    ``MASK_VALUE`` to the scaled logits of pairs whose ids differ, as the
+    stock kernel does (a row that sees no key of its segment gets the mean
+    of V over its causally visible keys; the stock kernel adds the finite
+    value to causally hidden pairs too, so there such a row's output
+    depends on which of its blocks run, and only rows that see a key of
+    their segment are the same function)."""
+    logits = _logits(q, k, scale, causal, segment_ids)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
 
@@ -128,8 +168,10 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_forward.argtypes = [ptr] * 4 + shape
     lib.flash_attention_forward_lse.argtypes = [ptr] * 5 + shape
     lib.flash_attention_backward.argtypes = [ptr] * 10 + shape
+    lib.flash_attention_forward_segment.argtypes = [ptr] * 6 + shape
     for fn in (lib.flash_attention_forward, lib.flash_attention_forward_lse,
-               lib.flash_attention_backward):
+               lib.flash_attention_backward,
+               lib.flash_attention_forward_segment):
         fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -159,6 +201,18 @@ def _check(q, k, v) -> None:
                          "tensors")
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM}")
+
+
+def _check_segment_ids(segment_ids: SegmentIds, q, k) -> None:
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    for name, ids, shape in (("q", segment_ids.q, (b, sq)),
+                             ("kv", segment_ids.kv, (b, sk))):
+        if tuple(ids.shape) != shape or ids.dtype != torch.int32 or \
+                ids.device != q.device:
+            raise ValueError(
+                f"segment ids {name} must be int32 of shape {shape} on "
+                f"{q.device}, not {ids.dtype} {tuple(ids.shape)} on "
+                f"{ids.device}")
 
 
 def _raise_on_error(lib, rc: int, what: str) -> None:
@@ -196,6 +250,30 @@ def _launch(q, k, v, scale: float, causal: bool, with_lse: bool = False):
     key = (b, sq, sk, h, d)
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
     return out, lse
+
+
+def _launch_segment(q, k, v, scale: float, causal: bool,
+                    segment_ids: SegmentIds):
+    """K7-seg on CUDA tensors."""
+    global segment_launches
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    q_ids, kv_ids = (ids.contiguous() for ids in segment_ids)
+    out = torch.empty_like(q)
+    lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_forward_segment(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q_ids.data_ptr(), kv_ids.data_ptr(), b, sq, sk, h, d,
+            float(scale), int(causal), int(q.dtype == torch.bfloat16),
+            stream)
+    _raise_on_error(lib, rc, "segment forward")
+    segment_launches += 1
+    key = (b, sq, sk, h, d)
+    segment_launches_by_shape[key] = segment_launches_by_shape.get(key, 0) + 1
+    return out
 
 
 def _launch_backward(q, k, v, out, do, lse, scale: float, causal: bool):
@@ -278,16 +356,29 @@ class _FlashAttention(torch.autograd.Function):
                                           ctx.causal), None, None)
 
 
-def flash_attention(q, k, v, scale: float, causal: bool = False):
-    """BSHD attention: K7 on CUDA tensors, the plain version on CPU ones.
+def flash_attention(q, k, v, scale: float, causal: bool = False,
+                    segment_ids: SegmentIds | None = None):
+    """BSHD attention: K7 (K7-seg with ``segment_ids``) on CUDA tensors,
+    the plain version on CPU ones.
 
     A call that needs a gradient goes through the autograd Function (K7
-    with the log-sum-exp forward, the K7 backward)."""
+    with the log-sum-exp forward, the K7 backward); with segment ids it
+    raises, since K7-seg has no backward."""
     on_device = _on_device(q)
+    if segment_ids is not None:
+        _check_segment_ids(segment_ids, q, k)
     if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "flash attention with segment ids has no backward: the "
+                "stock kernel's segment-id backward is still to be ported "
+                "(ROADMAP Queue 2, item 6); nothing in the repo "
+                "differentiates it")
         return _FlashAttention.apply(q, k, v, scale, causal)
     if not on_device:
-        return flash_attention_plain(q, k, v, scale, causal)
+        return flash_attention_plain(q, k, v, scale, causal, segment_ids)
+    if segment_ids is not None:
+        return _launch_segment(q, k, v, scale, causal, segment_ids)
     return _launch(q, k, v, scale, causal)[0]

@@ -85,6 +85,32 @@ def attention_bound(b, sq, sk, h, d, causal=False, backward=False,
     return bound(flops, nbytes, peak)
 
 
+def segment_pairs(q_ids, kv_ids, causal=False) -> int:
+    """(query, key) pairs that a forward with segment ids must attend, per
+    head: those of one segment (under the top-left causal mask with key <=
+    query), and every visible key of a query that shares no key's id (it
+    gets the mean of V over them)."""
+    visible = torch.ones(q_ids.shape[1], kv_ids.shape[1], dtype=torch.bool,
+                         device=q_ids.device)
+    if causal:
+        visible = visible.tril()
+    same = (q_ids[:, :, None] == kv_ids[:, None, :]) & visible
+    per_row = same.sum(-1)
+    return int(torch.where(per_row > 0, per_row, visible.sum(-1)).sum())
+
+
+def segment_attention_bound(q_ids, kv_ids, h, d, causal=False,
+                            dtype=torch.bfloat16):
+    """The forward of ``attention_bound`` over the pairs that the segment
+    ids leave (``segment_pairs``), whose bytes also count the int32 ids."""
+    (b, sq), sk = q_ids.shape, kv_ids.shape[1]
+    flops = 2 * 2 * h * segment_pairs(q_ids, kv_ids, causal) * d
+    nbytes = dtype.itemsize * 2 * (b * sq + b * sk) * h * d + \
+        4 * (b * sq + b * sk)
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    return bound(flops, nbytes, peak)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     out = subprocess.run(

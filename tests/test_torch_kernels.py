@@ -520,3 +520,104 @@ def test_tail_tiling_launch_counts_and_checks(cuda):
     assert counts["tail_hpack_by_nh"] == {2: 1, 4: 1}
     assert counts["tail_qsplit_by_bq"] == {128: 2, 256: 1}
     assert counts["flash_tail"] == 0
+
+
+def _packed_ids(b, s, seed, device):
+    """int32 (b, s) ids in 1-4 contiguous segments per row, in order."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.zeros(b, s, dtype=torch.int32)
+    for row in ids:
+        n = int(torch.randint(1, 5, (1,), generator=g))
+        for cut in torch.randperm(s - 1, generator=g)[:n - 1] + 1:
+            row[cut:] += 1
+    return ids.to(device)
+
+
+# K7-seg's bars: those of the shoot-out (scaled error; relative norm, one
+# bf16 ulp, since its 0.5 N(0, 1) inputs give outputs far below 1).
+SEGMENT_TOLS = {torch.bfloat16: (2e-2, 2 ** -7), torch.float32: (1e-4, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    "flashpad", "packed", "packed_causal", "hidden_rows", "q_longer_causal",
+    "d128_causal", "d256", "ragged_d40_causal"])
+def test_flash_attention_segment_kernel_matches_plain(cuda, dtype, case):
+    """K7-seg against its plain version: the shoot-out's flashpad call at
+    (36, 640) (S 602, pads in segment 1); packed ids (1-4 segments a row)
+    at (8, 1792), non-causal and causal; rows that share no key's id (the
+    mean of V); q longer than kv under the causal mask; head dims 128 and
+    256; a ragged length and head dim (masked tails)."""
+    b, sq, sk, h, d, causal = {
+        "flashpad": (36, 640, 640, 24, 64, False),
+        "packed": (8, 1792, 1792, 24, 64, False),
+        "packed_causal": (8, 1792, 1792, 24, 64, True),
+        "hidden_rows": (8, 1792, 1792, 24, 64, False),
+        "q_longer_causal": (2, 384, 256, 3, 64, True),
+        "d128_causal": (2, 256, 256, 3, 128, True),
+        "d256": (2, 384, 384, 3, 256, False),
+        "ragged_d40_causal": (2, 200, 130, 3, 40, True),
+    }[case]
+    g = torch.Generator(cuda).manual_seed(sq + sk + d)
+    q = (torch.randn(b, sq, h, d, generator=g, device=cuda) * 0.5).to(dtype)
+    k, v = ((torch.randn(b, sk, h, d, generator=g, device=cuda) * 0.5)
+            .to(dtype) for _ in range(2))
+    if case == "flashpad":
+        q_ids = torch.zeros(b, sq, dtype=torch.int32, device=cuda)
+        q_ids[:, 602:] = 1
+        kv_ids = q_ids
+    else:
+        q_ids = _packed_ids(b, sq, sq, cuda)
+        kv_ids = q_ids if sq == sk else _packed_ids(b, sk, sk, cuda)
+    if case == "hidden_rows":
+        q_ids = q_ids.clone()
+        q_ids[:, ::5] = 99
+    ids = flash_attention.SegmentIds(q_ids, kv_ids)
+    scale = d ** -0.5
+    out = flash_attention.flash_attention(q, k, v, scale, causal,
+                                          segment_ids=ids)
+    ref = flash_attention.flash_attention_plain(q, k, v, scale, causal, ids)
+    torch.cuda.synchronize()
+    tol, rel_tol = SEGMENT_TOLS[dtype]
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    assert _scaled_err(out, ref) <= tol
+    assert _rel_err(out, ref) <= rel_tol
+    if case == "hidden_rows":
+        rows = q_ids == 99
+        mean_v = v.float().mean(1, keepdim=True).expand_as(out)
+        assert _scaled_err(out[rows], mean_v[rows]) <= tol
+
+
+def test_flash_attention_segment_counts_apart(cuda):
+    """K7-seg counts under its own counters, not K7's; with every id equal
+    it is K7 bit for bit; it refuses a gradient and ids that are not int32
+    of the q and kv lengths."""
+    ops.reset_launch_counts()
+    g = torch.Generator(cuda).manual_seed(6)
+    q, k, v = (torch.randn(1, 256, 2, 64, generator=g, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    ids = torch.zeros(1, 256, dtype=torch.int32, device=cuda)
+    same = flash_attention.SegmentIds(ids, ids)
+    seg = flash_attention.flash_attention(q, k, v, 0.125, segment_ids=same)
+    plain_k7 = flash_attention.flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(seg, plain_k7)
+    assert flash_attention.segment_launches_by_shape == \
+        {(1, 256, 256, 2, 64): 1}
+    assert flash_attention.launches_by_shape == {(1, 256, 256, 2, 64): 1}
+    counts = ops.launch_counts()
+    assert counts["flash_attention_segment"] == 1
+    assert counts["flash_attention"] == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        flash_attention.flash_attention(q.clone().requires_grad_(), k, v,
+                                        0.125, segment_ids=same)
+    with pytest.raises(ValueError, match="segment ids"):
+        flash_attention.flash_attention(
+            q, k, v, 0.125, segment_ids=flash_attention.SegmentIds(
+                ids.long(), ids))
+    with pytest.raises(ValueError, match="segment ids"):
+        flash_attention.flash_attention(
+            q, k, v, 0.125, segment_ids=flash_attention.SegmentIds(
+                ids.cpu(), ids))
+    assert flash_attention.segment_launches == 1

@@ -411,3 +411,106 @@ def test_flash_attention_backward_matches_pallas_vjp(interpret_pallas, q_seq,
         for a, b in zip(grads, ref_grads):
             assert a.shape == b.shape
             assert _scaled_err(a, b) <= TOL
+
+
+def _segment_case(case, rng):
+    """(q, kv segment ids, causal, rows that see no key of their segment)
+    of one K7-seg case, batch 2."""
+    if case == "padded_tail":  # v_flashpad's form: 200 tokens, 56 pads
+        q_ids = np.zeros((2, 256), np.int32)
+        q_ids[:, 200:] = 1
+        return q_ids, q_ids, False, 0
+    if case == "q128_kv256":  # three ids at random, q shorter than kv
+        return (rng.integers(0, 3, (2, 128)).astype(np.int32),
+                rng.integers(0, 3, (2, 256)).astype(np.int32), False, 0)
+    # contiguous segments, so every query sees itself under the causal mask
+    ids = np.zeros((2, 256), np.int32)
+    ids[0, 90:] += 1
+    ids[0, 170:] += 1
+    ids[1, 33:] += 1
+    if case == "causal":
+        return ids, ids, True, 0
+    q_ids = ids.copy()
+    q_ids[:, ::7] = 9  # no key has id 9: those rows get the mean of V
+    return q_ids, ids, False, int((q_ids == 9).sum())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["padded_tail", "q128_kv256", "causal",
+                                  "hidden_rows"])
+def test_flash_attention_segment_plain_matches_pallas(interpret_pallas, case,
+                                                      dtype):
+    """K7-seg's plain version against the stock Pallas flash attention with
+    ``SegmentIds`` (interpret mode, its default 128 blocks): fp32 to 1e-5
+    max abs; bf16 to 2e-2 scaled and 5e-3 in relative norm (the stock
+    kernel rounds the unnormalised p of each 128-key block to bf16, the
+    plain version the normalised p). A row that sees no key of its segment
+    gets the mean of V, as the stock kernel's finite mask value gives."""
+    from jax.experimental.pallas.ops.tpu import flash_attention as stock
+
+    rng = np.random.default_rng(len(case))
+    q_ids, kv_ids, causal, hidden = _segment_case(case, rng)
+    q = _randn(rng, 2, q_ids.shape[1], 2, 64)
+    k, v = (_randn(rng, 2, kv_ids.shape[1], 2, 64) for _ in range(2))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = stock.flash_attention(
+        *(jnp.asarray(a).astype(jdt).transpose(0, 2, 1, 3) for a in (q, k, v)),
+        segment_ids=stock.SegmentIds(jnp.asarray(q_ids), jnp.asarray(kv_ids)),
+        causal=causal, sm_scale=0.125)
+    ref = np.asarray(ref.astype(jnp.float32)).transpose(0, 2, 1, 3)
+    ids = flash_attention.SegmentIds(torch.from_numpy(q_ids),
+                                     torch.from_numpy(kv_ids))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    plain = flash_attention.flash_attention_plain(tq, tk, tv, 0.125, causal,
+                                                  ids)
+    routed = flash_attention.flash_attention(tq, tk, tv, 0.125, causal,
+                                             segment_ids=ids)
+    assert torch.equal(plain, routed) and plain.dtype == tdt
+    got = plain.float().numpy()
+    assert got.shape == ref.shape
+    if dtype == "float32":
+        assert _max_err(got, ref) <= TOL
+    else:
+        assert _scaled_err(got, ref) <= 2e-2
+        assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 5e-3
+    if hidden:
+        rows = q_ids == 9
+        mean_v = np.broadcast_to(tv.float().numpy().mean(1, keepdims=True),
+                                 got.shape)
+        assert rows.sum() == hidden
+        assert _max_err(got[rows], mean_v[rows]) <= \
+            (TOL if dtype == "float32" else 2e-2)
+
+
+def test_flash_attention_segment_refuses_grad_and_bad_ids():
+    """K7-seg has no backward; ids must be int32 of the q and kv lengths."""
+    q = torch.zeros(1, 128, 2, 16)
+    ids = torch.zeros(1, 128, dtype=torch.int32)
+    good = flash_attention.SegmentIds(ids, ids)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        flash_attention.flash_attention(q.requires_grad_(), q, q, 0.25,
+                                        segment_ids=good)
+    q = q.detach()
+    for bad in (flash_attention.SegmentIds(ids.long(), ids),
+                flash_attention.SegmentIds(ids, ids[:, :64]),
+                flash_attention.SegmentIds(ids[None], ids)):
+        with pytest.raises(ValueError, match="segment ids"):
+            flash_attention.flash_attention(q, q, q, 0.25, segment_ids=bad)
+    with torch.no_grad():  # no gradient is asked for: the plain version
+        out = flash_attention.flash_attention(q.requires_grad_(), q, q, 0.25,
+                                              segment_ids=good)
+    assert out.shape == q.shape
+
+
+def test_flash_attention_segment_counts_apart_on_cpu():
+    """On CPU tensors no kernel launches; the counters of K7-seg are in
+    ``launch_counts`` beside K7's."""
+    ops.reset_launch_counts()
+    q = torch.zeros(1, 128, 2, 16)
+    ids = torch.zeros(1, 128, dtype=torch.int32)
+    flash_attention.flash_attention(
+        q, q, q, 0.25, segment_ids=flash_attention.SegmentIds(ids, ids))
+    counts = ops.launch_counts()
+    assert counts["flash_attention_segment"] == 0
+    assert counts["flash_attention_segment_by_shape"] == {}
+    assert counts["flash_attention"] == 0
