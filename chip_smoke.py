@@ -11,7 +11,14 @@ Phases; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``opendwm_tpu_torch/csrc`` (one nvcc per
-   source, all at once) and the Triton kernels;
+   source, all at once) and the Triton kernels; ptxas's registers and
+   spills (its report is kept beside each library, so a library built by
+   an earlier run is held too) and a SASS census (``cuobjdump -sass``:
+   ``HGMMA``, ``UTMALDG`` / ``LDGSTS``, ``LDSM``) of each instance of the
+   Hopper forward (``csrc/flash_fwd_sm90.cuh``, the body of every bf16
+   head-dim-64 launch of K1, K7 and K7-seg), failing on an instance that
+   ptxas did not report, a spill, or an instance without wgmma or
+   asynchronous loads;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
    same inputs, at the shapes the serving and training paths give it, in
    bf16 (the attention kernels also in fp32), with both times: K1 (and
@@ -25,12 +32,13 @@ Phases; any failure raises and exits non-zero:
    the pads of S 602 in segment 1, and random ids in 1-4 segments per row
    at (8, 1792, 24, 64), non-causal and causal, in bf16 and fp32; rows
    that see no key of their segment against the mean of V), K7 at K1's
-   serving shapes and its backward at K2's training shapes timed beside
-   K1 and K2 (the numbers of the fold in ROADMAP Queue 2), the
-   tail-attention tiling experiment
+   serving shapes (equal to K1 bit for bit: one body) and its backward at
+   K2's training shapes timed beside K1 and K2 (the numbers of the fold in
+   ROADMAP Queue 2), the tail-attention tiling experiment
    (``opendwm_tpu_torch/perf/exp_tailvar.py``: K1, K5 at nh 2 and 4, K6 at
    bq 128 and 256 at (36, 602 | 448, 24, 64) in bf16 and at (8, 602, 24,
-   64) in fp32; its launches are the ``tailvar`` path's), and the
+   64) in fp32, K5 and K6 equal to each other bit for bit and to K1 within
+   the bars; its launches are the ``tailvar`` path's), and the
    attention shoot-out (``opendwm_tpu_torch/perf/exp_attn602.py``: K1, the
    plain attention and K7-seg over S padded to a multiple of 128 at (36,
    602 | 448, 24, 64) bf16; its launches are the ``attn602`` path's, and
@@ -84,8 +92,9 @@ Phases; any failure raises and exits non-zero:
    under ``torch.profiler``.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out. The line before the last is the kernels JSON; the last
-is the device JSON.
+but the shoot-out, and every K1 and K7 forward launch of the four model
+paths must have run the Hopper forward (its launch counters). The line
+before the last is the kernels JSON; the last is the device JSON.
 """
 
 from __future__ import annotations
@@ -110,6 +119,7 @@ from opendwm_tpu_torch.perf.measure import (  # noqa: E402
     bound,
     card_line,
     max_err,
+    packed_segment_ids,
     rel_err,
     scaled_err,
     segment_attention_bound,
@@ -165,6 +175,10 @@ STOCK_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # value (0.0625 at 16) and the two versions may round an fp32 result that
 # differs in its last bits to neighbouring bf16 values.
 ATTN_TOL, ADALN_TOL, FP32_TOL, TINY_TOL = 2e-2, 3e-2, 1e-4, 1e-3
+# Attention in bf16 also ||kernel - plain|| / ||plain||: its outputs sit far
+# below 1 (~0.04-0.07 at these shapes), where ATTN_TOL alone is as large as
+# a typical value.
+ATTN_REL_TOL = 2 ** -7
 # K2 in bf16: ||kernel - plain|| / ||plain|| per gradient, the bar recorded
 # for the JAX kernel (docs/PARITY.md): dS is rounded to bf16 at other
 # points, and delta comes from dO.O instead of dP.P.
@@ -269,18 +283,21 @@ def check_attention(dev, flash_tail):
         scale = 64 ** -0.5
         out = flash_tail.tail_masked_attention(q, k, v, scale)
         ref = flash_tail.tail_masked_attention_plain(q, k, v, scale)
-        err, rel = max_err(out, ref), scaled_err(out, ref)
+        err, scaled, rel = max_err(out, ref), scaled_err(out, ref), \
+            rel_err(out, ref)
         ms, plain_ms = time_pair(
             lambda: flash_tail.tail_masked_attention(q, k, v, scale),
             lambda: flash_tail.tail_masked_attention_plain(q, k, v, scale))
         lib_ms = sdpa_ms(q, k, v, scale)
         log(f"K1 flash_tail bf16 ({b},{s},24,64): max_abs_err {err:.3e}, "
-            f"scaled {rel:.3e} (tol {ATTN_TOL}), kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, sdpa {fmt_ms(lib_ms)}")
-        if not rel <= ATTN_TOL:
-            fail(f"flash_tail disagrees at s={s}: {rel}")
+            f"scaled {scaled:.3e} (tol {ATTN_TOL}), rel norm {rel:.3e} (tol "
+            f"{ATTN_REL_TOL}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"sdpa {fmt_ms(lib_ms)}")
+        if not (scaled <= ATTN_TOL and rel <= ATTN_REL_TOL):
+            fail(f"flash_tail disagrees at s={s}: scaled {scaled}, rel {rel}")
         rows.append({"shape": [b, s, 24, 64], "dtype": "bf16",
-                     "max_abs_err": err, "scaled_err": rel,
+                     "max_abs_err": err, "scaled_err": scaled,
+                     "rel_err": rel,
                      **yardsticks(ms, plain_ms, lib_ms,
                                   attention_bound(b, s, s, 24, 64))})
     q, k, v = (torch.randn(192, 168, 24, 64, generator=g, device=dev)
@@ -362,19 +379,23 @@ def check_unet_attention(dev, flash_tail, flash_attention):
                                dtype=torch.bfloat16) for _ in range(3))
         out = flash_tail.tail_masked_attention(q, k, v, scale)
         ref = flash_tail.tail_masked_attention_plain(q, k, v, scale)
-        err, rel = max_err(out, ref), scaled_err(out, ref)
+        err, scaled, rel = max_err(out, ref), scaled_err(out, ref), \
+            rel_err(out, ref)
         del out, ref
         ms, plain_ms = time_pair(
             lambda: flash_tail.tail_masked_attention(q, k, v, scale),
             lambda: flash_tail.tail_masked_attention_plain(q, k, v, scale))
         lib_ms = sdpa_ms(q, k, v, scale)
         log(f"K1 flash_tail bf16 ({b},{s},{h},64) [UNet]: max_abs_err "
-            f"{err:.3e}, scaled {rel:.3e} (tol {ATTN_TOL}), kernel {ms:.3f} "
-            f"ms, plain {plain_ms:.3f} ms, sdpa {fmt_ms(lib_ms)}")
-        if not rel <= ATTN_TOL:
-            fail(f"flash_tail disagrees at the UNet's {(b, s, h)}: {rel}")
+            f"{err:.3e}, scaled {scaled:.3e} (tol {ATTN_TOL}), rel norm "
+            f"{rel:.3e} (tol {ATTN_REL_TOL}), kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, sdpa {fmt_ms(lib_ms)}")
+        if not (scaled <= ATTN_TOL and rel <= ATTN_REL_TOL):
+            fail(f"flash_tail disagrees at the UNet's {(b, s, h)}: scaled "
+                 f"{scaled}, rel {rel}")
         k1_rows.append({"shape": [b, s, h, 64], "dtype": "bf16",
-                        "max_abs_err": err, "scaled_err": rel,
+                        "max_abs_err": err, "scaled_err": scaled,
+                        "rel_err": rel,
                         **yardsticks(ms, plain_ms, lib_ms,
                                      attention_bound(b, s, s, h, 64))})
         del q, k, v
@@ -393,19 +414,22 @@ def check_unet_attention(dev, flash_tail, flash_attention):
                                                          causal)
 
         out, ref = kernel(), plain()
-        err, rel = max_err(out, ref), scaled_err(out, ref)
+        err, scaled, rel = max_err(out, ref), scaled_err(out, ref), \
+            rel_err(out, ref)
         del out, ref
         ms, plain_ms = time_pair(kernel, plain)
         lib_ms = sdpa_ms(q, k, v, scale, causal)
         tag = f"({b},{sq},{sk},{h},64){' causal' if causal else ''}"
         log(f"K7 flash_attention bf16 {tag}: max_abs_err {err:.3e}, scaled "
-            f"{rel:.3e} (tol {ATTN_TOL}), kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, sdpa {fmt_ms(lib_ms)}")
-        if not rel <= ATTN_TOL:
-            fail(f"flash_attention disagrees at {tag}: {rel}")
+            f"{scaled:.3e} (tol {ATTN_TOL}), rel norm {rel:.3e} (tol "
+            f"{ATTN_REL_TOL}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"sdpa {fmt_ms(lib_ms)}")
+        if not (scaled <= ATTN_TOL and rel <= ATTN_REL_TOL):
+            fail(f"flash_attention disagrees at {tag}: scaled {scaled}, rel "
+                 f"{rel}")
         k7_rows.append({"shape": [b, sq, sk, h, 64], "causal": causal,
                         "dtype": "bf16", "max_abs_err": err,
-                        "scaled_err": rel,
+                        "scaled_err": scaled, "rel_err": rel,
                         **yardsticks(ms, plain_ms, lib_ms,
                                      attention_bound(b, sq, sk, h, 64,
                                                      causal))})
@@ -492,19 +516,6 @@ def check_flash_attention_backward(dev, flash_attention):
     return rows, {"lse_ms": lse_ms, "serving_ms": serve_ms}
 
 
-def random_segment_ids(b: int, s: int, dev, seed: int) -> torch.Tensor:
-    """int32 (b, s) ids in 1-4 contiguous segments per row, 0, 1, ... in
-    order (packed sequences): under the causal mask every query sees at
-    least itself."""
-    g = torch.Generator().manual_seed(seed)
-    ids = torch.zeros(b, s, dtype=torch.int32)
-    for row in ids:
-        n = int(torch.randint(1, 5, (1,), generator=g))
-        for cut in torch.randperm(s - 1, generator=g)[:n - 1] + 1:
-            row[cut:] += 1
-    return ids.to(dev)
-
-
 def check_flash_attention_segment(dev, flash_attention):
     """K7-seg against its plain version, each case with both times, the
     bound over the pairs its ids leave and SDPA with the boolean same-id
@@ -519,7 +530,7 @@ def check_flash_attention_segment(dev, flash_attention):
     pad_ids = torch.zeros(b, padded, dtype=torch.int32, device=dev)
     pad_ids[:, seq:] = 1
     rb, rs = K7_SEG_RANDOM
-    rand_ids = random_segment_ids(rb, rs, dev, SEED + 5)
+    rand_ids = packed_segment_ids(rb, rs, SEED + 5, dev)
     hidden_q = rand_ids.clone()
     hidden_q[:, ::5] = 99  # every fifth query shares no key's id
     cases = [("flashpad", pad_ids, pad_ids, False, dtype, 0.5)
@@ -548,7 +559,7 @@ def check_flash_attention_segment(dev, flash_attention):
         err, scaled, rel = max_err(out, ref), scaled_err(out, ref), \
             rel_err(out, ref)
         bf16 = dtype == torch.bfloat16
-        tol, rel_tol = (ATTN_TOL, 2 ** -7) if bf16 else (FP32_TOL, 1e-5)
+        tol, rel_tol = (ATTN_TOL, ATTN_REL_TOL) if bf16 else (FP32_TOL, 1e-5)
         tag = (f"{what} {'bf16' if bf16 else 'fp32'} ({bq},{sq},24,64)"
                f"{' causal' if causal else ''}")
         visible = q_ids[:, :, None] == kv_ids[:, None, :]
@@ -589,28 +600,29 @@ def check_flash_attention_segment(dev, flash_attention):
 
 
 def check_k7_at_tail_shapes(dev, flash_tail, flash_attention):
-    """K7 (no padding: it masks by bounds) at K1's serving shapes and its
-    backward at K2's training shapes, each against its plain version, then
-    timed beside K1 or K2 in turns (K1, K7, K7, K1): the numbers the fold
-    of the two sources' duplicated code waits on (ROADMAP Queue 2)."""
+    """K7 (no padding: it masks by bounds) at K1's serving shapes, equal to
+    K1 bit for bit (both launch the Hopper forward of
+    ``csrc/flash_fwd_sm90.cuh``), and its backward at K2's training shapes
+    against its plain version; each timed beside K1 or K2 in turns (K1, K7,
+    K7, K1): the numbers of the fold of the two sources (ROADMAP Queue 2)."""
     g = torch.Generator(dev).manual_seed(SEED + 6)
     scale = 64 ** -0.5
     fwd, bwd = [], []
     for b, s in ATTN_SHAPES:
         q, k, v = (torch.randn(b, s, 24, 64, generator=g, device=dev,
                                dtype=torch.bfloat16) for _ in range(3))
-        scaled = scaled_err(flash_attention.flash_attention(q, k, v, scale),
-                            flash_attention.flash_attention_plain(q, k, v,
-                                                                  scale))
-        if not scaled <= ATTN_TOL:
-            fail(f"flash_attention disagrees at K1's ({b},{s}): {scaled}")
+        same = torch.equal(flash_attention.flash_attention(q, k, v, scale),
+                           flash_tail.tail_masked_attention(q, k, v, scale))
+        if not same:
+            fail(f"K7 differs from K1 at K1's ({b},{s}), though both run "
+                 "one body")
         k7_ms, k1_ms = time_pair(
             lambda: flash_attention.flash_attention(q, k, v, scale),
             lambda: flash_tail.tail_masked_attention(q, k, v, scale))
-        log(f"K7 at K1's shape bf16 ({b},{s},24,64): scaled err "
-            f"{scaled:.3e} (tol {ATTN_TOL}), K7 {k7_ms:.3f} ms, K1 "
-            f"{k1_ms:.3f} ms ({k7_ms / k1_ms:.3f}x)")
-        fwd.append({"shape": [b, s, 24, 64], "scaled_err": scaled,
+        log(f"K7 at K1's shape bf16 ({b},{s},24,64): equal to K1 bit for "
+            f"bit, K7 {k7_ms:.3f} ms, K1 {k1_ms:.3f} ms "
+            f"({k7_ms / k1_ms:.3f}x)")
+        fwd.append({"shape": [b, s, 24, 64], "equals_k1": same,
                     "k7_ms": k7_ms, "k1_ms": k1_ms,
                     "bound_ms": attention_bound(b, s, s, 24, 64)[0]})
         del q, k, v
@@ -651,9 +663,11 @@ def run_tailvar(dev, ops, exp_tailvar):
     """The tail-attention tiling experiment through its run function at its
     full shapes in bf16 and at ``TAILVAR_FP32``: K1, K5 (nh 2, 4) and K6 (bq
     128, 256), each against the plain version (the scaled error and the
-    relative norm; K5 and K6 also bit for bit against K1), timed beside it,
-    the bound and SDPA. Returns the experiment's launches and the K5 and K6
-    rows."""
+    relative norm), timed beside it, the bound and SDPA. K5 and K6 run one
+    mma.sync tile step, so they must equal each other bit for bit; K1 runs
+    the Hopper forward of ``csrc/flash_fwd_sm90.cuh`` in bf16 at D 64, so
+    they are held to it within the same bars. Returns the experiment's
+    launches and the K5 and K6 rows."""
     ops.reset_launch_counts()
     runs = [(exp_tailvar.run(seq, label, dev), ATTN_TOL)
             for label, seq in exp_tailvar.SHAPES.items()]
@@ -667,12 +681,16 @@ def run_tailvar(dev, ops, exp_tailvar):
     for results, tol in runs:  # each row was printed by the experiment
         for r in results:
             rel_tol = exp_tailvar.REL_TOL[getattr(torch, r["dtype"])]
+            near_k1 = r.get("vs_k1_scaled_err", 0.0) <= tol and \
+                r.get("vs_k1_rel_err", 0.0) <= rel_tol
             if not (r["scaled_err"] <= tol and r["rel_err"] <= rel_tol
-                    and r.get("equals_k1", True)):
+                    and near_k1 and r.get("equals_tilings", True)):
                 fail(f"tiling {r['variant']} {r['dtype']} {r['shape']} "
                      f"disagrees: scaled {r['scaled_err']} (bar {tol}), "
                      f"relative norm {r['rel_err']} (bar {rel_tol}), "
-                     f"equal to K1: {r.get('equals_k1')}")
+                     f"against K1 {r.get('vs_k1_scaled_err')} / "
+                     f"{r.get('vs_k1_rel_err')}, equal to the other "
+                     f"tilings: {r.get('equals_tilings')}")
             if r["kernel"] in rows:
                 rows[r["kernel"]].append(r)
     for key, want in (("tail_hpack_by_nh", (2, 4)),
@@ -1232,6 +1250,7 @@ def _kernel_time_table(prof, step_s: float, what: str = "train step",
     from torch.autograd import DeviceType
 
     families = (  # matched in order, case-insensitively
+        ("K1/K7 fwd sm90 (CUDA)", ("flash_fwd_sm90",)),
         ("K1/K2 flash_tail (CUDA)", ("flash_tail",)),
         ("K7 flash_attention (CUDA)", ("flash_attention",)),
         ("K3/K4 fused AdaLN (Triton)", ("_adaln_kernel",)),
@@ -1434,6 +1453,52 @@ def run_unet_train_slice(dev, create_instance_from_config, ops,
     return counts, metrics
 
 
+def census_sm90(_build, sources) -> dict:
+    """ptxas's registers and spills (from the report kept beside each
+    library, so a library built by an earlier run is held too) and a SASS
+    census (``cuobjdump -sass``) of the Hopper forward's instances in each
+    built library. Fails on an instance that ptxas did not report, on a
+    spill, or on an instance without ``HGMMA`` or without an asynchronous
+    load (``UTMALDG`` or ``LDGSTS``)."""
+    census = {}
+    for source in sources:
+        lib = _build.library_path(source)
+        ptxas = _build.ptxas_report(lib, "flash_fwd_sm90")
+        sass = _build.sass_census(lib, "flash_fwd_sm90")
+        if not sass:
+            fail(f"no flash_fwd_sm90 instance in the SASS of {source}")
+        for name, ops in sass.items():
+            flags = name.split("flash_fwd_sm90_kernel")[-1].split("EEEv")[0]
+            entry = {**ptxas.get(name, {}), **ops}
+            census[f"{source}:{flags}"] = entry
+            log(f"  sm90 {source} {flags}: {json.dumps(entry)}")
+            if "spill_bytes" not in entry or "registers" not in entry:
+                fail(f"ptxas reported no registers or spills for the Hopper "
+                     f"forward {source} {flags}")
+            if entry["spill_bytes"] or not ops["HGMMA"] or \
+                    not (ops["UTMALDG"] or ops["LDGSTS"]):
+                fail(f"the Hopper forward {source} {flags} spills or lacks "
+                     f"wgmma / asynchronous loads: {entry}")
+    return census
+
+
+def check_new_body_on_paths(paths: dict) -> None:
+    """Every forward launch of K1, K7 and K7-seg on the model paths ran the
+    Hopper forward (bf16, head dim 64, aligned), none an old body."""
+    for path in ("serve", "train", "unet_serve", "unet_train"):
+        c = paths[path]
+        k1_old = c["flash_tail"] - c["flash_tail_sm90"]
+        k7_old = c["flash_attention"] + c["flash_attention_segment"] - \
+            c["flash_attention_sm90"]
+        log(f"{path}: K1 {c['flash_tail']} launches, {c['flash_tail_sm90']} "
+            f"on the Hopper forward; K7 {c['flash_attention']} (+ K7-seg "
+            f"{c['flash_attention_segment']}), {c['flash_attention_sm90']} "
+            f"on it")
+        if k1_old or k7_old:
+            fail(f"{path}: {k1_old} K1 and {k7_old} K7 forward launches ran "
+                 "an old body")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1463,17 +1528,21 @@ def main() -> None:
         f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    _build.build_all(["flash_tail.cu", "flash_attention.cu"])
+    sources = ("flash_tail.cu", "flash_attention.cu")
+    _build.build_all(sources)
     flash_tail.build()
     flash_attention.build()
     fused_adaln.build()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, one process "
         f"per source, + triton import), sources under "
         f"{Path(_build.CSRC).relative_to(REPO)}")
-    for source, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+    for source in sources:
+        for line in _build.ptxas_log(_build.library_path(source)).splitlines():
+            low = line.lower()
+            if any(w in low for w in ("registers", "spill", "wgmma",
+                                      "setmaxnreg")):
                 log(f"  ptxas {source}: {line.strip()}")
+    sm90_census = census_sm90(_build, sources)
 
     log_clocks("before the kernel checks")
     attn_rows = check_attention(dev, flash_tail)
@@ -1527,9 +1596,14 @@ def main() -> None:
     if strays:
         fail(f"flash_attention_segment launched outside the shoot-out: "
              f"{strays}")
+    check_new_body_on_paths(paths)
 
     def entry(name, route, source, replaces, key, rows, **extra):
         by_path = {path: counts.get(key, 0) for path, counts in paths.items()}
+        if key in ("flash_tail", "flash_attention"):
+            extra["launches_sm90_by_path"] = {
+                path: counts.get(f"{key}_sm90", 0)
+                for path, counts in paths.items()}
         first = rows[0]  # the path's main shape
         return {
             "name": name, "route": route, "source": source,
@@ -1544,12 +1618,14 @@ def main() -> None:
     csrc = "opendwm_tpu_torch/csrc/flash_tail.cu"
     triton_src = "opendwm_tpu_torch/ops/fused_adaln.py"
     k7_src = "opendwm_tpu_torch/csrc/flash_attention.cu"
+    sm90_src = "opendwm_tpu_torch/csrc/flash_fwd_sm90.cuh"
     kernels = [
         entry("flash_tail_forward", "cuda", csrc,
               "opendwm_tpu/ops/flash_tail.py:55", "flash_tail",
               attn_rows + unet_k1_rows,
               lse_ms=lse_timing["lse_ms"],
-              serving_ms_beside_lse=lse_timing["serving_ms"]),
+              serving_ms_beside_lse=lse_timing["serving_ms"],
+              body=sm90_src, sass=sm90_census),
         entry("flash_tail_backward", "cuda", csrc,
               "opendwm_tpu/ops/flash_tail.py:125", "flash_tail_backward",
               bwd_rows),
@@ -1563,7 +1639,7 @@ def main() -> None:
               "opendwm_tpu/ops/attention.py:151", "flash_attention", k7_rows,
               lse_ms=k7_lse_timing["lse_ms"],
               serving_ms_beside_lse=k7_lse_timing["serving_ms"],
-              at_k1_shapes=k7_at_k1),
+              at_k1_shapes=k7_at_k1, body=sm90_src),
         entry("flash_attention_backward", "cuda", k7_src,
               f"{STOCK_FLASH}:941", "flash_attention_backward", k7_bwd_rows,
               replaces_also=f"{STOCK_FLASH}:1287",
@@ -1574,7 +1650,8 @@ def main() -> None:
               "tail_qsplit", tiling_rows["tail_qsplit"]),
         entry("flash_attention_segment", "cuda", k7_src,
               "perf/exp_attn602.py:88", "flash_attention_segment",
-              k7_seg_rows, replaces_also=f"{STOCK_FLASH}:140"),
+              k7_seg_rows, replaces_also=f"{STOCK_FLASH}:140",
+              body=sm90_src),
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -38,9 +38,15 @@
 // What bounds it. At the UNet's level-0 self-attention (72 x 5 heads,
 // S = 1792, D = 64) the work is 4*S*S*D flops per head against 4*S*D*2
 // bytes of q/k/v/o, ~900 flops per byte: the tensor cores' issue rate on
-// paper. This version loads K/V synchronously (no cp.async or TMA double
-// buffering), gathers V's B fragments with scalar shared loads and uses
-// the warp-level mma.sync, not the warpgroup wgmma; those are later work.
+// paper. The bf16 forward at head dim 64 (every launch on the port's
+// paths, with or without the log-sum-exp or segment ids) therefore runs
+// the Hopper forward of flash_fwd_sm90.cuh, shared with K1: a TMA ring of
+// K/V tiles, wgmma for both products, masks on the last and the diagonal
+// tiles only and a TMA store (the rule that picks it is
+// fwd90::Sm90Takes). The mma.sync body below, which loads K/V synchronously
+// and gathers V's B fragments with scalar shared loads, serves the other
+// forward launches (fp32, D 128 and 256, pointers that are not 16-byte
+// aligned); the backward keeps its own mma.sync kernels.
 //
 // When a gradient is needed the forward also writes the row log-sum-exp
 // (fp32, in the log2 domain of the scaled scores, (B*H, q_seq)); it is a
@@ -69,6 +75,8 @@
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -1299,6 +1307,20 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
   float* l = static_cast<float*>(lse);
   const int* qi = static_cast<const int*>(q_ids);
   const int* ki = static_cast<const int*>(kv_ids);
+  if (fwd90::Sm90Takes(is_bf16, head_dim, {q, k, v, o})) {
+    fwd90::Params p;
+    if (!fwd90::make_params(&p, q, k, v, o, l, qi, ki, batch, q_seq, kv_seq,
+                            heads, scale))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (qi)
+      return causal ? fwd90::launch<true, false, true>(p, batch, st)
+                    : fwd90::launch<false, false, true>(p, batch, st);
+    if (l)
+      return causal ? fwd90::launch<true, true, false>(p, batch, st)
+                    : fwd90::launch<false, true, false>(p, batch, st);
+    return causal ? fwd90::launch<true, false, false>(p, batch, st)
+                  : fwd90::launch<false, false, false>(p, batch, st);
+  }
   if (causal)
     return launch<true>(q, k, v, o, l, qi, ki, batch, q_seq, kv_seq, heads,
                         head_dim, scale, is_bf16, st);
@@ -1408,6 +1430,17 @@ extern "C" int flash_attention_forward_lse(const void* q, const void* k,
   if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return forward(q, k, v, o, lse, nullptr, nullptr, batch, q_seq, kv_seq,
                  heads, head_dim, scale, causal, is_bf16, stream);
+}
+
+// 1 if flash_attention_forward[_lse|_segment] with these arguments runs the
+// Hopper forward of flash_fwd_sm90.cuh, else 0: its launch counter reads
+// this.
+extern "C" int flash_attention_forward_takes_sm90(const void* q,
+                                                  const void* k,
+                                                  const void* v,
+                                                  const void* o, int head_dim,
+                                                  int is_bf16) {
+  return fwd90::Sm90Takes(is_bf16, head_dim, {q, k, v, o}) ? 1 : 0;
 }
 
 // The serving entry: the forward without the log-sum-exp.

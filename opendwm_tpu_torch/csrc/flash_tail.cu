@@ -28,9 +28,14 @@
 //
 // What bounds it. At the serving shapes (S = 602, 448, 168; D = 64) the
 // work is ~4*S*S*D flops per head against ~4*S*D*2 bytes of q/k/v/o: the
-// kernel is bound by the tensor cores' issue rate on paper. This version
-// loads K/V synchronously (no cp.async/TMA double buffering) and uses the
-// warp-level mma.sync, not the warpgroup wgmma; those are later work.
+// kernel is bound by the tensor cores' issue rate on paper. The bf16 launch
+// at head dim 64 (every launch on the port's paths) therefore runs the
+// Hopper forward of flash_fwd_sm90.cuh, shared with K7: a TMA ring of K/V
+// tiles, wgmma for both products, masks on the last tile only and a TMA
+// store (the rule that picks it is fwd90::Sm90Takes). The mma.sync body
+// below, which loads K/V synchronously and gathers B fragments with scalar
+// shared loads, serves the other launches (fp32, D 32 and 128, pointers
+// that are not 16-byte aligned) and K5/K6.
 //
 // When a gradient is needed the forward also writes the row log-sum-exp
 // (fp32, in the log2 domain of the scaled scores, (B*H, S)); it is a
@@ -40,9 +45,10 @@
 // per block, the grid steps of the tiling experiment perf/exp_tailvar.py:
 // K5 (tail_hpack, :75) gives one block all query rows of nh batch-heads,
 // K6 (tail_qsplit, :119) gives one block bq = 128 or 256 query rows of one
-// batch-head. All three run the same per-warp tile step (attend_block_bf16
-// / attend_block_f32) and differ only in how many warps share each K/V tile
-// and how many blocks fill the card.
+// batch-head. Both run the mma.sync per-warp tile step (attend_block_bf16 /
+// attend_block_f32), as K1's other launches do, and differ only in how many
+// warps share each K/V tile and how many blocks fill the card; their
+// redesign comes later.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +57,8 @@
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -1334,6 +1342,14 @@ extern "C" int flash_tail_forward_lse(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (fwd90::Sm90Takes(is_bf16, head_dim, {q, k, v, o})) {
+    fwd90::Params p;
+    if (!fwd90::make_params(&p, q, k, v, o, l, nullptr, nullptr, batch, seq,
+                            seq, heads, scale))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return l ? fwd90::launch<false, true, false>(p, batch, st)
+             : fwd90::launch<false, false, false>(p, batch, st);
+  }
   if (head_dim <= 32)
     return launch_dp<32>(q, k, v, o, l, batch, seq, heads, head_dim, scale,
                          is_bf16, st);
@@ -1342,6 +1358,14 @@ extern "C" int flash_tail_forward_lse(const void* q, const void* k,
                          is_bf16, st);
   return launch_dp<128>(q, k, v, o, l, batch, seq, heads, head_dim, scale,
                         is_bf16, st);
+}
+
+// 1 if flash_tail_forward[_lse] with these arguments runs the Hopper forward
+// of flash_fwd_sm90.cuh, else 0: its launch counter reads this.
+extern "C" int flash_tail_forward_takes_sm90(const void* q, const void* k,
+                                             const void* v, const void* o,
+                                             int head_dim, int is_bf16) {
+  return fwd90::Sm90Takes(is_bf16, head_dim, {q, k, v, o}) ? 1 : 0;
 }
 
 // The serving entry: the forward without the log-sum-exp.

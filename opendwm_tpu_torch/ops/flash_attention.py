@@ -9,9 +9,12 @@ UNet's level-0 spatial self-attention (1792 tokens at 32x56 latents), in
 serving and training.
 
 The Hopper kernels are CUDA C++ in ``csrc/flash_attention.cu`` (design and
-what bounds them are noted there), built with nvcc at first use and called
-through ctypes: the forward, and the backward that replaces the stock
-kernel's ``custom_vjp`` backward (``_flash_attention_bwd_dkv`` and
+what bounds them are noted there; the bf16 forward at head dim 64, with or
+without segment ids, runs the TMA + wgmma forward of
+``csrc/flash_fwd_sm90.cuh`` that K1 shares, and ``sm90_launches`` counts
+those launches), built with nvcc at first use and called through
+ctypes: the forward, and the backward that replaces the stock kernel's
+``custom_vjp`` backward (``_flash_attention_bwd_dkv`` and
 ``_flash_attention_bwd_dq``). A call that needs a gradient goes through an
 autograd Function whose forward also writes the row log-sum-exp and whose
 backward is the kernel's. Causal masking is top-left, as the TPU kernel's:
@@ -60,10 +63,13 @@ class SegmentIds(NamedTuple):
 
 # Kernel launches, in total and by (batch, q_seq, kv_seq, heads, head_dim):
 # the forward (with the launches that also wrote the log-sum-exp counted
-# apart), the backward, and the forward with segment ids (K7-seg).
+# apart), the backward, and the forward with segment ids (K7-seg); and the
+# forward launches of both kinds that ran the Hopper forward of
+# csrc/flash_fwd_sm90.cuh.
 launches = 0
 launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 lse_launches = 0
+sm90_launches = 0
 backward_launches = 0
 backward_launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 segment_launches = 0
@@ -72,7 +78,9 @@ segment_launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 
 def reset_launches() -> None:
     global launches, lse_launches, backward_launches, segment_launches
+    global sm90_launches
     launches = lse_launches = backward_launches = segment_launches = 0
+    sm90_launches = 0
     launches_by_shape.clear()
     backward_launches_by_shape.clear()
     segment_launches_by_shape.clear()
@@ -173,6 +181,8 @@ def _library() -> ctypes.CDLL:
                lib.flash_attention_backward,
                lib.flash_attention_forward_segment):
         fn.restype = ctypes.c_int
+    lib.flash_attention_forward_takes_sm90.argtypes = [ptr] * 4 + [i32, i32]
+    lib.flash_attention_forward_takes_sm90.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -224,7 +234,7 @@ def _raise_on_error(lib, rc: int, what: str) -> None:
 
 def _launch(q, k, v, scale: float, causal: bool, with_lse: bool = False):
     """K7 on CUDA tensors: ``(out, lse)``, ``lse`` None unless asked."""
-    global launches, lse_launches
+    global launches, lse_launches, sm90_launches
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -233,20 +243,18 @@ def _launch(q, k, v, scale: float, causal: bool, with_lse: bool = False):
         if with_lse else None
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (b, sq, sk, h, d, float(scale), int(causal),
-            int(q.dtype == torch.bfloat16), stream)
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    args = (b, sq, sk, h, d, float(scale), int(causal), is_bf16, stream)
     with torch.cuda.device(q.device):
         if with_lse:
-            rc = lib.flash_attention_forward_lse(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), *args)
+            rc = lib.flash_attention_forward_lse(*ptrs, lse.data_ptr(), *args)
         else:
-            rc = lib.flash_attention_forward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *args)
+            rc = lib.flash_attention_forward(*ptrs, *args)
     _raise_on_error(lib, rc, "forward")
     launches += 1
     lse_launches += int(with_lse)
+    sm90_launches += lib.flash_attention_forward_takes_sm90(*ptrs, d, is_bf16)
     key = (b, sq, sk, h, d)
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
     return out, lse
@@ -255,7 +263,7 @@ def _launch(q, k, v, scale: float, causal: bool, with_lse: bool = False):
 def _launch_segment(q, k, v, scale: float, causal: bool,
                     segment_ids: SegmentIds):
     """K7-seg on CUDA tensors."""
-    global segment_launches
+    global segment_launches, sm90_launches
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -263,14 +271,15 @@ def _launch_segment(q, k, v, scale: float, causal: bool,
     out = torch.empty_like(q)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_forward_segment(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            q_ids.data_ptr(), kv_ids.data_ptr(), b, sq, sk, h, d,
-            float(scale), int(causal), int(q.dtype == torch.bfloat16),
-            stream)
+            *ptrs, q_ids.data_ptr(), kv_ids.data_ptr(), b, sq, sk, h, d,
+            float(scale), int(causal), is_bf16, stream)
     _raise_on_error(lib, rc, "segment forward")
     segment_launches += 1
+    sm90_launches += lib.flash_attention_forward_takes_sm90(*ptrs, d, is_bf16)
     key = (b, sq, sk, h, d)
     segment_launches_by_shape[key] = segment_launches_by_shape.get(key, 0) + 1
     return out

@@ -13,7 +13,9 @@ and the 168-token rowwise cross-view attention, in serving and training.
 The Hopper kernels are CUDA C++ in ``csrc/flash_tail.cu`` (design and what
 bounds them are noted there; the same source holds K5 and K6, other tilings
 of K1, wrapped in ``ops/tail_variants.py``), built with nvcc at first use
-and called through ctypes. A call that needs a gradient goes through an
+and called through ctypes. K1 in bf16 at head dim 64 runs the TMA + wgmma
+forward of ``csrc/flash_fwd_sm90.cuh``, which K7 shares; ``sm90_launches``
+counts those launches. A call that needs a gradient goes through an
 autograd Function whose forward is K1 (also writing the row log-sum-exp)
 and whose backward is K2. The wrappers take the plain PyTorch versions
 only for CPU tensors; for a CUDA tensor they launch the kernel or raise.
@@ -31,18 +33,19 @@ from opendwm_tpu_torch.ops import _build
 MAX_PADDED_SEQ = 1024  # dispatch bound kept from the JAX package
 
 # Kernel launches, in total and by sequence length: the forward (K1, with
-# the launches that also wrote the log-sum-exp counted apart) and the
-# backward (K2).
+# the launches that also wrote the log-sum-exp counted apart, and those that
+# ran the Hopper forward of csrc/flash_fwd_sm90.cuh) and the backward (K2).
 launches = 0
 launches_by_seq: dict[int, int] = {}
 lse_launches = 0
+sm90_launches = 0
 backward_launches = 0
 backward_launches_by_seq: dict[int, int] = {}
 
 
 def reset_launches() -> None:
-    global launches, lse_launches, backward_launches
-    launches = lse_launches = backward_launches = 0
+    global launches, lse_launches, sm90_launches, backward_launches
+    launches = lse_launches = sm90_launches = backward_launches = 0
     launches_by_seq.clear()
     backward_launches_by_seq.clear()
 
@@ -104,6 +107,8 @@ def _library() -> ctypes.CDLL:
                lib.flash_tail_backward, lib.tail_hpack_forward,
                lib.tail_qsplit_forward):
         fn.restype = ctypes.c_int
+    lib.flash_tail_forward_takes_sm90.argtypes = [ptr] * 4 + [i32, i32]
+    lib.flash_tail_forward_takes_sm90.restype = ctypes.c_int
     lib.flash_tail_error_string.argtypes = [ctypes.c_int]
     lib.flash_tail_error_string.restype = ctypes.c_char_p
     return lib
@@ -140,24 +145,24 @@ def _raise_on_error(lib, rc: int, what: str) -> None:
 
 def _launch_forward(q, k, v, scale: float, with_lse: bool):
     """K1 on CUDA tensors; also returns the row log-sum-exp if asked."""
-    global launches, lse_launches
+    global launches, lse_launches, sm90_launches
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b * h, s, device=q.device, dtype=torch.float32) \
         if with_lse else None
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (b, s, h, d, float(scale), int(q.dtype == torch.bfloat16), stream)
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    args = (b, s, h, d, float(scale), is_bf16, stream)
     with torch.cuda.device(q.device):
         if with_lse:
-            rc = lib.flash_tail_forward_lse(q.data_ptr(), k.data_ptr(),
-                                            v.data_ptr(), out.data_ptr(),
-                                            lse.data_ptr(), *args)
+            rc = lib.flash_tail_forward_lse(*ptrs, lse.data_ptr(), *args)
         else:
-            rc = lib.flash_tail_forward(q.data_ptr(), k.data_ptr(),
-                                        v.data_ptr(), out.data_ptr(), *args)
+            rc = lib.flash_tail_forward(*ptrs, *args)
     _raise_on_error(lib, rc, "forward")
     launches += 1
+    sm90_launches += lib.flash_tail_forward_takes_sm90(*ptrs, d, is_bf16)
     launches_by_seq[s] = launches_by_seq.get(s, 0) + 1
     lse_launches += int(with_lse)
     return out, lse

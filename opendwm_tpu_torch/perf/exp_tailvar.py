@@ -21,9 +21,12 @@ plain versions and reports their numerics only. Inputs are drawn from a
 seeded generator on the device. Every variant is held against the plain
 version on the same inputs (scaled error ``|x - plain| / max(1, |plain|)``
 at most 2e-2 in bf16, 1e-4 in fp32, and relative norm
-``||x - plain|| / ||plain||`` at most 2^-7 in bf16, 1e-5 in fp32); on the
-card K5 and K6 must also equal K1 bit for bit, since all three run one
-per-warp tile step. A variant that disagrees or fails raises. On the card
+``||x - plain|| / ||plain||`` at most 2^-7 in bf16, 1e-5 in fp32). K5 and
+K6 must also agree with K1 within those bars and, on the card, with each
+other bit for bit: they run one per-warp mma.sync tile step, while K1 in
+bf16 at head dim 64 runs the Hopper forward of ``csrc/flash_fwd_sm90.cuh``
+(another order of operations, so not K1's bits). A variant that disagrees
+or fails raises. On the card
 each is then timed with CUDA events (2 warm-ups, 10
 calls, in turns plain, kernel, kernel, plain), beside the plain version, the
 least time the card could take (``bound_ms``) and one call of
@@ -105,7 +108,7 @@ def run(seq: int, label: str, device, b: int | None = None,
         library_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, scale=scale))
-    rows, k1_out = [], None
+    rows, k1_out, tiling_out = [], None, None
     for name, (kernel, fn, tiling) in VARIANTS.items():
         call = functools.partial(fn, q, k, v, scale)
         got = call()
@@ -123,11 +126,22 @@ def run(seq: int, label: str, device, b: int | None = None,
                 f"{row['rel_err']} (bar {rel_tol})")
         if kernel == "flash_tail_forward":
             k1_out = got
-        elif on_card:
-            row["equals_k1"] = torch.equal(got, k1_out)
-            if not row["equals_k1"]:
-                raise RuntimeError(f"{label} {name} differs from K1, which "
-                                   f"runs the same per-warp tile step")
+        else:
+            row["vs_k1_scaled_err"] = scaled_err(got, k1_out)
+            row["vs_k1_rel_err"] = rel_err(got, k1_out)
+            if not (row["vs_k1_scaled_err"] <= tol and
+                    row["vs_k1_rel_err"] <= rel_tol):
+                raise RuntimeError(
+                    f"{label} {name} disagrees with K1: scaled err "
+                    f"{row['vs_k1_scaled_err']}, relative norm "
+                    f"{row['vs_k1_rel_err']}")
+            tiling_out = got if tiling_out is None else tiling_out
+            if on_card:
+                row["equals_tilings"] = torch.equal(got, tiling_out)
+                if not row["equals_tilings"]:
+                    raise RuntimeError(f"{label} {name} differs from the "
+                                       f"first tiling, which runs the same "
+                                       f"per-warp tile step")
         if on_card:
             ms, plain_ms = time_pair(call, plain)
             row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,

@@ -85,6 +85,19 @@ def attention_bound(b, sq, sk, h, d, causal=False, backward=False,
     return bound(flops, nbytes, peak)
 
 
+def packed_segment_ids(b: int, s: int, seed: int, device) -> torch.Tensor:
+    """int32 (b, s) segment ids in 1-4 contiguous segments per row, 0, 1,
+    ... in order (packed sequences), drawn on the CPU from ``seed``: under
+    the causal mask every query sees at least itself."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.zeros(b, s, dtype=torch.int32)
+    for row in ids:
+        n = int(torch.randint(1, 5, (1,), generator=g))
+        for cut in torch.randperm(s - 1, generator=g)[:n - 1] + 1:
+            row[cut:] += 1
+    return ids.to(device)
+
+
 def segment_pairs(q_ids, kv_ids, causal=False) -> int:
     """(query, key) pairs that a forward with segment ids must attend, per
     head: those of one segment (under the top-left causal mask with key <=

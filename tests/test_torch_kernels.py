@@ -37,6 +37,7 @@ from opendwm_tpu_torch.ops import (
     fused_adaln,
     tail_variants,
 )
+from opendwm_tpu_torch.perf.measure import packed_segment_ids
 from opendwm_tpu_torch.pipelines.ctsd import draw_training_randoms
 
 REPO = Path(__file__).resolve().parents[1]
@@ -472,10 +473,12 @@ def test_tail_tilings_share_k1_arithmetic(cuda, dtype, batch, seq, heads,
     """K5 (nh 1, 2, 4) and K6 (bq 128, 256) at the experiment's shapes and
     ragged ones (bq 256 runs 256-row blocks at S 448, 150 and 130, and is
     cut to 128 at 602 and 20; D 128 with 256-row blocks reloads Q's
-    fragments), each against its plain version. K1, K5 and K6 run one
-    per-warp tile step from one source, so each query row goes through the
-    same operations in all of them: their outputs agree bit for bit, and K1
-    still matches its plain version."""
+    fragments), each against its plain version. K5 and K6 run one per-warp
+    mma.sync tile step, so each query row goes through the same operations
+    in all of them: their outputs agree bit for bit. K1 runs that step too
+    except in bf16 at D 64, where it runs the Hopper forward of
+    csrc/flash_fwd_sm90.cuh: there the tilings agree with K1 within the
+    bars, elsewhere bit for bit."""
     g = torch.Generator(cuda).manual_seed(seq + head_dim)
     q, k, v = ((torch.randn(batch, seq, heads, head_dim, generator=g,
                             device=cuda) * 0.5).to(dtype) for _ in range(3))
@@ -484,6 +487,8 @@ def test_tail_tilings_share_k1_arithmetic(cuda, dtype, batch, seq, heads,
     out = flash_tail.tail_masked_attention(q, k, v, scale)
     ref = flash_tail.tail_masked_attention_plain(q, k, v, scale)
     assert _scaled_err(out, ref) <= tol
+    k1_runs_sm90 = dtype == torch.bfloat16 and head_dim == 64
+    first = None
     for name, tiling, plain in TILINGS:
         got = tiling(q, k, v, scale)
         ref = plain(q, k, v, scale)
@@ -491,7 +496,13 @@ def test_tail_tilings_share_k1_arithmetic(cuda, dtype, batch, seq, heads,
         assert got.dtype == dtype and got.shape == q.shape, name
         assert _scaled_err(got, ref) <= tol, name
         assert _rel_err(got, ref) <= rel_tol, name
-        assert torch.equal(got, out), name
+        first = got if first is None else first
+        assert torch.equal(got, first), name
+        if k1_runs_sm90:
+            assert _scaled_err(got, out) <= tol, name
+            assert _rel_err(got, out) <= rel_tol, name
+        else:
+            assert torch.equal(got, out), name
 
 
 def test_tail_tiling_launch_counts_and_checks(cuda):
@@ -520,17 +531,6 @@ def test_tail_tiling_launch_counts_and_checks(cuda):
     assert counts["tail_hpack_by_nh"] == {2: 1, 4: 1}
     assert counts["tail_qsplit_by_bq"] == {128: 2, 256: 1}
     assert counts["flash_tail"] == 0
-
-
-def _packed_ids(b, s, seed, device):
-    """int32 (b, s) ids in 1-4 contiguous segments per row, in order."""
-    g = torch.Generator().manual_seed(seed)
-    ids = torch.zeros(b, s, dtype=torch.int32)
-    for row in ids:
-        n = int(torch.randint(1, 5, (1,), generator=g))
-        for cut in torch.randperm(s - 1, generator=g)[:n - 1] + 1:
-            row[cut:] += 1
-    return ids.to(device)
 
 
 # K7-seg's bars: those of the shoot-out (scaled error; relative norm, one
@@ -567,8 +567,8 @@ def test_flash_attention_segment_kernel_matches_plain(cuda, dtype, case):
         q_ids[:, 602:] = 1
         kv_ids = q_ids
     else:
-        q_ids = _packed_ids(b, sq, sq, cuda)
-        kv_ids = q_ids if sq == sk else _packed_ids(b, sk, sk, cuda)
+        q_ids = packed_segment_ids(b, sq, sq, cuda)
+        kv_ids = q_ids if sq == sk else packed_segment_ids(b, sk, sk, cuda)
     if case == "hidden_rows":
         q_ids = q_ids.clone()
         q_ids[:, ::5] = 99
@@ -621,3 +621,135 @@ def test_flash_attention_segment_counts_apart(cuda):
             q, k, v, 0.125, segment_ids=flash_attention.SegmentIds(
                 ids.cpu(), ids))
     assert flash_attention.segment_launches == 1
+
+
+# The Hopper forward (csrc/flash_fwd_sm90.cuh): every bf16 launch of K1,
+# K7 and K7-seg at head dim 64 with 16-byte-aligned tensors. Its bars are
+# the attention's (scaled error 2e-2; relative norm one bf16 ulp, 2^-7,
+# since 0.5 N(0, 1) inputs give outputs far below 1); the log-sum-exp is
+# fp32 (1e-4 scaled).
+SM90_TOL, SM90_REL_TOL, LSE_TOL = 2e-2, 2 ** -7, 1e-4
+
+
+def _bf16_qkv(cuda, b, sq, sk, h, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    q = (torch.randn(b, sq, h, 64, generator=g, device=cuda) * 0.5) \
+        .to(torch.bfloat16)
+    k, v = ((torch.randn(b, sk, h, 64, generator=g, device=cuda) * 0.5)
+            .to(torch.bfloat16) for _ in range(2))
+    return q, k, v
+
+
+def _assert_close(out, ref):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    assert _scaled_err(out, ref) <= SM90_TOL
+    assert _rel_err(out, ref) <= SM90_REL_TOL
+
+
+@pytest.mark.parametrize("seq", [1, 63, 65, 168, 336, 448, 602])
+def test_sm90_k1_matches_plain(cuda, seq):
+    """K1 on the new body at lengths below, at and past one 64-key tile and
+    at the paths' ragged lengths (TMA's zero fill and the last-tile mask),
+    with and without the log-sum-exp."""
+    q, k, v = _bf16_qkv(cuda, 2, seq, seq, 3, seq)
+    flash_tail.reset_launches()
+    out = flash_tail.tail_masked_attention(q, k, v, 0.125)
+    out_lse, lse = flash_tail.tail_masked_attention_forward(q, k, v, 0.125)
+    ref, ref_lse = flash_attention.flash_attention_forward_plain(q, k, v,
+                                                                 0.125)
+    torch.cuda.synchronize()
+    assert flash_tail.launches == 2 and flash_tail.sm90_launches == 2
+    _assert_close(out, ref)
+    assert torch.equal(out, out_lse)
+    assert _scaled_err(lse, ref_lse) <= LSE_TOL
+
+
+@pytest.mark.parametrize("b,q_seq,kv_seq,heads,causal", [
+    (2, 1792, 1792, 5, False), (2, 1792, 1792, 5, True),
+    (2, 256, 640, 3, True), (2, 640, 256, 3, True), (2, 200, 130, 3, True),
+    (2, 130, 200, 3, False)])
+def test_sm90_k7_matches_plain(cuda, b, q_seq, kv_seq, heads, causal):
+    """K7 on the new body: the UNet's 1792 tokens, causal (top-left) with q
+    shorter and longer than kv (tiles above the diagonal skipped, the
+    diagonal masked), ragged lengths; its log-sum-exp against the plain
+    one."""
+    q, k, v = _bf16_qkv(cuda, b, q_seq, kv_seq, heads, q_seq + kv_seq)
+    flash_attention.reset_launches()
+    out = flash_attention.flash_attention(q, k, v, 0.125, causal)
+    out_lse, lse = flash_attention.flash_attention_forward(q, k, v, 0.125,
+                                                           causal)
+    ref, ref_lse = flash_attention.flash_attention_forward_plain(
+        q, k, v, 0.125, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.sm90_launches == 2
+    _assert_close(out, ref)
+    assert torch.equal(out, out_lse)
+    assert _scaled_err(lse, ref_lse) <= LSE_TOL
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sm90_k7_segment_hidden_rows_are_mean_of_v(cuda, causal):
+    """K7-seg on the new body with packed ids and every fifth query in a
+    segment no key has: those rows equal the mean of V (non-causal; under
+    the causal mask the plain version's finite mask over the visible keys),
+    the rest the plain version."""
+    b, s, h = 2, 1792, 3
+    q, k, v = _bf16_qkv(cuda, b, s, s, h, 11)
+    kv_ids = packed_segment_ids(b, s, 11, cuda)
+    q_ids = kv_ids.clone()
+    q_ids[:, ::5] = 99
+    ids = flash_attention.SegmentIds(q_ids, kv_ids)
+    flash_attention.reset_launches()
+    out = flash_attention.flash_attention(q, k, v, 0.125, causal,
+                                          segment_ids=ids)
+    ref = flash_attention.flash_attention_plain(q, k, v, 0.125, causal, ids)
+    torch.cuda.synchronize()
+    assert flash_attention.sm90_launches == 1
+    _assert_close(out, ref)
+    if not causal:
+        rows = q_ids == 99
+        mean_v = v.float().mean(1, keepdim=True).expand_as(out)
+        assert _rel_err(out[rows], mean_v[rows]) <= SM90_REL_TOL
+
+
+@pytest.mark.parametrize("b,seq,heads", [
+    (4, 602, 24), (4, 448, 24), (8, 168, 24), (8, 336, 5), (4, 448, 10),
+    (8, 168, 10)])
+def test_sm90_k1_equals_k7(cuda, b, seq, heads):
+    """At K1's shapes (the DiT's and the UNet's, cut in batch) K1 and K7
+    (non-causal, q = kv) run the one body: equal bit for bit, the output
+    and the log-sum-exp."""
+    q, k, v = _bf16_qkv(cuda, b, seq, seq, heads, seq + heads)
+    assert torch.equal(flash_tail.tail_masked_attention(q, k, v, 0.125),
+                       flash_attention.flash_attention(q, k, v, 0.125))
+    out1, lse1 = flash_tail.tail_masked_attention_forward(q, k, v, 0.125)
+    out7, lse7 = flash_attention.flash_attention_forward(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out7) and torch.equal(lse1, lse7)
+
+
+def test_sm90_dispatch_by_dtype_head_dim_alignment(cuda):
+    """The rule that picks the body: bf16 at D 64 with 16-byte-aligned
+    tensors runs it; fp32, D 32 or a tensor 2 bytes off alignment runs the
+    mma.sync / FMA body, which still matches the plain version."""
+    q, k, v = _bf16_qkv(cuda, 1, 300, 300, 2, 3)
+    flat = torch.empty(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    cases = [((q, k, v), 1), ((q.float(), k.float(), v.float()), 0),
+             ((q[..., :32].contiguous(), k[..., :32].contiguous(),
+               v[..., :32].contiguous()), 0), ((shifted, k, v), 0)]
+    for (a, b_, c), sm90 in cases:
+        flash_tail.reset_launches()
+        flash_attention.reset_launches()
+        out1 = flash_tail.tail_masked_attention(a, b_, c, 0.125)
+        out7 = flash_attention.flash_attention(a, b_, c, 0.125)
+        ref = flash_tail.tail_masked_attention_plain(a, b_, c, 0.125)
+        torch.cuda.synchronize()
+        assert flash_tail.launches == 1 and flash_attention.launches == 1
+        assert flash_tail.sm90_launches == sm90
+        assert flash_attention.sm90_launches == sm90
+        tol = SM90_TOL if a.dtype == torch.bfloat16 else 1e-4
+        assert _scaled_err(out1, ref) <= tol
+        assert _scaled_err(out7, ref) <= tol
