@@ -14,16 +14,19 @@ Phases; any failure raises and exits non-zero:
    source, all at once) and the Triton kernels; ptxas's registers and
    spills (its report is kept beside each library, so a library built by
    an earlier run is held too) and a SASS census (``cuobjdump -sass``:
-   ``HGMMA``, ``UTMALDG`` / ``LDGSTS``, ``LDSM``) of each instance of the
-   Hopper forward (``csrc/flash_fwd_sm90.cuh``, the body of every bf16
-   head-dim-64 launch of K1, K7 and K7-seg), failing on an instance that
-   ptxas did not report, a spill, or an instance without wgmma or
-   asynchronous loads;
+   ``HGMMA``, ``UTMALDG``, ``HMMA``) of each instance of the Hopper forward
+   (``csrc/flash_fwd_sm90.cuh``, the body of every bf16 head-dim-64 launch
+   of K1, K7 and K7-seg) and of the Hopper backward
+   (``csrc/flash_bwd_sm90.cuh``, the body of every bf16 head-dim-64
+   launch of K2 and the K7 backward), failing on an instance that ptxas
+   did not report, a spill, or an instance without wgmma or TMA loads or
+   with ``mma.sync``;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
    same inputs, at the shapes the serving and training paths give it, in
    bf16 (the attention kernels also in fp32), with both times: K1 (and
    its variant that writes the log-sum-exp for the backward) at the DiT's
-   and the UNet's shapes, K2 (the attention backward), K3, K4, K7 (flash
+   and the UNet's shapes, K2 (the attention backward) at the DiT's and the
+   UNet's training shapes, K3, K4, K7 (flash
    attention at the UNet's 1792 tokens, at 6400 and causal with q != kv;
    its backward at the UNet's training shape (36 x 1792), at 6400 and
    causal with q shorter and longer than kv, and its forward with the
@@ -33,8 +36,9 @@ Phases; any failure raises and exits non-zero:
    at (8, 1792, 24, 64), non-causal and causal, in bf16 and fp32; rows
    that see no key of their segment against the mean of V), K7 at K1's
    serving shapes (equal to K1 bit for bit: one body) and its backward at
-   K2's training shapes timed beside K1 and K2 (the numbers of the fold in
-   ROADMAP Queue 2), the tail-attention tiling experiment
+   K2's training shapes (equal to K2 bit for bit in dK and dV, within
+   2^-7 in relative norm in dQ, whose fp32 sums arrive in no fixed order:
+   one body) timed beside K1 and K2, the tail-attention tiling experiment
    (``opendwm_tpu_torch/perf/exp_tailvar.py``: K1, K5 at nh 2 and 4, K6 at
    bq 128 and 256 at (36, 602 | 448, 24, 64) in bf16 and at (8, 602, 24,
    64) in fp32, K5 and K6 equal to each other bit for bit and to K1 within
@@ -92,9 +96,10 @@ Phases; any failure raises and exits non-zero:
    under ``torch.profiler``.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, and every K1 and K7 forward launch of the four model
-paths must have run the Hopper forward (its launch counters). The line
-before the last is the kernels JSON; the last is the device JSON.
+but the shoot-out, every K1 and K7 forward launch of the four model paths
+must have run the Hopper forward, and every K2 and K7 backward launch of
+the two training paths the Hopper backward (their launch counters). The
+line before the last is the kernels JSON; the last is the device JSON.
 """
 
 from __future__ import annotations
@@ -146,6 +151,7 @@ ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536))
 # self-attention (72 x 1792) and at the 80x80 LiDAR BEV latents (6400).
 UNET_TEXT_TOKENS, UNET_TEXT_DIM, UNET_LAT_C = 77, 1024, 4
 UNET_K1_SHAPES = ((384, 336, 5), (72, 448, 10), (192, 168, 10))
+UNET_K2_SHAPES = ((192, 336, 5), (36, 448, 10), (96, 168, 10))  # batch 1
 K7_SHAPES = ((72, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
              (8, 1792, 3584, 5, True))  # (batch, q, kv, heads, causal)
 # The K7 backward at the UNet's training batch (1 x 36 view-frames, no
@@ -183,6 +189,10 @@ ATTN_REL_TOL = 2 ** -7
 # for the JAX kernel (docs/PARITY.md): dS is rounded to bf16 at other
 # points, and delta comes from dO.O instead of dP.P.
 K2_REL_TOL = 6e-3
+# dQ of the Hopper backward is a sum of fp32 atomics in no fixed order: two
+# launches, or K2 and the K7 backward, agree in dQ within one bf16 ulp in
+# relative norm, in dK and dV bit for bit.
+DQ_ORDER_TOL = 2 ** -7
 
 
 def log(msg: str) -> None:
@@ -312,26 +322,35 @@ def check_attention(dev, flash_tail):
 
 
 def check_attention_backward(dev, flash_tail):
-    """K2 against the plain backward at the training shapes, bf16, and one
-    fp32 shape; K1 with the log-sum-exp against the serving K1 at s602."""
+    """K2 against the plain backward at the DiT's and the UNet's training
+    shapes in bf16 (each launch on the Hopper backward) and at one fp32
+    shape (an old body); K1 with the log-sum-exp against the serving K1 at
+    s602."""
     g = torch.Generator(dev).manual_seed(SEED + 2)
     scale = 64 ** -0.5
     rows = []
-    cases = [(b, s, torch.bfloat16) for b, s in TRAIN_ATTN_SHAPES] + \
-        [(TRAIN_ATTN_SHAPES[2][0], TRAIN_ATTN_SHAPES[2][1], torch.float32)]
-    for b, s, dtype in cases:
-        q, k, v, do = (torch.randn(b, s, 24, 64, generator=g, device=dev,
+    cases = [(b, s, 24, torch.bfloat16) for b, s in TRAIN_ATTN_SHAPES] + \
+        [(b, s, h, torch.bfloat16) for b, s, h in UNET_K2_SHAPES] + \
+        [(*TRAIN_ATTN_SHAPES[2], 24, torch.float32)]
+    for b, s, h, dtype in cases:
+        q, k, v, do = (torch.randn(b, s, h, 64, generator=g, device=dev,
                                    dtype=dtype) for _ in range(4))
         out, lse = flash_tail.tail_masked_attention_forward(q, k, v, scale)
+        before = flash_tail.sm90_backward_launches
         grads = flash_tail.tail_masked_attention_backward(q, k, v, out, do,
                                                           lse, scale)
+        on_sm90 = flash_tail.sm90_backward_launches - before
         ref = flash_tail.tail_masked_attention_backward_plain(q, k, v, do,
                                                               scale)
         errs = [max_err(a, r) for a, r in zip(grads, ref)]
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        shape = f"({b},{s},{h},64)"
+        if on_sm90 != (dtype == torch.bfloat16):
+            fail(f"K2 {tag} {shape} ran the wrong body ({on_sm90} launches "
+                 "on the Hopper backward)")
         if dtype == torch.float32:
             scaled = max(scaled_err(a, r) for a, r in zip(grads, ref))
-            log(f"K2 flash_tail backward fp32 ({b},{s},24,64): max_abs_err "
+            log(f"K2 flash_tail backward fp32 {shape}: max_abs_err "
                 f"{max(errs):.3e}, scaled {scaled:.3e} (tol {FP32_TOL})")
             if not scaled <= FP32_TOL:
                 fail(f"flash_tail backward disagrees in fp32: {scaled}")
@@ -343,16 +362,16 @@ def check_attention_backward(dev, flash_tail):
             lambda: flash_tail.tail_masked_attention_backward_plain(
                 q, k, v, do, scale))
         lib_ms = sdpa_ms(q, k, v, scale, do=do)
-        log(f"K2 flash_tail backward {tag} ({b},{s},24,64): rel err dq/dk/dv "
+        log(f"K2 flash_tail backward {tag} {shape}: rel err dq/dk/dv "
             f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} (tol {K2_REL_TOL}), "
             f"max_abs_err {max(errs):.3e}, kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, sdpa flash backward {fmt_ms(lib_ms)}")
         if not max(rels) <= K2_REL_TOL:
-            fail(f"flash_tail backward disagrees at s={s}: {rels}")
-        rows.append({"shape": [b, s, 24, 64], "dtype": tag,
+            fail(f"flash_tail backward disagrees at {shape}: {rels}")
+        rows.append({"shape": [b, s, h, 64], "dtype": tag,
                      "max_abs_err": max(errs), "rel_err": rels,
                      **yardsticks(ms, plain_ms, lib_ms,
-                                  attention_bound(b, s, s, 24, 64,
+                                  attention_bound(b, s, s, h, 64,
                                                   backward=True))})
         del q, k, v, do, out, lse, grads, ref
     torch.cuda.empty_cache()
@@ -447,9 +466,10 @@ def check_unet_attention(dev, flash_tail, flash_attention):
 
 def check_flash_attention_backward(dev, flash_attention):
     """The K7 backward against its plain version (each from its own
-    forward's output and log-sum-exp) at ``K7_BWD_SHAPES`` in bf16, with
-    both times, the relative error of each gradient and the time of the
-    library's flash backward; fp32 at ``K7_BWD_FP32``. Then K7 with the
+    forward's output and log-sum-exp) at ``K7_BWD_SHAPES`` in bf16 (each
+    launch on the Hopper backward), with both times, the relative error of
+    each gradient and the time of the library's flash backward; fp32 at
+    ``K7_BWD_FP32`` (an old body). Then K7 with the
     log-sum-exp against the serving launch at the training shape."""
     g = torch.Generator(dev).manual_seed(SEED + 4)
     scale = 64 ** -0.5
@@ -474,9 +494,14 @@ def check_flash_attention_backward(dev, flash_attention):
             return flash_attention.flash_attention_backward_plain(
                 q, k, v, ref_out, ref_lse, do, scale, causal)
 
+        before = flash_attention.sm90_backward_launches
         grads, ref = kernel(), plain()
+        on_sm90 = flash_attention.sm90_backward_launches - before
         errs = [max_err(a, r) for a, r in zip(grads, ref)]
         tag = f"({b},{sq},{sk},{h},64){' causal' if causal else ''}"
+        if on_sm90 != (dtype == torch.bfloat16):
+            fail(f"the K7 backward {tag} {dtype} ran the wrong body "
+                 f"({on_sm90} launches on the Hopper backward)")
         if dtype == torch.float32:
             scaled = max(scaled_err(a, r) for a, r in zip(grads, ref))
             log(f"K7 flash_attention backward fp32 {tag}: max_abs_err "
@@ -603,8 +628,10 @@ def check_k7_at_tail_shapes(dev, flash_tail, flash_attention):
     """K7 (no padding: it masks by bounds) at K1's serving shapes, equal to
     K1 bit for bit (both launch the Hopper forward of
     ``csrc/flash_fwd_sm90.cuh``), and its backward at K2's training shapes
-    against its plain version; each timed beside K1 or K2 in turns (K1, K7,
-    K7, K1): the numbers of the fold of the two sources (ROADMAP Queue 2)."""
+    (the DiT's and the UNet's) against its plain version and equal to K2
+    (both launch the Hopper backward of ``csrc/flash_bwd_sm90.cuh``): dK
+    and dV bit for bit, dQ within ``DQ_ORDER_TOL`` in relative norm; each
+    timed beside K1 or K2 in turns (K1, K7, K7, K1)."""
     g = torch.Generator(dev).manual_seed(SEED + 6)
     scale = 64 ** -0.5
     fwd, bwd = [], []
@@ -626,8 +653,9 @@ def check_k7_at_tail_shapes(dev, flash_tail, flash_attention):
                     "k7_ms": k7_ms, "k1_ms": k1_ms,
                     "bound_ms": attention_bound(b, s, s, 24, 64)[0]})
         del q, k, v
-    for b, s in TRAIN_ATTN_SHAPES:
-        q, k, v, do = (torch.randn(b, s, 24, 64, generator=g, device=dev,
+    for b, s, h in [(b, s, 24) for b, s in TRAIN_ATTN_SHAPES] + \
+            list(UNET_K2_SHAPES):
+        q, k, v, do = (torch.randn(b, s, h, 64, generator=g, device=dev,
                                    dtype=torch.bfloat16) for _ in range(4))
         out7, lse7 = flash_attention.flash_attention_forward(q, k, v, scale)
         out1, lse1 = flash_tail.tail_masked_attention_forward(q, k, v, scale)
@@ -635,24 +663,36 @@ def check_k7_at_tail_shapes(dev, flash_tail, flash_attention):
             q, k, v, scale)
         grads = flash_attention.flash_attention_backward(q, k, v, out7, do,
                                                          lse7, scale)
+        k2 = flash_tail.tail_masked_attention_backward(q, k, v, out1, do,
+                                                       lse1, scale)
         ref = flash_attention.flash_attention_backward_plain(
             q, k, v, ref_out, ref_lse, do, scale)
         rels = [rel_err(a, r) for a, r in zip(grads, ref)]
-        del grads, ref, ref_out, ref_lse
+        same_dkdv = torch.equal(grads[1], k2[1]) and \
+            torch.equal(grads[2], k2[2])
+        dq_vs_k2 = rel_err(grads[0], k2[0])
+        del grads, k2, ref, ref_out, ref_lse
+        shape = f"({b},{s},{h},64)"
         if not max(rels) <= K2_REL_TOL:
-            fail(f"the K7 backward disagrees at K2's ({b},{s}): {rels}")
+            fail(f"the K7 backward disagrees at K2's {shape}: {rels}")
+        if not (same_dkdv and dq_vs_k2 <= DQ_ORDER_TOL):
+            fail(f"the K7 backward differs from K2 at {shape}, though both "
+                 f"run one body: dK/dV equal {same_dkdv}, dQ rel "
+                 f"{dq_vs_k2:.3e} (tol {DQ_ORDER_TOL})")
         k7_ms, k2_ms = time_pair(
             lambda: flash_attention.flash_attention_backward(
                 q, k, v, out7, do, lse7, scale),
             lambda: flash_tail.tail_masked_attention_backward(
                 q, k, v, out1, do, lse1, scale))
-        log(f"K7 backward at K2's shape bf16 ({b},{s},24,64): rel err "
-            f"dq/dk/dv {rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} (tol "
-            f"{K2_REL_TOL}), K7 backward {k7_ms:.3f} ms, K2 {k2_ms:.3f} ms "
+        log(f"K7 backward at K2's shape bf16 {shape}: rel err dq/dk/dv "
+            f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} (tol {K2_REL_TOL}), "
+            f"dK/dV equal to K2 bit for bit, dQ rel {dq_vs_k2:.2e} from K2's, "
+            f"K7 backward {k7_ms:.3f} ms, K2 {k2_ms:.3f} ms "
             f"({k7_ms / k2_ms:.3f}x)")
-        bwd.append({"shape": [b, s, 24, 64], "rel_err": rels,
+        bwd.append({"shape": [b, s, h, 64], "rel_err": rels,
+                    "dk_dv_equal_k2": same_dkdv, "dq_rel_vs_k2": dq_vs_k2,
                     "k7_ms": k7_ms, "k2_ms": k2_ms,
-                    "bound_ms": attention_bound(b, s, s, 24, 64,
+                    "bound_ms": attention_bound(b, s, s, h, 64,
                                                 backward=True)[0]})
         del q, k, v, do, out7, lse7, out1, lse1
         torch.cuda.empty_cache()
@@ -1453,38 +1493,52 @@ def run_unet_train_slice(dev, create_instance_from_config, ops,
     return counts, metrics
 
 
-def census_sm90(_build, sources) -> dict:
+def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
-    census (``cuobjdump -sass``) of the Hopper forward's instances in each
-    built library. Fails on an instance that ptxas did not report, on a
-    spill, or on an instance without ``HGMMA`` or without an asynchronous
-    load (``UTMALDG`` or ``LDGSTS``)."""
+    census (``cuobjdump -sass``) of the instances of the Hopper kernel
+    ``body`` (``flash_fwd_sm90`` or ``flash_bwd_sm90``) in each built
+    library. Fails on an instance that ptxas did not report, on a spill,
+    or on an instance without ``HGMMA`` or ``UTMALDG`` or with ``HMMA``."""
     census = {}
     for source in sources:
         lib = _build.library_path(source)
-        ptxas = _build.ptxas_report(lib, "flash_fwd_sm90")
-        sass = _build.sass_census(lib, "flash_fwd_sm90")
+        ptxas = _build.ptxas_report(lib, body)
+        sass = _build.sass_census(lib, f"{body}_kernel")
         if not sass:
-            fail(f"no flash_fwd_sm90 instance in the SASS of {source}")
+            fail(f"no {body} instance in the SASS of {source}")
         for name, ops in sass.items():
-            flags = name.split("flash_fwd_sm90_kernel")[-1].split("EEEv")[0]
+            flags = name.split(f"{body}_kernel")[-1].split("EEEv")[0]
             entry = {**ptxas.get(name, {}), **ops}
             census[f"{source}:{flags}"] = entry
-            log(f"  sm90 {source} {flags}: {json.dumps(entry)}")
+            log(f"  {body} {source} {flags}: {json.dumps(entry)}")
             if "spill_bytes" not in entry or "registers" not in entry:
-                fail(f"ptxas reported no registers or spills for the Hopper "
-                     f"forward {source} {flags}")
+                fail(f"ptxas reported no registers or spills for {body} "
+                     f"{source} {flags}")
             if entry["spill_bytes"] or not ops["HGMMA"] or \
-                    not (ops["UTMALDG"] or ops["LDGSTS"]):
-                fail(f"the Hopper forward {source} {flags} spills or lacks "
-                     f"wgmma / asynchronous loads: {entry}")
+                    not ops["UTMALDG"] or ops["HMMA"]:
+                fail(f"{body} {source} {flags} spills, lacks wgmma or TMA "
+                     f"loads, or runs mma.sync: {entry}")
     return census
 
 
 def check_new_body_on_paths(paths: dict) -> None:
     """Every forward launch of K1, K7 and K7-seg on the model paths ran the
-    Hopper forward (bf16, head dim 64, aligned), none an old body."""
+    Hopper forward, and every backward launch of K2 and K7 on the training
+    paths the Hopper backward (bf16, head dim 64, aligned), none an old
+    body."""
+    for path in ("train", "unet_train"):
+        c = paths[path]
+        k2_old = c["flash_tail_backward"] - c["flash_tail_backward_sm90"]
+        k7_old = c["flash_attention_backward"] - \
+            c["flash_attention_backward_sm90"]
+        log(f"{path}: K2 {c['flash_tail_backward']} launches, "
+            f"{c['flash_tail_backward_sm90']} on the Hopper backward; K7 "
+            f"backward {c['flash_attention_backward']}, "
+            f"{c['flash_attention_backward_sm90']} on it")
+        if k2_old or k7_old:
+            fail(f"{path}: {k2_old} K2 and {k7_old} K7 backward launches ran "
+                 "an old body")
     for path in ("serve", "train", "unet_serve", "unet_train"):
         c = paths[path]
         k1_old = c["flash_tail"] - c["flash_tail_sm90"]
@@ -1542,7 +1596,8 @@ def main() -> None:
             if any(w in low for w in ("registers", "spill", "wgmma",
                                       "setmaxnreg")):
                 log(f"  ptxas {source}: {line.strip()}")
-    sm90_census = census_sm90(_build, sources)
+    sm90_census = census_sm90(_build, sources, "flash_fwd_sm90")
+    bwd90_census = census_sm90(_build, sources, "flash_bwd_sm90")
 
     log_clocks("before the kernel checks")
     attn_rows = check_attention(dev, flash_tail)
@@ -1600,7 +1655,8 @@ def main() -> None:
 
     def entry(name, route, source, replaces, key, rows, **extra):
         by_path = {path: counts.get(key, 0) for path, counts in paths.items()}
-        if key in ("flash_tail", "flash_attention"):
+        if key in ("flash_tail", "flash_attention", "flash_tail_backward",
+                   "flash_attention_backward"):
             extra["launches_sm90_by_path"] = {
                 path: counts.get(f"{key}_sm90", 0)
                 for path, counts in paths.items()}
@@ -1619,6 +1675,7 @@ def main() -> None:
     triton_src = "opendwm_tpu_torch/ops/fused_adaln.py"
     k7_src = "opendwm_tpu_torch/csrc/flash_attention.cu"
     sm90_src = "opendwm_tpu_torch/csrc/flash_fwd_sm90.cuh"
+    bwd90_src = "opendwm_tpu_torch/csrc/flash_bwd_sm90.cuh"
     kernels = [
         entry("flash_tail_forward", "cuda", csrc,
               "opendwm_tpu/ops/flash_tail.py:55", "flash_tail",
@@ -1628,7 +1685,7 @@ def main() -> None:
               body=sm90_src, sass=sm90_census),
         entry("flash_tail_backward", "cuda", csrc,
               "opendwm_tpu/ops/flash_tail.py:125", "flash_tail_backward",
-              bwd_rows),
+              bwd_rows, body=bwd90_src, sass=bwd90_census),
         entry("adaln_modulate", "triton", triton_src,
               "opendwm_tpu/ops/fused_adaln.py:45", "adaln_modulate",
               adaln_rows["adaln_modulate"]),
@@ -1643,7 +1700,7 @@ def main() -> None:
         entry("flash_attention_backward", "cuda", k7_src,
               f"{STOCK_FLASH}:941", "flash_attention_backward", k7_bwd_rows,
               replaces_also=f"{STOCK_FLASH}:1287",
-              at_k2_shapes=k7_bwd_at_k2),
+              at_k2_shapes=k7_bwd_at_k2, body=bwd90_src),
         entry("tail_hpack", "cuda", csrc, "perf/exp_tailvar.py:75",
               "tail_hpack", tiling_rows["tail_hpack"]),
         entry("tail_qsplit", "cuda", csrc, "perf/exp_tailvar.py:119",

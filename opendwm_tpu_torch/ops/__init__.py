@@ -27,6 +27,8 @@ def launch_counts() -> dict:
         "flash_attention_with_lse": flash_attention.lse_launches,
         "flash_attention_sm90": flash_attention.sm90_launches,
         "flash_attention_backward": flash_attention.backward_launches,
+        "flash_attention_backward_sm90":
+            flash_attention.sm90_backward_launches,
         "flash_attention_backward_by_shape": {
             ",".join(map(str, k)): n
             for k, n in flash_attention.backward_launches_by_shape.items()},
@@ -39,6 +41,7 @@ def launch_counts() -> dict:
         "flash_tail_with_lse": flash_tail.lse_launches,
         "flash_tail_sm90": flash_tail.sm90_launches,
         "flash_tail_backward": flash_tail.backward_launches,
+        "flash_tail_backward_sm90": flash_tail.sm90_backward_launches,
         "flash_tail_backward_by_seq": dict(
             flash_tail.backward_launches_by_seq),
         "adaln_modulate": fused_adaln.launches,

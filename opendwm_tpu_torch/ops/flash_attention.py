@@ -15,9 +15,12 @@ without segment ids, runs the TMA + wgmma forward of
 those launches), built with nvcc at first use and called through
 ctypes: the forward, and the backward that replaces the stock kernel's
 ``custom_vjp`` backward (``_flash_attention_bwd_dkv`` and
-``_flash_attention_bwd_dq``). A call that needs a gradient goes through an
-autograd Function whose forward also writes the row log-sum-exp and whose
-backward is the kernel's. Causal masking is top-left, as the TPU kernel's:
+``_flash_attention_bwd_dq``), ``csrc/flash_bwd.cuh``, which K2 shares: in
+bf16 at head dim 64 the TMA + wgmma backward of
+``csrc/flash_bwd_sm90.cuh`` (counted by ``sm90_backward_launches``; its
+dQ sums go through an fp32 workspace, ``flash_tail.dq_workspace``). A call
+that needs a gradient goes through an autograd Function whose forward also
+writes the row log-sum-exp and whose backward is the kernel's. Causal masking is top-left, as the TPU kernel's:
 key j is visible to query i iff j <= i, also when q and kv lengths differ
 (the JAX package's XLA fallback masks bottom-right there). The wrappers
 take the plain PyTorch versions only for CPU tensors; for a CUDA tensor
@@ -44,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from opendwm_tpu_torch.ops import _build
+from opendwm_tpu_torch.ops.flash_tail import dq_workspace
 
 MIN_SEQ = 128
 MAX_HEAD_DIM = 256
@@ -63,9 +67,10 @@ class SegmentIds(NamedTuple):
 
 # Kernel launches, in total and by (batch, q_seq, kv_seq, heads, head_dim):
 # the forward (with the launches that also wrote the log-sum-exp counted
-# apart), the backward, and the forward with segment ids (K7-seg); and the
+# apart), the backward, and the forward with segment ids (K7-seg); the
 # forward launches of both kinds that ran the Hopper forward of
-# csrc/flash_fwd_sm90.cuh.
+# csrc/flash_fwd_sm90.cuh, and the backward launches that ran the Hopper
+# backward of csrc/flash_bwd_sm90.cuh.
 launches = 0
 launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 lse_launches = 0
@@ -74,13 +79,14 @@ backward_launches = 0
 backward_launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 segment_launches = 0
 segment_launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
+sm90_backward_launches = 0
 
 
 def reset_launches() -> None:
     global launches, lse_launches, backward_launches, segment_launches
-    global sm90_launches
+    global sm90_launches, sm90_backward_launches
     launches = lse_launches = backward_launches = segment_launches = 0
-    sm90_launches = 0
+    sm90_launches = sm90_backward_launches = 0
     launches_by_shape.clear()
     backward_launches_by_shape.clear()
     segment_launches_by_shape.clear()
@@ -175,7 +181,7 @@ def _library() -> ctypes.CDLL:
     shape = [i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, ptr]
     lib.flash_attention_forward.argtypes = [ptr] * 4 + shape
     lib.flash_attention_forward_lse.argtypes = [ptr] * 5 + shape
-    lib.flash_attention_backward.argtypes = [ptr] * 10 + shape
+    lib.flash_attention_backward.argtypes = [ptr] * 11 + shape
     lib.flash_attention_forward_segment.argtypes = [ptr] * 6 + shape
     for fn in (lib.flash_attention_forward, lib.flash_attention_forward_lse,
                lib.flash_attention_backward,
@@ -183,6 +189,8 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.flash_attention_forward_takes_sm90.argtypes = [ptr] * 4 + [i32, i32]
     lib.flash_attention_forward_takes_sm90.restype = ctypes.c_int
+    lib.flash_attention_backward_takes_sm90.argtypes = [ptr] * 6 + [i32, i32]
+    lib.flash_attention_backward_takes_sm90.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -288,7 +296,7 @@ def _launch_segment(q, k, v, scale: float, causal: bool,
 def _launch_backward(q, k, v, out, do, lse, scale: float, causal: bool):
     """The K7 backward on CUDA tensors: (dq, dk, dv) of the forward that
     gave ``out`` and ``lse``."""
-    global backward_launches
+    global backward_launches, sm90_backward_launches
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -303,15 +311,22 @@ def _launch_backward(q, k, v, out, do, lse, scale: float, causal: bool):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b * h, sq, device=q.device, dtype=torch.float32)
     lib = _library()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    sm90 = lib.flash_attention_backward_takes_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), d, is_bf16)
+    ws = dq_workspace(b, sq, h, q.device) if sm90 else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if ws is None else ws.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d, float(scale),
-            int(causal), int(q.dtype == torch.bfloat16), stream)
+            int(causal), is_bf16, stream)
     _raise_on_error(lib, rc, "backward")
     backward_launches += 1
+    sm90_backward_launches += sm90
     key = (b, sq, sk, h, d)
     backward_launches_by_shape[key] = \
         backward_launches_by_shape.get(key, 0) + 1

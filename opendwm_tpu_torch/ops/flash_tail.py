@@ -15,7 +15,11 @@ bounds them are noted there; the same source holds K5 and K6, other tilings
 of K1, wrapped in ``ops/tail_variants.py``), built with nvcc at first use
 and called through ctypes. K1 in bf16 at head dim 64 runs the TMA + wgmma
 forward of ``csrc/flash_fwd_sm90.cuh``, which K7 shares; ``sm90_launches``
-counts those launches. A call that needs a gradient goes through an
+counts those launches. K2 is the K7 backward's entry (``csrc/flash_bwd.cuh``)
+with q = kv and no causal mask: in bf16 at head dim 64 the TMA + wgmma
+backward of ``csrc/flash_bwd_sm90.cuh``, counted by
+``sm90_backward_launches``, whose dQ sums go through an fp32 workspace
+that the wrapper allocates. A call that needs a gradient goes through an
 autograd Function whose forward is K1 (also writing the row log-sum-exp)
 and whose backward is K2. The wrappers take the plain PyTorch versions
 only for CPU tensors; for a CUDA tensor they launch the kernel or raise.
@@ -34,24 +38,37 @@ MAX_PADDED_SEQ = 1024  # dispatch bound kept from the JAX package
 
 # Kernel launches, in total and by sequence length: the forward (K1, with
 # the launches that also wrote the log-sum-exp counted apart, and those that
-# ran the Hopper forward of csrc/flash_fwd_sm90.cuh) and the backward (K2).
+# ran the Hopper forward of csrc/flash_fwd_sm90.cuh) and the backward (K2,
+# with those that ran the Hopper backward of csrc/flash_bwd_sm90.cuh).
 launches = 0
 launches_by_seq: dict[int, int] = {}
 lse_launches = 0
 sm90_launches = 0
 backward_launches = 0
 backward_launches_by_seq: dict[int, int] = {}
+sm90_backward_launches = 0
 
 
 def reset_launches() -> None:
     global launches, lse_launches, sm90_launches, backward_launches
+    global sm90_backward_launches
     launches = lse_launches = sm90_launches = backward_launches = 0
+    sm90_backward_launches = 0
     launches_by_seq.clear()
     backward_launches_by_seq.clear()
 
 
 def _pad_len(n: int) -> int:
     return -(-n // 128) * 128
+
+
+def dq_workspace(batch: int, q_seq: int, heads: int, device) -> torch.Tensor:
+    """The fp32 scratch in which the Hopper backward
+    (``csrc/flash_bwd_sm90.cuh``) sums dQ across key tiles: (batch * heads,
+    q_seq rounded up to 64, 64); the kernel zeroes it. K7's wrapper takes it
+    from here too."""
+    return torch.empty(batch * heads, -(-q_seq // 64) * 64, 64,
+                       device=device, dtype=torch.float32)
 
 
 def supported(q_seq: int, kv_seq: int, head_dim: int) -> bool:
@@ -99,7 +116,7 @@ def _library() -> ctypes.CDLL:
     shape = [i32, i32, i32, i32, ctypes.c_float, i32, ptr]
     lib.flash_tail_forward.argtypes = [ptr] * 4 + shape
     lib.flash_tail_forward_lse.argtypes = [ptr] * 5 + shape
-    lib.flash_tail_backward.argtypes = [ptr] * 10 + shape
+    lib.flash_tail_backward.argtypes = [ptr] * 11 + shape
     # K5 / K6 (ops/tail_variants.py): the shape, then nh or bq, the stream
     lib.tail_hpack_forward.argtypes = [ptr] * 4 + shape[:-1] + [i32, ptr]
     lib.tail_qsplit_forward.argtypes = [ptr] * 4 + shape[:-1] + [i32, ptr]
@@ -109,6 +126,8 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.flash_tail_forward_takes_sm90.argtypes = [ptr] * 4 + [i32, i32]
     lib.flash_tail_forward_takes_sm90.restype = ctypes.c_int
+    lib.flash_tail_backward_takes_sm90.argtypes = [ptr] * 6 + [i32, i32]
+    lib.flash_tail_backward_takes_sm90.restype = ctypes.c_int
     lib.flash_tail_error_string.argtypes = [ctypes.c_int]
     lib.flash_tail_error_string.restype = ctypes.c_char_p
     return lib
@@ -170,7 +189,7 @@ def _launch_forward(q, k, v, scale: float, with_lse: bool):
 
 def _launch_backward(q, k, v, out, do, lse, scale: float):
     """K2 on CUDA tensors: (dq, dk, dv) of the forward that gave out, lse."""
-    global backward_launches
+    global backward_launches, sm90_backward_launches
     _check(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError("dO must match q in shape, dtype and device")
@@ -179,15 +198,22 @@ def _launch_backward(q, k, v, out, do, lse, scale: float):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b * h, s, device=q.device, dtype=torch.float32)
     lib = _library()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    sm90 = lib.flash_tail_backward_takes_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), d, is_bf16)
+    ws = dq_workspace(b, s, h, q.device) if sm90 else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = lib.flash_tail_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, s, h, d, float(scale),
-            int(q.dtype == torch.bfloat16), stream)
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if ws is None else ws.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, s, h, d, float(scale), is_bf16,
+            stream)
     _raise_on_error(lib, rc, "backward")
     backward_launches += 1
+    sm90_backward_launches += sm90
     backward_launches_by_seq[s] = backward_launches_by_seq.get(s, 0) + 1
     return dq, dk, dv
 

@@ -753,3 +753,124 @@ def test_sm90_dispatch_by_dtype_head_dim_alignment(cuda):
         tol = SM90_TOL if a.dtype == torch.bfloat16 else 1e-4
         assert _scaled_err(out1, ref) <= tol
         assert _scaled_err(out7, ref) <= tol
+
+
+# The Hopper backward (csrc/flash_bwd_sm90.cuh): every bf16 launch of K2 and
+# the K7 backward at head dim 64 with the tensors TMA touches 16-byte
+# aligned. Its bars are K2's (relative norm 0.6% per gradient). Its dQ is a
+# sum of fp32 atomics in no fixed order: two launches, or K2 and the K7
+# backward, agree in dQ within one bf16 ulp in norm (2^-7), and in dK and
+# dV bit for bit.
+DQ_ORDER_TOL = 2 ** -7
+
+
+def _bwd_inputs(cuda, b, sq, sk, h, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    q, do = (torch.randn(b, sq, h, 64, generator=g, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, sk, h, 64, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    return q, k, v, do
+
+
+def _k2_grads(q, k, v, do, scale):
+    out, lse = flash_tail.tail_masked_attention_forward(q, k, v, scale)
+    return flash_tail.tail_masked_attention_backward(q, k, v, out, do, lse,
+                                                     scale)
+
+
+def _k7_grads(q, k, v, do, scale, causal=False):
+    out, lse = flash_attention.flash_attention_forward(q, k, v, scale, causal)
+    return flash_attention.flash_attention_backward(q, k, v, out, do, lse,
+                                                    scale, causal)
+
+
+@pytest.mark.parametrize("kernel,b,q_seq,kv_seq,heads,causal", [
+    ("K2", 2, 602, 602, 3, False), ("K2", 2, 448, 448, 3, False),
+    ("K2", 2, 336, 336, 5, False), ("K2", 2, 168, 168, 3, False),
+    ("K7", 2, 1792, 1792, 5, False), ("K7", 2, 256, 640, 3, True),
+    ("K7", 2, 640, 256, 3, True), ("K7", 2, 200, 130, 3, True)])
+def test_sm90_backward_matches_plain(cuda, kernel, b, q_seq, kv_seq, heads,
+                                     causal):
+    """The new backward at the paths' ragged lengths (K2: 602, 448, 336,
+    168; the last key and query tiles masked), the UNet's 1792 and causal
+    (top-left) with q shorter and longer than kv (the query tiles before a
+    key tile skipped, the diagonal masked, keys past every query at 0)."""
+    q, k, v, do = _bwd_inputs(cuda, b, q_seq, kv_seq, heads, q_seq + kv_seq)
+    scale = 0.125
+    flash_tail.reset_launches()
+    flash_attention.reset_launches()
+    grads = _k2_grads(q, k, v, do, scale) if kernel == "K2" else \
+        _k7_grads(q, k, v, do, scale, causal)
+    ref_out, ref_lse = flash_attention.flash_attention_forward_plain(
+        q, k, v, scale, causal)
+    ref = flash_attention.flash_attention_backward_plain(
+        q, k, v, ref_out, ref_lse, do, scale, causal)
+    torch.cuda.synchronize()
+    mod = flash_tail if kernel == "K2" else flash_attention
+    assert mod.backward_launches == 1 and mod.sm90_backward_launches == 1
+    for a, r in zip(grads, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        assert torch.isfinite(a).all()
+        assert _rel_err(a, r) <= K2_REL_TOL
+
+
+def test_sm90_backward_dk_dv_bit_stable(cuda):
+    """Two launches on the same inputs: dK and dV the same bits (one block
+    owns each key tile), dQ within one bf16 ulp in norm (its fp32 sums
+    arrive in no fixed order)."""
+    q, k, v, do = _bwd_inputs(cuda, 4, 602, 602, 24, 5)
+    first = _k2_grads(q, k, v, do, 0.125)
+    second = _k2_grads(q, k, v, do, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    assert _rel_err(first[0], second[0]) <= DQ_ORDER_TOL
+
+
+@pytest.mark.parametrize("b,seq,heads", [
+    (4, 602, 24), (4, 448, 24), (8, 168, 24), (8, 336, 5), (4, 448, 10),
+    (8, 168, 10)])
+def test_sm90_k2_equals_k7_backward(cuda, b, seq, heads):
+    """At K2's shapes (the DiT's and the UNet's, cut in batch) K2 and the
+    K7 backward run the one kernel: dK and dV equal bit for bit, dQ within
+    one bf16 ulp in norm."""
+    q, k, v, do = _bwd_inputs(cuda, b, seq, seq, heads, seq + heads)
+    dq2, dk2, dv2 = _k2_grads(q, k, v, do, 0.125)
+    dq7, dk7, dv7 = _k7_grads(q, k, v, do, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(dk2, dk7) and torch.equal(dv2, dv7)
+    assert _rel_err(dq7, dq2) <= DQ_ORDER_TOL
+
+
+def test_sm90_backward_dispatch_by_dtype_head_dim_alignment(cuda):
+    """The rule that picks the backward's body, read from
+    ``sm90_backward_launches``: bf16 at D 64 with aligned tensors runs the
+    new kernel; fp32, D 128 and a q 2 bytes off alignment run the mma.sync
+    / FMA bodies, which still match the plain version."""
+    q, k, v, do = _bwd_inputs(cuda, 1, 300, 300, 2, 9)
+    flat = torch.empty(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    wide = [torch.cat([t, t], dim=-1) for t in (q, k, v, do)]
+    cases = [((q, k, v, do), 1), ((q.float(), k.float(), v.float(),
+                                   do.float()), 0),
+             (tuple(wide), 0), ((shifted, k, v, do), 0)]
+    for (a, b_, c, d), sm90 in cases:
+        flash_tail.reset_launches()
+        flash_attention.reset_launches()
+        scale = a.shape[-1] ** -0.5
+        got = [_k2_grads(a, b_, c, d, scale), _k7_grads(a, b_, c, d, scale)]
+        ref = flash_tail.tail_masked_attention_backward_plain(a, b_, c, d,
+                                                              scale)
+        torch.cuda.synchronize()
+        assert flash_tail.backward_launches == 1
+        assert flash_attention.backward_launches == 1
+        assert flash_tail.sm90_backward_launches == sm90
+        assert flash_attention.sm90_backward_launches == sm90
+        for grads in got:
+            for x, r in zip(grads, ref):
+                if a.dtype == torch.bfloat16:
+                    assert _rel_err(x, r) <= K2_REL_TOL
+                else:
+                    assert _scaled_err(x, r) <= 1e-4

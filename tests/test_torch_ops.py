@@ -373,6 +373,25 @@ def test_flash_attention_causal_is_top_left(interpret_pallas):
     np.testing.assert_allclose(np.asarray(flash)[:, 0], v[:, 0], atol=TOL)
 
 
+@pytest.mark.parametrize("seq", [130, 168, 200, 336])
+def test_k7_backward_plain_is_k2_at_k2_shapes(seq):
+    """The identity the fold of the two backwards rests on: at K2's ragged
+    lengths (q = kv, no causal mask) the K7 backward's plain version, from
+    the plain forward's output and log-sum-exp (delta = rowsum(dO o O)),
+    equals K2's plain version (delta = rowsum(dP o P)), fp32."""
+    rng = np.random.default_rng(40 + seq)
+    q, k, v, do = (torch.from_numpy(_randn(rng, 2, seq, 2, 64))
+                   for _ in range(4))
+    scale = 64 ** -0.5
+    out, lse = flash_attention.flash_attention_forward_plain(q, k, v, scale)
+    k7 = flash_attention.flash_attention_backward_plain(q, k, v, out, lse,
+                                                        do, scale)
+    k2 = flash_tail.tail_masked_attention_backward_plain(q, k, v, do, scale)
+    for a, b in zip(k7, k2):
+        assert a.shape == b.shape
+        assert _scaled_err(a, b) <= TOL
+
+
 @pytest.mark.parametrize(
     "q_seq,kv_seq,head_dim,causal",
     [
