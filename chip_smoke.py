@@ -16,11 +16,13 @@ Phases; any failure raises and exits non-zero:
    an earlier run is held too) and a SASS census (``cuobjdump -sass``:
    ``HGMMA``, ``UTMALDG``, ``HMMA``) of each instance of the Hopper forward
    (``csrc/flash_fwd_sm90.cuh``, the body of every bf16 head-dim-64 launch
-   of K1, K7 and K7-seg) and of the Hopper backward
+   of K1, K7 and K7-seg), of the Hopper tilings
+   (``csrc/tail_tiling_sm90.cuh``, the body of every bf16 head-dim-64
+   launch of K5 and K6) and of the Hopper backward
    (``csrc/flash_bwd_sm90.cuh``, the body of every bf16 head-dim-64
-   launch of K2 and the K7 backward), failing on an instance that ptxas
-   did not report, a spill, or an instance without wgmma or TMA loads or
-   with ``mma.sync``;
+   launch of K2 and the K7 backward), failing on a body without an
+   instance, an instance that ptxas did not report, a spill, or an
+   instance without wgmma or TMA loads or with ``mma.sync``;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
    same inputs, at the shapes the serving and training paths give it, in
    bf16 (the attention kernels also in fp32), with both times: K1 (and
@@ -41,8 +43,9 @@ Phases; any failure raises and exits non-zero:
    one body) timed beside K1 and K2, the tail-attention tiling experiment
    (``opendwm_tpu_torch/perf/exp_tailvar.py``: K1, K5 at nh 2 and 4, K6 at
    bq 128 and 256 at (36, 602 | 448, 24, 64) in bf16 and at (8, 602, 24,
-   64) in fp32, K5 and K6 equal to each other bit for bit and to K1 within
-   the bars; its launches are the ``tailvar`` path's), and the
+   64) in fp32, K5 and K6 equal to K1 bit for bit, every bf16 launch of
+   them on the Hopper tiling kernel and no fp32 one; its launches are the
+   ``tailvar`` path's), and the
    attention shoot-out (``opendwm_tpu_torch/perf/exp_attn602.py``: K1, the
    plain attention and K7-seg over S padded to a multiple of 128 at (36,
    602 | 448, 24, 64) bf16; its launches are the ``attn602`` path's, and
@@ -51,8 +54,10 @@ Phases; any failure raises and exits non-zero:
    take for the same work (``bound_ms``), and the time of one PyTorch call
    that computes the same function (``library_ms``:
    ``scaled_dot_product_attention`` or its backward for the attention
-   kernels, with the boolean same-id mask for K7-seg; none for the AdaLN
-   ones). The card's clocks are logged between phases;
+   kernels, with the boolean same-id mask for K7-seg, and
+   ``aten._scaled_dot_product_flash_attention``, which also returns the
+   log-sum-exp, beside K7 with the log-sum-exp; none for the AdaLN ones).
+   The card's clocks are logged between phases;
 4. tiny models: the kernel path end to end (fp32, small widths) against
    the plain path on the CPU: the DiT, one AdamW train step of the DiT
    with remat on, the UNet, and one AdamW train step of the UNet with remat
@@ -97,9 +102,10 @@ Phases; any failure raises and exits non-zero:
 
 Each slice is freed before the next. K7-seg must have launched on no path
 but the shoot-out, every K1 and K7 forward launch of the four model paths
-must have run the Hopper forward, and every K2 and K7 backward launch of
-the two training paths the Hopper backward (their launch counters). The
-line before the last is the kernels JSON; the last is the device JSON.
+must have run the Hopper forward, every K2 and K7 backward launch of
+the two training paths the Hopper backward, and every bf16 K5 and K6
+launch of the tailvar path the Hopper tilings (their launch counters).
+The line before the last is the kernels JSON; the last is the device JSON.
 """
 
 from __future__ import annotations
@@ -212,12 +218,14 @@ def adaln_bound(n, l, d, residual=False):
     return bound((10 if residual else 8) * n * l * d, nbytes, PEAK_FP32)
 
 
-def sdpa_ms(q, k, v, scale, causal=False, do=None, ref=None, mask=None):
+def sdpa_ms(q, k, v, scale, causal=False, do=None, ref=None, mask=None,
+            lse=False):
     """ms of one PyTorch call computing the same function on the same
     inputs (BHSD views of them): ``scaled_dot_product_attention`` (with
     ``mask``, a boolean mask of the visible pairs, in place of ``causal``),
-    or with ``do`` its backward from its own forward's output and
-    log-sum-exp:
+    with ``lse`` the flash forward that also returns the log-sum-exp
+    (``aten._scaled_dot_product_flash_attention``), or with ``do`` its
+    backward from its own forward's output and log-sum-exp:
     the flash kernel's, or for causal with q != kv, where the flash kernel
     masks bottom-right, the memory-efficient kernel's, whose ``is_causal``
     is top-left as K7's. With ``ref`` (the plain dq, dk, dv) it logs the
@@ -227,6 +235,10 @@ def sdpa_ms(q, k, v, scale, causal=False, do=None, ref=None, mask=None):
     F = torch.nn.functional
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     try:
+        if lse:
+            return time_ms(lambda: torch.ops.aten
+                           ._scaled_dot_product_flash_attention(
+                               qt, kt, vt, 0.0, causal, False, scale=scale))
         if do is None:
             return time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=causal, scale=scale))
@@ -536,9 +548,12 @@ def check_flash_attention_backward(dev, flash_attention):
     lse_ms, serve_ms = time_pair(
         lambda: flash_attention.flash_attention_forward(q, k, v, scale),
         lambda: flash_attention.flash_attention(q, k, v, scale))
+    lse_lib_ms = sdpa_ms(q, k, v, scale, lse=True)
     log(f"K7 flash_attention bf16 ({b},{sq},{sk},{h},64): with the "
-        f"log-sum-exp {lse_ms:.3f} ms, serving launch {serve_ms:.3f} ms")
-    return rows, {"lse_ms": lse_ms, "serving_ms": serve_ms}
+        f"log-sum-exp {lse_ms:.3f} ms, serving launch {serve_ms:.3f} ms, "
+        f"sdpa flash forward with the log-sum-exp {fmt_ms(lse_lib_ms)}")
+    return rows, {"lse_ms": lse_ms, "serving_ms": serve_ms,
+                  "lse_library_ms": lse_lib_ms}
 
 
 def check_flash_attention_segment(dev, flash_attention):
@@ -699,45 +714,80 @@ def check_k7_at_tail_shapes(dev, flash_tail, flash_attention):
     return fwd, bwd
 
 
+def check_tailvar_rows(runs, rel_tols) -> None:
+    """Each row of the tiling experiment (``runs``: pairs of its rows and
+    their scaled bar; ``rel_tols``: the relative-norm bar by dtype) within
+    the bars against the plain version and K1, and every K5 and K6 row
+    equal to K1 bit for bit (``equals_k1``, which the experiment sets on
+    the card): in bf16 at D 64 they run K1's Hopper tile step, in fp32 its
+    FMA step."""
+    for results, tol in runs:
+        for r in results:
+            rel_tol = rel_tols[getattr(torch, r["dtype"])]
+            near_k1 = r.get("vs_k1_scaled_err", 0.0) <= tol and \
+                r.get("vs_k1_rel_err", 0.0) <= rel_tol
+            k1_bits = r["kernel"] == "flash_tail_forward" or \
+                r.get("equals_k1") is True
+            if not (r["scaled_err"] <= tol and r["rel_err"] <= rel_tol
+                    and near_k1 and k1_bits):
+                fail(f"tiling {r['variant']} {r['dtype']} {r['shape']} "
+                     f"disagrees: scaled {r['scaled_err']} (bar {tol}), "
+                     f"relative norm {r['rel_err']} (bar {rel_tol}), "
+                     f"against K1 {r.get('vs_k1_scaled_err')} / "
+                     f"{r.get('vs_k1_rel_err')}, equal to K1: "
+                     f"{r.get('equals_k1')}")
+
+
+def check_tailvar_launches(bf16: dict, total: dict) -> None:
+    """``bf16``: the tiling experiment's launch counts after its bf16 runs
+    (D 64, aligned tensors), ``total`` after its fp32 run too. K5 at nh 2
+    and 4 and K6 at bq 128 and 256 launched in bf16; every bf16 launch of
+    K5 and K6 ran the Hopper tiling kernel and no fp32 launch did."""
+    for key, want in (("tail_hpack_by_nh", (2, 4)),
+                      ("tail_qsplit_by_bq", (128, 256))):
+        for n in want:
+            if bf16[key].get(n, 0) == 0:
+                fail(f"{key}[{n}] never launched in the tiling experiment")
+    for kernel in ("tail_hpack", "tail_qsplit"):
+        hopper = bf16[f"{kernel}_sm90"]
+        fp32 = total[kernel] - bf16[kernel]
+        log(f"tailvar: {kernel} {bf16[kernel]} bf16 launches, {hopper} on "
+            f"the Hopper tiling kernel; {fp32} fp32 launches, "
+            f"{total[f'{kernel}_sm90'] - hopper} on it")
+        if hopper != bf16[kernel]:
+            fail(f"{bf16[kernel] - hopper} of {bf16[kernel]} bf16 {kernel} "
+                 "launches ran an old body")
+        if fp32 == 0 or total[f"{kernel}_sm90"] != hopper:
+            fail(f"the fp32 {kernel} launches ({fp32}) did not all run the "
+                 "FMA body")
+
+
 def run_tailvar(dev, ops, exp_tailvar):
     """The tail-attention tiling experiment through its run function at its
     full shapes in bf16 and at ``TAILVAR_FP32``: K1, K5 (nh 2, 4) and K6 (bq
     128, 256), each against the plain version (the scaled error and the
-    relative norm), timed beside it, the bound and SDPA. K5 and K6 run one
-    mma.sync tile step, so they must equal each other bit for bit; K1 runs
-    the Hopper forward of ``csrc/flash_fwd_sm90.cuh`` in bf16 at D 64, so
-    they are held to it within the same bars. Returns the experiment's
-    launches and the K5 and K6 rows."""
+    relative norm), timed beside it, the bound and SDPA. K5 and K6 must
+    equal K1 bit for bit, and every bf16 launch of them must have run the
+    Hopper tiling kernel (``csrc/tail_tiling_sm90.cuh``). Returns the
+    experiment's launches and the K5 and K6 rows."""
     ops.reset_launch_counts()
     runs = [(exp_tailvar.run(seq, label, dev), ATTN_TOL)
             for label, seq in exp_tailvar.SHAPES.items()]
+    torch.cuda.synchronize()
+    bf16 = ops.launch_counts()
     b, seq = TAILVAR_FP32
     runs.append((exp_tailvar.run(seq, "fp32", dev, b=b, dtype=torch.float32),
                  FP32_TOL))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"launches in the tiling experiment: {json.dumps(counts)}")
+    check_tailvar_rows(runs, exp_tailvar.REL_TOL)  # rows printed by the run
+    check_tailvar_launches(bf16, counts)
     rows = {"tail_hpack": [], "tail_qsplit": []}
-    for results, tol in runs:  # each row was printed by the experiment
+    for results, _ in runs:
         for r in results:
-            rel_tol = exp_tailvar.REL_TOL[getattr(torch, r["dtype"])]
-            near_k1 = r.get("vs_k1_scaled_err", 0.0) <= tol and \
-                r.get("vs_k1_rel_err", 0.0) <= rel_tol
-            if not (r["scaled_err"] <= tol and r["rel_err"] <= rel_tol
-                    and near_k1 and r.get("equals_tilings", True)):
-                fail(f"tiling {r['variant']} {r['dtype']} {r['shape']} "
-                     f"disagrees: scaled {r['scaled_err']} (bar {tol}), "
-                     f"relative norm {r['rel_err']} (bar {rel_tol}), "
-                     f"against K1 {r.get('vs_k1_scaled_err')} / "
-                     f"{r.get('vs_k1_rel_err')}, equal to the other "
-                     f"tilings: {r.get('equals_tilings')}")
             if r["kernel"] in rows:
                 rows[r["kernel"]].append(r)
-    for key, want in (("tail_hpack_by_nh", (2, 4)),
-                      ("tail_qsplit_by_bq", (128, 256))):
-        for n in want:
-            if counts[key].get(n, 0) == 0:
-                fail(f"{key}[{n}] never launched in the tiling experiment")
     return counts, rows
 
 
@@ -1497,9 +1547,11 @@ def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
     census (``cuobjdump -sass``) of the instances of the Hopper kernel
-    ``body`` (``flash_fwd_sm90`` or ``flash_bwd_sm90``) in each built
-    library. Fails on an instance that ptxas did not report, on a spill,
-    or on an instance without ``HGMMA`` or ``UTMALDG`` or with ``HMMA``."""
+    ``body`` (``flash_fwd_sm90``, ``tail_tiling_sm90`` or
+    ``flash_bwd_sm90``) in each built library of ``sources``. Fails on a
+    library without an instance, an instance that ptxas did not report, a
+    spill, or an instance without ``HGMMA`` or ``UTMALDG`` or with
+    ``HMMA``."""
     census = {}
     for source in sources:
         lib = _build.library_path(source)
@@ -1597,6 +1649,8 @@ def main() -> None:
                                       "setmaxnreg")):
                 log(f"  ptxas {source}: {line.strip()}")
     sm90_census = census_sm90(_build, sources, "flash_fwd_sm90")
+    tiling_census = census_sm90(_build, ("flash_tail.cu",),
+                                "tail_tiling_sm90")
     bwd90_census = census_sm90(_build, sources, "flash_bwd_sm90")
 
     log_clocks("before the kernel checks")
@@ -1656,7 +1710,7 @@ def main() -> None:
     def entry(name, route, source, replaces, key, rows, **extra):
         by_path = {path: counts.get(key, 0) for path, counts in paths.items()}
         if key in ("flash_tail", "flash_attention", "flash_tail_backward",
-                   "flash_attention_backward"):
+                   "flash_attention_backward", "tail_hpack", "tail_qsplit"):
             extra["launches_sm90_by_path"] = {
                 path: counts.get(f"{key}_sm90", 0)
                 for path, counts in paths.items()}
@@ -1676,6 +1730,7 @@ def main() -> None:
     k7_src = "opendwm_tpu_torch/csrc/flash_attention.cu"
     sm90_src = "opendwm_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd90_src = "opendwm_tpu_torch/csrc/flash_bwd_sm90.cuh"
+    tiling_src = "opendwm_tpu_torch/csrc/tail_tiling_sm90.cuh"
     kernels = [
         entry("flash_tail_forward", "cuda", csrc,
               "opendwm_tpu/ops/flash_tail.py:55", "flash_tail",
@@ -1696,15 +1751,18 @@ def main() -> None:
               "opendwm_tpu/ops/attention.py:151", "flash_attention", k7_rows,
               lse_ms=k7_lse_timing["lse_ms"],
               serving_ms_beside_lse=k7_lse_timing["serving_ms"],
+              lse_library_ms=k7_lse_timing["lse_library_ms"],
               at_k1_shapes=k7_at_k1, body=sm90_src),
         entry("flash_attention_backward", "cuda", k7_src,
               f"{STOCK_FLASH}:941", "flash_attention_backward", k7_bwd_rows,
               replaces_also=f"{STOCK_FLASH}:1287",
               at_k2_shapes=k7_bwd_at_k2, body=bwd90_src),
         entry("tail_hpack", "cuda", csrc, "perf/exp_tailvar.py:75",
-              "tail_hpack", tiling_rows["tail_hpack"]),
+              "tail_hpack", tiling_rows["tail_hpack"], body=tiling_src,
+              sass=tiling_census),
         entry("tail_qsplit", "cuda", csrc, "perf/exp_tailvar.py:119",
-              "tail_qsplit", tiling_rows["tail_qsplit"]),
+              "tail_qsplit", tiling_rows["tail_qsplit"], body=tiling_src,
+              sass=tiling_census),
         entry("flash_attention_segment", "cuda", k7_src,
               "perf/exp_attn602.py:88", "flash_attention_segment",
               k7_seg_rows, replaces_also=f"{STOCK_FLASH}:140",

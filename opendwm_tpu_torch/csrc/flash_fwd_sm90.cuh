@@ -70,6 +70,10 @@
 //   - Inside the warpgroup the products are issued one tile apart: the
 //     softmax of tile i runs while the tensor cores finish P V of tile
 //     i - 1 and S of tile i + 1 waits for it.
+//   - The warpgroup's mainloop (attend_rows) and epilogue (finish_rows)
+//     are functions of their own: the tilings K5 and K6
+//     (tail_tiling_sm90.cuh) call them under another schedule, so a row
+//     gets the same bits in K1, K7, K5 and K6.
 //
 // The wrapper's launch decides which body runs before the launch
 // (Sm90Takes, sm90.cuh, which also holds the PTX helpers this kernel shares
@@ -202,6 +206,167 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // ---------------------------------------------------------------------------
+// One consumer warpgroup's 64 query rows against a run of K/V tiles
+// ---------------------------------------------------------------------------
+
+// The K/V ring as a consumer reads it: stage s holds a K tile at
+// k + s * kTileBytes, a V tile at v + s * kTileBytes and (K7-seg) the
+// tile's 64 key ids at ids + s * kTileRows; it completes on the mbarrier at
+// full + 8 * s and is released on the one at empty + 8 * s.
+struct Ring {
+  uint32_t k, v, full, empty;
+  const int* ids;
+};
+
+// When a warpgroup may issue its products: take() before it issues, pass()
+// after. A lone warpgroup needs no turns; two that share an SM may take
+// them in turn (tail_tiling_sm90.cuh), so that one's softmax runs while
+// the other's products do. The order of issue changes no bit.
+struct NoTurns {
+  __device__ __forceinline__ void take() const {}
+  __device__ __forceinline__ void pass() const {}
+};
+
+// The mainloop of one consumer warpgroup: its 64 query rows [q0, q0 + 64)
+// (the K-major tile at sQ; rows[] are this thread's two, row_id[] their
+// segment ids) against the n_tiles K/V tiles 0, 1, ... of their head, which
+// the ring delivers at positions first, first + 1, ...: position pos lives
+// in stage pos % kStages and completes the phase of parity
+// (pos / kStages) & 1. Leaves the unnormalised output in o, the running max
+// in m_run and the lane's share of the row sums in l_run, and releases
+// every stage it read. K1, K7 and K7-seg (one run a block, first = 0) and
+// the tilings K5 and K6 (tail_tiling_sm90.cuh: runs one after another
+// through one ring) all call it, so a row gets the same bits in each. It
+// issues products n_tiles + 1 times, each between turns.take() and
+// turns.pass().
+template <int kStages, bool kCausal, bool kSegment, class Turns = NoTurns>
+__device__ __forceinline__ void attend_rows(
+    float (&o)[32], float (&m_run)[2], float (&l_run)[2], uint32_t sQ,
+    const Ring& ring, int first, int n_tiles, int q0, const int (&rows)[2],
+    const int (&row_id)[2], int kv_seq, float scale_log2, int t,
+    const Turns& turns = Turns()) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  m_run[0] = m_run[1] = -INFINITY;
+  l_run[0] = l_run[1] = 0.0f;
+
+  // Tile `it` lives in stage (first + it) % kStages. The products are
+  // issued one tile apart: while the softmax of tile it runs on the ALUs,
+  // the tensor cores finish P V of tile it - 1. The operations on O keep
+  // the order of a loop without the overlap (O corr_i, then + P_i V_i), so
+  // the overlap changes no bit.
+  float sc[32];
+  float corr[2];
+  uint32_t pa[4][4];
+  auto stage = [&](int it) { return (first + it) % kStages; };
+  auto wait_full = [&](int it) {
+    mbar_wait(ring.full + 8 * stage(it), ((first + it) / kStages) & 1);
+  };
+  auto release = [&](int it) { mbar_arrive(ring.empty + 8 * stage(it)); };
+  auto issue_scores = [&](int it) {  // sc = Q K_it^T
+    const uint32_t sK = ring.k + stage(it) * kTileBytes;
+    wgmma_ss<false>(sc, kmajor_desc(sQ, 0), kmajor_desc(sK, 0));
+#pragma unroll
+    for (int k = 1; k < kD / 16; ++k)
+      wgmma_ss<true>(sc, kmajor_desc(sQ, k), kmajor_desc(sK, k));
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int it) {  // o += P_it V_it
+    const uint32_t sV = ring.v + stage(it) * kTileBytes;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs(o, pa[j], mnmajor_desc(sV, j));
+    wgmma_commit();
+  };
+  auto softmax = [&](int it) {
+    const int kv0 = it * kTileRows;
+    const int* ids = ring.ids + stage(it) * kTileRows;
+    const bool edge = kv0 + kTileRows > kv_seq ||
+                      (kCausal && kv0 + kTileRows - 1 > q0);
+    if (edge)
+      softmax_tile<true, kCausal, kSegment>(sc, m_run, l_run, corr, rows,
+                                            row_id, ids, kv0, kv_seq,
+                                            scale_log2, t);
+    else
+      softmax_tile<false, kCausal, kSegment>(sc, m_run, l_run, corr, rows,
+                                             row_id, ids, kv0, kv_seq,
+                                             scale_log2, t);
+  };
+  // P's 16-key slice j is the A fragment of score slices 2j and 2j + 1.
+  auto pack_p = [&] {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pa[j][x] = pack_bf16(sc[8 * j + 2 * x], sc[8 * j + 2 * x + 1]);
+    }
+  };
+
+  for (int it = 0; it < n_tiles; ++it) {
+    wait_full(it);
+    turns.take();
+    wgmma_fence();
+    issue_scores(it);
+    if (it > 0) issue_pv(it - 1);
+    turns.pass();
+    if (it > 0) {
+      wgmma_wait<1>();  // the scores; P V of tile it - 1 runs on
+    } else {
+      wgmma_wait<0>();
+    }
+    pin(sc);
+    softmax(it);
+    if (it > 0) {  // tile 0 finds O at 0: no correction
+      wgmma_wait<0>();
+      pin(o);
+      release(it - 1);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[4 * n] *= corr[0];
+        o[4 * n + 1] *= corr[0];
+        o[4 * n + 2] *= corr[1];
+        o[4 * n + 3] *= corr[1];
+      }
+    }
+    pack_p();
+  }
+  turns.take();
+  wgmma_fence();
+  issue_pv(n_tiles - 1);
+  turns.pass();
+  wgmma_wait<0>();
+  pin(o);
+  release(n_tiles - 1);
+}
+
+// The epilogue of attend_rows: the row sums, with kLse the log-sum-exp of
+// the rows below q_seq into lse[bh * q_seq + row], and O / l in bf16 into
+// the 64-row tile at `tile` (128-byte swizzle: 16-byte chunk n of row r at
+// chunk n ^ (r % 8)), made visible to the TMA store that follows.
+template <bool kLse>
+__device__ __forceinline__ void finish_rows(float (&o)[32],
+                                            const float (&m_run)[2],
+                                            float (&l_run)[2],
+                                            unsigned char* tile, float* lse,
+                                            int bh, const int (&rows)[2],
+                                            int q_seq, int warp, int g,
+                                            int t) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    inv[r] = 1.0f / l_run[r];
+    if (kLse && t == 0 && rows[r] < q_seq)
+      lse[static_cast<size_t>(bh) * q_seq + rows[r]] =
+          m_run[r] + log2f(l_run[r]);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= inv[(i >> 1) & 1];
+  store_tile_bf16(tile, o, warp, g, t);
+  fence_async_smem();
+}
+
+// ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
@@ -285,115 +450,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
           row_id[r] = p.q_ids[static_cast<size_t>(b) * p.q_seq + rows[r]];
     }
 
-    float o[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
-    float m_run[2] = {-INFINITY, -INFINITY};
-    float l_run[2] = {0.0f, 0.0f};
+    const Ring ring = {base + L::kK, base + L::kV, bar_full, bar_empty,
+                       reinterpret_cast<const int*>(smem + L::kIds)};
+    float o[32], m_run[2], l_run[2];
     mbar_wait(bar_q, 0);
-
-    // Tile `it` lives in stage it % kStages. The products are issued one
-    // tile apart: while the softmax of tile it runs on the ALUs, the tensor
-    // cores finish P V of tile it - 1. The operations on O keep the order
-    // of a loop without the overlap (O corr_i, then + P_i V_i), so the
-    // overlap changes no bit.
-    float sc[32];
-    float corr[2];
-    uint32_t pa[4][4];
-    auto wait_full = [&](int it) {
-      mbar_wait(bar_full + 8 * (it % kStages), (it / kStages) & 1);
-    };
-    auto release = [&](int it) {
-      mbar_arrive(bar_empty + 8 * (it % kStages));
-    };
-    auto issue_scores = [&](int it) {  // sc = Q K_it^T
-      const uint32_t sK = base + L::kK + (it % kStages) * kTileBytes;
-      wgmma_ss<false>(sc, kmajor_desc(sQ, 0), kmajor_desc(sK, 0));
-#pragma unroll
-      for (int k = 1; k < kD / 16; ++k)
-        wgmma_ss<true>(sc, kmajor_desc(sQ, k), kmajor_desc(sK, k));
-      wgmma_commit();
-    };
-    auto issue_pv = [&](int it) {  // o += P_it V_it
-      const uint32_t sV = base + L::kV + (it % kStages) * kTileBytes;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_rs(o, pa[j], mnmajor_desc(sV, j));
-      wgmma_commit();
-    };
-    auto softmax = [&](int it) {
-      const int kv0 = it * kTileRows;
-      const int* ids = reinterpret_cast<const int*>(smem + L::kIds) +
-                       (it % kStages) * kTileRows;
-      const bool edge = kv0 + kTileRows > p.kv_seq ||
-                        (kCausal && kv0 + kTileRows - 1 > q0);
-      if (edge)
-        softmax_tile<true, kCausal, kSegment>(sc, m_run, l_run, corr, rows,
-                                              row_id, ids, kv0, p.kv_seq,
-                                              p.scale_log2, t);
-      else
-        softmax_tile<false, kCausal, kSegment>(sc, m_run, l_run, corr, rows,
-                                               row_id, ids, kv0, p.kv_seq,
-                                               p.scale_log2, t);
-    };
-    // P's 16-key slice j is the A fragment of score slices 2j and 2j + 1.
-    auto pack_p = [&] {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int x = 0; x < 4; ++x)
-          pa[j][x] = pack_bf16(sc[8 * j + 2 * x], sc[8 * j + 2 * x + 1]);
-      }
-    };
-
-    for (int it = 0; it < n_tiles; ++it) {
-      wait_full(it);
-      wgmma_fence();
-      issue_scores(it);
-      if (it > 0) {
-        issue_pv(it - 1);
-        wgmma_wait<1>();  // the scores; P V of tile it - 1 runs on
-      } else {
-        wgmma_wait<0>();
-      }
-      pin(sc);
-      softmax(it);
-      if (it > 0) {  // tile 0 finds O at 0: no correction
-        wgmma_wait<0>();
-        pin(o);
-        release(it - 1);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          o[4 * n] *= corr[0];
-          o[4 * n + 1] *= corr[0];
-          o[4 * n + 2] *= corr[1];
-          o[4 * n + 3] *= corr[1];
-        }
-      }
-      pack_p();
-    }
-    wgmma_fence();
-    issue_pv(n_tiles - 1);
-    wgmma_wait<0>();
-    pin(o);
-    release(n_tiles - 1);
-
-    // Epilogue: the row sums, the log-sum-exp, O / l in bf16 into the Q
-    // tile (128-byte swizzle: 16-byte chunk n of row r at chunk n ^ (r % 8)),
-    // then one TMA store of the block's 64 rows.
-    float inv[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-      inv[r] = 1.0f / l_run[r];
-      if (kLse && t == 0 && rows[r] < p.q_seq)
-        p.lse[static_cast<size_t>(bh) * p.q_seq + rows[r]] =
-            m_run[r] + log2f(l_run[r]);
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= inv[(i >> 1) & 1];
-    store_tile_bf16(smem + L::kQ, o, warp, g, t);
-    fence_async_smem();
+    attend_rows<kStages, kCausal, kSegment>(o, m_run, l_run, sQ, ring, 0,
+                                            n_tiles, q0, rows, row_id,
+                                            p.kv_seq, p.scale_log2, t);
+    // Epilogue: O into the Q tile, then one TMA store of the block's 64
+    // rows (it drops rows past q_seq).
+    finish_rows<kLse>(o, m_run, l_run, smem + L::kQ, p.lse, bh, rows,
+                      p.q_seq, warp, g, t);
     bar_sync(1, 128);
     if (ctid == 0) tma_store(&p.o, sQ, h, q0, b);
   }

@@ -36,7 +36,7 @@
 // store (the rule that picks it is fwd90::Sm90Takes). The mma.sync body
 // below, which loads K/V synchronously and gathers B fragments with scalar
 // shared loads, serves the other launches (fp32, D 32 and 128, pointers
-// that are not 16-byte aligned) and K5/K6.
+// that are not 16-byte aligned), of K1 and of K5/K6.
 //
 // When a gradient is needed the forward also writes the row log-sum-exp
 // (fp32, in the log2 domain of the scaled scores, (B*H, S)); it is a
@@ -46,10 +46,11 @@
 // per block, the grid steps of the tiling experiment perf/exp_tailvar.py:
 // K5 (tail_hpack, :75) gives one block all query rows of nh batch-heads,
 // K6 (tail_qsplit, :119) gives one block bq = 128 or 256 query rows of one
-// batch-head. Both run the mma.sync per-warp tile step (attend_block_bf16 /
-// attend_block_f32), as K1's other launches do, and differ only in how many
-// warps share each K/V tile and how many blocks fill the card; their
-// redesign comes later.
+// batch-head. In bf16 at head dim 64 they run tail_tiling_sm90.cuh: K1's
+// TMA + wgmma per-tile step (attend_rows of flash_fwd_sm90.cuh) in two
+// consumer warpgroups that share each K/V stage, so they give K1's bits.
+// Their other launches run the mma.sync or FMA tile step (attend_block_bf16
+// / attend_block_f32), as K1's other launches do, again K1's bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +61,7 @@
 #include "flash_bwd.cuh"
 #include "flash_fwd_sm90.cuh"
 #include "flash_mma.cuh"
+#include "tail_tiling_sm90.cuh"
 
 namespace {
 
@@ -426,14 +428,15 @@ __global__ void __launch_bounds__(kThreads)
 //
 // Each block owns the query rows [y * rows, min((y + 1) * rows, seq)) of
 // the nh batch-heads [x * nh, (x + 1) * nh), the share of one TPU grid step:
-//   K6, tail_qsplit(bq): nh = 1, rows = bq, grid (B*H, Sp / bq). bf16: 8
-//     warps own the bq rows at once (16 rows a warp at bq 128, 32 at bq
-//     256), so each K/V tile in shared memory serves 128 or 256 rows,
-//     against K1's 64;
-//   K5, tail_hpack(nh): rows = seq, grid (B*H / nh, 1). bf16: 8 warps walk
-//     the nh heads' rows in 128-row blocks, one block after another.
-// fp32 takes K1's 64-row FMA step over the same share. What bounds them is
-// K1's bound; the CTA share decides how often K/V is reloaded per query row
+//   K6, tail_qsplit(bq): nh = 1, rows = bq, grid (B*H, Sp / bq);
+//   K5, tail_hpack(nh): rows = seq, grid (B*H / nh, 1).
+// bf16 at head dim 64 with 16-byte-aligned tensors runs the Hopper kernel
+// of tail_tiling_sm90.cuh (the design is noted there). The bodies below
+// take the other launches: bf16 in 8 warps that own the bq rows at once
+// (K6: 16 rows a warp at bq 128, 32 at bq 256) or walk the nh heads' rows
+// in 128-row blocks (K5), each K/V tile in shared memory serving 128 or 256
+// rows; fp32 K1's 64-row FMA step over the same share. What bounds them is
+// K1's bound; the share decides how often K/V is reloaded per query row
 // and how well the blocks fill 132 SMs (K5 at nh 4 has 216 blocks at
 // B*H = 864).
 
@@ -689,6 +692,9 @@ extern "C" int tail_hpack_forward(const void* q, const void* k, const void* v,
                                   int nh, void* stream) {
   if (bad_shape(batch, seq, heads, head_dim) || nh <= 0 || heads % nh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (tiling90::Sm90Takes(is_bf16, head_dim, {q, k, v, o}))
+    return tiling90::launch(q, k, v, o, batch, seq, heads, scale, nh, seq,
+                            static_cast<cudaStream_t>(stream));
   return launch_tiling(q, k, v, o, batch, seq, heads, head_dim, scale,
                        is_bf16, nh, seq, 1, stream);
 }
@@ -704,8 +710,20 @@ extern "C" int tail_qsplit_forward(const void* q, const void* k,
   if (bad_shape(batch, seq, heads, head_dim) || (bq != 128 && bq != 256) ||
       padded % bq != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (tiling90::Sm90Takes(is_bf16, head_dim, {q, k, v, o}))
+    return tiling90::launch(q, k, v, o, batch, seq, heads, scale, 1, bq,
+                            static_cast<cudaStream_t>(stream));
   return launch_tiling(q, k, v, o, batch, seq, heads, head_dim, scale,
                        is_bf16, 1, bq, bq / kTilingRows, stream);
+}
+
+// 1 if tail_hpack_forward or tail_qsplit_forward with these arguments runs
+// the Hopper kernel of tail_tiling_sm90.cuh, else 0: their launch counters
+// read this.
+extern "C" int tail_tiling_takes_sm90(const void* q, const void* k,
+                                      const void* v, const void* o,
+                                      int head_dim, int is_bf16) {
+  return tiling90::Sm90Takes(is_bf16, head_dim, {q, k, v, o}) ? 1 : 0;
 }
 
 extern "C" const char* flash_tail_error_string(int code) {

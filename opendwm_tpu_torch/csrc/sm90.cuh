@@ -208,6 +208,11 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrives on named barrier `id` (of `threads` arrivals) without waiting.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // 2^x on the MUFU unit, subnormal results flushed to 0 (exp2f would add
 // instructions to keep them).
 __device__ __forceinline__ float ex2(float x) {

@@ -50,4 +50,6 @@ def launch_counts() -> dict:
         "tail_hpack_by_nh": dict(tail_variants.hpack_launches_by_nh),
         "tail_qsplit": sum(tail_variants.qsplit_launches_by_bq.values()),
         "tail_qsplit_by_bq": dict(tail_variants.qsplit_launches_by_bq),
+        "tail_hpack_sm90": tail_variants.hpack_sm90_launches,
+        "tail_qsplit_sm90": tail_variants.qsplit_sm90_launches,
     }

@@ -128,6 +128,8 @@ def _library() -> ctypes.CDLL:
     lib.flash_tail_forward_takes_sm90.restype = ctypes.c_int
     lib.flash_tail_backward_takes_sm90.argtypes = [ptr] * 6 + [i32, i32]
     lib.flash_tail_backward_takes_sm90.restype = ctypes.c_int
+    lib.tail_tiling_takes_sm90.argtypes = [ptr] * 4 + [i32, i32]
+    lib.tail_tiling_takes_sm90.restype = ctypes.c_int
     lib.flash_tail_error_string.argtypes = [ctypes.c_int]
     lib.flash_tail_error_string.restype = ctypes.c_char_p
     return lib

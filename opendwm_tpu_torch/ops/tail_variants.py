@@ -14,9 +14,15 @@ experiment (``opendwm_tpu_torch/perf/exp_tailvar.py``) runs them; the
 attention dispatch never does, as in the JAX package.
 
 The Hopper kernels are CUDA C++ beside K1 in ``csrc/flash_tail.cu`` (one
-block per TPU grid step; the design is noted there) and share its library.
-The wrappers take the plain version only for CPU tensors; for a CUDA tensor
-they launch the kernel or raise. No gradient: the experiment defines none.
+block per TPU grid step) and share its library. In bf16 at head dim 64
+with 16-byte-aligned tensors (K1's rule) they run
+``csrc/tail_tiling_sm90.cuh``: K1's TMA + wgmma mainloop in two consumer
+warpgroups that share each K/V stage, so they give K1's bits; the
+launches that did are counted apart (``hpack_sm90_launches``,
+``qsplit_sm90_launches``). Their other launches run the mma.sync or FMA
+tile step of K1's other launches, again K1's bits. The wrappers take the
+plain version only for CPU tensors; for a CUDA tensor they launch the
+kernel or raise. No gradient: the experiment defines none.
 """
 
 from __future__ import annotations
@@ -25,14 +31,19 @@ import torch
 
 from opendwm_tpu_torch.ops import flash_tail
 
-# Kernel launches by tiling (nh for K5, the effective bq for K6).
+# Kernel launches by tiling (nh for K5, the effective bq for K6), and those
+# that ran the Hopper kernel of csrc/tail_tiling_sm90.cuh.
 hpack_launches_by_nh: dict[int, int] = {}
 qsplit_launches_by_bq: dict[int, int] = {}
+hpack_sm90_launches = 0
+qsplit_sm90_launches = 0
 
 
 def reset_launches() -> None:
+    global hpack_sm90_launches, qsplit_sm90_launches
     hpack_launches_by_nh.clear()
     qsplit_launches_by_bq.clear()
+    hpack_sm90_launches = qsplit_sm90_launches = 0
 
 
 def tail_attention_plain(q, k, v, scale: float):
@@ -68,40 +79,46 @@ def effective_bq(seq: int, bq: int) -> int:
 
 
 def _launch(entry: str, q, k, v, scale: float, tiling: int):
+    """One launch: the output, and 1 if it ran the Hopper kernel, else 0."""
     lib = flash_tail._library()
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    is_bf16 = int(q.dtype == torch.bfloat16)
     with torch.cuda.device(q.device):
-        rc = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-            d, float(scale), int(q.dtype == torch.bfloat16), tiling, stream)
+        rc = getattr(lib, entry)(*ptrs, b, s, h, d, float(scale), is_bf16,
+                                 tiling, stream)
     flash_tail._raise_on_error(lib, rc, entry)
-    return out
+    return out, lib.tail_tiling_takes_sm90(*ptrs, d, is_bf16)
 
 
 def tail_hpack(q, k, v, scale: float, nh: int):
     """K5 on CUDA tensors (one block per ``nh`` batch-heads), the plain
     version on CPU tensors. ``nh`` must divide the head count."""
+    global hpack_sm90_launches
     on_device = flash_tail._on_device(q)
     flash_tail._check(q, k, v)
     if nh <= 0 or q.shape[2] % nh:
         raise ValueError(f"nh = {nh} must divide the {q.shape[2]} heads")
     if not on_device:
         return tail_attention_plain(q, k, v, scale)
-    out = _launch("tail_hpack_forward", q, k, v, scale, nh)
+    out, sm90 = _launch("tail_hpack_forward", q, k, v, scale, nh)
     hpack_launches_by_nh[nh] = hpack_launches_by_nh.get(nh, 0) + 1
+    hpack_sm90_launches += sm90
     return out
 
 
 def tail_qsplit(q, k, v, scale: float, bq: int):
     """K6 on CUDA tensors (one block per ``effective_bq(S, bq)`` query rows
     of one batch-head), the plain version on CPU tensors."""
+    global qsplit_sm90_launches
     on_device = flash_tail._on_device(q)
     flash_tail._check(q, k, v)
     bq = effective_bq(q.shape[1], bq)
     if not on_device:
         return tail_attention_plain(q, k, v, scale)
-    out = _launch("tail_qsplit_forward", q, k, v, scale, bq)
+    out, sm90 = _launch("tail_qsplit_forward", q, k, v, scale, bq)
     qsplit_launches_by_bq[bq] = qsplit_launches_by_bq.get(bq, 0) + 1
+    qsplit_sm90_launches += sm90
     return out

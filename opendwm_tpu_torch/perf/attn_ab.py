@@ -1,8 +1,9 @@
 """The attention kernels of two checkouts side by side on one card, in both
-directions: the forwards K1 (``csrc/flash_tail.cu``), K7 with and without
-the log-sum-exp and K7-seg (``csrc/flash_attention.cu``), and the
-backwards K2 and the K7 backward, at the shapes the port's paths and the
-shoot-out give them, bf16, head dim 64.
+directions: the forwards K1 and its tilings K5 and K6 (``csrc/flash_tail.cu``),
+K7 with and without the log-sum-exp and K7-seg
+(``csrc/flash_attention.cu``), and the backwards K2 and the K7 backward,
+at the shapes the port's paths, the tiling experiment and the shoot-out
+give them, bf16, head dim 64.
 
 Run from the root of a checkout, with a second checkout (for example the
 parent commit's sources unpacked with ``git archive``) to compare against:
@@ -10,18 +11,20 @@ parent commit's sources unpacked with ``git archive``) to compare against:
     python -m opendwm_tpu_torch.perf.attn_ab --parent DIR --out PATH
 
 It builds ``DIR``'s two sources and this checkout's (whose bf16
-head-dim-64 forward is ``csrc/flash_fwd_sm90.cuh`` and backward
-``csrc/flash_bwd_sm90.cuh``), all four nvcc processes at once. Each launch
+head-dim-64 forward is ``csrc/flash_fwd_sm90.cuh``, tilings
+``csrc/tail_tiling_sm90.cuh`` and backward ``csrc/flash_bwd_sm90.cuh``),
+all four nvcc processes at once. Each launch
 goes straight to the C entry points; a backward entry without its dQ
 workspace argument (a checkout from before the Hopper backward) is called
 without it. Both backwards take the same forward output and log-sum-exp,
 this checkout's. This checkout must agree with the parent within the
 attention bars (forward: scaled error 2e-2, relative norm 2^-7; backward:
 relative norm 0.6% per gradient), or it raises. Both are timed with CUDA
-events (2 warm-ups, 10 calls) in turns, parent, tree, tree, parent, beside
-the least time the card could take (``bound_ms``). The JSON report, with
-ptxas's registers and spills of this checkout's Hopper kernels, goes to
-``--out`` only.
+events (2 warm-ups, 10 calls) in turns, parent, tree, tree, parent (each
+turn's time is kept), beside the least time the card could take
+(``bound_ms``). The JSON report, with ptxas's registers and spills and
+the SASS census of both checkouts' Hopper kernels, goes to ``--out``
+only.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from opendwm_tpu_torch.ops import _build, flash_attention
 from opendwm_tpu_torch.ops.flash_tail import dq_workspace
+from opendwm_tpu_torch.ops.tail_variants import effective_bq
 from opendwm_tpu_torch.perf.measure import (
     attention_bound,
     card_line,
@@ -51,7 +55,10 @@ SOURCES = ("flash_tail.cu", "flash_attention.cu")
 # batch) and the UNet's shapes, K7 at the UNet's level 0 (serving, and
 # with the log-sum-exp at the training batch), at the LiDAR UNet's 6400
 # tokens and causal with q != kv, K7-seg at the shoot-out's flashpad call
-# (pads of S 602 in segment 1) and at packed ids.
+# (pads of S 602 in segment 1) and at packed ids, K5 and K6 at the tiling
+# experiment's shapes, and K1 beside K6 at the UNet's long rows (1792
+# tokens): one warpgroup of 64 rows at two blocks an SM against two that
+# share each K/V stage at one.
 CASES = (
     ("K1", 72, 602, 602, 24, False), ("K1", 72, 448, 448, 24, False),
     ("K1", 192, 168, 168, 24, False), ("K1", 384, 336, 336, 5, False),
@@ -60,7 +67,16 @@ CASES = (
     ("K7", 8, 1792, 3584, 5, True), ("K7 lse", 36, 1792, 1792, 5, False),
     ("K7-seg flashpad", 36, 640, 640, 24, False),
     ("K7-seg packed", 8, 1792, 1792, 24, False),
-)
+) + tuple((tiling, 36, s, s, 24, False) for s in (602, 448)
+          for tiling in ("K5 nh 2", "K5 nh 4", "K6 bq 128", "K6 bq 256")) \
+    + (("K1", 36, 1792, 1792, 5, False), ("K6 bq 128", 36, 1792, 1792, 5,
+                                           False))
+# The tilings' C entries and their nh or bq (K6's bq 256 runs 128-row
+# blocks at S 602, where the entry is given the cut bq as the wrapper does).
+TILINGS = {"K5 nh 2": ("tail_hpack_forward", 2),
+           "K5 nh 4": ("tail_hpack_forward", 4),
+           "K6 bq 128": ("tail_qsplit_forward", 128),
+           "K6 bq 256": ("tail_qsplit_forward", 256)}
 # (kernel, batch, q_seq, kv_seq, heads, causal): K2 at the DiT's and the
 # UNet's training shapes (batch 1, no CFG), the K7 backward at the UNet's
 # level 0, at 6400 tokens and causal with q shorter and longer than kv.
@@ -80,8 +96,12 @@ def _bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
     if source == "flash_tail.cu":
         shape = [i32] * 4 + [f32, i32, ptr]
         lib.flash_tail_forward.argtypes = [ptr] * 4 + shape
+        for entry in ("tail_hpack_forward", "tail_qsplit_forward"):
+            getattr(lib, entry).argtypes = [ptr] * 4 + shape[:-1] + [i32,
+                                                                     ptr]
         backward = lib.flash_tail_backward
-        fns = [lib.flash_tail_forward]
+        fns = [lib.flash_tail_forward, lib.tail_hpack_forward,
+               lib.tail_qsplit_forward]
     else:
         shape = [i32] * 5 + [f32, i32, i32, ptr]
         lib.flash_attention_forward.argtypes = [ptr] * 4 + shape
@@ -139,6 +159,12 @@ def _call(libs, kernel, q, k, v, ids, causal):
     if kernel == "K1":
         rc = libs["flash_tail.cu"].flash_tail_forward(
             *ptrs, b, sq, h, d, scale, 1, stream)
+    elif kernel in TILINGS:
+        entry, tiling = TILINGS[kernel]
+        if entry == "tail_qsplit_forward":
+            tiling = effective_bq(sq, tiling)
+        rc = getattr(libs["flash_tail.cu"], entry)(
+            *ptrs, b, sq, h, d, scale, 1, tiling, stream)
     else:
         lib = libs["flash_attention.cu"]
         shape = (b, sq, sk, h, d, scale, int(causal), 1, stream)
@@ -179,12 +205,14 @@ def _call_backward(libs, kernel, q, k, v, out, do, lse, causal):
 
 
 def _timed(calls) -> dict:
-    """ms of each call, in turns parent, tree, tree, parent."""
+    """ms of each call, in turns parent, tree, tree, parent: the mean and
+    each turn's time (their spread is the call's)."""
     order = list(calls) + list(calls)[::-1]
     times = {name: [] for name in calls}
     for name in order:
         times[name].append(time_ms(calls[name]))
-    return {f"{name}_ms": sum(t) / len(t) for name, t in times.items()}
+    return {**{f"{name}_ms": sum(t) / len(t) for name, t in times.items()},
+            **{f"{name}_turns_ms": t for name, t in times.items()}}
 
 
 def run_backward(libs, dev, g) -> list[dict]:
@@ -224,20 +252,27 @@ def run_backward(libs, dev, g) -> list[dict]:
     return rows
 
 
-def ptxas() -> dict:
-    """Registers and spill bytes that ptxas gave the Hopper kernels'
-    instances in this checkout's build of each source."""
+def census(parent: Path) -> dict:
+    """ptxas's registers and spill bytes and the SASS census
+    (``_build.sass_census``) of each instance of the Hopper kernels, in the
+    parent's build and in this checkout's, by checkout, source, kernel and
+    template flags (the mangled names differ between checkouts only in the
+    anonymous namespace's hash)."""
     out = {}
-    for src in SOURCES:
-        for body in ("flash_fwd_sm90", "flash_bwd_sm90"):
-            report = _build.ptxas_report(_build.library_path(src), body)
-            out[f"{src}:{body}"] = {
-                "registers": sorted({r.get("registers")
-                                     for r in report.values()}),
-                "spill_bytes": sum(r.get("spill_bytes", 0)
-                                   for r in report.values())}
-            print(f"ptxas {src} {body}: {json.dumps(out[f'{src}:{body}'])}",
-                  flush=True)
+    csrcs = {"parent": parent / "opendwm_tpu_torch" / "csrc", "tree": None}
+    for name, csrc in csrcs.items():
+        for src in SOURCES:
+            lib = _build.library_path(src, csrc)
+            for body in ("flash_fwd_sm90", "tail_tiling_sm90",
+                         "flash_bwd_sm90"):
+                regs = _build.ptxas_report(lib, body)
+                for fn, ops in _build.sass_census(lib,
+                                                  f"{body}_kernel").items():
+                    flags = fn.split(f"{body}_kernel")[-1].split("EEEv")[0]
+                    key = f"{name} {src} {body} {flags}"
+                    out[key] = {**regs.get(fn, {}), **ops}
+                    print(f"census {key}: {json.dumps(out[key])}",
+                          flush=True)
     return out
 
 
@@ -289,7 +324,7 @@ def main(argv=None) -> dict:
     report = {"device": {"platform": "gpu",
                          "kind": torch.cuda.get_device_name(0),
                          "card": card_line()},
-              "rows": run(args.parent), "ptxas": ptxas()}
+              "rows": run(args.parent), "census": census(args.parent)}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))

@@ -16,7 +16,8 @@ attention backward (K2) in bf16 is held to a relative error
 for the JAX kernel (``docs/PARITY.md``): its dS is rounded to bf16 at other
 points than the plain version's, and its delta comes from dO.O. K7 (flash
 attention) is held to the attention bars, its backward to K2's, and K5 /
-K6 (the tilings of K1 in ``ops/tail_variants.py``) to the attention bars.
+K6 (the tilings of K1 in ``ops/tail_variants.py``) to the attention bars
+and to K1's output bit for bit (they run its tile step).
 """
 
 import copy
@@ -467,18 +468,20 @@ TILING_TOLS = {torch.bfloat16: (2e-2, 2 ** -7), torch.float32: (1e-4, 1e-5)}
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("batch,seq,heads,head_dim", [
     (36, 602, 24, 64), (36, 448, 24, 64), (2, 150, 4, 40), (2, 20, 4, 16),
-    (2, 130, 4, 128)])
+    (2, 130, 4, 128), (2, 20, 4, 64), (2, 130, 4, 64), (2, 448, 4, 64),
+    (1, 602, 4, 64)])
 def test_tail_tilings_share_k1_arithmetic(cuda, dtype, batch, seq, heads,
                                           head_dim):
     """K5 (nh 1, 2, 4) and K6 (bq 128, 256) at the experiment's shapes and
     ragged ones (bq 256 runs 256-row blocks at S 448, 150 and 130, and is
     cut to 128 at 602 and 20; D 128 with 256-row blocks reloads Q's
-    fragments), each against its plain version. K5 and K6 run one per-warp
-    mma.sync tile step, so each query row goes through the same operations
-    in all of them: their outputs agree bit for bit. K1 runs that step too
-    except in bf16 at D 64, where it runs the Hopper forward of
-    csrc/flash_fwd_sm90.cuh: there the tilings agree with K1 within the
-    bars, elsewhere bit for bit."""
+    fragments), each against its plain version and equal to K1 bit for bit.
+    In bf16 at D 64 every tiling launch runs the Hopper tiling kernel
+    (csrc/tail_tiling_sm90.cuh), which runs K1's Hopper tile step: at S 20
+    a single partial K/V tile and a 128-row group whose second warpgroup
+    holds only rows past S, as at S 448 and in the second group at S 130;
+    nh 2 and 4 walk several batch-heads through one K/V ring. Elsewhere the
+    tilings and K1 run one mma.sync or FMA tile step."""
     g = torch.Generator(cuda).manual_seed(seq + head_dim)
     q, k, v = ((torch.randn(batch, seq, heads, head_dim, generator=g,
                             device=cuda) * 0.5).to(dtype) for _ in range(3))
@@ -487,8 +490,8 @@ def test_tail_tilings_share_k1_arithmetic(cuda, dtype, batch, seq, heads,
     out = flash_tail.tail_masked_attention(q, k, v, scale)
     ref = flash_tail.tail_masked_attention_plain(q, k, v, scale)
     assert _scaled_err(out, ref) <= tol
-    k1_runs_sm90 = dtype == torch.bfloat16 and head_dim == 64
-    first = None
+    on_sm90 = dtype == torch.bfloat16 and head_dim == 64
+    ops.reset_launch_counts()
     for name, tiling, plain in TILINGS:
         got = tiling(q, k, v, scale)
         ref = plain(q, k, v, scale)
@@ -496,22 +499,24 @@ def test_tail_tilings_share_k1_arithmetic(cuda, dtype, batch, seq, heads,
         assert got.dtype == dtype and got.shape == q.shape, name
         assert _scaled_err(got, ref) <= tol, name
         assert _rel_err(got, ref) <= rel_tol, name
-        first = got if first is None else first
-        assert torch.equal(got, first), name
-        if k1_runs_sm90:
-            assert _scaled_err(got, out) <= tol, name
-            assert _rel_err(got, out) <= rel_tol, name
-        else:
-            assert torch.equal(got, out), name
+        assert torch.equal(got, out), name
+    counts = ops.launch_counts()
+    assert counts["tail_hpack"] == 3 and counts["tail_qsplit"] == 2
+    assert counts["tail_hpack_sm90"] == 3 * on_sm90
+    assert counts["tail_qsplit_sm90"] == 2 * on_sm90
 
 
-def test_tail_tiling_launch_counts_and_checks(cuda):
+@pytest.mark.parametrize("dtype,sm90", [(torch.bfloat16, 1),
+                                        (torch.float32, 0)])
+def test_tail_tiling_launch_counts_and_checks(cuda, dtype, sm90):
     """Each launch counts once, under its nh or the bq it ran (256 is cut
-    to 128 at S 602); bad arguments raise before any launch."""
+    to 128 at S 602), and apart when it ran the Hopper tiling kernel: every
+    bf16 launch at D 64 with aligned tensors, no fp32 one and no bf16 one
+    with a tensor 2 bytes off alignment (which still equals K1). Bad
+    arguments raise before any launch."""
     ops.reset_launch_counts()
     g = torch.Generator(cuda).manual_seed(5)
-    q = torch.randn(1, 602, 4, 64, generator=g, device=cuda,
-                    dtype=torch.bfloat16)
+    q = torch.randn(1, 602, 4, 64, generator=g, device=cuda, dtype=dtype)
     q448 = q[:, :448].contiguous()
     tail_variants.tail_hpack(q, q, q, 0.125, 2)
     tail_variants.tail_hpack(q, q, q, 0.125, 4)
@@ -530,7 +535,21 @@ def test_tail_tiling_launch_counts_and_checks(cuda):
     assert counts["tail_hpack"] == 2 and counts["tail_qsplit"] == 3
     assert counts["tail_hpack_by_nh"] == {2: 1, 4: 1}
     assert counts["tail_qsplit_by_bq"] == {128: 2, 256: 1}
+    assert counts["tail_hpack_sm90"] == 2 * sm90
+    assert counts["tail_qsplit_sm90"] == 3 * sm90
     assert counts["flash_tail"] == 0
+    flat = torch.empty(q448.numel() + 1, device=cuda, dtype=dtype)
+    shifted = flat[1:].view(q448.shape)
+    shifted.copy_(q448)
+    ops.reset_launch_counts()
+    for tiling in (functools.partial(tail_variants.tail_hpack, nh=4),
+                   functools.partial(tail_variants.tail_qsplit, bq=256)):
+        got = tiling(shifted, q448, q448, 0.125)
+        assert torch.equal(got, flash_tail.tail_masked_attention(
+            shifted, q448, q448, 0.125))
+    counts = ops.launch_counts()
+    assert counts["tail_hpack"] == counts["tail_qsplit"] == 1
+    assert counts["tail_hpack_sm90"] == counts["tail_qsplit_sm90"] == 0
 
 
 # K7-seg's bars: those of the shoot-out (scaled error; relative norm, one

@@ -1,8 +1,10 @@
 """The gates of ``chip_smoke.py`` that hold the Hopper attention kernels,
-fed with made-up census and launch counts on the CPU: the SASS/ptxas
-census of the forward and backward instances, and the rule that every
-attention launch of a model path ran the Hopper body. Also the shape of
-the backward's fp32 dQ workspace. No kernel runs here.
+fed with made-up census, launch counts and experiment rows on the CPU: the
+SASS/ptxas census of the forward, tiling and backward instances, the rule
+that every attention launch of a model path ran the Hopper body, and the
+tiling experiment's rules (K5 and K6 equal to K1 bit for bit, every bf16
+launch of them on the Hopper tiling kernel). Also the shape of the
+backward's fp32 dQ workspace. No kernel runs here.
 """
 
 import importlib.util
@@ -74,6 +76,100 @@ def test_census_holds_every_instance(smoke, case):
     else:
         with pytest.raises(SystemExit):
             smoke.census_sm90(build, ("flash_tail.cu",), "flash_bwd_sm90")
+
+
+TILING_NAME = ("_ZN12_GLOBAL__N_18tiling9023tail_tiling_sm90_kernelILi8EEEv"
+               "NS0_6ParamsE")
+
+
+@pytest.mark.parametrize("case", ["ok", "missing", "spill", "mma_sync"])
+def test_census_holds_the_tiling_instance(smoke, case):
+    """The census of the Hopper tiling kernel (K5/K6) passes its instance
+    and fails on a build without it, on a spill, or on ``mma.sync``."""
+    ptxas = {TILING_NAME: {"spill_bytes": 0, "registers": 168}}
+    ops = dict(GOOD, HGMMA=16, UTMASTG=1)
+    if case == "spill":
+        ptxas[TILING_NAME]["spill_bytes"] = 64
+    elif case == "mma_sync":
+        ops["HMMA"] = 8
+    build = _FakeBuild(ptxas, {} if case == "missing" else
+                       {TILING_NAME: ops})
+    if case == "ok":
+        census = smoke.census_sm90(build, ("flash_tail.cu",),
+                                   "tail_tiling_sm90")
+        assert census == {"flash_tail.cu:ILi8": {
+            "spill_bytes": 0, "registers": 168, **ops}}
+    else:
+        with pytest.raises(SystemExit):
+            smoke.census_sm90(build, ("flash_tail.cu",), "tail_tiling_sm90")
+
+
+def _tailvar_rows(dtype="bfloat16", err=3e-3, **over):
+    """One shape's rows of the tiling experiment as the card reports them,
+    with ``over`` set in K5's nh-4 row."""
+    rows = [{"variant": "tail", "kernel": "flash_tail_forward",
+             "dtype": dtype, "shape": [36, 602, 24, 64],
+             "scaled_err": err, "rel_err": err}]
+    for name, kernel in (("tail_h2", "tail_hpack"), ("tail_h4", "tail_hpack"),
+                         ("tail_q128", "tail_qsplit"),
+                         ("tail_q256", "tail_qsplit")):
+        rows.append({**rows[0], "variant": name, "kernel": kernel,
+                     "vs_k1_scaled_err": 0.0, "vs_k1_rel_err": 0.0,
+                     "equals_k1": True})
+    rows[2].update(over)
+    return rows
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"equals_k1": False}, False),
+    ({"equals_k1": None}, False),
+    ({"vs_k1_rel_err": 1e-2}, False),
+    ({"rel_err": 1e-2}, False),
+])
+def test_tailvar_rows_hold_k1_bits(smoke, over, ok):
+    """A K5/K6 row passes only within the bars and equal to K1 bit for bit;
+    one whose output is not K1's, or that was never compared, fails."""
+    rel_tols = {torch.bfloat16: 2 ** -7, torch.float32: 1e-5}
+    runs = [(_tailvar_rows(**over), 2e-2),
+            (_tailvar_rows("float32", 1e-6), 1e-4)]
+    if ok:
+        smoke.check_tailvar_rows(runs, rel_tols)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_tailvar_rows(runs, rel_tols)
+
+
+def _tailvar_counts(hpack, qsplit, hpack_sm90, qsplit_sm90):
+    return {"tail_hpack": hpack, "tail_qsplit": qsplit,
+            "tail_hpack_sm90": hpack_sm90, "tail_qsplit_sm90": qsplit_sm90,
+            "tail_hpack_by_nh": {2: hpack // 2, 4: hpack - hpack // 2},
+            "tail_qsplit_by_bq": {128: qsplit - 1, 256: 1}}
+
+
+@pytest.mark.parametrize("bf16,total,ok", [
+    ((48, 48, 48, 48), (72, 72, 48, 48), True),
+    ((48, 48, 47, 48), (72, 72, 47, 48), False),  # a bf16 K5 on an old body
+    ((48, 48, 48, 48), (72, 72, 48, 49), False),  # an fp32 K6 on Hopper
+    ((48, 48, 48, 48), (48, 48, 48, 48), False),  # no fp32 launch
+])
+def test_tailvar_launches_ran_the_hopper_tilings(smoke, bf16, total, ok):
+    """Every bf16 K5/K6 launch of the tiling experiment ran the Hopper
+    tiling kernel and no fp32 one did."""
+    args = (_tailvar_counts(*bf16), _tailvar_counts(*total))
+    if ok:
+        smoke.check_tailvar_launches(*args)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_tailvar_launches(*args)
+
+
+def test_tailvar_launches_need_every_tiling(smoke):
+    """K6 at bq 256 must have launched in bf16."""
+    bf16 = _tailvar_counts(48, 48, 48, 48)
+    bf16["tail_qsplit_by_bq"] = {128: 48}
+    with pytest.raises(SystemExit):
+        smoke.check_tailvar_launches(bf16, _tailvar_counts(72, 72, 48, 48))
 
 
 def _counts(**over):

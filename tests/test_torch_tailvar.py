@@ -184,6 +184,7 @@ def test_cpu_path_launches_no_kernel():
     counts = ops.launch_counts()
     assert counts["tail_hpack"] == counts["tail_qsplit"] == 0
     assert counts["tail_hpack_by_nh"] == counts["tail_qsplit_by_bq"] == {}
+    assert counts["tail_hpack_sm90"] == counts["tail_qsplit_sm90"] == 0
 
 
 def test_experiment_on_cpu_reports_every_variant(monkeypatch, tmp_path):
