@@ -4,16 +4,17 @@ CTSD-2.1 UNet serving and training paths, the tail-attention tiling
 experiment and the attention shoot-out on one GPU.
 
 Run from the root of a checkout:
-    python3 chip_smoke.py [--profile-train] [--profile-unet]
-                          [--profile-unet-train]
+    python3 chip_smoke.py [--profile-dit] [--profile-train]
+                          [--profile-unet] [--profile-unet-train]
 
 Phases; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``opendwm_tpu_torch/csrc`` (one nvcc per
-   source, all at once) and the Triton kernels; ptxas's registers and
-   spills (its report is kept beside each library, so a library built by
-   an earlier run is held too) and a SASS census (``cuobjdump -sass``:
+   source, all at once: ``flash_tail.cu``, ``flash_attention.cu``,
+   ``adaln.cu``); ptxas's registers and spills (its report is kept beside
+   each library, so a library built by an earlier run is held too) of every
+   kernel of ``adaln.cu`` (K3/K4), failing on a spill, and a SASS census (``cuobjdump -sass``:
    ``HGMMA``, ``UTMALDG``, ``HMMA``) of each instance of the Hopper forward
    (``csrc/flash_fwd_sm90.cuh``, the body of every bf16 head-dim-64 launch
    of K1, K7 and K7-seg), of the Hopper tilings
@@ -28,7 +29,12 @@ Phases; any failure raises and exits non-zero:
    bf16 (the attention kernels also in fp32), with both times: K1 (and
    its variant that writes the log-sum-exp for the backward) at the DiT's
    and the UNet's shapes, K2 (the attention backward) at the DiT's and the
-   UNet's training shapes, K3, K4, K7 (flash
+   UNet's training shapes, K3 and K4 (at the DiT's serving and training
+   shapes in bf16, at the first also in fp16 and fp32; x' equal to the
+   plain version's bit for bit, bf16 and fp16 also within 2^-8 in relative
+   norm; each timed eager, as device time replayed from a CUDA graph,
+   as device time with inputs from device memory rather than L2, and as
+   host µs a call), K7 (flash
    attention at the UNet's 1792 tokens, at 6400 and causal with q != kv;
    its backward at the UNet's training shape (36 x 1792), at 6400 and
    causal with q shorter and longer than kv, and its forward with the
@@ -67,7 +73,10 @@ Phases; any failure raises and exits non-zero:
    on the card from a seed; a 2-window autoregressive rollout of 1 x 6
    frames x 6 views of 32x56 latents with CFG 4.0 (the one cut:
    inference_steps 40 -> 4), then the SD3.5 VAE decode to 256x448 frames.
-   Every kernel of the path must have launched during the rollout;
+   Every kernel of the path must have launched during the rollout, K3 62
+   and K4 47 times a CFG forward. ``--profile-dit`` adds one
+   ``torch.profiler`` CFG forward and prints its device time by kernel
+   family and K3's and K4's device ms in it;
 6. train slice: the same config at full width and depth, fp32 master
    weights under bf16 compute, remat as the config sets it, AdamW (lr 5e-5,
    wd 0.01, clip 1.0, fp32 moments); 3 ``train_step`` calls on a synthetic
@@ -103,8 +112,9 @@ Phases; any failure raises and exits non-zero:
 Each slice is freed before the next. K7-seg must have launched on no path
 but the shoot-out, every K1 and K7 forward launch of the four model paths
 must have run the Hopper forward, every K2 and K7 backward launch of
-the two training paths the Hopper backward, and every bf16 K5 and K6
-launch of the tailvar path the Hopper tilings (their launch counters).
+the two training paths the Hopper backward, every bf16 K5 and K6
+launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
+of the two DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
 
@@ -125,15 +135,17 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import torch  # noqa: E402
 
 from opendwm_tpu_torch.perf.measure import (  # noqa: E402
-    PEAK_FP32,
+    adaln_bound,
     attention_bound,
-    bound,
     card_line,
+    cold_copies,
+    host_us,
     max_err,
     packed_segment_ids,
     rel_err,
     scaled_err,
     segment_attention_bound,
+    time_graph_ms,
     time_ms,
     time_pair,
 )
@@ -151,7 +163,16 @@ ATTN_SHAPES = ((72, 602), (72, 448), (192, 168))  # (batch, seq); 24x64 heads
 TRAIN_ATTN_SHAPES = ((36, 602), (36, 448), (96, 168))  # batch 1, no CFG
 TRAIN_STEPS = 3  # steps 2 and 3 are timed
 PROFILE_STEPS = 3  # with --profile-train/-unet-train: 3 more, then 3 profiled
-ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536))
+# The CUDA sources, built together (one nvcc each, all at once).
+SOURCES = ("flash_tail.cu", "flash_attention.cu", "adaln.cu")
+# K3/K4 (batch x view-frames, tokens, width): the DiT's latent (448) and
+# text (154) tokens at the CFG batch of serving and at training's batch 1.
+ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536), (36, 448, 1536),
+                (36, 154, 1536))
+# K3 and K4 launches a DiT CFG forward (models/mmdit.py): K3 at :92 (24
+# blocks), :96/:100 (24), :105 (13 dual-attention blocks) and :439 (1); K4
+# at :107/:111 (24) and :118 (23: the last block is context_pre_only).
+K3_PER_FORWARD, K4_PER_FORWARD = 62, 47
 # The UNet at the CFG batch: K1 at the level-0 branches (384 x 336), level-1
 # self-attention (72 x 448) and branches (192 x 168); K7 at the level-0
 # self-attention (72 x 1792) and at the 80x80 LiDAR BEV latents (6400).
@@ -187,6 +208,10 @@ STOCK_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 # value (0.0625 at 16) and the two versions may round an fp32 result that
 # differs in its last bits to neighbouring bf16 values.
 ATTN_TOL, ADALN_TOL, FP32_TOL, TINY_TOL = 2e-2, 3e-2, 1e-4, 1e-3
+# K3/K4 in bf16 and fp16 also ||kernel - plain|| / ||plain||: both round
+# the same fp32 values, so they differ only where a value lies near a
+# rounding boundary; a kernel with wrong statistics moves every value.
+ADALN_REL_TOL = 2 ** -8
 # Attention in bf16 also ||kernel - plain|| / ||plain||: its outputs sit far
 # below 1 (~0.04-0.07 at these shapes), where ATTN_TOL alone is as large as
 # a typical value.
@@ -207,15 +232,6 @@ def log(msg: str) -> None:
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def adaln_bound(n, l, d, residual=False):
-    """bf16 AdaLN: K3 reads x, scale, shift and writes y, ~8 fp32
-    operations an element (statistics, normalisation, modulation); K4 also
-    reads delta and gate and writes x', ~10 an element."""
-    big, small = (4, 3) if residual else (2, 2)
-    nbytes = 2 * (big * n * l * d + small * n * d)
-    return bound((10 if residual else 8) * n * l * d, nbytes, PEAK_FP32)
 
 
 def sdpa_ms(q, k, v, scale, causal=False, do=None, ref=None, mask=None,
@@ -821,50 +837,109 @@ def run_attn602(dev, ops, exp_attn602):
     return counts
 
 
+def adaln_case(fused_adaln, name, x, delta, gate, scale, shift):
+    """(kernel, plain) callables of K3 (``adaln_modulate``) or K4
+    (``residual_adaln_modulate``) on these inputs."""
+    if name == "adaln_modulate":
+        return (lambda: fused_adaln.adaln_modulate(x, scale, shift),
+                lambda: fused_adaln.adaln_modulate_plain(x, scale, shift))
+    return (lambda: fused_adaln.residual_adaln_modulate(x, delta, gate, scale,
+                                                        shift),
+            lambda: fused_adaln.residual_adaln_modulate_plain(
+                x, delta, gate, scale, shift))
+
+
+def adaln_inputs(n, l, d, dtype, dev, g):
+    """x and delta (n, l, d) and gate, scale, shift as strided (n, d)
+    chunks of an (n, 9d) output, as the model's modulation vectors are."""
+    x, delta = (torch.randn(n, l, d, generator=g, device=dev, dtype=dtype)
+                for _ in range(2))
+    gate, scale, shift = torch.randn(n, 9 * d, generator=g, device=dev,
+                                     dtype=dtype).chunk(9, dim=-1)[:3]
+    return x, delta, gate, scale, shift
+
+
+def adaln_errors(outs, refs, dtype) -> dict:
+    """K3/K4 outputs against the plain version's: max abs, scaled and
+    relative-norm errors over every output, and whether x' (K4's first
+    output) equals the plain x' bit for bit."""
+    return {"max_abs_err": max(max_err(a, b) for a, b in zip(outs, refs)),
+            "scaled_err": max(scaled_err(a, b) for a, b in zip(outs, refs)),
+            "rel_err": max(rel_err(a, b) for a, b in zip(outs, refs)),
+            "x_bits_equal": len(outs) == 1 or torch.equal(outs[0], refs[0]),
+            "dtype": str(dtype).split(".")[-1]}
+
+
+def check_adaln_errors(name: str, shape, e: dict) -> None:
+    """The bars: scaled error ADALN_TOL (bf16, fp16) or FP32_TOL (fp32),
+    relative norm ADALN_REL_TOL in bf16 and fp16, x' bit for bit."""
+    low = e["dtype"] != "float32"
+    tol = ADALN_TOL if low else FP32_TOL
+    if not (e["scaled_err"] <= tol and
+            (not low or e["rel_err"] <= ADALN_REL_TOL) and e["x_bits_equal"]):
+        fail(f"{name} {e['dtype']} {shape} disagrees with its plain version: "
+             f"{e}")
+
+
 def check_adaln(dev, fused_adaln):
+    """K3 and K4 against their plain versions at the serving and training
+    shapes in bf16, and at the first in fp16 and fp32; each launch on the
+    d-1536 kernel. Each bf16 row is timed four ways: eager (``ms``, CUDA
+    events around 10 queued calls, as the attention kernels), device
+    (``device_ms``: the 10 calls replayed from a CUDA graph), cold device
+    (``device_ms_cold``: the same over copies of the inputs that together
+    exceed twice the L2, so the inputs come from device memory; the bound
+    counts device-memory bytes) and host (``host_us``: enqueue cost a
+    call)."""
     g = torch.Generator(dev).manual_seed(SEED + 1)
     rows = {"adaln_modulate": [], "residual_adaln_modulate": []}
-    for (n, l, d), dtype in [(s, torch.bfloat16) for s in ADALN_SHAPES] + \
-            [(ADALN_SHAPES[0], torch.float32)]:
-        x, delta = (torch.randn(n, l, d, generator=g, device=dev,
-                                dtype=dtype) for _ in range(2))
-        # strided per-sample vectors, as the model's modulation chunks are
-        gate, scale, shift = torch.randn(
-            n, 9 * d, generator=g, device=dev,
-            dtype=dtype).chunk(9, dim=-1)[:3]
-        cases = {
-            "adaln_modulate": (
-                lambda: fused_adaln.adaln_modulate(x, scale, shift),
-                lambda: fused_adaln.adaln_modulate_plain(x, scale, shift)),
-            "residual_adaln_modulate": (
-                lambda: fused_adaln.residual_adaln_modulate(
-                    x, delta, gate, scale, shift),
-                lambda: fused_adaln.residual_adaln_modulate_plain(
-                    x, delta, gate, scale, shift)),
-        }
-        for name, (kernel, plain) in cases.items():
+    cases = [(s, torch.bfloat16) for s in ADALN_SHAPES] + \
+        [(ADALN_SHAPES[0], torch.float16), (ADALN_SHAPES[0], torch.float32)]
+    for (n, l, d), dtype in cases:
+        inputs = adaln_inputs(n, l, d, dtype, dev, g)
+        for name in rows:
+            residual = name.startswith("residual")
+            kernel, plain = adaln_case(fused_adaln, name, *inputs)
+            fixed_before = (fused_adaln.res_fixed_launches if residual
+                            else fused_adaln.fixed_launches)
             outs, refs = kernel(), plain()
-            if not isinstance(outs, tuple):
+            torch.cuda.synchronize()
+            fixed = (fused_adaln.res_fixed_launches if residual
+                     else fused_adaln.fixed_launches) - fixed_before
+            if fixed != 1:
+                fail(f"{name} at {(n, l, d)} {dtype} did not run the d-1536 "
+                     "kernel")
+            if not residual:
                 outs, refs = (outs,), (refs,)
-            err = max(max_err(a, b) for a, b in zip(outs, refs))
-            rel = max(scaled_err(a, b) for a, b in zip(outs, refs))
-            tol = ADALN_TOL if dtype == torch.bfloat16 else FP32_TOL
-            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-            if not rel <= tol:
-                fail(f"{name} {tag} disagrees at {(n, l, d)}: {rel}")
+            e = adaln_errors(outs, refs, dtype)
+            check_adaln_errors(name, (n, l, d), e)
             if dtype != torch.bfloat16:
-                log(f"{name} fp32 ({n},{l},{d}): max_abs_err {err:.3e} "
-                    f"(tol {tol})")
+                log(f"{name} {e['dtype']} ({n},{l},{d}): {json.dumps(e)}")
                 continue
             ms, plain_ms = time_pair(kernel, plain)
-            log(f"{name} bf16 ({n},{l},{d}): max_abs_err {err:.3e}, scaled "
-                f"{rel:.3e} (tol {tol}), kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms")
+            device_ms = time_graph_ms([kernel] * 10)
+            x, delta = inputs[:2]
+            copies = [inputs] + [
+                (torch.randn_like(x), torch.randn_like(delta), *inputs[2:])
+                for _ in range(cold_copies(x.nbytes * (2 if residual else 1))
+                               - 1)]
+            cold = [adaln_case(fused_adaln, name, *c)[0] for c in copies]
+            device_ms_cold = time_graph_ms(
+                [cold[i % len(cold)] for i in range(10)])
+            del copies, cold
+            host = host_us(kernel)
+            bnd = adaln_bound(n, l, d, residual=residual)
+            log(f"{name} bf16 ({n},{l},{d}): scaled {e['scaled_err']:.3e} (tol "
+                f"{ADALN_TOL}), relative norm {e['rel_err']:.3e} (tol "
+                f"{ADALN_REL_TOL:.3e}), x' bits equal {e['x_bits_equal']}; "
+                f"eager {ms:.4f} ms, device {device_ms:.4f} ms, cold device "
+                f"{device_ms_cold:.4f} ms, host {host:.1f} us a call, bound "
+                f"{bnd[0]:.4f} ms; plain {plain_ms:.3f} ms")
             rows[name].append({
-                "shape": [n, l, d], "dtype": "bf16", "max_abs_err": err,
-                "scaled_err": rel,
-                **yardsticks(ms, plain_ms, None, adaln_bound(
-                    n, l, d, residual=name.startswith("residual")))})
+                "shape": [n, l, d], **e, "device_ms": device_ms,
+                "device_ms_cold": device_ms_cold, "host_us": host,
+                **yardsticks(ms, plain_ms, None, bnd)})
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1129,7 +1204,8 @@ def make_batch(dev, gen, text_tokens: int = TEXT_TOKENS,
     }
 
 
-def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions):
+def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions,
+              profile: bool = False):
     cfg = json.loads(CONFIG.read_text())["pipeline"]
     log(f"cut: inference_steps {cfg['inference_config']['inference_steps']} "
         f"-> {STEPS}")
@@ -1167,6 +1243,13 @@ def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions):
             out = model(sample=sample, timestep=timestep, **conds)
             torch.cuda.synchronize()
             fwd_s.append(time.perf_counter() - t0)
+        if profile:
+            log(f"DiT CFG forward unprofiled: "
+                f"{', '.join(f'{t:.4f}' for t in fwd_s)} s")
+            dt, prof = profile_forward(model, dict(
+                sample=sample, timestep=timestep, **conds), "DiT CFG forward")
+            log(f"K3/K4 in the DiT CFG forward ({dt:.4f} s profiled): "
+                f"{json.dumps(adaln_profile_ms(prof))}")
     if out.shape != sample.shape or not torch.isfinite(out).all():
         fail("denoiser forward output is not finite or has the wrong shape")
     del out, sample, conds
@@ -1211,8 +1294,12 @@ def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions):
     for s in (602, 448, 168):
         if counts["flash_tail_by_seq"].get(s, 0) == 0:
             fail(f"flash_tail never launched at s={s} on the main path")
-    if counts["adaln_modulate"] == 0 or counts["residual_adaln_modulate"] == 0:
-        fail("a fused AdaLN kernel never launched on the main path")
+    k3, k4 = counts["adaln_modulate"], counts["residual_adaln_modulate"]
+    log(f"K3 {k3} launches ({k3 / forwards:g} a CFG forward), K4 {k4} "
+        f"({k4 / forwards:g})")
+    if k3 != K3_PER_FORWARD * forwards or k4 != K4_PER_FORWARD * forwards:
+        fail(f"K3/K4 launched {k3}/{k4} times in {forwards} CFG forwards, not "
+             f"{K3_PER_FORWARD}/{K4_PER_FORWARD} a forward")
     return counts
 
 
@@ -1261,17 +1348,8 @@ def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
             torch.cuda.synchronize()
             fwd_s.append(time.perf_counter() - t0)
         if profile:
-            from torch.profiler import ProfilerActivity
-            from torch.profiler import profile as profiler
-
-            with profiler(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                model(sample=sample, timestep=timestep, **conds)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-            log(_kernel_time_table(prof, dt, "UNet CFG forward"))
+            profile_forward(model, dict(sample=sample, timestep=timestep,
+                                        **conds), "UNet CFG forward")
     if out.shape != sample.shape or not torch.isfinite(out).all():
         fail("UNet forward output is not finite or has the wrong shape")
     del out, sample, conds
@@ -1330,38 +1408,59 @@ def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
                     "peak_gib": peak_gib}
 
 
+FAMILIES = (  # kernel families of the profiles, matched in order, lowercase
+    ("K1/K7 fwd sm90 (CUDA)", ("flash_fwd_sm90",)),
+    ("K1/K2 flash_tail (CUDA)", ("flash_tail",)),
+    ("K7 flash_attention (CUDA)", ("flash_attention",)),
+    ("K3/K4 fused AdaLN (CUDA)", ("adaln",)),
+    ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "implicit")),
+    ("group norm", ("group_norm", "groupnorm")),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
+    ("AdamW (fused)", ("adam", "fusedoptimizer")),
+    ("reduce (norms, sums)", ("reduce",)),
+    ("copy / cat / cast", ("copy", "cat", "memcpy", "memset")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def _device_kernels(prof) -> list:
+    """(self device µs, calls, name) of each kernel in ``key_averages``
+    (operator entries also carry their kernels' time and are skipped, as
+    are annotation ranges on the GPU timeline)."""
+    from torch.autograd import DeviceType
+
+    return [(evt.self_device_time_total, evt.count, evt.key)
+            for evt in prof.key_averages()
+            if getattr(evt, "device_type", None) == DeviceType.CUDA and
+            not getattr(evt, "is_user_annotation", False)]
+
+
+def adaln_profile_ms(prof) -> dict:
+    """Device ms and launches of K3 and K4 in a profile: the kernels whose
+    names hold ``adaln`` (CUDA: ``adaln_{stream,any}_kernel<T, residual>``),
+    K4 those with the residual flag set (or Triton's ``_res_adaln_kernel``)."""
+    out = {"K3_ms": 0.0, "K3_launches": 0, "K4_ms": 0.0, "K4_launches": 0}
+    for t, n, key in _device_kernels(prof):
+        name = key.lower()
+        if "adaln" not in name:
+            continue
+        k = "K4" if ("true>" in name or "_res_" in name) else "K3"
+        out[f"{k}_ms"] += t / 1e3
+        out[f"{k}_launches"] += n
+    return out
+
+
 def _kernel_time_table(prof, step_s: float, what: str = "train step",
                        steps: int = 1) -> str:
     """Device time of ``steps`` profiled steps (``step_s``: their wall
-    time in all) by kernel family, and the top kernels, from the kernel
-    entries of ``key_averages`` (operator entries also carry their
-    kernels' time and are skipped). The busy share is the device time over
-    the same steps' wall time, both under the profiler."""
-    from torch.autograd import DeviceType
-
-    families = (  # matched in order, case-insensitively
-        ("K1/K7 fwd sm90 (CUDA)", ("flash_fwd_sm90",)),
-        ("K1/K2 flash_tail (CUDA)", ("flash_tail",)),
-        ("K7 flash_attention (CUDA)", ("flash_attention",)),
-        ("K3/K4 fused AdaLN (Triton)", ("_adaln_kernel",)),
-        ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "implicit")),
-        ("group norm", ("group_norm", "groupnorm")),
-        ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
-        ("AdamW (fused)", ("adam", "fusedoptimizer")),
-        ("reduce (norms, sums)", ("reduce",)),
-        ("copy / cat / cast", ("copy", "cat", "memcpy", "memset")),
-        ("elementwise", ("elementwise", "vectorized", "unrolled")),
-    )
+    time in all) by kernel family (``FAMILIES``), and the top kernels. The
+    busy share is the device time over the same steps' wall time, both
+    under the profiler."""
     sums: dict = {}
-    kernels = []
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != DeviceType.CUDA or \
-                getattr(evt, "is_user_annotation", False):
-            continue  # operators, and annotation ranges on the GPU timeline
-        t = evt.self_device_time_total
-        kernels.append((t, evt.count, evt.key))
-        name = evt.key.lower()
-        fam = next((f for f, keys in families
+    kernels = _device_kernels(prof)
+    for t, _, key in kernels:
+        name = key.lower()
+        fam = next((f for f, keys in FAMILIES
                     if any(k in name for k in keys)), "other")
         sums[fam] = sums.get(fam, 0.0) + t
     total = sum(sums.values())
@@ -1374,6 +1473,24 @@ def _kernel_time_table(prof, step_s: float, what: str = "train step",
     for t, n, key in sorted(kernels, reverse=True)[:25]:
         lines.append(f"  {t / 1e3:9.2f} {n:6d}  {key[:110]}")
     return "\n".join(lines)
+
+
+def profile_forward(model, kwargs: dict, what: str):
+    """One forward of ``model`` under ``torch.profiler``: logs its device
+    time by kernel family and returns (its wall seconds under the profiler,
+    the profile)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(**kwargs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    log(_kernel_time_table(prof, dt, what))
+    return dt, prof
 
 
 def run_train_slice(dev, create_instance_from_config, ops,
@@ -1410,8 +1527,6 @@ def run_train_slice(dev, create_instance_from_config, ops,
         if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
             fail(f"the K2 backward never launched at s={s} in the train "
                  "steps")
-    if counts["adaln_modulate"] == 0 or counts["residual_adaln_modulate"] == 0:
-        fail("a fused AdaLN kernel never launched in the train steps")
     return counts, metrics
 
 
@@ -1574,6 +1689,36 @@ def census_sm90(_build, sources, body: str) -> dict:
     return census
 
 
+def check_adaln_ptxas(_build) -> dict:
+    """ptxas's registers and spills for every kernel of ``csrc/adaln.cu``
+    (the d-1536 and runtime-width kernels of K3 and K4 in fp32, bf16 and
+    fp16: 12), from the report kept beside the library. Fails on a missing
+    instance, one ptxas did not report, or a spill."""
+    report = _build.ptxas_report(_build.library_path("adaln.cu"), "adaln_")
+    for fn, entry in report.items():
+        log(f"  adaln.cu {fn}: {json.dumps(entry)}")
+        if "spill_bytes" not in entry or "registers" not in entry or \
+                entry["spill_bytes"]:
+            fail(f"adaln.cu {fn} spills or was not reported: {entry}")
+    if len(report) != 12:
+        fail(f"adaln.cu has {len(report)} kernels in ptxas's report, not 12")
+    return report
+
+
+def check_adaln_on_paths(paths: dict) -> None:
+    """Every K3 and K4 launch of the DiT paths ran the d-1536 kernel, and
+    each path launched both."""
+    for path in ("serve", "train"):
+        c = paths[path]
+        for key in ("adaln_modulate", "residual_adaln_modulate"):
+            log(f"{path}: {key} {c[key]} launches, {c[f'{key}_fixed']} on "
+                f"the d-1536 kernel, by shape "
+                f"{json.dumps(c[f'{key}_by_shape'])}")
+            if c[key] == 0 or c[f"{key}_fixed"] != c[key]:
+                fail(f"{path}: {key} launched {c[key]} times, "
+                     f"{c[f'{key}_fixed']} of them on the d-1536 kernel")
+
+
 def check_new_body_on_paths(paths: dict) -> None:
     """Every forward launch of K1, K7 and K7-seg on the model paths ran the
     Hopper forward, and every backward launch of K2 and K7 on the training
@@ -1634,24 +1779,24 @@ def main() -> None:
         f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    sources = ("flash_tail.cu", "flash_attention.cu")
-    _build.build_all(sources)
+    _build.build_all(SOURCES)
     flash_tail.build()
     flash_attention.build()
     fused_adaln.build()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, one process "
-        f"per source, + triton import), sources under "
-        f"{Path(_build.CSRC).relative_to(REPO)}")
-    for source in sources:
+        f"per source), sources under {Path(_build.CSRC).relative_to(REPO)}")
+    for source in SOURCES:
         for line in _build.ptxas_log(_build.library_path(source)).splitlines():
             low = line.lower()
             if any(w in low for w in ("registers", "spill", "wgmma",
                                       "setmaxnreg")):
                 log(f"  ptxas {source}: {line.strip()}")
+    sources = ("flash_tail.cu", "flash_attention.cu")  # the attention
     sm90_census = census_sm90(_build, sources, "flash_fwd_sm90")
     tiling_census = census_sm90(_build, ("flash_tail.cu",),
                                 "tail_tiling_sm90")
     bwd90_census = census_sm90(_build, sources, "flash_bwd_sm90")
+    adaln_ptxas = check_adaln_ptxas(_build)
 
     log_clocks("before the kernel checks")
     attn_rows = check_attention(dev, flash_tail)
@@ -1678,7 +1823,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     log_clocks("before the serving slice")
     serve = run_slice(dev, create_instance_from_config, sd35_vae, ops,
-                      get_conditions)
+                      get_conditions,
+                      profile="--profile-dit" in sys.argv[1:])
     gc.collect()
     torch.cuda.empty_cache()
     log_clocks("before the UNet serving slice")
@@ -1706,6 +1852,11 @@ def main() -> None:
         fail(f"flash_attention_segment launched outside the shoot-out: "
              f"{strays}")
     check_new_body_on_paths(paths)
+    check_adaln_on_paths(paths)
+
+    def adaln_times(rows):  # the main shape's other three timings
+        return {k: rows[0][k] for k in ("device_ms", "device_ms_cold",
+                                         "host_us")}
 
     def entry(name, route, source, replaces, key, rows, **extra):
         by_path = {path: counts.get(key, 0) for path, counts in paths.items()}
@@ -1726,7 +1877,9 @@ def main() -> None:
         }
 
     csrc = "opendwm_tpu_torch/csrc/flash_tail.cu"
-    triton_src = "opendwm_tpu_torch/ops/fused_adaln.py"
+    adaln_src = "opendwm_tpu_torch/csrc/adaln.cu"
+    adaln_body = (f"{adaln_src}:adaln_stream_kernel (d 1536, rows by bulk "
+                  "copy), adaln_any_kernel (other widths)")
     k7_src = "opendwm_tpu_torch/csrc/flash_attention.cu"
     sm90_src = "opendwm_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd90_src = "opendwm_tpu_torch/csrc/flash_bwd_sm90.cuh"
@@ -1741,12 +1894,14 @@ def main() -> None:
         entry("flash_tail_backward", "cuda", csrc,
               "opendwm_tpu/ops/flash_tail.py:125", "flash_tail_backward",
               bwd_rows, body=bwd90_src, sass=bwd90_census),
-        entry("adaln_modulate", "triton", triton_src,
+        entry("adaln_modulate", "cuda", adaln_src,
               "opendwm_tpu/ops/fused_adaln.py:45", "adaln_modulate",
-              adaln_rows["adaln_modulate"]),
-        entry("residual_adaln_modulate", "triton", triton_src,
+              adaln_rows["adaln_modulate"], body=adaln_body,
+              ptxas=adaln_ptxas, **adaln_times(adaln_rows["adaln_modulate"])),
+        entry("residual_adaln_modulate", "cuda", adaln_src,
               "opendwm_tpu/ops/fused_adaln.py:133", "residual_adaln_modulate",
-              adaln_rows["residual_adaln_modulate"]),
+              adaln_rows["residual_adaln_modulate"], body=adaln_body,
+              ptxas=adaln_ptxas, **adaln_times(adaln_rows["residual_adaln_modulate"])),
         entry("flash_attention_forward", "cuda", k7_src,
               "opendwm_tpu/ops/attention.py:151", "flash_attention", k7_rows,
               lse_ms=k7_lse_timing["lse_ms"],

@@ -45,7 +45,15 @@ def launch_counts() -> dict:
         "flash_tail_backward_by_seq": dict(
             flash_tail.backward_launches_by_seq),
         "adaln_modulate": fused_adaln.launches,
+        "adaln_modulate_fixed": fused_adaln.fixed_launches,
+        "adaln_modulate_by_shape": {
+            ",".join(map(str, k)): n
+            for k, n in fused_adaln.launches_by_shape.items()},
         "residual_adaln_modulate": fused_adaln.res_launches,
+        "residual_adaln_modulate_fixed": fused_adaln.res_fixed_launches,
+        "residual_adaln_modulate_by_shape": {
+            ",".join(map(str, k)): n
+            for k, n in fused_adaln.res_launches_by_shape.items()},
         "tail_hpack": sum(tail_variants.hpack_launches_by_nh.values()),
         "tail_hpack_by_nh": dict(tail_variants.hpack_launches_by_nh),
         "tail_qsplit": sum(tail_variants.qsplit_launches_by_bq.values()),

@@ -12,13 +12,17 @@ x is (n, L, d); scale/shift/gate are (n, d) or (n, 1, d), one vector per
 sample. The JAX model writes this chain out in jnp; the port's joint block
 calls these kernels at every modulation.
 
-The Hopper kernels are Triton: one program per row, one mean/variance
-reduction over d in registers (fp32), then the elementwise epilogue. No
-matrix product is involved, so each is bound by device-memory bytes:
-one read of x (and delta) and one write of each output, against the
-three or more passes of the unfused chain. Triton is imported and the
-kernels are JIT-wrapped at the first launch. Backward is autograd of the
-plain version, as in the JAX package.
+The Hopper kernels are CUDA C++ in ``csrc/adaln.cu`` (design and what
+bounds them are noted there), built with nvcc at first use and called
+through ctypes: at d = 1536 (the DiT's width) rows reach shared memory by
+1-D bulk copies and one warp takes a row in registers; at any other width
+or alignment one warp streams its row (``instance`` picks). No matrix product is involved, so each is bound by device-memory
+bytes: one read of x (and delta) and one write of each output. x' is
+rounded once from the fp32 ``x + gate * delta`` without FMA contraction,
+so it equals the plain version's bit for bit. The wrappers take the plain
+versions only for CPU tensors; for a CUDA tensor they launch the kernel or
+raise. A call that needs a gradient goes through an autograd Function whose
+backward is autograd of the plain version, as in the JAX package.
 
 Where the residual form rounds: the kernel normalises the fp32 sum
 ``x + gate * delta`` (as ``_res_kernel`` does), not the sum rounded to
@@ -28,19 +32,28 @@ kernel. In fp32 the two agree.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from opendwm_tpu_torch.ops import _build
+
+# Kernel launches of K3 (adaln_modulate) and K4 (residual_adaln_modulate):
+# in total, those that ran the d-1536 (bulk-copy) kernel, and by (n, L, d).
 launches = 0
 res_launches = 0
-
-tl = None  # triton.language, bound at the first launch
-_KERNELS = None
+fixed_launches = 0
+res_fixed_launches = 0
+launches_by_shape: dict[tuple, int] = {}
+res_launches_by_shape: dict[tuple, int] = {}
 
 
 def reset_launches() -> None:
-    global launches, res_launches
-    launches = 0
-    res_launches = 0
+    global launches, res_launches, fixed_launches, res_fixed_launches
+    launches = res_launches = fixed_launches = res_fixed_launches = 0
+    launches_by_shape.clear()
+    res_launches_by_shape.clear()
 
 
 def _per_sample(t, n: int, d: int):
@@ -78,76 +91,49 @@ def residual_adaln_modulate_plain(x, delta, gate, scale, shift,
     return xn.to(x.dtype), y.to(x.dtype)
 
 
-# -- Triton kernels (JIT-wrapped at the first launch) ------------------------
+# -- the CUDA kernels (csrc/adaln.cu, built at first use) --------------------
 
-def _adaln_kernel(x_ptr, sc_ptr, sh_ptr, out_ptr, rows_per_sample, d,
-                  sc_stride, sh_stride, eps, BLOCK_D: "tl.constexpr"):
-    row = tl.program_id(0).to(tl.int64)
-    sample = row // rows_per_sample
-    cols = tl.arange(0, BLOCK_D)
-    mask = cols < d
-    x = tl.load(x_ptr + row * d + cols, mask=mask, other=0.0).to(tl.float32)
-    mean = tl.sum(x, axis=0) / d
-    xc = tl.where(mask, x - mean, 0.0)
-    var = tl.sum(xc * xc, axis=0) / d
-    y = xc / tl.sqrt(var + eps)
-    sc = tl.load(sc_ptr + sample * sc_stride + cols, mask=mask,
-                 other=0.0).to(tl.float32)
-    sh = tl.load(sh_ptr + sample * sh_stride + cols, mask=mask,
-                 other=0.0).to(tl.float32)
-    out = y * (1.0 + sc) + sh
-    tl.store(out_ptr + row * d + cols, out.to(out_ptr.dtype.element_ty),
-             mask=mask)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+FIXED_D = 1536  # the width csrc/adaln.cu compiles its d-1536 kernel for
 
 
-def _res_adaln_kernel(x_ptr, dl_ptr, g_ptr, sc_ptr, sh_ptr, xo_ptr, yo_ptr,
-                      rows_per_sample, d, g_stride, sc_stride, sh_stride, eps,
-                      BLOCK_D: "tl.constexpr"):
-    row = tl.program_id(0).to(tl.int64)
-    sample = row // rows_per_sample
-    cols = tl.arange(0, BLOCK_D)
-    mask = cols < d
-    x = tl.load(x_ptr + row * d + cols, mask=mask, other=0.0).to(tl.float32)
-    delta = tl.load(dl_ptr + row * d + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-    g = tl.load(g_ptr + sample * g_stride + cols, mask=mask,
-                other=0.0).to(tl.float32)
-    xn = x + g * delta
-    tl.store(xo_ptr + row * d + cols, xn.to(xo_ptr.dtype.element_ty),
-             mask=mask)
-    mean = tl.sum(xn, axis=0) / d
-    xc = tl.where(mask, xn - mean, 0.0)
-    var = tl.sum(xc * xc, axis=0) / d
-    y = xc / tl.sqrt(var + eps)
-    sc = tl.load(sc_ptr + sample * sc_stride + cols, mask=mask,
-                 other=0.0).to(tl.float32)
-    sh = tl.load(sh_ptr + sample * sh_stride + cols, mask=mask,
-                 other=0.0).to(tl.float32)
-    out = y * (1.0 + sc) + sh
-    tl.store(yo_ptr + row * d + cols, out.to(yo_ptr.dtype.element_ty),
-             mask=mask)
+def instance(d: int, dtype, mod_dtype, *addresses: int) -> str:
+    """Which kernel of ``csrc/adaln.cu`` a launch runs: ``"fixed"`` (the
+    d-1536 kernel, which bulk-copies rows and vectors into shared memory)
+    when d is 1536, x's type is one the kernels take, the modulation
+    vectors share it, and every address (the row pointers of x, delta and
+    the outputs, the vectors' pointers and their per-sample strides in
+    bytes) is a multiple of 16; else ``"any"`` (runtime width)."""
+    if d == FIXED_D and dtype in _DTYPES and mod_dtype == dtype and \
+            all(a % 16 == 0 for a in addresses):
+        return "fixed"
+    return "any"
 
 
-def _kernels():
-    global tl, _KERNELS
-    if _KERNELS is None:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _KERNELS = (triton.jit(_adaln_kernel), triton.jit(_res_adaln_kernel))
-    return _KERNELS
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("adaln.cu")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    tail = [ctypes.c_float, i32, i32, i32, ptr]  # eps, dtypes, fixed, stream
+    lib.adaln_forward.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 2 + tail
+    lib.residual_adaln_forward.argtypes = [ptr] * 7 + [i32] * 3 + \
+        [i64] * 3 + tail
+    lib.adaln_forward.restype = ctypes.c_int
+    lib.residual_adaln_forward.restype = ctypes.c_int
+    lib.adaln_error_string.argtypes = [ctypes.c_int]
+    lib.adaln_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def build() -> None:
-    """Import Triton and wrap the kernels now rather than at first launch."""
-    _kernels()
+    """Compile and load the CUDA kernels now rather than at first launch."""
+    _library()
 
 
 def _check_rows(x, *others) -> None:
     if x.ndim != 3:
         raise ValueError(f"x must be (n, L, d); got {tuple(x.shape)}")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    if x.dtype not in _DTYPES:
         raise TypeError(f"fused_adaln takes a float x, not {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fused_adaln takes a contiguous x")
@@ -156,47 +142,80 @@ def _check_rows(x, *others) -> None:
             raise ValueError("all fused_adaln inputs must lie on one device")
 
 
-def _vec(t, n: int, d: int):
-    t = _per_sample(t, n, d)
-    if t.stride(-1) != 1:
-        raise ValueError("modulation vectors must be contiguous along d")
-    return t
+def _vecs(n: int, d: int, *ts):
+    """The modulation vectors as (n, d) views, contiguous along d, of one
+    type the kernels read: their own if they share one, else fp32 copies
+    (values the kernels would read as fp32 anyway)."""
+    out = []
+    for t in ts:
+        if t.ndim != 2 or t.shape != (n, d):
+            t = _per_sample(t, n, d)
+        if t.stride(-1) != 1:
+            raise ValueError("modulation vectors must be contiguous along d")
+        out.append(t)
+    dtype = out[0].dtype
+    if dtype not in _DTYPES or any(t.dtype != dtype for t in out):
+        out = [t.float() for t in out]
+    return out
 
 
-def _launch_config(d: int):
-    block = 1 << (d - 1).bit_length()  # next power of two
-    return block, max(1, min(16, block // 256))
+def _addresses(*ts) -> list[int]:
+    """Each tensor's address and, for the (n, d) vectors, their per-sample
+    stride in bytes: what the d-1536 kernels need aligned."""
+    out = []
+    for t in ts:
+        out.append(t.data_ptr())
+        if t.ndim == 2:
+            out.append(t.stride(0) * t.element_size())
+    return out
+
+
+def _raise_on_error(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _library().adaln_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
 def _launch_adaln(x, scale, shift, eps):
-    global launches
-    adaln, _ = _kernels()
+    global launches, fixed_launches
     n, l, d = x.shape
-    scale, shift = _vec(scale, n, d), _vec(shift, n, d)
+    scale, shift = _vecs(n, d, scale, shift)
     out = torch.empty_like(x)
-    block, warps = _launch_config(d)
-    with torch.cuda.device(x.device):
-        adaln[(n * l,)](x, scale, shift, out, l, d, scale.stride(0),
-                        shift.stride(0), eps, BLOCK_D=block, num_warps=warps)
+    fixed = instance(d, x.dtype, scale.dtype,
+                     *_addresses(x, out, scale, shift)) == "fixed"
+    rc = _library().adaln_forward(
+        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n,
+        l, d, scale.stride(0), shift.stride(0), eps, _DTYPES[x.dtype],
+        _DTYPES[scale.dtype], fixed,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_error(rc, "adaln_modulate")
     launches += 1
+    fixed_launches += fixed
+    launches_by_shape[n, l, d] = launches_by_shape.get((n, l, d), 0) + 1
     return out
 
 
 def _launch_res_adaln(x, delta, gate, scale, shift, eps):
-    global res_launches
-    _, res_adaln = _kernels()
+    global res_launches, res_fixed_launches
     n, l, d = x.shape
     if delta.shape != x.shape or delta.dtype != x.dtype or \
             not delta.is_contiguous():
         raise ValueError("delta must be contiguous, with x's shape and dtype")
-    gate, scale, shift = (_vec(t, n, d) for t in (gate, scale, shift))
+    gate, scale, shift = _vecs(n, d, gate, scale, shift)
     xo, yo = torch.empty_like(x), torch.empty_like(x)
-    block, warps = _launch_config(d)
-    with torch.cuda.device(x.device):
-        res_adaln[(n * l,)](x, delta, gate, scale, shift, xo, yo, l, d,
-                            gate.stride(0), scale.stride(0), shift.stride(0),
-                            eps, BLOCK_D=block, num_warps=warps)
+    fixed = instance(d, x.dtype, gate.dtype, *_addresses(
+        x, delta, xo, yo, gate, scale, shift)) == "fixed"
+    rc = _library().residual_adaln_forward(
+        x.data_ptr(), delta.data_ptr(), gate.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), xo.data_ptr(), yo.data_ptr(), n, l, d,
+        gate.stride(0), scale.stride(0), shift.stride(0), eps,
+        _DTYPES[x.dtype], _DTYPES[gate.dtype], fixed,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_error(rc, "residual_adaln_modulate")
     res_launches += 1
+    res_fixed_launches += fixed
+    res_launches_by_shape[n, l, d] = \
+        res_launches_by_shape.get((n, l, d), 0) + 1
     return xo, yo
 
 
@@ -241,17 +260,26 @@ def _on_device(x) -> bool:
     return True
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def adaln_modulate(x, scale, shift, eps: float = 1e-6):
-    """``ln(x) * (1 + scale) + shift``; Triton kernel on CUDA tensors."""
+    """``ln(x) * (1 + scale) + shift``; the K3 kernel on CUDA tensors."""
     if not _on_device(x):
         return adaln_modulate_plain(x, scale, shift, eps)
     _check_rows(x, scale, shift)
-    return _AdaLN.apply(x, scale, shift, eps)
+    if _needs_grad(x, scale, shift):
+        return _AdaLN.apply(x, scale, shift, eps)
+    return _launch_adaln(x, scale, shift, eps)
 
 
 def residual_adaln_modulate(x, delta, gate, scale, shift, eps: float = 1e-6):
-    """``x' = x + gate*delta``; returns ``(x', ln(x')*(1+scale)+shift)``."""
+    """``x' = x + gate*delta``; returns ``(x', ln(x')*(1+scale)+shift)``;
+    the K4 kernel on CUDA tensors."""
     if not _on_device(x):
         return residual_adaln_modulate_plain(x, delta, gate, scale, shift, eps)
     _check_rows(x, delta, gate, scale, shift)
-    return _ResidualAdaLN.apply(x, delta, gate, scale, shift, eps)
+    if _needs_grad(x, delta, gate, scale, shift):
+        return _ResidualAdaLN.apply(x, delta, gate, scale, shift, eps)
+    return _launch_res_adaln(x, delta, gate, scale, shift, eps)

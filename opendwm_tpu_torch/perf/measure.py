@@ -4,6 +4,7 @@ and the experiments in this package."""
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -45,6 +46,55 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(calls, replays: int = 3) -> float:
+    """Device ms per call: ``calls`` (zero-argument callables) captured once,
+    in order, in a CUDA graph after 2 eager warm-ups of the first, and the
+    graph replayed ``replays`` times after one untimed replay, timed with
+    CUDA events: no host work is left between the launches."""
+    for _ in range(2):
+        calls[0]()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * len(calls))
+    del graph
+    return ms
+
+
+L2_BYTES = 50e6  # the H100's L2 cache
+
+
+def cold_copies(bytes_read: float) -> int:
+    """How many copies of a call's inputs to rotate over so that the other
+    copies' reads between two uses of one copy exceed twice the L2: each
+    call then reads its inputs from device memory."""
+    return 1 + max(1, -(-int(2 * L2_BYTES) // int(bytes_read)))
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host µs per call: ``time.perf_counter`` around ``calls`` enqueues of
+    ``fn`` after one warm-up and a synchronize, while the device runs
+    behind (the device work is not waited for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def time_pair(kernel, plain, iters: int = 10):
     """ms per call of each, timed in turns plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = (time_ms(fn, iters) for fn in (plain, kernel, kernel,
@@ -57,6 +107,16 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
+
+
+def adaln_bound(n, l, d, residual=False, itemsize=2):
+    """AdaLN over (n, l, d) rows of ``itemsize`` bytes (bf16 by default):
+    K3 reads x, scale and shift and writes y, ~8 fp32 operations an element
+    (statistics, normalisation, modulation); K4 also reads delta and gate
+    and writes x', ~10 an element."""
+    big, small = (4, 3) if residual else (2, 2)
+    nbytes = itemsize * (big * n * l * d + small * n * d)
+    return bound((10 if residual else 8) * n * l * d, nbytes, PEAK_FP32)
 
 
 def visible_pairs(sq: int, sk: int, causal: bool) -> int:

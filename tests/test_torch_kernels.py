@@ -10,7 +10,9 @@ Tolerances bound ``|kernel - plain| / max(1, |plain|)`` elementwise
 the two versions may round fp32 results that differ in their last bits to
 neighbouring bf16 values): fp32 1e-4 for attention (fast exp, another
 summation order) and 1e-5 for the normalisations; bf16 2e-2 (attention,
-the bar of ``perf/exp_tailvar.py``) and 3e-2 (normalisations). The
+the bar of ``perf/exp_tailvar.py``) and 3e-2 (normalisations, bf16 and
+fp16, which are also held to a relative norm ``||kernel - plain|| /
+||plain||`` of 2^-8, and give x' equal to the plain version bit for bit). The
 attention backward (K2) in bf16 is held to a relative error
 ``||kernel - plain|| / ||plain||`` of 0.6% per gradient, the bar recorded
 for the JAX kernel (``docs/PARITY.md``): its dS is rounded to bf16 at other
@@ -142,25 +144,78 @@ def test_flash_tail_grad_launches_k2(cuda):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("n,l,d", [(3, 154, 1536), (2, 7, 32)])
-def test_fused_adaln_kernels_match_plain(cuda, dtype, tol, n, l, d):
-    g = torch.Generator(cuda).manual_seed(d)
+                                       (torch.bfloat16, 3e-2),
+                                       (torch.float16, 3e-2)])
+@pytest.mark.parametrize("d", [1536, 32, 40])
+@pytest.mark.parametrize("l", [1, 154, 448])
+@pytest.mark.parametrize("mod_ndim", [2, 3])
+def test_fused_adaln_kernels_match_plain(cuda, dtype, tol, d, l, mod_ndim):
+    """K3 and K4 against their plain versions: the d-1536 kernel at d 1536,
+    the runtime-width one at 32 and 40; x' bit for bit, bf16 and fp16 also
+    within 2^-8 in relative norm; one launch each on the counters."""
+    n = 3
+    g = torch.Generator(cuda).manual_seed(d + l)
     x, delta = (torch.randn(n, l, d, generator=g, device=cuda).to(dtype)
                 for _ in range(2))
     # strided per-sample vectors, as the model's modulation chunks are
     gate, scale, shift = torch.randn(
-        n, 3 * d, generator=g, device=cuda).to(dtype).chunk(3, dim=-1)
+        n, 9 * d, generator=g, device=cuda).to(dtype).chunk(9, dim=-1)[:3]
+    if mod_ndim == 3:
+        gate, scale, shift = gate[:, None], scale[:, None], shift[:, None]
+    fused_adaln.reset_launches()
     out = fused_adaln.adaln_modulate(x, scale, shift)
+    xo, yo = fused_adaln.residual_adaln_modulate(x, delta, gate, scale, shift)
+    torch.cuda.synchronize()
     ref = fused_adaln.adaln_modulate_plain(x, scale, shift)
-    xo, yo = fused_adaln.residual_adaln_modulate(
-        x, delta, gate[:, None], scale, shift)
     rx, ry = fused_adaln.residual_adaln_modulate_plain(
         x, delta, gate, scale, shift)
-    torch.cuda.synchronize()
-    for a, b in ((out, ref), (xo, rx), (yo, ry)):
+    fixed = int(d == 1536)
+    assert (fused_adaln.launches, fused_adaln.res_launches) == (1, 1)
+    assert (fused_adaln.fixed_launches,
+            fused_adaln.res_fixed_launches) == (fixed, fixed)
+    assert fused_adaln.launches_by_shape == {(n, l, d): 1}
+    assert torch.equal(xo, rx)
+    for a, b in ((out, ref), (yo, ry)):
         assert a.dtype == dtype
         assert _scaled_err(a, b) <= tol
+        if dtype != torch.float32:
+            assert _rel_err(a, b) <= 2 ** -8
+
+
+def test_fused_adaln_unaligned_rows_run_any_width(cuda):
+    """Rows that are not 16-byte aligned run the runtime-width kernel at
+    d 1536, with the same results."""
+    g = torch.Generator(cuda).manual_seed(5)
+    n, l, d = 2, 9, 1536
+    buf = torch.randn(2 * n * l * d + 1, generator=g, device=cuda).to(
+        torch.bfloat16)
+    x = buf[1:n * l * d + 1].view(n, l, d)  # 2 bytes past an aligned start
+    delta = buf[n * l * d + 1:].view(n, l, d)
+    gate, scale, shift = torch.randn(
+        n, 3 * d, generator=g, device=cuda).to(torch.bfloat16).chunk(3, -1)
+    fused_adaln.reset_launches()
+    out = fused_adaln.adaln_modulate(x, scale, shift)
+    xo, yo = fused_adaln.residual_adaln_modulate(x, delta, gate, scale, shift)
+    torch.cuda.synchronize()
+    assert fused_adaln.launches == fused_adaln.res_launches == 1
+    assert fused_adaln.fixed_launches == fused_adaln.res_fixed_launches == 0
+    rx, ry = fused_adaln.residual_adaln_modulate_plain(x, delta, gate, scale,
+                                                       shift)
+    assert torch.equal(xo, rx)
+    assert _scaled_err(out, fused_adaln.adaln_modulate_plain(
+        x, scale, shift)) <= 3e-2
+    assert _scaled_err(yo, ry) <= 3e-2
+
+
+def test_fused_adaln_refuses_noncontiguous_x(cuda):
+    x = torch.randn(2, 1536, 7, device=cuda).transpose(1, 2)
+    m = torch.randn(2, 1536, device=cuda)
+    fused_adaln.reset_launches()
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_adaln.adaln_modulate(x, m, m)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_adaln.residual_adaln_modulate(x, x.contiguous(), m, m, m)
+    assert fused_adaln.launches == fused_adaln.res_launches == 0
 
 
 def test_fused_adaln_backward_is_autograd_of_plain(cuda):

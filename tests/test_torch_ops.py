@@ -259,7 +259,9 @@ def test_cpu_path_launches_no_kernel():
     fused_adaln.residual_adaln_modulate(x, x, m, m, m)
     counts = ops.launch_counts()
     assert counts["flash_tail"] == counts["flash_attention"] == 0
-    assert counts["adaln_modulate"] == counts["residual_adaln_modulate"] == 0
+    for key in ("adaln_modulate", "residual_adaln_modulate"):
+        assert counts[key] == counts[f"{key}_fixed"] == 0
+        assert counts[f"{key}_by_shape"] == {}
 
 
 def test_wrappers_refuse_other_devices():
@@ -304,6 +306,55 @@ def test_port_imports_no_jax():
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=Path(__file__).resolve().parents[1])
+
+
+def test_port_imports_no_triton():
+    """Every kernel of the port is CUDA C++ built by ``ops/_build.py``; no
+    module of the package imports Triton."""
+    root = Path(__file__).resolve().parents[1] / "opendwm_tpu_torch"
+    bad = [str(f) for f in root.rglob("*.py")
+           if any(line.split()[:2] in (["import", "triton"],
+                                       ["from", "triton"])
+                  or line.lstrip().startswith(("import triton.",
+                                               "from triton."))
+                  for line in f.read_text().splitlines())]
+    assert not bad, bad
+
+
+A16, A4 = 0x7F0000001000, 0x7F0000001004  # 16-byte and 4-byte aligned
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+
+
+@pytest.mark.parametrize("d,dtype,mod_dtype,addresses,want", [
+    (1536, BF16, BF16, (A16, A16, A16, 9 * 3072), "fixed"),
+    (1536, F16, F16, (A16, A16, A16, A16, A16, 9 * 3072), "fixed"),
+    (1536, F32, F32, (A16, A16, A16, 6144), "fixed"),
+    (1536, BF16, BF16, (A16, A4, A16, 3072), "any"),    # an output off 16 B
+    (1536, F32, F32, (A16, A16, A4, A16, 6144), "any"),  # delta off 16 B
+    (1536, BF16, BF16, (A16 + 2,), "any"),
+    (1536, BF16, BF16, (A16, A16, A16 + 2, 3072), "any"),  # a vector off
+    (1536, BF16, BF16, (A16, A16, A16, 3074), "any"),   # its stride off
+    (1536, BF16, F32, (A16, A16, A16, 6144), "any"),    # vectors in fp32
+    (32, BF16, BF16, (A16, A16), "any"),
+    (40, F32, F32, (A16, A16), "any"),
+    (3072, BF16, BF16, (A16, A16), "any"),
+    (1536, torch.float64, torch.float64, (A16, A16), "any"),
+])
+def test_adaln_instance_rule(d, dtype, mod_dtype, addresses, want):
+    """The rule that picks K3/K4's kernel in ``csrc/adaln.cu``: the d-1536
+    kernel only at d 1536, in a type it is compiled for, with the vectors
+    in that type and every row pointer, vector pointer and per-sample
+    vector stride (bytes) a multiple of 16; else the runtime-width one."""
+    assert fused_adaln.instance(d, dtype, mod_dtype, *addresses) == want
+
+
+def test_adaln_addresses_hold_vector_strides():
+    """The addresses the rule reads: each tensor's pointer and, for an
+    (n, d) vector, its per-sample stride in bytes."""
+    x = torch.zeros(2, 3, 8, dtype=BF16)
+    mods = torch.zeros(2, 9 * 8, dtype=BF16).chunk(9, dim=-1)
+    assert fused_adaln._addresses(x, mods[1]) == [
+        x.data_ptr(), mods[1].data_ptr(), 9 * 8 * 2]
 
 
 def _jax_pallas_flash(q, k, v, causal):

@@ -1,10 +1,12 @@
-"""The gates of ``chip_smoke.py`` that hold the Hopper attention kernels,
-fed with made-up census, launch counts and experiment rows on the CPU: the
+"""The gates of ``chip_smoke.py`` that hold the Hopper kernels, fed with
+made-up census, launch counts and experiment rows on the CPU: the
 SASS/ptxas census of the forward, tiling and backward instances, the rule
 that every attention launch of a model path ran the Hopper body, and the
 tiling experiment's rules (K5 and K6 equal to K1 bit for bit, every bf16
-launch of them on the Hopper tiling kernel). Also the shape of the
-backward's fp32 dQ workspace. No kernel runs here.
+launch of them on the Hopper tiling kernel); for K3/K4 (``csrc/adaln.cu``)
+the ptxas spill gate, the bars and the rule that every launch of the DiT
+paths ran the d-1536 kernel, and that the smoke builds every CUDA source.
+Also the shape of the backward's fp32 dQ workspace. No kernel runs here.
 """
 
 import importlib.util
@@ -210,3 +212,109 @@ def test_dq_workspace_is_whole_query_tiles(q_seq, rows):
     (batch * heads, q_seq rounded up to 64, 64)."""
     ws = flash_tail.dq_workspace(2, q_seq, 3, torch.device("cpu"))
     assert ws.shape == (6, rows, 64) and ws.dtype == torch.float32
+
+
+def test_smoke_builds_every_source(smoke):
+    """``chip_smoke.py`` builds (and so hashes, checks with ptxas and
+    launches from) every CUDA source of the package, ``adaln.cu`` too."""
+    csrc = REPO / "opendwm_tpu_torch" / "csrc"
+    assert set(smoke.SOURCES) == {p.name for p in csrc.glob("*.cu")}
+    assert "adaln.cu" in smoke.SOURCES
+
+
+def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
+    return {"adaln_modulate": k3,
+            "adaln_modulate_fixed": k3 if k3_fixed is None else k3_fixed,
+            "adaln_modulate_by_shape": {"72,448,1536": k3},
+            "residual_adaln_modulate": k4,
+            "residual_adaln_modulate_fixed": k4 if k4_fixed is None
+            else k4_fixed,
+            "residual_adaln_modulate_by_shape": {"72,448,1536": k4}}
+
+
+@pytest.mark.parametrize("path,over,ok", [
+    ("serve", {}, True),
+    ("serve", {"k3_fixed": 61}, False),
+    ("train", {"k4_fixed": 0}, False),
+    ("train", {"k3": 0, "k3_fixed": 0}, False),
+])
+def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
+    """Every K3/K4 launch of the two DiT paths must have run the d-1536
+    kernel of ``csrc/adaln.cu``, and each path must have launched both."""
+    paths = {"serve": _adaln_counts(), "train": _adaln_counts()}
+    paths[path] = _adaln_counts(**over)
+    if ok:
+        smoke.check_adaln_on_paths(paths)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_adaln_on_paths(paths)
+
+
+@pytest.mark.parametrize("dtype,over,ok", [
+    ("bfloat16", {}, True),
+    ("bfloat16", {"rel_err": 2 ** -7}, False),   # wrong statistics
+    ("bfloat16", {"scaled_err": 0.05}, False),
+    ("bfloat16", {"x_bits_equal": False}, False),
+    ("float16", {"rel_err": 2 ** -7}, False),
+    ("float32", {"scaled_err": 5e-5}, True),
+    ("float32", {"scaled_err": 2e-4}, False),
+    ("float32", {"x_bits_equal": False}, False),
+])
+def test_adaln_bars(smoke, dtype, over, ok):
+    """K3/K4's bars on the card: scaled error 3e-2 (bf16, fp16) or 1e-4
+    (fp32), relative norm 2^-8 in bf16 and fp16, x' bit for bit."""
+    e = {"max_abs_err": 0.01, "scaled_err": 0.01, "rel_err": 1e-3,
+         "x_bits_equal": True, "dtype": dtype, **over}
+    if ok:
+        smoke.check_adaln_errors("residual_adaln_modulate", (2, 3, 4), e)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_adaln_errors("residual_adaln_modulate", (2, 3, 4), e)
+
+
+def test_adaln_errors_read_x_bits(smoke):
+    """``adaln_errors`` holds K4's x' bit for bit and its y to the bars."""
+    x = torch.randn(2, 3, 8).to(torch.bfloat16)
+    y = torch.randn(2, 3, 8).to(torch.bfloat16)
+    bumped = (x.view(torch.int16) + 1).view(torch.bfloat16)  # one ulp
+    assert smoke.adaln_errors((x, y), (x, y), torch.bfloat16)["x_bits_equal"]
+    e = smoke.adaln_errors((bumped, y), (x, y), torch.bfloat16)
+    assert not e["x_bits_equal"] and e["dtype"] == "bfloat16"
+    assert smoke.adaln_errors((y,), (y,), torch.float32)["x_bits_equal"]
+
+
+class _FakeAdalnBuild:
+    """``ops._build`` as ``check_adaln_ptxas`` reads it."""
+
+    def __init__(self, report):
+        self.report = report
+
+    def library_path(self, source):
+        return source
+
+    def ptxas_report(self, lib, name_part):
+        return self.report
+
+
+def _adaln_ptxas(n=12, **over):
+    report = {f"_ZN12_GLOBAL__N_119adaln_stream_kernelI{i}EEvNS_4ArgsE":
+              {"registers": 90, "spill_bytes": 0} for i in range(n)}
+    first = next(iter(report))
+    report[first].update(over)
+    return report
+
+
+@pytest.mark.parametrize("report,ok", [
+    (_adaln_ptxas(), True),
+    (_adaln_ptxas(spill_bytes=8), False),
+    (_adaln_ptxas(n=11), False),
+    ({"f": {"registers": 40}}, False),
+])
+def test_adaln_ptxas_fails_on_a_spill(smoke, report, ok):
+    """Every kernel of ``csrc/adaln.cu`` (12 instances) must be in ptxas's
+    report with 0 spill bytes."""
+    if ok:
+        assert smoke.check_adaln_ptxas(_FakeAdalnBuild(report)) == report
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_adaln_ptxas(_FakeAdalnBuild(report))
