@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CTSD-3.5 serving and training paths, its
-CTSD-2.1 UNet serving and training paths, the tail-attention tiling
-experiment and the attention shoot-out on one GPU.
+CTSD-2.1 UNet serving and training paths, the layout-conditioned (box +
+map) flagship's DiT and UNet serving and DiT training paths, the
+tail-attention tiling experiment and the attention shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-train]
@@ -107,14 +108,36 @@ Phases; any failure raises and exits non-zero:
    64), and K1 and K2 at s = 336, 448, 168 must have launched in the timed
    steps; launches are also counted by phase on one extra,
    untimed pass. ``--profile-unet-train`` adds 3 more steps, then 3
-   under ``torch.profiler``.
+   under ``torch.profiler``;
+9. bm DiT serving slice: ``configs/ctsd/ctsd_35_tirda_bm_nwao.json`` (the
+   flagship: phase 5's DiT plus the 6 x 1536 ImageAdapter, 4.080B params)
+   as phase 5, with random 256 x 448 x 3 box and map rasters per
+   view-frame. Before the rollout, one forward at batch 1 with the rasters
+   and one with the uncondition colour must differ by more than
+   ``RASTER_MIN_MOVE`` in relative norm (``random_init_`` draws the zero
+   convs and zero gates non-zero), and the profiler gives the adapter's
+   device ms beside the CFG forward's. K1, K3 and K4 as in phase 5;
+10. bm UNet serving slice: ``configs/ctsd/multi_datasets/
+   ctsd_21_tirda_bm_nwa.json`` (phase 7's UNet plus its 5-stage adapter)
+   as phase 7, with the same rasters gate and profile. K7 and K1 as in
+   phase 7;
+11. bm DiT train slice: the flagship at full width and depth, fp32
+   masters, bf16 compute, remat as the config sets it, flat AdamW with
+   bf16 moments (``BM_OPTIMIZER``, as ``bench.py`` trains); 3 steps from
+   pixels (``vae_images``, 1 x 6 frames x 6 views of 256 x 448) through the
+   SD3.5 VAE encoder, with the rasters. K1 and K2 as in phase 6; the
+   optimizer state must hold 2 bytes a moment element (phase 6's: 4); the
+   profiler gives the encoder's and the adapter's device ms. Its peak
+   memory and its update alone (``optimizer.step()`` between two
+   synchronizes, as phase 6 times the fused AdamW's) are logged beside
+   phase 6's; ``--profile-train`` profiles it as it does phase 6.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the four model paths
+but the shoot-out, every K1 and K7 forward launch of the seven model paths
 must have run the Hopper forward, every K2 and K7 backward launch of
-the two training paths the Hopper backward, every bf16 K5 and K6
+the three training paths the Hopper backward, every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
-of the two DiT paths the d-1536 kernel (their launch counters).
+of the four DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
 
@@ -153,6 +176,21 @@ from opendwm_tpu_torch.perf.measure import (  # noqa: E402
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json"
 UNET_CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_21_tirda_nwao.json"
+# The layout-conditioned (box + map) configs: the flagship DiT and the UNet,
+# each with its ImageAdapter; the DiT trains from pixels through the VAE
+# encoder with bench.py's flat AdamW and bf16 moments.
+BM_CONFIG = REPO / "configs/ctsd/ctsd_35_tirda_bm_nwao.json"
+BM_UNET_CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_21_tirda_bm_nwa.json"
+BM_OPTIMIZER = {"flat": True, "mu_dtype": "bfloat16"}
+# The rasters must move a denoiser's output by more than this relative
+# norm against the uncondition colour; an adapter that adds nothing (zero
+# convs left at zero) moves it by exactly 0.
+RASTER_MIN_MOVE = 1e-3
+# The paths whose launch counters the body gates read.
+TRAIN_PATHS = ("train", "unet_train", "bm_train")
+MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
+               "bm_unet_serve", "bm_train")
+DIT_PATHS = ("serve", "train", "bm_serve", "bm_train")
 TINY_CONFIG = REPO / "configs/ctsd/ctsd_35_6views_video_synthetic.json"
 SEED = 0
 STEPS = 4  # cut from the config's 40
@@ -1158,11 +1196,15 @@ def check_tiny_unet_train_step(dev, create_instance_from_config,
 
 def random_init_(module, gen) -> None:
     """Weights ~ N(0, 1/fan_in), norm scales 1, biases 0, AlphaBlender
-    mix factors 2 (the config's merge factor), drawn on the module's device."""
+    mix factors 2 (the config's merge factor), the ImageAdapter's zero
+    gates N(0, 1) (its zero convs are weights: N(0, 1/fan_in), not zero),
+    drawn on the module's device."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("mix_factor"):
                 p.fill_(2.0)
+            elif name.endswith("zero_gates"):
+                p.normal_(0.0, 1.0, generator=gen)
             elif p.ndim >= 2:
                 p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
             elif name.endswith("weight"):
@@ -1171,11 +1213,75 @@ def random_init_(module, gen) -> None:
                 p.zero_()
 
 
+def layout_rasters(dev, gen) -> dict:
+    """Random 3-D box and HD-map rasters of the batch's 6 frames x 6 views
+    at the VAE's image size (256 x 448 x 3 each): a quarter of the pixels
+    set to uniform values, the rest background."""
+    shape = (1, FRAMES, VIEWS, 8 * LAT_H, 8 * LAT_W, 3)
+
+    def raster():
+        on = torch.rand(shape, generator=gen, device=dev) < 0.25
+        return torch.rand(shape, generator=gen, device=dev) * on
+
+    return {"3dbox_images": raster(), "hdmap_images": raster()}
+
+
+def check_rasters_move(out_with, out_without, what: str) -> float:
+    """The relative norm by which the layout rasters move a denoiser's
+    output against the uncondition colour; fails unless it is finite and
+    above ``RASTER_MIN_MOVE`` (equal outputs: the adapter added nothing)."""
+    move = rel_err(out_with, out_without)
+    log(f"{what}: the rasters move the output by {move:.4e} in relative "
+        f"norm against the uncondition colour (gate > {RASTER_MIN_MOVE})")
+    if not move > RASTER_MIN_MOVE:  # also fails on NaN
+        fail(f"{what}: the output with the rasters is the output without "
+             f"them (relative norm {move})")
+    return move
+
+
+def moment_census(optimizer) -> tuple:
+    """(bytes, elements) of the AdamW moments (``exp_avg``,
+    ``exp_avg_sq``) in ``optimizer``'s state."""
+    n_bytes = n_elems = 0
+    for state in optimizer.state.values():
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in state:
+                n_bytes += state[key].numel() * state[key].element_size()
+                n_elems += state[key].numel()
+    return n_bytes, n_elems
+
+
+def check_moment_bytes(n_bytes: int, n_elems: int, want: int,
+                       what: str) -> None:
+    """The optimizer state holds ``want`` bytes a moment element."""
+    log(f"{what}: AdamW moments {n_bytes / 1e9:.3f} GB over {n_elems} "
+        f"elements ({n_bytes / max(n_elems, 1):g} B an element; want {want})")
+    if n_elems == 0 or n_bytes != want * n_elems:
+        fail(f"{what}: the moments hold {n_bytes} B for {n_elems} elements, "
+             f"not {want} B an element")
+
+
+def profile_ms(fn) -> float:
+    """Device ms of the kernels one call of ``fn`` launches, from
+    ``torch.profiler`` (after one unprofiled warm-up call)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    fn()
+    torch.cuda.synchronize()
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(t for t, _, _ in _device_kernels(prof)) / 1e3
+
+
 def make_batch(dev, gen, text_tokens: int = TEXT_TOKENS,
-               text_dim: int = 4096, pooled_dim: int | None = 2048) -> dict:
+               text_dim: int = 4096, pooled_dim: int | None = 2048,
+               layout: bool = False) -> dict:
     """One canonical latent-space batch: 6 frames x 6 views, pre-encoded
     text (the DiT's 154 tokens, 4096 wide, pooled 2048 by default) and ring
-    cameras."""
+    cameras; with ``layout``, box and map rasters too."""
     b, t, v = 1, FRAMES, VIEWS
     w_img, h_img = 8 * LAT_W, 8 * LAT_H
     intr = torch.zeros(b, t, v, 3, 3, device=dev)
@@ -1194,6 +1300,8 @@ def make_batch(dev, gen, text_tokens: int = TEXT_TOKENS,
     if pooled_dim is not None:
         batch["pooled_projections"] = torch.randn(
             b, t, v, pooled_dim, generator=gen, device=dev)
+    if layout:
+        batch.update(layout_rasters(dev, gen))
     return {
         **batch,
         "camera_intrinsics": intr,
@@ -1204,11 +1312,41 @@ def make_batch(dev, gen, text_tokens: int = TEXT_TOKENS,
     }
 
 
+def serve_layout_checks(model, common_config: dict, batch: dict,
+                        get_conditions, cfg_kwargs: dict, what: str) -> dict:
+    """A layout path's adapter at full width: the rasters gate on one
+    forward of batch 1 (``check_rasters_move``), then the device ms
+    (profiler) of the ImageAdapter at the CFG batch and of the CFG forward
+    that runs it."""
+    kwargs = {**get_conditions(batch, common_config),
+              "sample": cfg_kwargs["sample"][:1],
+              "timestep": cfg_kwargs["timestep"][:1]}
+    rasters = kwargs["condition_image_tensor"]
+    uncond = torch.full_like(rasters, common_config["uncondition_image_color"])
+    with torch.inference_mode():
+        move = check_rasters_move(
+            model(**kwargs),
+            model(**{**kwargs, "condition_image_tensor": uncond}), what)
+        adapter_ms = profile_ms(lambda: model.condition_image_adapter(
+            cfg_kwargs["condition_image_tensor"].to(model.dtype)))
+        forward_ms = profile_ms(lambda: model(**cfg_kwargs))
+    log(f"{what}: ImageAdapter {adapter_ms:.3f} device ms at the CFG batch "
+        f"(rasters {tuple(cfg_kwargs['condition_image_tensor'].shape)}), "
+        f"{100 * adapter_ms / forward_ms:.2f}% of the CFG forward's "
+        f"{forward_ms:.3f} device ms (profiler)")
+    return {"raster_move": move, "adapter_ms": adapter_ms,
+            "forward_device_ms": forward_ms}
+
+
 def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions,
-              profile: bool = False):
-    cfg = json.loads(CONFIG.read_text())["pipeline"]
-    log(f"cut: inference_steps {cfg['inference_config']['inference_steps']} "
-        f"-> {STEPS}")
+              profile: bool = False, config: Path = CONFIG,
+              layout: bool = False, tag: str = "serve"):
+    """A CTSD-3.5 DiT serving path at full width: a 2-window rollout with
+    CFG, then the SD3.5 VAE decode; with ``layout``, box and map rasters
+    through the ImageAdapter (``serve_layout_checks``)."""
+    cfg = json.loads(config.read_text())["pipeline"]
+    log(f"{tag} cut: inference_steps "
+        f"{cfg['inference_config']['inference_steps']} -> {STEPS}")
     cfg["inference_config"]["inference_steps"] = STEPS
     with torch.device("meta"):
         pipe = create_instance_from_config(cfg)
@@ -1221,12 +1359,12 @@ def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions,
     pipe.set_vae(vae)
     model = pipe.model
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"denoiser: {CONFIG.relative_to(REPO)}, {len(model.transformer_blocks)}"
-        f" joint blocks, width {model.inner_dim}, {n_params / 1e9:.3f}B "
-        f"params, {model.dtype}; guidance "
-        f"{cfg['inference_config']['guidance_scale']}")
+    log(f"{tag} denoiser: {config.relative_to(REPO)}, "
+        f"{len(model.transformer_blocks)} joint blocks, width "
+        f"{model.inner_dim}, {n_params / 1e9:.3f}B params, {model.dtype}; "
+        f"guidance {cfg['inference_config']['guidance_scale']}")
 
-    batch = make_batch(dev, gen)
+    batch = make_batch(dev, gen, layout=layout)
     latent_shape = (1, FRAMES, VIEWS, LAT_H, LAT_W, 16)
     total_frames = FRAMES + (WINDOWS - 1) * (FRAMES - 1)
 
@@ -1252,7 +1390,12 @@ def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions,
                 f"{json.dumps(adaln_profile_ms(prof))}")
     if out.shape != sample.shape or not torch.isfinite(out).all():
         fail("denoiser forward output is not finite or has the wrong shape")
-    del out, sample, conds
+    del out
+    if layout:
+        serve_layout_checks(model, pipe.common_config, batch, get_conditions,
+                            dict(sample=sample, timestep=timestep, **conds),
+                            f"{tag} DiT")
+    del sample, conds
     forward_s = min(fwd_s[1:])
 
     ops.reset_launch_counts()
@@ -1279,23 +1422,24 @@ def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions,
         fail(f"decoded frames {tuple(frames.shape)} not finite/expected")
     forwards = WINDOWS * STEPS
     rollout_s, decode_s = t1 - t0, t2 - t1
-    log(f"rollout: {WINDOWS} windows x {STEPS} steps = {forwards} CFG "
+    log(f"{tag} rollout: {WINDOWS} windows x {STEPS} steps = {forwards} CFG "
         f"forwards, {total_frames} frames x {VIEWS} views, latents "
         f"{want_latents}, {rollout_s:.3f} s ({rollout_s / forwards:.3f} s "
         f"per step)")
-    log(f"decode: frames {want_frames} {frames.dtype}, {decode_s:.3f} s; "
-        f"frame range [{frames.min().item():.3f}, {frames.max().item():.3f}]")
-    log(f"denoiser forward (CFG batch 2 x {FRAMES * VIEWS} view-frames): "
-        f"{forward_s:.4f} s; per generated frame ({VIEWS} views, rollout + "
-        f"decode): "
+    log(f"{tag} decode: frames {want_frames} {frames.dtype}, {decode_s:.3f} "
+        f"s; frame range [{frames.min().item():.3f}, "
+        f"{frames.max().item():.3f}]")
+    log(f"{tag} denoiser forward (CFG batch 2 x {FRAMES * VIEWS} "
+        f"view-frames): {forward_s:.4f} s; per generated frame ({VIEWS} "
+        f"views, rollout + decode): "
         f"{(rollout_s + decode_s) / total_frames:.4f} s; peak memory "
         f"{peak_gb:.2f} GiB")
-    log(f"launches during the rollout: {json.dumps(counts)}")
+    log(f"launches during the {tag} rollout: {json.dumps(counts)}")
     for s in (602, 448, 168):
         if counts["flash_tail_by_seq"].get(s, 0) == 0:
-            fail(f"flash_tail never launched at s={s} on the main path")
+            fail(f"flash_tail never launched at s={s} on the {tag} path")
     k3, k4 = counts["adaln_modulate"], counts["residual_adaln_modulate"]
-    log(f"K3 {k3} launches ({k3 / forwards:g} a CFG forward), K4 {k4} "
+    log(f"{tag}: K3 {k3} launches ({k3 / forwards:g} a CFG forward), K4 {k4} "
         f"({k4 / forwards:g})")
     if k3 != K3_PER_FORWARD * forwards or k4 != K4_PER_FORWARD * forwards:
         fail(f"K3/K4 launched {k3}/{k4} times in {forwards} CFG forwards, not "
@@ -1304,12 +1448,15 @@ def run_slice(dev, create_instance_from_config, sd35_vae, ops, get_conditions,
 
 
 def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
-                   get_conditions, profile: bool = False):
-    """The CTSD-2.1 UNet serving path at full width: a 2-window rollout
-    with DDIM and CFG, then the SD2.1 VAE decode."""
-    cfg = json.loads(UNET_CONFIG.read_text())["pipeline"]
+                   get_conditions, profile: bool = False,
+                   config: Path = UNET_CONFIG, layout: bool = False,
+                   tag: str = "unet"):
+    """A CTSD-2.1 UNet serving path at full width: a 2-window rollout
+    with DDIM and CFG, then the SD2.1 VAE decode; with ``layout``, box and
+    map rasters through the ImageAdapter (``serve_layout_checks``)."""
+    cfg = json.loads(config.read_text())["pipeline"]
     ic = cfg["inference_config"]
-    log(f"unet cut: inference_steps {ic['inference_steps']} -> {STEPS}")
+    log(f"{tag} cut: inference_steps {ic['inference_steps']} -> {STEPS}")
     ic["inference_steps"] = STEPS
     with torch.device("meta"):
         pipe = create_instance_from_config(cfg)
@@ -1323,7 +1470,7 @@ def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
     model = pipe.model
     mc = cfg["model"]
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"unet denoiser: {UNET_CONFIG.relative_to(REPO)}, channels "
+    log(f"{tag} denoiser: {config.relative_to(REPO)}, channels "
         f"{mc['block_out_channels']}, heads {mc['num_attention_heads']} x 64, "
         f"rowwise cross-view {mc['enable_rowwise_crossview']}, rowwise "
         f"temporal {mc['enable_rowwise_temporal']}, {n_params / 1e9:.3f}B "
@@ -1331,7 +1478,8 @@ def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
         f"{pipe.test_scheduler.prediction_type}, guidance "
         f"{ic['guidance_scale']}")
 
-    batch = make_batch(dev, gen, UNET_TEXT_TOKENS, UNET_TEXT_DIM, None)
+    batch = make_batch(dev, gen, UNET_TEXT_TOKENS, UNET_TEXT_DIM, None,
+                       layout=layout)
     latent_shape = (1, FRAMES, VIEWS, LAT_H, LAT_W, UNET_LAT_C)
     total_frames = FRAMES + (WINDOWS - 1) * (FRAMES - 1)
 
@@ -1352,7 +1500,12 @@ def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
                                         **conds), "UNet CFG forward")
     if out.shape != sample.shape or not torch.isfinite(out).all():
         fail("UNet forward output is not finite or has the wrong shape")
-    del out, sample, conds
+    del out
+    if layout:
+        serve_layout_checks(model, pipe.common_config, batch, get_conditions,
+                            dict(sample=sample, timestep=timestep, **conds),
+                            f"{tag} UNet")
+    del sample, conds
     forward_s = min(fwd_s[1:])
 
     ops.reset_launch_counts()
@@ -1374,36 +1527,36 @@ def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
     want_frames = (1, total_frames, VIEWS, 8 * LAT_H, 8 * LAT_W, 3)
     if tuple(latents.shape) != want_latents or \
             not torch.isfinite(latents).all():
-        fail(f"unet rollout latents {tuple(latents.shape)} not "
+        fail(f"{tag} rollout latents {tuple(latents.shape)} not "
              "finite/expected")
     if tuple(frames.shape) != want_frames or not torch.isfinite(frames).all():
-        fail(f"unet decoded frames {tuple(frames.shape)} not finite/expected")
+        fail(f"{tag} decoded frames {tuple(frames.shape)} not finite/expected")
     forwards = WINDOWS * STEPS
     rollout_s, decode_s = t1 - t0, t2 - t1
     frame_s = (rollout_s + decode_s) / total_frames
-    log(f"unet rollout: {WINDOWS} windows x {STEPS} steps = {forwards} CFG "
+    log(f"{tag} rollout: {WINDOWS} windows x {STEPS} steps = {forwards} CFG "
         f"forwards, {total_frames} frames x {VIEWS} views, latents "
         f"{want_latents}, {rollout_s:.3f} s ({rollout_s / forwards:.3f} s "
         f"per step); latent range [{latents.min().item():.3f}, "
         f"{latents.max().item():.3f}]")
-    log(f"unet decode: frames {want_frames} {frames.dtype}, {decode_s:.3f} "
+    log(f"{tag} decode: frames {want_frames} {frames.dtype}, {decode_s:.3f} "
         f"s; frame range [{frames.min().item():.3f}, "
         f"{frames.max().item():.3f}]")
-    log(f"unet forward (CFG batch 2 x {FRAMES * VIEWS} view-frames): "
+    log(f"{tag} forward (CFG batch 2 x {FRAMES * VIEWS} view-frames): "
         f"{forward_s:.4f} s; per generated frame ({VIEWS} views, rollout + "
         f"decode): {frame_s:.4f} s; peak memory {peak_gib:.2f} GiB")
-    log(f"launches during the unet rollout: {json.dumps(counts)}")
+    log(f"launches during the {tag} rollout: {json.dumps(counts)}")
     k7_key = f"{2 * FRAMES * VIEWS},{LAT_H * LAT_W},{LAT_H * LAT_W},5,64"
     k7 = counts["flash_attention_by_shape"].get(k7_key, 0)
-    log(f"K7 at ({k7_key}): {k7} launches, {k7 / forwards:g} per CFG "
+    log(f"{tag}: K7 at ({k7_key}): {k7} launches, {k7 / forwards:g} per CFG "
         f"forward")
     want = UNET_K7_PER_FORWARD * forwards
     if k7 != want or counts["flash_attention"] != want:
         fail(f"flash_attention launched {counts['flash_attention_by_shape']}"
-             f" on the unet path, not {want} times at ({k7_key})")
+             f" on the {tag} path, not {want} times at ({k7_key})")
     for s in (336, 448, 168):
         if counts["flash_tail_by_seq"].get(s, 0) == 0:
-            fail(f"flash_tail never launched at s={s} on the unet path")
+            fail(f"flash_tail never launched at s={s} on the {tag} path")
     return counts, {"forward_s": forward_s, "frame_s": frame_s,
                     "peak_gib": peak_gib}
 
@@ -1417,6 +1570,7 @@ FAMILIES = (  # kernel families of the profiles, matched in order, lowercase
     ("group norm", ("group_norm", "groupnorm")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
     ("AdamW (fused)", ("adam", "fusedoptimizer")),
+    ("foreach (FlatAdamW, clipping)", ("foreach", "multi_tensor")),
     ("reduce (norms, sums)", ("reduce",)),
     ("copy / cat / cast", ("copy", "cat", "memcpy", "memset")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -1494,13 +1648,23 @@ def profile_forward(model, kwargs: dict, what: str):
 
 
 def run_train_slice(dev, create_instance_from_config, ops,
-                    profile: bool = False):
-    """``train_step`` at full width and depth on a synthetic batch."""
-    cfg = json.loads(CONFIG.read_text())["pipeline"]
+                    profile: bool = False, config: Path = CONFIG,
+                    sd35_vae=None, tag: str = "train"):
+    """``train_step`` of a CTSD-3.5 DiT at full width and depth on a
+    synthetic batch of latents; given ``sd35_vae``, the layout path: a
+    batch of pixels (``vae_images``) and box/map rasters, encoded by the
+    SD3.5 VAE in the step, with ``BM_OPTIMIZER``'s flat AdamW and bf16
+    moments."""
+    layout = sd35_vae is not None
+    cfg = json.loads(config.read_text())["pipeline"]
     cfg["model"]["param_dtype"] = torch.float32
     mc, oc, tc = cfg["model"], cfg["optimizer_config"], cfg["training_config"]
-    log(f"train: AdamW lr {oc['lr']}, weight decay {oc['weight_decay']}, "
-        f"clip {tc['max_norm_for_grad_clip']}, fp32 moments; remat: joint "
+    if layout:
+        oc.update(BM_OPTIMIZER)
+    moments = oc.get("mu_dtype", "float32") if oc.get("flat") else "float32"
+    log(f"{tag}: {config.relative_to(REPO)}; AdamW lr {oc['lr']}, weight "
+        f"decay {oc['weight_decay']}, clip {tc['max_norm_for_grad_clip']}, "
+        f"flat {bool(oc.get('flat'))}, {moments} moments; remat: joint "
         f"blocks {mc.get('gradient_checkpointing', False)} (layers "
         f"{mc.get('remat_block_layers', 'all')}), cross-view "
         f"{mc.get('crossview_gradient_checkpointing', False)}, temporal "
@@ -1512,21 +1676,48 @@ def run_train_slice(dev, create_instance_from_config, ops,
     model.to_empty(device=dev)
     random_init_(model, gen)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"train: {len(model.transformer_blocks)} joint blocks, width "
+    moment_bytes = 2 * torch.finfo(getattr(torch, moments)).bits // 8
+    state_bytes = n_params * (8 + moment_bytes)
+    log(f"{tag}: {len(model.transformer_blocks)} joint blocks, width "
         f"{model.inner_dim}, {n_params / 1e9:.3f}B params in fp32, compute "
-        f"{model.dtype}; reckoned state {n_params * 16 / 1e9:.1f} GB = "
-        f"{n_params * 16 / 2**30:.1f} GiB (4 B param + 4 B grad + 8 B "
-        f"AdamW moments)")
-    batch = make_batch(dev, gen)
-    batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W, 16,
-                                   generator=gen, device=dev)
-    counts, metrics = drive_train(dev, pipe, batch, ops, "train", profile)
+        f"{model.dtype}; reckoned state {state_bytes / 1e9:.1f} GB = "
+        f"{state_bytes / 2**30:.1f} GiB (4 B param + 4 B grad + "
+        f"{moment_bytes} B AdamW moments)")
+    batch = make_batch(dev, gen, layout=layout)
+    if layout:
+        with torch.device("meta"):
+            vae = sd35_vae(dtype=torch.bfloat16)
+        vae.to_empty(device=dev)
+        random_init_(vae, gen)
+        pipe.set_vae(vae.eval().requires_grad_(False))
+        batch["vae_images"] = torch.rand(
+            1, FRAMES, VIEWS, 8 * LAT_H, 8 * LAT_W, 3, generator=gen,
+            device=dev) * 2 - 1
+    else:
+        batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W, 16,
+                                       generator=gen, device=dev)
+    counts, metrics = drive_train(dev, pipe, batch, ops, tag, profile)
     for s in (602, 448, 168):
         if counts["flash_tail_by_seq"].get(s, 0) == 0:
-            fail(f"flash_tail never launched at s={s} in the train steps")
+            fail(f"flash_tail never launched at s={s} in the {tag} steps")
         if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
-            fail(f"the K2 backward never launched at s={s} in the train "
+            fail(f"the K2 backward never launched at s={s} in the {tag} "
                  "steps")
+    check_moment_bytes(*metrics["moments"], moment_bytes // 2, tag)
+    if layout:
+        rasters = torch.cat([batch["3dbox_images"], batch["hdmap_images"]],
+                            -1)
+        with torch.no_grad():
+            metrics["encoder_ms"] = profile_ms(
+                lambda: pipe.ensure_latents(batch))
+            metrics["adapter_ms"] = profile_ms(
+                lambda: model.condition_image_adapter(rasters.to(model.dtype)))
+        step_ms = 1e3 * metrics["s_per_step"]
+        log(f"{tag}: VAE encoder {metrics['encoder_ms']:.3f} device ms for "
+            f"{tuple(batch['vae_images'].shape)} images "
+            f"({100 * metrics['encoder_ms'] / step_ms:.2f}% of a step's "
+            f"{step_ms:.1f} ms wall); ImageAdapter forward "
+            f"{metrics['adapter_ms']:.3f} device ms (profiler)")
     return counts, metrics
 
 
@@ -1535,8 +1726,9 @@ def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False):
     generator, steps 2 onward timed; between step 1 and the timed steps, the
     launches by phase on one untimed forward + backward (no update). Fails
     on a non-finite loss or gradient norm, or if fewer than 99% of the
-    parameters changed. Returns the launches of the timed steps and
-    {s_per_step, peak_gib}."""
+    parameters changed; then times the update alone. Returns the launches
+    of the timed steps and {s_per_step, peak_gib, update_s, moments:
+    ``moment_census`` of the optimizer}."""
     state = pipe.init_state()
     generator = torch.Generator(dev).manual_seed(SEED + 1)
     names, params = zip(*pipe.model.named_parameters())
@@ -1591,6 +1783,23 @@ def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False):
     if changed < 0.99 * len(params):
         fail(f"only {changed} of {len(params)} parameters changed")
 
+    # The update alone: optimizer.step() between two synchronizes, twice on
+    # one more backward's gradients (the timed steps keep theirs overlapped)
+    loss, _ = pipe.loss_fn(batch, torch.Generator(dev).manual_seed(SEED + 3))
+    loss.backward()
+    del loss
+    update_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state.optimizer.step()
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t0)
+    for p in params:
+        p.grad = None
+    log(f"{tag}: the update ({type(state.optimizer).__name__}.step) alone: "
+        f"{', '.join(f'{u:.4f}' for u in update_s)} s")
+
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as profiler
@@ -1606,7 +1815,9 @@ def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False):
         log(f"{tag} profiled steps: "
             f"{', '.join(f'{w:.3f}' for w in walls)} s")
         log(_kernel_time_table(prof, sum(walls), f"{tag} step", len(walls)))
-    return counts, {"s_per_step": s_per_step, "peak_gib": peak_gib}
+    return counts, {"s_per_step": s_per_step, "peak_gib": peak_gib,
+                    "update_s": min(update_s),
+                    "moments": moment_census(state.optimizer)}
 
 
 def run_unet_train_slice(dev, create_instance_from_config, ops,
@@ -1706,9 +1917,9 @@ def check_adaln_ptxas(_build) -> dict:
 
 
 def check_adaln_on_paths(paths: dict) -> None:
-    """Every K3 and K4 launch of the DiT paths ran the d-1536 kernel, and
-    each path launched both."""
-    for path in ("serve", "train"):
+    """Every K3 and K4 launch of the DiT paths (``DIT_PATHS``) ran the
+    d-1536 kernel, and each path launched both."""
+    for path in DIT_PATHS:
         c = paths[path]
         for key in ("adaln_modulate", "residual_adaln_modulate"):
             log(f"{path}: {key} {c[key]} launches, {c[f'{key}_fixed']} on "
@@ -1720,11 +1931,11 @@ def check_adaln_on_paths(paths: dict) -> None:
 
 
 def check_new_body_on_paths(paths: dict) -> None:
-    """Every forward launch of K1, K7 and K7-seg on the model paths ran the
-    Hopper forward, and every backward launch of K2 and K7 on the training
-    paths the Hopper backward (bf16, head dim 64, aligned), none an old
-    body."""
-    for path in ("train", "unet_train"):
+    """Every forward launch of K1, K7 and K7-seg on the model paths
+    (``MODEL_PATHS``) ran the Hopper forward, and every backward launch of
+    K2 and K7 on the training paths (``TRAIN_PATHS``) the Hopper backward
+    (bf16, head dim 64, aligned), none an old body."""
+    for path in TRAIN_PATHS:
         c = paths[path]
         k2_old = c["flash_tail_backward"] - c["flash_tail_backward_sm90"]
         k7_old = c["flash_attention_backward"] - \
@@ -1736,7 +1947,7 @@ def check_new_body_on_paths(paths: dict) -> None:
         if k2_old or k7_old:
             fail(f"{path}: {k2_old} K2 and {k7_old} K7 backward launches ran "
                  "an old body")
-    for path in ("serve", "train", "unet_serve", "unet_train"):
+    for path in MODEL_PATHS:
         c = paths[path]
         k1_old = c["flash_tail"] - c["flash_tail_sm90"]
         k7_old = c["flash_attention"] + c["flash_attention_segment"] - \
@@ -1834,18 +2045,45 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log_clocks("before the train slice")
-    train, _ = run_train_slice(dev, create_instance_from_config, ops,
-                               profile="--profile-train" in sys.argv[1:])
+    train, train_metrics = run_train_slice(
+        dev, create_instance_from_config, ops,
+        profile="--profile-train" in sys.argv[1:])
     gc.collect()
     torch.cuda.empty_cache()
     log_clocks("before the UNet train slice")
     unet_train, _ = run_unet_train_slice(
         dev, create_instance_from_config, ops,
         profile="--profile-unet-train" in sys.argv[1:])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the bm DiT serving slice")
+    bm_serve = run_slice(dev, create_instance_from_config, sd35_vae, ops,
+                         get_conditions, config=BM_CONFIG, layout=True,
+                         tag="bm serve")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the bm UNet serving slice")
+    bm_unet, _ = run_unet_slice(dev, create_instance_from_config, sd21_vae,
+                                ops, get_conditions, config=BM_UNET_CONFIG,
+                                layout=True, tag="bm unet")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the bm DiT train slice")
+    bm_train, bm_train_metrics = run_train_slice(
+        dev, create_instance_from_config, ops, config=BM_CONFIG,
+        sd35_vae=sd35_vae, tag="bm train",
+        profile="--profile-train" in sys.argv[1:])
+    log(f"train peak memory: nwao (fp32 moments) "
+        f"{train_metrics['peak_gib']:.2f} GiB, bm (bf16 moments, "
+        f"+ImageAdapter, +VAE encoder) {bm_train_metrics['peak_gib']:.2f} "
+        f"GiB; the update alone: nwao (fused AdamW) "
+        f"{train_metrics['update_s']:.4f} s, bm (FlatAdamW) "
+        f"{bm_train_metrics['update_s']:.4f} s")
     log_clocks("at the end")
     paths = {"serve": serve, "train": train, "unet_serve": unet,
-             "unet_train": unet_train, "tailvar": tailvar,
-             "attn602": attn602}
+             "unet_train": unet_train, "bm_serve": bm_serve,
+             "bm_unet_serve": bm_unet, "bm_train": bm_train,
+             "tailvar": tailvar, "attn602": attn602}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
               if p != "attn602" and c["flash_attention_segment"]}
     if strays:

@@ -46,6 +46,8 @@ _LAZY_MODULES: dict[str, str] = {
     "diffusers.DDPMScheduler": "opendwm_tpu_torch.schedulers",
     "diffusers.DDIMScheduler": "opendwm_tpu_torch.schedulers",
     "diffusers.AutoencoderKL": "opendwm_tpu_torch.models.autoencoders",
+    "dwm.models.adapters": "opendwm_tpu_torch.models.adapters",
+    "ImageAdapter": "opendwm_tpu_torch.models.adapters",
     "dwm.pipelines.ctsd": "opendwm_tpu_torch.pipelines.ctsd",
     "CTSDPipeline": "opendwm_tpu_torch.pipelines.ctsd",
     "DiTCrossviewTemporal": "opendwm_tpu_torch.models.mmdit",
@@ -83,8 +85,9 @@ def get_class(class_name: str):
         return get_class(_ALIASES[class_name])
     raise KeyError(
         f"{class_name!r} has no PyTorch port yet (opendwm_tpu_torch covers "
-        "the CTSD-3.5 serving and training paths and the CTSD-2.1 serving "
-        "path; see ROADMAP.md Queue 1)."
+        "the CTSD-3.5 MMDiT and CTSD-2.1 UNet serving and training paths, "
+        "with the layout ImageAdapter and the image VAE; see ROADMAP.md "
+        "Queue 1)."
     )
 
 

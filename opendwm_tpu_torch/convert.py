@@ -103,8 +103,30 @@ _DIT_TOP_LEVEL = re.compile(
     r"(pos_embed|context_embedder|time_text_embed|view_embedding|"
     r"transformer_blocks_\d+|crossview_transformer_blocks_\d+|"
     r"temporal_transformer_blocks_\d+|view_pos_embeds_\d+|"
-    r"time_pos_embeds_\d+|view_mixers_\d+|time_mixers_\d+|norm_out|proj_out)"
+    r"time_pos_embeds_\d+|view_mixers_\d+|time_mixers_\d+|norm_out|proj_out|"
+    r"condition_image_adapter)"
 )
+
+
+def image_adapter_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``ImageAdapter`` params (``body_{i}/in_conv``,
+    ``body_{i}/resnets_{j}/block1|block2``, ``zero_convs_{i}``,
+    ``zero_gates``) → reference state dict (numpy)."""
+    tree = _tree(params)
+    sd: dict = {}
+    for i in range(_count(tree, "body")):
+        body = f"body_{i}"
+        if _has(tree, f"{body}/in_conv"):
+            _conv(tree, sd, f"{body}/in_conv", f"body.{i}.in_conv")
+        for j in range(_count(tree[body], "resnets")):
+            for conv in ("block1", "block2"):
+                _conv(tree, sd, f"{body}/resnets_{j}/{conv}",
+                      f"body.{i}.resnets.{j}.{conv}")
+    for i in range(_count(tree, "zero_convs")):
+        _conv(tree, sd, f"zero_convs_{i}", f"zero_convs.{i}")
+    if "zero_gates" in tree:
+        sd["zero_gates"] = np.asarray(tree["zero_gates"])
+    return sd
 
 
 def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
@@ -150,6 +172,11 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
             key = "mix_factor" if "mix_factor" in node else "scale"
             sd[f"{kind}.{j}.{key}"] = np.asarray(node[key])
 
+    if "condition_image_adapter" in tree:
+        adapter = image_adapter_state_dict_from_flax(
+            tree["condition_image_adapter"])
+        sd.update({f"condition_image_adapter.{k}": v
+                   for k, v in adapter.items()})
     _linear(tree, sd, "norm_out/linear", "norm_out.linear")
     _linear(tree, sd, "proj_out", "proj_out")
     return sd
@@ -160,7 +187,8 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
 _FLAX_PIECES = (
     (re.compile(r"(^|\.)((?:crossview_|temporal_)?transformer_blocks|"
                 r"view_pos_embeds|time_pos_embeds|view_mixers|time_mixers|"
-                r"down_blocks|up_blocks|resnets|attentions)\.(\d+)(?=\.)"),
+                r"down_blocks|up_blocks|resnets|attentions|body|zero_convs)"
+                r"\.(\d+)(?=\.)"),
      r"\1\2_\3"),
     (re.compile(r"\.to_out\.0\."), ".to_out."),
     (re.compile(r"\.net\.0\.proj\."), ".proj_in."),
@@ -177,7 +205,9 @@ def flax_param_name(name: str, ndim: int) -> str:
     (``ndim``: its rank): ``transformer_blocks.0.ff.net.0.proj.weight`` →
     ``transformer_blocks_0.ff.proj_in.kernel``,
     ``down_blocks.0.resnets.1.spatial_res_block.norm1.weight`` →
-    ``down_blocks_0.resnets_1.spatial_res_block.norm1.scale``."""
+    ``down_blocks_0.resnets_1.spatial_res_block.norm1.scale``,
+    ``condition_image_adapter.body.0.in_conv.weight`` →
+    ``condition_image_adapter.body_0.in_conv.kernel``."""
     for pattern, repl in _FLAX_PIECES:
         name = pattern.sub(repl, name)
     head, _, leaf = name.rpartition(".")
@@ -283,7 +313,7 @@ def vae_state_dict_from_flax(params: Mapping) -> dict:
 # UNet flax module names → reference state-dict pieces.
 _UNET_LISTS = ("down_blocks", "up_blocks", "resnets", "attentions",
                "transformer_blocks", "crossview_transformer_blocks",
-               "temporal_transformer_blocks")
+               "temporal_transformer_blocks", "body", "zero_convs")
 _UNET_RENAMES = {"downsample": "downsamplers.0.conv",
                  "upsample": "upsamplers.0.conv", "to_out": "to_out.0"}
 

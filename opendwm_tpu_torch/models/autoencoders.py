@@ -1,11 +1,11 @@
-"""SD image VAE, decode side (``opendwm_tpu/models/autoencoders.py``).
+"""SD image VAE (``opendwm_tpu/models/autoencoders.py``): the encoder,
+which turns pixel-space training batches into latents, and the decoder.
 
 Public tensors are channel-last like the JAX package's (latents
 ``(..., h, w, c)``, images ``(..., H, W, 3)``); the modules permute to
 NCHW inside for PyTorch's convolutions. Parameter names are the diffusers
 ``AutoencoderKL`` state-dict names, so a released checkpoint loads with
-``load_state_dict``; its encoder keys are skipped, because the encoder is
-not ported yet (ROADMAP Queue 1, item 4).
+``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -76,6 +76,18 @@ class _Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
+class _Downsample(nn.Module):
+    """diffusers' ``Downsample2D``: pad (0, 1, 0, 1), then a stride-2 conv
+    without padding."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class _MidBlock(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -107,6 +119,56 @@ class _UpBlock(nn.Module):
         return h
 
 
+class _DownBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, layers: int,
+                 downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock(in_channels if j == 0 else out_channels, out_channels)
+            for j in range(layers)
+        ])
+        self.downsamplers = (
+            nn.ModuleList([_Downsample(out_channels)]) if downsample else None
+        )
+
+    def forward(self, h):
+        for r in self.resnets:
+            h = r(h)
+        if self.downsamplers is not None:
+            h = self.downsamplers[0](h)
+        return h
+
+
+class Encoder(nn.Module):
+    """``conv_in`` → down blocks (``layers_per_block`` resnets, then a
+    stride-2 conv but in the last) → mid block → norm, silu, ``conv_out``
+    to the posterior's mean and log-variance (``2 * latent_channels``)."""
+
+    def __init__(self,
+                 block_out_channels: Sequence[int] = (128, 256, 512, 512),
+                 layers_per_block: int = 2, latent_channels: int = 4,
+                 in_channels: int = 3):
+        super().__init__()
+        chans = list(block_out_channels)
+        self.conv_in = nn.Conv2d(in_channels, chans[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList([
+            _DownBlock(chans[i - 1] if i else chans[0], ch, layers_per_block,
+                       downsample=i < len(chans) - 1)
+            for i, ch in enumerate(chans)
+        ])
+        self.mid_block = _MidBlock(chans[-1])
+        self.conv_norm_out = _group_norm(chans[-1])
+        self.conv_out = nn.Conv2d(chans[-1], 2 * latent_channels, 3,
+                                  padding=1)
+
+    def forward(self, x):  # NCHW
+        h = self.conv_in(x)
+        for blk in self.down_blocks:
+            h = blk(h)
+        h = self.mid_block(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+
 class Decoder(nn.Module):
     def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
                  layers_per_block: int = 3, latent_channels: int = 4,
@@ -132,8 +194,10 @@ class Decoder(nn.Module):
 
 @register("AutoencoderKL", aliases=("diffusers.AutoencoderKL",))
 class AutoencoderKL(nn.Module):
-    """KL image VAE (decode side). ``decode_from_scaled`` undoes the
-    pipelines' latent scaling: ``decode(latents / scale + shift)``."""
+    """KL image VAE. ``encode`` gives the posterior's (mean, logvar);
+    ``encode_to_scaled`` the pipelines' latents ``(z - shift) * scale``, z
+    the mean or a posterior sample; ``decode_from_scaled`` undoes the
+    scaling: ``decode(latents / scale + shift)``."""
 
     def __init__(
         self,
@@ -154,9 +218,15 @@ class AutoencoderKL(nn.Module):
         self.scaling_factor = scaling_factor
         self.shift_factor = shift_factor
         self.use_quant_conv = use_quant_conv
+        self.downscale_factor = 2 ** (len(block_out_channels) - 1)
+        self.latent_channels = latent_channels
+        self.encoder = Encoder(block_out_channels,
+                               latent_channels=latent_channels)
         self.decoder = Decoder(block_out_channels,
                                latent_channels=latent_channels)
         if use_quant_conv:
+            self.quant_conv = nn.Conv2d(2 * latent_channels,
+                                        2 * latent_channels, 1)
             self.post_quant_conv = nn.Conv2d(latent_channels,
                                              latent_channels, 1)
         self.to(dtype)
@@ -165,15 +235,45 @@ class AutoencoderKL(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.decoder.conv_in.weight.dtype
 
-    def load_state_dict(self, state_dict, strict: bool = True, assign=False):
-        """Load a diffusers AutoencoderKL state dict; the encoder's entries
-        (``encoder.*``, ``quant_conv.*``) are skipped."""
-        state_dict = {
-            k: v for k, v in state_dict.items()
-            if not k.startswith(("encoder.", "quant_conv."))
-        }
-        return super().load_state_dict(state_dict, strict=strict,
-                                       assign=assign)
+    def latent_shape(self, image_shape: Sequence[int]) -> tuple:
+        """The latents' shape for images of ``image_shape`` (..., H, W, 3)."""
+        *lead, h, w, _ = image_shape
+        f = self.downscale_factor
+        return (*lead, h // f, w // f, self.latent_channels)
+
+    def encode(self, x: torch.Tensor):
+        """``x``: ``(..., H, W, 3)`` images in [-1, 1] → the posterior's
+        ``(mean, logvar)``, each ``(..., h, w, c)``; logvar clipped to
+        [-30, 20]."""
+        lead = x.shape[:-3]
+        x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2).to(self.dtype)
+        moments = self.encoder(x)
+        if self.use_quant_conv:
+            moments = self.quant_conv(moments)
+        mean, logvar = moments.permute(0, 2, 3, 1).chunk(2, dim=-1)
+        logvar = logvar.clamp(-30.0, 20.0)
+        shape = (*lead, *mean.shape[1:])
+        return mean.reshape(shape), logvar.reshape(shape)
+
+    @staticmethod
+    def sample_posterior(mean, logvar, generator=None, noise=None):
+        """``mean + exp(logvar / 2) * noise``; ``noise`` (standard normal,
+        ``mean``'s shape) is drawn from ``generator`` unless given."""
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=mean.device)
+        return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+
+    def encode_to_scaled(self, images: torch.Tensor, generator=None,
+                         noise=None) -> torch.Tensor:
+        """Images → the pipelines' latents ``(z - shift) * scale``: z is a
+        posterior sample when ``generator`` or ``noise`` is given, else the
+        mean."""
+        mean, logvar = self.encode(images)
+        z = mean
+        if generator is not None or noise is not None:
+            z = self.sample_posterior(mean, logvar, generator, noise)
+        return (z - self.shift_factor) * self.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """``z``: ``(..., h, w, c)`` latents → ``(..., H, W, 3)`` images."""

@@ -3,9 +3,12 @@
 Ported: the SD3.5 joint-block backbone (dual attention, qk-RMSNorm,
 ``context_pre_only`` last block), implicit perspective embedding, the
 ``rowwise`` cross-view and ``pointwise`` temporal branches mixed back by
-``AlphaBlender`` or ``Mixer``. The joint block's modulations run through
-the fused AdaLN kernels (``ops/fused_adaln.py``), which the JAX model
-writes out in jnp; its XLA-only optimisation barriers have no counterpart.
+``AlphaBlender`` or ``Mixer``, and the layout ImageAdapter
+(``condition_image_adapter_config``: one residual per stage, added to the
+tokens before each of the first ``len(channels)`` joint blocks). The joint
+block's modulations run through the fused AdaLN kernels
+(``ops/fused_adaln.py``), which the JAX model writes out in jnp; its
+XLA-only optimisation barriers have no counterpart.
 
 Training as the JAX model trains: parameters may be kept in
 ``param_dtype`` (fp32 master weights) while every Linear, Conv and norm
@@ -29,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.models.adapters import ImageAdapter
 from opendwm_tpu_torch.models.layers import (
     AlphaBlender,
     Attention,
@@ -153,6 +157,7 @@ class DiTCrossviewTemporal(nn.Module):
       encoder_hidden_states (b, t, v, L, joint_attention_dim)
       pooled_projections    (b, t, v, pooled_projection_dim)
       added_time_ids        (b, t, v, K) numeric conditions (implicit mode)
+      condition_image_tensor (b, t, v, H, W, C) layout rasters (the adapter)
       disable_crossview / disable_temporal: (b,) bool AlphaBlender overrides
 
     Keyword names follow the reference JSON config. ``dtype`` is the dtype
@@ -217,8 +222,6 @@ class DiTCrossviewTemporal(nn.Module):
                 f"perspective_modeling_type={perspective_modeling_type!r}",
                 "item 3",
             )
-        if condition_image_adapter_config is not None:
-            raise _not_ported("condition_image_adapter_config", "item 3")
         if mask_module_config is not None:
             raise _not_ported("mask_module_config (MaskGWM)", "item 3")
         if quantization is not None:
@@ -303,6 +306,11 @@ class DiTCrossviewTemporal(nn.Module):
             self.time_pos_embeds = nn.ModuleList(
                 [TimestepEmbedding(dim, dim * 4, dim) for _ in ids])
             self.time_mixers = nn.ModuleList([mixer() for _ in ids])
+        if condition_image_adapter_config is not None:
+            self.condition_image_adapter = ImageAdapter(
+                **condition_image_adapter_config)
+        else:
+            self.condition_image_adapter = None
         self.norm_out = Modulation(dim, 2)
         self.proj_out = Linear(dim, patch_size * patch_size * out_channels)
         self.to(param_dtype or dtype)
@@ -361,6 +369,9 @@ class DiTCrossviewTemporal(nn.Module):
                 pooled_projections = pooled_projections[:, :, None]
             if added_time_ids is not None and added_time_ids.ndim == 3:
                 added_time_ids = added_time_ids[:, :, None]
+            if condition_image_tensor is not None and \
+                    condition_image_tensor.ndim == 5:
+                condition_image_tensor = condition_image_tensor[:, :, None]
 
         b, t, v, hh, ww, _ = sample.shape
         p = self.patch_size
@@ -386,6 +397,16 @@ class DiTCrossviewTemporal(nn.Module):
             view_cam_emb = self.view_embedding(
                 feats.reshape(n, -1).to(dt))[:, None, :]
 
+        # Each adapter feature (b, t, v, gh, gw, dim) → tokens, added before
+        # joint block i (``mmdit.py:414-425``, ``:505-506``).
+        residuals = []
+        if self.condition_image_adapter is not None and \
+                condition_image_tensor is not None:
+            residuals = [
+                f.reshape(n, -1, f.shape[-1])
+                for f in self.condition_image_adapter(
+                    condition_image_tensor.to(dt))]
+
         if disable_crossview is None:
             disable_crossview = torch.zeros(b, dtype=torch.bool,
                                             device=x.device)
@@ -395,6 +416,8 @@ class DiTCrossviewTemporal(nn.Module):
         shape = (b, t, v, gh, gw, dim)
 
         for i, block in enumerate(self.transformer_blocks):
+            if i < len(residuals):
+                x = x + residuals[i]
             x, ctx = self._remat(block, self._remat_block(i))(
                 x.contiguous(), ctx, temb)
 

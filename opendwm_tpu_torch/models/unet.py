@@ -28,9 +28,11 @@ temporal and their mixer) and every transformer model of the down, mid
 and up blocks in the backward (``torch.utils.checkpoint``), as diffusers'
 blocks checkpoint them; remat changes memory, never values.
 
-Options outside the slice raise ``NotImplementedError`` naming their
-ROADMAP item: the ImageAdapter (``condition_image_adapter_config``), the
-depth net and int8 serving.
+The layout ImageAdapter (``condition_image_adapter_config``) adds its
+first residual after ``conv_in`` and each later one after a down block,
+where the sum also replaces that block's last skip state, as in the JAX
+model. Options outside the slice raise ``NotImplementedError`` naming
+their ROADMAP item: the depth net and int8 serving.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.models.adapters import ImageAdapter
 from opendwm_tpu_torch.models.layers import (
     AlphaBlender,
     Attention,
@@ -417,6 +420,7 @@ class UNetCrossviewTemporal(nn.Module):
       timestep              (b, t, v) per-frame timesteps
       encoder_hidden_states (b, t, v, L, cross_attention_dim)
       added_time_ids        (b, t, v, K) numeric conditions (fps, camera)
+      condition_image_tensor (b, t, v, H, W, C) layout rasters (the adapter)
       disable_crossview / disable_temporal: (b,) bool AlphaBlender overrides
       crossview_attention_mask: additive bias of the cross-view attention
 
@@ -426,8 +430,10 @@ class UNetCrossviewTemporal(nn.Module):
     is read as remat of the blocks' resnets and transformer models; the JAX
     UNet declares it and never reads it (``opendwm_tpu/models/unet.py:519``),
     which gives the same values. ``depth_frustum_range`` is accepted and not
-    read (no depth net here), as in the JAX model, and a
-    ``condition_image_tensor`` is ignored without an image adapter.
+    read (no depth net here), as in the JAX model. With an image adapter,
+    its residual 0 is added after ``conv_in`` and residual i after down
+    block i - 1, the sum replacing that block's last skip state; without
+    one, a ``condition_image_tensor`` is ignored.
     """
 
     def __init__(
@@ -456,9 +462,6 @@ class UNetCrossviewTemporal(nn.Module):
         quantization: Optional[str] = None,
     ):
         super().__init__()
-        if condition_image_adapter_config is not None:
-            raise _not_ported("condition_image_adapter_config (the UNet's "
-                              "ImageAdapter)", "item 9")
         if depth_net_config is not None:
             raise _not_ported("depth_net_config (DepthNet)", "item 9")
         if quantization is not None:
@@ -516,6 +519,9 @@ class UNetCrossviewTemporal(nn.Module):
         self.up_blocks = nn.ModuleList(ups)
         self.conv_norm_out = _gn(ch0, norm_eps)
         self.conv_out = Conv2d(ch0, out_channels, 3, padding=1)
+        self.condition_image_adapter = ImageAdapter(
+            **condition_image_adapter_config) \
+            if condition_image_adapter_config is not None else None
         self.to(param_dtype or dtype)
         self._dtype = dtype
         set_compute_dtype(self, dtype)
@@ -545,6 +551,7 @@ class UNetCrossviewTemporal(nn.Module):
         timestep: torch.Tensor,
         encoder_hidden_states: torch.Tensor,
         added_time_ids: Optional[torch.Tensor] = None,
+        condition_image_tensor: Optional[torch.Tensor] = None,
         disable_crossview: Optional[torch.Tensor] = None,
         disable_temporal: Optional[torch.Tensor] = None,
         crossview_attention_mask: Optional[torch.Tensor] = None,
@@ -557,6 +564,9 @@ class UNetCrossviewTemporal(nn.Module):
                 encoder_hidden_states = encoder_hidden_states[:, :, None]
             if added_time_ids is not None and added_time_ids.ndim == 3:
                 added_time_ids = added_time_ids[:, :, None]
+            if condition_image_tensor is not None and \
+                    condition_image_tensor.ndim == 5:
+                condition_image_tensor = condition_image_tensor[:, :, None]
         b, t, v = sample.shape[:3]
         dt = self.dtype
         dev = sample.device
@@ -574,13 +584,24 @@ class UNetCrossviewTemporal(nn.Module):
             emb = emb + self.add_embedding(aug.reshape(b * t * v, -1).to(dt))
         emb = emb.reshape(b, t, v, -1)
 
+        residuals = []
+        if self.condition_image_adapter is not None and \
+                condition_image_tensor is not None:
+            residuals = self.condition_image_adapter(
+                condition_image_tensor.to(dt))
+
         x = _per_image(lambda s: _conv(self.conv_in, s), sample.to(dt))
+        if residuals:
+            x = x + residuals[0]
         ctx = encoder_hidden_states.to(dt)
         cond = (ctx, disable_crossview, disable_temporal,
                 crossview_attention_mask)
         states = [x]
-        for block in self.down_blocks:
+        for i, block in enumerate(self.down_blocks, 1):
             x, block_states = block(x, emb, *cond)
+            if i < len(residuals):  # JAX ``unet.py:634-636``
+                x = x + residuals[i]
+                block_states[-1] = x
             states += block_states
         x = self.mid_block(x, emb, *cond)
         for block in self.up_blocks:

@@ -8,8 +8,10 @@ for the MMDiT, ``ctsd`` and ``diffusion_forcing`` styles; DDIM for the UNet,
 decode; and the training step of both objectives, flow matching
 (``sd3``) and DDPM (``unet``, epsilon / v / sample targets):
 reference-frame and diffusion-forcing input construction, condition
-dropout, the loss, AdamW with clipping, freezing and accumulation. The
-JAX ``lax.scan`` over steps is a Python loop here.
+dropout, the loss, AdamW with clipping, freezing and accumulation; a
+training batch may carry pixel-space ``vae_images`` in place of
+``latents``, encoded by the attached VAE. The JAX ``lax.scan`` over steps
+is a Python loop here.
 
 Randomness comes from an explicit ``torch.Generator``, and every draw can
 be handed in instead: initial noise (``noise``) for sampling, and the
@@ -322,18 +324,22 @@ def make_input_for_prediction(
 
 def draw_training_randoms(batch_shape, training_config: dict,
                           common_config: dict, generator=None,
-                          device=None, scheduler=None) -> dict:
+                          device=None, scheduler=None,
+                          vae: bool = False) -> dict:
     """Everything ``CTSDPipeline.loss_fn`` draws for latents of
     ``batch_shape`` (b, t, v, h, w, c), in the JAX package's order
-    (``ctsd.py:547``): noise; the train scheduler's draw per sample (per
-    frame under diffusion forcing): integer timesteps for a
-    ``DDPMScheduler``, else the flow-match normal or uniform draw; the
-    text, box, map and action condition-mask uniforms; the prediction
+    (``ctsd.py:542-547``): with ``vae``, the posterior noise of the VAE
+    encode (``"vae"``, the latents' shape); noise; the train scheduler's
+    draw per sample (per frame under diffusion forcing): integer timesteps
+    for a ``DDPMScheduler``, else the flow-match normal or uniform draw;
+    the text, box, map and action condition-mask uniforms; the prediction
     draws."""
     b, t = batch_shape[:2]
     df_mode = common_config.get(
         "frame_prediction_style") == "diffusion_forcing"
     t_shape = (b, t) if df_mode else (b,)
+    vae_noise = {"vae": torch.randn(tuple(batch_shape), generator=generator,
+                                    device=device)} if vae else {}
     noise = torch.randn(tuple(batch_shape), generator=generator,
                         device=device)
     if isinstance(scheduler, DDPMScheduler):
@@ -343,6 +349,7 @@ def draw_training_randoms(batch_shape, training_config: dict,
             t_shape, generator, device,
             training_config.get("weighting_scheme", "logit_normal"))
     return {
+        **vae_noise,
         "noise": noise,
         "time": time,
         **{key: torch.rand((b,), generator=generator, device=device)
@@ -451,17 +458,34 @@ class CTSDPipeline:
 
     def loss_fn(self, batch: dict, generator=None):
         """(loss, metrics) of one batch; draws from ``generator``."""
-        latents = self._latents(batch)
-        draws = draw_training_randoms(latents.shape, self.training_config,
+        if "latents" in batch:
+            shape, device = batch["latents"].shape, batch["latents"].device
+        else:
+            images = self._vae_images(batch)
+            shape, device = self.vae.latent_shape(images.shape), images.device
+        draws = draw_training_randoms(shape, self.training_config,
                                       self.common_config, generator,
-                                      latents.device, self.train_scheduler)
+                                      device, self.train_scheduler,
+                                      vae="latents" not in batch)
         return self.loss_from_draws(batch, draws)
 
-    def _latents(self, batch: dict) -> torch.Tensor:
-        if "latents" not in batch:
-            raise _not_ported("encoding vae_images to latents (the VAE "
-                              "encoder)", "item 4")
-        return batch["latents"]
+    def _vae_images(self, batch: dict) -> torch.Tensor:
+        if self.vae is None or "vae_images" not in batch:
+            raise ValueError("a batch without latents needs vae_images and "
+                             "a VAE attached by set_vae")
+        return batch["vae_images"]
+
+    def ensure_latents(self, batch: dict, noise=None) -> dict:
+        """``batch`` with ``latents``: a batch that carries them passes; else
+        its ``vae_images`` are encoded by the attached VAE (a posterior
+        sample on ``noise``, else the mean), without gradient
+        (``ctsd.py:484-492``)."""
+        if "latents" in batch:
+            return batch
+        with torch.no_grad():
+            latents = self.vae.encode_to_scaled(self._vae_images(batch),
+                                                noise=noise)
+        return {**batch, "latents": latents}
 
     def loss_from_draws(self, batch: dict, draws: dict):
         """The loss of ``ctsd.py:541-642`` on given draws
@@ -470,7 +494,7 @@ class CTSDPipeline:
         (loss, {"sd_loss": loss})."""
         if "depth_frustum_range" in self.common_config:
             raise _not_ported("the depth loss", "items 4 and 9")
-        latents = self._latents(batch)
+        latents = self.ensure_latents(batch, draws.get("vae"))["latents"]
         tc = self.training_config
         sched = self.train_scheduler
         noise = draws["noise"].to(latents.dtype)
@@ -546,7 +570,9 @@ class CTSDPipeline:
         return state, metrics
 
     def set_vae(self, vae) -> None:
-        """Attach an ``AutoencoderKL`` for ``decode_latents``."""
+        """Attach an ``AutoencoderKL``: ``decode_latents`` decodes with it,
+        and training batches may carry ``vae_images`` ((b, t, v, H, W, 3)
+        in [-1, 1]) in place of ``latents``."""
         self.vae = vae
 
     @torch.inference_mode()

@@ -5,9 +5,13 @@ The counterpart of ``opendwm_tpu/pipelines/optim.py`` (and of
 config shapes build the same update.
 
 - AdamW is ``torch.optim.AdamW`` (``fused=True`` on CUDA: the foreach path
-  allocates a full-size temporary next to the moments). The JAX package
-  runs its AdamW in XLA, not in a Pallas kernel, so torch's own is the
-  counterpart. Moments are fp32; another ``mu_dtype`` is not ported.
+  allocates a full-size temporary next to the moments), its moments in the
+  parameters' dtype, as ``optax.adamw`` keeps them. The JAX package runs
+  its AdamW in XLA, not in a Pallas kernel, so torch's own is the
+  counterpart. With ``flat`` and a ``mu_dtype`` other than fp32 (bf16
+  moments halve their 8 bytes a parameter), ``FlatAdamW`` follows
+  ``flat_adamw``: the math in fp32 on the upcast moments, both moments
+  stored in ``mu_dtype``.
 - Schedules are functions of the update count, evaluated before it is
   incremented (the first update uses ``schedule(0)``), as optax does; they
   drive the optimizer through a ``LambdaLR`` over a base lr of 1.
@@ -112,24 +116,129 @@ def split_trainable(model: torch.nn.Module, pattern: Optional[str]):
     return trainable, frozen
 
 
+class FlatAdamW(torch.optim.Optimizer):
+    """``flat_adamw`` (``opendwm_tpu/parallel/flat_optim.py``) with moments
+    stored in ``mu_dtype``: per update, in fp32 on the upcast moments,
+
+        mu = b1 mu + (1 - b1) g;  nu = b2 nu + (1 - b2) g g
+        step = mu / (1 - b1^c) / (sqrt(nu / (1 - b2^c)) + eps) + wd p
+        p += (-lr step) cast to p's dtype
+
+    with c the count after the increment; the moments are then rounded to
+    ``mu_dtype``. A parameter without a gradient takes a zero one, as the
+    flat buffer does. The update runs on chunks of at most ``CHUNK``
+    elements with ``torch._foreach_*`` ops, so the fp32 copies of the
+    moments never exist for all parameters at once."""
+
+    CHUNK = 1 << 26  # 64 Mi elements: ~2 GB of fp32 temporaries a chunk
+
+    def __init__(self, params, lr: float = 1e-4, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.01,
+                 mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+
+    def _chunks(self, params):
+        part, size = [], 0
+        for p in params:
+            if part and size + p.numel() > self.CHUNK:
+                yield part
+                part, size = [], 0
+            part.append(p)
+            size += p.numel()
+        if part:
+            yield part
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("FlatAdamW takes no closure")
+        for group in self.param_groups:
+            lr, (b1, b2) = group["lr"], group["betas"]
+            eps, wd = group["eps"], group["weight_decay"]
+            for params in self._chunks(group["params"]):
+                for p in params:
+                    state = self.state[p]
+                    if not state:
+                        state["step"] = 0
+                        state["exp_avg"] = torch.zeros_like(
+                            p, dtype=self.mu_dtype)
+                        state["exp_avg_sq"] = torch.zeros_like(
+                            p, dtype=self.mu_dtype)
+                    state["step"] += 1
+                states = [self.state[p] for p in params]
+                # the bias corrections in fp32, as jnp evaluates them
+                c = torch.tensor(float(states[0]["step"]))
+                bc1 = float(1.0 - torch.tensor(b1) ** c)
+                bc2 = float(1.0 - torch.tensor(b2) ** c)
+                g = [torch.zeros_like(p, dtype=torch.float32)
+                     if p.grad is None else p.grad.float() for p in params]
+                mu = torch._foreach_mul(
+                    [s["exp_avg"].float() for s in states], b1)
+                torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
+                nu = torch._foreach_mul(
+                    [s["exp_avg_sq"].float() for s in states], b2)
+                g2 = torch._foreach_mul(g, 1.0 - b2)
+                torch._foreach_mul_(g2, g)
+                torch._foreach_add_(nu, g2)
+                del g, g2
+                denom = torch._foreach_div(nu, bc2)
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, eps)
+                step = torch._foreach_div(mu, bc1)
+                torch._foreach_div_(step, denom)
+                del denom
+                decay = torch._foreach_mul([p.float() for p in params], wd)
+                torch._foreach_add_(step, decay)
+                del decay
+                torch._foreach_mul_(step, -lr)
+                for p, s, m, n, u in zip(params, states, mu, nu, step):
+                    p.add_(u.to(p.dtype))
+                    s["exp_avg"].copy_(m)
+                    s["exp_avg_sq"].copy_(n)
+        return None
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """``torch.optim.Optimizer.load_state_dict`` casts the moments to
+        the parameters' dtype; they go back to ``mu_dtype``."""
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in state:
+                    state[key] = state[key].to(self.mu_dtype)
+
+
+def _dtype(name) -> Optional[torch.dtype]:
+    """A ``mu_dtype`` as the configs spell it (``"bfloat16"``,
+    ``"jnp.bfloat16"``, a torch dtype) → the torch dtype; None stays None."""
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    return getattr(torch, str(name).rsplit(".", 1)[-1])
+
+
 def build_optimizer(params: Sequence[torch.nn.Parameter],
                     optimizer_config: Optional[dict],
                     lr_scheduler_config: Optional[dict] = None):
-    """AdamW over ``params`` and its ``LambdaLR`` schedule."""
+    """AdamW over ``params`` and its ``LambdaLR`` schedule. With ``flat``
+    the moments are kept in ``mu_dtype`` (default fp32; ``FlatAdamW`` for
+    any other dtype, torch's fused AdamW for fp32); without it, as the JAX
+    package hands ``optax.adamw`` no ``mu_dtype``, in the parameters'."""
     oc = optimizer_config or {}
-    mu_dtype = oc.get("mu_dtype", "float32")
-    if mu_dtype not in (None, "float32", "jnp.float32", torch.float32):
-        raise NotImplementedError(
-            f"mu_dtype={mu_dtype!r}: AdamW moments other than fp32 are not "
-            "ported yet (ROADMAP Queue 1, item 15)")
     params = list(params)
     schedule = build_schedule(lr_scheduler_config or oc.get("lr_scheduler"),
                               oc.get("lr", 1e-4))
-    optimizer = torch.optim.AdamW(
-        params, lr=1.0, betas=(oc.get("beta1", 0.9), oc.get("beta2", 0.999)),
-        eps=oc.get("eps", 1e-8), weight_decay=oc.get("weight_decay", 0.01),
-        fused=bool(params) and all(p.is_cuda for p in params),
-    )
+    kwargs = dict(lr=1.0, betas=(oc.get("beta1", 0.9), oc.get("beta2", 0.999)),
+                  eps=oc.get("eps", 1e-8),
+                  weight_decay=oc.get("weight_decay", 0.01))
+    mu_dtype = _dtype(oc.get("mu_dtype", "float32")) if oc.get("flat") \
+        else None
+    if mu_dtype not in (None, torch.float32):
+        optimizer = FlatAdamW(params, mu_dtype=mu_dtype, **kwargs)
+    else:
+        optimizer = torch.optim.AdamW(
+            params, fused=bool(params) and all(p.is_cuda for p in params),
+            **kwargs)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, schedule)
 
 

@@ -6,7 +6,10 @@ tiling experiment's rules (K5 and K6 equal to K1 bit for bit, every bf16
 launch of them on the Hopper tiling kernel); for K3/K4 (``csrc/adaln.cu``)
 the ptxas spill gate, the bars and the rule that every launch of the DiT
 paths ran the d-1536 kernel, and that the smoke builds every CUDA source.
-Also the shape of the backward's fp32 dQ workspace. No kernel runs here.
+Also the shape of the backward's fp32 dQ workspace; and the layout
+phases' gates: the rasters must move a denoiser's output, ``random_init_``
+draws the ImageAdapter's zero convs and gates non-zero, and the bf16
+moments hold 2 bytes an element. No kernel runs here.
 """
 
 import importlib.util
@@ -190,13 +193,17 @@ def _counts(**over):
     ("unet_train", {"flash_attention_backward_sm90": 1}, False),
     ("unet_serve", {"flash_tail_sm90": 9}, False),
     ("serve", {"flash_attention_sm90": 4}, False),
+    ("bm_train", {"flash_tail_backward_sm90": 3}, False),
+    ("bm_serve", {"flash_tail_sm90": 9}, False),
+    ("bm_unet_serve", {"flash_attention_sm90": 4}, False),
 ])
 def test_model_paths_run_the_hopper_bodies(smoke, path, over, ok):
-    """Every K1/K7 forward launch of the four model paths and every K2/K7
-    backward launch of the two training paths must have run the Hopper
+    """Every K1/K7 forward launch of the seven model paths and every K2/K7
+    backward launch of the three training paths must have run the Hopper
     body; one launch of an old body fails the run."""
-    paths = {p: _counts() for p in ("serve", "train", "unet_serve",
-                                    "unet_train")}
+    assert set(smoke.TRAIN_PATHS) < set(smoke.MODEL_PATHS)
+    assert {"bm_serve", "bm_unet_serve", "bm_train"} < set(smoke.MODEL_PATHS)
+    paths = {p: _counts() for p in smoke.MODEL_PATHS}
     paths[path] = _counts(**over)
     if ok:
         smoke.check_new_body_on_paths(paths)
@@ -237,11 +244,14 @@ def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
     ("serve", {"k3_fixed": 61}, False),
     ("train", {"k4_fixed": 0}, False),
     ("train", {"k3": 0, "k3_fixed": 0}, False),
+    ("bm_serve", {"k4_fixed": 46}, False),
+    ("bm_train", {"k4": 0, "k4_fixed": 0}, False),
 ])
 def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
-    """Every K3/K4 launch of the two DiT paths must have run the d-1536
+    """Every K3/K4 launch of the four DiT paths must have run the d-1536
     kernel of ``csrc/adaln.cu``, and each path must have launched both."""
-    paths = {"serve": _adaln_counts(), "train": _adaln_counts()}
+    assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train"}
+    paths = {p: _adaln_counts() for p in smoke.DIT_PATHS}
     paths[path] = _adaln_counts(**over)
     if ok:
         smoke.check_adaln_on_paths(paths)
@@ -318,3 +328,64 @@ def test_adaln_ptxas_fails_on_a_spill(smoke, report, ok):
     else:
         with pytest.raises(SystemExit):
             smoke.check_adaln_ptxas(_FakeAdalnBuild(report))
+
+
+@pytest.mark.parametrize("move,ok", [(0.0, False), (5e-4, False),
+                                     (float("nan"), False), (2e-3, True),
+                                     (0.5, True)])
+def test_rasters_must_move_the_output(smoke, move, ok):
+    """The layout phases fail when the output with the rasters equals (or
+    sits within ``RASTER_MIN_MOVE`` of) the output with the uncondition
+    colour, or is not finite."""
+    base = torch.linspace(1.0, 2.0, 64)
+    direction = torch.ones(64) / 8.0  # unit norm
+    moved = base + move * base.norm() * direction
+    assert smoke.RASTER_MIN_MOVE == 1e-3
+    if ok:
+        got = smoke.check_rasters_move(moved, base, "made-up")
+        assert got == pytest.approx(move, rel=1e-4)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_rasters_move(moved, base, "made-up")
+
+
+class _FakeOptimizer:
+    def __init__(self, dtype, sizes=(6, 10)):
+        self.state = {i: {"step": torch.tensor(3.0),
+                          "exp_avg": torch.zeros(n, dtype=dtype),
+                          "exp_avg_sq": torch.zeros(n, dtype=dtype)}
+                      for i, n in enumerate(sizes)}
+
+
+@pytest.mark.parametrize("dtype,want,ok", [
+    (torch.bfloat16, 2, True), (torch.float32, 4, True),
+    (torch.float32, 2, False), (torch.bfloat16, 4, False)])
+def test_moment_bytes_gate(smoke, dtype, want, ok):
+    """The bm train phase's optimizer state must hold 2 bytes a moment
+    element (bf16), the nwao phase's 4; the step counters do not count."""
+    n_bytes, n_elems = smoke.moment_census(_FakeOptimizer(dtype))
+    assert n_elems == 2 * 16
+    assert n_bytes == n_elems * torch.finfo(dtype).bits // 8
+    if ok:
+        smoke.check_moment_bytes(n_bytes, n_elems, want, "made-up")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_moment_bytes(n_bytes, n_elems, want, "made-up")
+    with pytest.raises(SystemExit):  # no moments at all
+        smoke.check_moment_bytes(0, 0, want, "made-up")
+
+
+def test_random_init_draws_the_adapter_nonzero(smoke):
+    """Without it the zero convs and gates stay zero, the adapter adds
+    nothing, and every check of it passes vacuously."""
+    from opendwm_tpu_torch.models.adapters import ImageAdapter
+
+    adapter = ImageAdapter(in_channels=6, channels=[8, 8],
+                           is_downblocks=[True, False], num_res_blocks=1,
+                           downscale_factor=2, use_zero_convs=True,
+                           zero_gate_coef=1.0)
+    smoke.random_init_(adapter, torch.Generator().manual_seed(0))
+    assert all(c.weight.abs().min() > 0 for c in adapter.zero_convs)
+    assert adapter.zero_gates.abs().min() > 0
+    feats = adapter(torch.rand(1, 8, 8, 6))
+    assert all(f.abs().max() > 0 for f in feats)

@@ -354,10 +354,18 @@ def test_freezing_clip_and_accumulation_match_optax(accumulation):
 
 
 def test_other_moment_dtypes_are_not_ported():
+    """Moment dtypes as the JAX package keeps them: without ``flat`` it
+    hands ``optax.adamw`` no ``mu_dtype`` (the parameters' dtype), with it
+    ``flat_adamw`` stores ``mu_dtype`` (``FlatAdamW`` unless fp32)."""
     p = torch.nn.Parameter(torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.build_optimizer([p], {"mu_dtype": "bfloat16"})
-    optim.build_optimizer([p], {"flat": True, "mu_dtype": "float32"})
+    for oc in ({"mu_dtype": "bfloat16"}, {"flat": True},
+               {"flat": True, "mu_dtype": "float32"}):
+        opt, _ = optim.build_optimizer([p], oc)
+        assert type(opt) is torch.optim.AdamW, oc
+    for name in ("bfloat16", "jnp.bfloat16", torch.bfloat16):
+        opt, _ = optim.build_optimizer([p], {"flat": True, "mu_dtype": name})
+        assert isinstance(opt, optim.FlatAdamW)
+        assert opt.mu_dtype == torch.bfloat16
 
 
 # -- remat ----------------------------------------------------------------------

@@ -316,8 +316,7 @@ def test_unet_weight_bridge_round_trip():
 
 
 def test_unported_unet_options_raise():
-    for option in ({"condition_image_adapter_config": {"in_channels": 6}},
-                   {"depth_net_config": {}}, {"quantization": "int8"}):
+    for option in ({"depth_net_config": {}}, {"quantization": "int8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             unet.UNetCrossviewTemporal(**TINY, **option)
 

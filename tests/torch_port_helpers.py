@@ -48,11 +48,13 @@ def jax_prediction_draws(key, shape, style) -> dict:
     })
 
 
-def jax_training_draws(key, shape, tc, cc, num_train_timesteps=None) -> dict:
+def jax_training_draws(key, shape, tc, cc, num_train_timesteps=None,
+                       vae: bool = False) -> dict:
     """``CTSDPipeline.loss_fn``'s draws from ``key`` (ctsd.py:542-571), as
     the port's ``draw_training_randoms`` returns them: the flow-match draw,
-    or with ``num_train_timesteps`` the DDPM's integer timesteps."""
-    rng, _ = jax.random.split(key)  # the VAE's key
+    or with ``num_train_timesteps`` the DDPM's integer timesteps; with
+    ``vae``, the VAE posterior's noise (``sample_posterior``'s draw)."""
+    rng, k_vae = jax.random.split(key)
     k_noise, k_time, k_text, k_box, k_map, k_act, k_pred = \
         jax.random.split(rng, 7)
     b, t = shape[:2]
@@ -73,4 +75,35 @@ def jax_training_draws(key, shape, tc, cc, num_train_timesteps=None) -> dict:
         "action": jax.random.uniform(k_act, (b,)),
     })
     draws["prediction"] = jax_prediction_draws(k_pred, shape, style)
+    if vae:
+        draws["vae"] = to_torch_tree(
+            jax.random.normal(k_vae, shape, jnp.float32))
     return draws
+
+
+def layout_rasters(rng, shape) -> np.ndarray:
+    """Box/map-like layout rasters: mostly background, a quarter of the
+    pixels set to uniform values."""
+    return np.where(rng.uniform(size=shape) < 0.25, rng.uniform(size=shape),
+                    0.0).astype(np.float32)
+
+
+# A tiny DiT with the ImageAdapter: 3 joint blocks (dual attention, a
+# rowwise cross-view and a pointwise temporal branch) and 2 adapter stages
+# of the joint width, the first down-sampled (the flagship's shape), so
+# rasters at 2x the latents land on the 2x2 patch grid.
+TINY_BM_DIT = dict(
+    patch_size=2, num_layers=3, attention_head_dim=8, num_attention_heads=4,
+    in_channels=16, out_channels=16, joint_attention_dim=24,
+    caption_projection_dim=32, pooled_projection_dim=16,
+    pos_embed_max_size=16, sample_size=8, qk_norm="rms_norm",
+    dual_attention_layers=[0], enable_crossview=True,
+    crossview_attention_type="rowwise", crossview_block_layers=[1],
+    enable_temporal=True, temporal_attention_type="pointwise",
+    temporal_block_layers=[2], qk_norm_on_additional_modules="rms_norm",
+    perspective_modeling_type="implicit",
+    projection_class_embeddings_input_dim=3 * 256,
+    condition_image_adapter_config=dict(
+        in_channels=6, channels=[32, 32], is_downblocks=[True, False],
+        num_res_blocks=2, downscale_factor=2, use_zero_convs=True),
+)
