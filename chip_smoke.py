@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CTSD-3.5 serving and training paths, its
-CTSD-2.1 UNet serving and training paths, the layout-conditioned (box +
-map) flagship's DiT and UNet serving and DiT training paths, the
-tail-attention tiling experiment and the attention shoot-out on one GPU.
+streaming serving path with the CLIP/T5 text stage, its CTSD-2.1 UNet
+serving and training paths, the layout-conditioned (box + map) flagship's
+DiT and UNet serving and DiT training paths, the tail-attention tiling
+experiment and the attention shoot-out on one GPU.
 
 Run from the root of a checkout:
-    python3 chip_smoke.py [--profile-dit] [--profile-train]
-                          [--profile-unet] [--profile-unet-train]
+    python3 chip_smoke.py [--profile-dit] [--profile-stream]
+                          [--profile-train] [--profile-unet]
+                          [--profile-unet-train]
 
 Phases; any failure raises and exits non-zero:
 
@@ -67,8 +69,11 @@ Phases; any failure raises and exits non-zero:
    The card's clocks are logged between phases;
 4. tiny models: the kernel path end to end (fp32, small widths) against
    the plain path on the CPU: the DiT, one AdamW train step of the DiT
-   with remat on, the UNet, and one AdamW train step of the UNet with remat
-   on (the train steps through their loss, every gradient and the update);
+   with remat on, the UNet, one AdamW train step of the UNet with remat
+   on (the train steps through their loss, every gradient and the update),
+   two CLIPs (both pooling rules) and a T5 (which must launch no attention
+   kernel), and 4 ticks of a streaming pipeline on a 2-layer DiT with an
+   ImageAdapter (3 frames, 2 views, 6 steps) in both CFG forms;
 5. serving slice: ``configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json``
    at full width (24 layers, 24x64 heads, bf16) with random weights drawn
    on the card from a seed; a 2-window autoregressive rollout of 1 x 6
@@ -78,6 +83,22 @@ Phases; any failure raises and exits non-zero:
    and K4 47 times a CFG forward. ``--profile-dit`` adds one
    ``torch.profiler`` CFG forward and prints its device time by kernel
    family and K3's and K4's device ms in it;
+5b. stream slice: streaming serving end to end. The SD3 text stage at
+   full width (CLIP-L 768 x 12, CLIP-G 1280 x 32, T5-XXL; 77 CLIP + 77 T5
+   tokens, six prompts a frame, the in-repo ``WhitespaceTokenizer``),
+   drawn from a seed in fp32 and held in bf16 within ``TEXT_REL_TOL`` in
+   relative norm of the fp32 run; a refresh (cond and uncond encodes)
+   timed ``TEXT_REPS`` times. Then the FIFO streaming pipeline on phase
+   5's DiT at ``bench.py``'s streaming settings (30 steps over the
+   6-frame window, 5 a tick, sequential CFG 3.0, the text refreshed
+   every ``TEXT_INTERVAL`` frames and held in between), each emitted frame
+   decoded by the SD3.5 VAE and written by the streaming CLI's PNG writer.
+   6 ticks fill the queue (``ready`` False until the 6th), then
+   ``STREAM_TIMED`` are timed: ms a frame in steady state (median and
+   spread), with the refresh amortised, peak memory; one profiled tick
+   gives the busy share and the device time by family
+   (``--profile-stream``: 3 ticks, and the text refresh's profile). K1 at
+   s = 602, 448, 168, K3 62 and K4 47 a forward, and no K7;
 6. train slice: the same config at full width and depth, fp32 master
    weights under bf16 compute, remat as the config sets it, AdamW (lr 5e-5,
    wd 0.01, clip 1.0, fp32 moments); 3 ``train_step`` calls on a synthetic
@@ -133,11 +154,11 @@ Phases; any failure raises and exits non-zero:
    phase 6's; ``--profile-train`` profiles it as it does phase 6.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the seven model paths
+but the shoot-out, every K1 and K7 forward launch of the eight model paths
 must have run the Hopper forward, every K2 and K7 backward launch of
 the three training paths the Hopper backward, every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
-of the four DiT paths the d-1536 kernel (their launch counters).
+of the five DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
 
@@ -189,8 +210,8 @@ RASTER_MIN_MOVE = 1e-3
 # The paths whose launch counters the body gates read.
 TRAIN_PATHS = ("train", "unet_train", "bm_train")
 MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
-               "bm_unet_serve", "bm_train")
-DIT_PATHS = ("serve", "train", "bm_serve", "bm_train")
+               "bm_unet_serve", "bm_train", "stream")
+DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream")
 TINY_CONFIG = REPO / "configs/ctsd/ctsd_35_6views_video_synthetic.json"
 SEED = 0
 STEPS = 4  # cut from the config's 40
@@ -198,7 +219,7 @@ WINDOWS = 2
 FRAMES, VIEWS, LAT_H, LAT_W, TEXT_TOKENS = 6, 6, 32, 56, 154
 DECODE_CHUNK = 12  # frames per VAE decode call
 ATTN_SHAPES = ((72, 602), (72, 448), (192, 168))  # (batch, seq); 24x64 heads
-TRAIN_ATTN_SHAPES = ((36, 602), (36, 448), (96, 168))  # batch 1, no CFG
+TRAIN_ATTN_SHAPES = ((36, 602), (36, 448), (96, 168))  # batch 1: train, stream
 TRAIN_STEPS = 3  # steps 2 and 3 are timed
 PROFILE_STEPS = 3  # with --profile-train/-unet-train: 3 more, then 3 profiled
 # The CUDA sources, built together (one nvcc each, all at once).
@@ -241,6 +262,43 @@ TAILVAR_FP32 = (8, 602)
 # backward is _flash_attention_bwd_dkv (:941) and _flash_attention_bwd_dq
 # (:1287).
 STOCK_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+# The stream phase, at bench.py's streaming settings (run_streaming_bench):
+# 30 flow-match steps over the 6-frame window (5 a tick), sequential CFG
+# 3.0; 6 ticks fill the queue, then STREAM_TIMED ticks are timed. The text
+# refreshes every TEXT_INTERVAL frames (the XS streaming config's
+# text_prompt_interval); a refresh is timed TEXT_REPS times.
+STREAM_STEPS, STREAM_GUIDANCE, STREAM_TIMED = 30, 3.0, 6
+TEXT_INTERVAL, TEXT_REPS = 10, 5
+# The SD3 text encoders at full width: CLIP-L, CLIP-G, T5-XXL (defaults).
+TEXT_ENCODERS = {
+    "clip_l": dict(hidden_size=768, num_layers=12, num_heads=12,
+                   act="quick_gelu", projection_dim=768),
+    "clip_g": dict(hidden_size=1280, num_layers=32, num_heads=20,
+                   act="gelu", projection_dim=1280),
+    "t5": {},
+}
+STREAM_SCENES = ("a rainy city street at night with parked cars",
+                 "a sunny highway with trucks in the right lane")
+STREAM_VIEWS = ("front", "front right", "back right", "back", "back left",
+                "front left")
+# The bf16 text stage against its fp32 twin, ||bf16 - fp32|| / ||fp32||.
+TEXT_REL_TOL = 3e-2
+# The tiny streaming check's DiT: 2 joint blocks (the first with dual
+# attention and the rowwise cross-view branch, the second with the
+# pointwise temporal one) and a 2-stage ImageAdapter of the joint width;
+# 16 x 24 latents and 40 text tokens make a 136-token joint attention (K1).
+TINY_STREAM_DIT = dict(
+    patch_size=2, num_layers=2, attention_head_dim=16, num_attention_heads=2,
+    in_channels=16, out_channels=16, joint_attention_dim=24,
+    caption_projection_dim=32, pooled_projection_dim=16,
+    pos_embed_max_size=16, sample_size=8, dual_attention_layers=(0,),
+    enable_crossview=True, crossview_attention_type="rowwise",
+    crossview_block_layers=(0,), enable_temporal=True,
+    temporal_attention_type="pointwise", temporal_block_layers=(1,),
+    qk_norm_on_additional_modules="rms_norm",
+    condition_image_adapter_config=dict(
+        in_channels=6, channels=[32, 32], is_downblocks=[True, False],
+        num_res_blocks=1, downscale_factor=2, use_zero_convs=True))
 # Tolerances on |kernel - plain| / max(1, |plain|), elementwise: absolute
 # for outputs below 1, relative above, because one bf16 ulp is 2^-7 of the
 # value (0.0625 at 16) and the two versions may round an fp32 result that
@@ -353,7 +411,7 @@ def log_clocks(when: str) -> None:
 def check_attention(dev, flash_tail):
     g = torch.Generator(dev).manual_seed(SEED)
     rows = []
-    for b, s in ATTN_SHAPES:
+    for b, s in ATTN_SHAPES + TRAIN_ATTN_SHAPES:  # the stream's too
         q, k, v = (torch.randn(b, s, 24, 64, generator=g, device=dev,
                                dtype=torch.bfloat16) for _ in range(3))
         scale = 64 ** -0.5
@@ -1869,6 +1927,411 @@ def run_unet_train_slice(dev, create_instance_from_config, ops,
     return counts, metrics
 
 
+# -- the stream phase: prompts → text stage → FIFO streaming → decode ------
+
+def text_init_(module, gen) -> None:
+    """Random text-encoder weights in the scales that HF's CLIP and T5
+    initializers use (factor 1), drawn on the module's device: CLIP token
+    and position embeddings N(0, 0.02²), q/k/v and fc2 N(0, d^-1 / (2
+    layers)), out_proj and text_projection N(0, 1/d), fc1 N(0, 1/(2 d));
+    T5 embedding N(0, 1), q N(0, 1/(d d_kv)), k/v/wi N(0, 1/d), o N(0,
+    1/(heads d_kv)), wo N(0, 1/d_ff), the relative bias N(0, 1/d); norm
+    scales 1, biases 0."""
+    t5 = hasattr(module, "shared")
+    d = module.shared.weight.shape[1] if t5 else \
+        module.token_embedding.weight.shape[1]
+    layers = len(module.block if t5 else module.layers)
+    d_kv = module.block[0].attention.kv_dim if t5 else None
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.split(".")[-2] if name.endswith(
+                ("weight", "bias")) else name.split(".")[-1]
+            if name.endswith("bias") or (p.ndim == 1 and "norm" in name) or \
+                    name.endswith(("ln_attn.weight", "ln_ff.weight")):
+                p.fill_(0.0 if name.endswith("bias") else 1.0)
+                continue
+            fan_in = p.shape[1] if p.ndim == 2 else d
+            if t5:
+                std = {"shared": 1.0, "q": (d * d_kv) ** -0.5,
+                       "o": fan_in ** -0.5, "wo": fan_in ** -0.5,
+                       "relative_attention_bias": d ** -0.5}.get(
+                           leaf, d ** -0.5)
+            else:
+                std = {"token_embedding": 0.02, "position_embedding": 0.02,
+                       "out_proj": d ** -0.5, "text_projection": d ** -0.5,
+                       "fc1": (2 * d) ** -0.5}.get(
+                           leaf, d ** -0.5 * (2 * layers) ** -0.5)
+            p.normal_(0.0, std, generator=gen)
+
+
+def text_encoders(dev, dtype) -> dict:
+    """CLIP-L, CLIP-G and T5-XXL (``TEXT_ENCODERS``) at full width,
+    parameters and compute in ``dtype``, built on ``dev`` without weights
+    (``to_empty``)."""
+    from opendwm_tpu_torch.models import text_encoders as te
+
+    with torch.device("meta"):
+        built = {"clip_l": te.CLIPTextEncoder(**TEXT_ENCODERS["clip_l"],
+                                              dtype=dtype),
+                 "clip_g": te.CLIPTextEncoder(**TEXT_ENCODERS["clip_g"],
+                                              dtype=dtype),
+                 "t5": te.T5TextEncoder(**TEXT_ENCODERS["t5"], dtype=dtype)}
+    return {k: m.to_empty(device=dev).eval() for k, m in built.items()}
+
+
+def text_stage(encoders: dict, t5_max_length: int = 77):
+    """The SD3 text stage over ``encoders`` (its context as wide as the
+    T5's), with the in-repo
+    ``WhitespaceTokenizer`` laid out on CLIP's ids (bos 49406, eos 49407)
+    and T5's (pad 0, eos 1)."""
+    from opendwm_tpu_torch.models.text_stage import (
+        SD3TextStage,
+        WhitespaceTokenizer,
+    )
+
+    clip_tok = WhitespaceTokenizer(vocab_size=49406, bos=49406, eos=49407,
+                                   pad=49407)
+    t5_tok = WhitespaceTokenizer(vocab_size=32100, bos=0, eos=1, pad=0)
+    return SD3TextStage(encoders["clip_l"], clip_tok, encoders["clip_g"],
+                        clip_tok, t5=encoders["t5"], t5_tokenizer=t5_tok,
+                        clip_max_length=77, t5_max_length=t5_max_length,
+                        caption_dim=encoders["t5"].shared.weight.shape[1])
+
+
+def prompts(tick: int) -> list:
+    """Six prompts a frame, one a view; the scene changes every
+    ``TEXT_INTERVAL`` frames."""
+    scene = STREAM_SCENES[(tick // TEXT_INTERVAL) % len(STREAM_SCENES)]
+    return [f"{scene}, seen from the {view} camera" for view in STREAM_VIEWS]
+
+
+def check_text_bar(errs: dict, tol: float = TEXT_REL_TOL) -> None:
+    """The bf16 text stage within ``tol`` in relative norm of the fp32 one
+    on every output (a NaN fails too)."""
+    log(f"text stage, bf16 against fp32, relative norm: "
+        f"{json.dumps(errs)} (bar {tol})")
+    bad = {k: e for k, e in errs.items() if not e <= tol}
+    if bad:
+        fail(f"the bf16 text stage is off its fp32 twin: {bad}")
+
+
+def check_ready_schedule(readies: list, window: int) -> None:
+    """``ready`` is False for the ticks that fill the window and True
+    from the window-th tick on."""
+    want = [i + 1 >= window for i in range(len(readies))]
+    if readies != want:
+        fail(f"ready by tick {readies}, not {want}")
+
+
+def check_stream_census(counts: dict, forwards: int) -> None:
+    """The stream path launched K1 at s = 602, 448 and 168, K3 and K4
+    ``K3_PER_FORWARD`` and ``K4_PER_FORWARD`` times a forward, and neither
+    K7 nor K7-seg (the text encoders' biased attention stays plain)."""
+    for s in (602, 448, 168):
+        if counts["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"flash_tail never launched at s={s} on the stream path")
+    k3, k4 = counts["adaln_modulate"], counts["residual_adaln_modulate"]
+    if k3 != K3_PER_FORWARD * forwards or k4 != K4_PER_FORWARD * forwards:
+        fail(f"K3/K4 launched {k3}/{k4} times in {forwards} forwards on the "
+             f"stream path, not {K3_PER_FORWARD}/{K4_PER_FORWARD} a forward")
+    k7 = counts["flash_attention"] + counts["flash_attention_segment"]
+    if k7:
+        fail(f"K7 launched {k7} times on the stream path")
+
+
+def busy_share(prof, wall_s: float) -> tuple:
+    """(device ms, device ms / wall) of a profile over ``wall_s``."""
+    device_ms = sum(t for t, _, _ in _device_kernels(prof)) / 1e3
+    return device_ms, device_ms / (1e3 * wall_s)
+
+
+def median_spread(values) -> dict:
+    ordered = sorted(values)
+    return {"median": ordered[len(ordered) // 2], "min": ordered[0],
+            "max": ordered[-1], "n": len(ordered)}
+
+
+def run_text_phase(dev, profile: bool = False):
+    """The text stage at full width: fp32 encoders drawn from ``SEED``, the
+    same weights in bf16 held to them (``check_text_bar``); one refresh
+    (the cond and uncond encodes of a frame's 6 prompts) timed
+    ``TEXT_REPS`` times. Returns (the bf16 stage, refresh ms)."""
+    gen = torch.Generator(dev).manual_seed(SEED)
+    enc32 = text_encoders(dev, torch.float32)
+    for m in enc32.values():
+        text_init_(m, gen)
+    sizes = {k: sum(p.numel() for p in m.parameters()) / 1e9
+             for k, m in enc32.items()}
+    batch = {"image_description": [[prompts(0)]]}
+    ref = text_stage(enc32)(batch)
+    enc = text_encoders(dev, torch.bfloat16)
+    for k, m in enc.items():
+        m.load_state_dict(enc32[k].state_dict())
+    del enc32
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage = text_stage(enc)
+    out = stage(batch)
+    keys = ("encoder_hidden_states", "pooled_projections",
+            "uncond_encoder_hidden_states", "uncond_pooled_projections")
+    for k in keys:
+        if not torch.isfinite(out[k]).all():
+            fail(f"text stage {k} is not finite")
+    log(f"text stage: CLIP-L {sizes['clip_l']:.3f}B, CLIP-G "
+        f"{sizes['clip_g']:.3f}B, T5-XXL {sizes['t5']:.3f}B params, bf16; "
+        f"{json.dumps({k: list(out[k].shape) for k in keys})}")
+    check_text_bar({k: rel_err(out[k], ref[k]) for k in keys})
+    del ref
+    walls = []
+    for _ in range(TEXT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage(batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    refresh = median_spread(walls)
+    log(f"text refresh (cond + uncond, {VIEWS} prompts; 77 CLIP + 77 T5 "
+        f"tokens): {refresh['median']:.2f} ms median of {TEXT_REPS} "
+        f"({refresh['min']:.2f}-{refresh['max']:.2f})")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as profiler
+
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stage(batch)
+            torch.cuda.synchronize()
+        log(_kernel_time_table(prof, time.perf_counter() - t0,
+                               "text refresh"))
+    return stage, refresh
+
+
+def stream_frame(text: dict, cams: dict) -> dict:
+    """One frame's batch: the text stage's outputs and the single-frame
+    camera and fps fields."""
+    keys = ("encoder_hidden_states", "pooled_projections",
+            "uncond_encoder_hidden_states", "uncond_pooled_projections")
+    return {**{k: text[k] for k in keys}, **cams}
+
+
+def run_stream_slice(dev, create_instance_from_config, sd35_vae, ops,
+                     get_conditions, profile: bool = False):
+    """Streaming serving at full width: prompts through the text stage
+    (``run_text_phase``) into frame conditions; the FIFO streaming
+    pipeline on the nwao DiT at ``bench.py``'s streaming settings
+    (``STREAM_STEPS`` steps over the 6-frame window, sequential CFG
+    ``STREAM_GUIDANCE``); each emitted frame through the SD3.5 VAE decode
+    and the streaming CLI's PNG writer. The text refreshes every
+    ``TEXT_INTERVAL`` frames (the pipeline holds it in between)."""
+    from opendwm_tpu_torch.streaming import PNGWriter, frame_to_image
+
+    stage, refresh = run_text_phase(dev, profile)
+    cfg = json.loads(CONFIG.read_text())["pipeline"]
+    cfg["_class_name"] = "StreamingCTSDPipeline"
+    cfg["inference_config"] = {
+        "inference_steps": STREAM_STEPS, "guidance_scale": STREAM_GUIDANCE,
+        "sequential_cfg": True, "text_prompt_interval": TEXT_INTERVAL}
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+        vae = sd35_vae(dtype=torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    for module in (pipe.model, vae):
+        module.to_empty(device=dev)
+        random_init_(module, gen)
+        module.eval()
+    pipe.set_vae(vae)
+    spi = pipe.steps_per_inference(FRAMES)
+    log(f"stream: {CONFIG.relative_to(REPO)} as StreamingCTSDPipeline, "
+        f"{json.dumps(cfg['inference_config'])}: {spi} steps a tick, "
+        f"{2 * spi} batch-1 DiT forwards (sequential CFG) + the decode of "
+        f"{VIEWS} views")
+
+    full = make_batch(dev, gen, text_tokens=1, pooled_dim=None)
+    cams = {k: full[k][:, :1] for k in ("camera_intrinsics",
+                                        "camera_transforms", "image_size")}
+    cams["fps"] = full["fps"]
+    text = stage({"image_description": [[prompts(0)]]})
+    template = {k: torch.cat([v] * FRAMES, 1) if v.ndim >= 2 else v
+                for k, v in get_conditions(stream_frame(text, cams),
+                                           pipe.common_config).items()}
+    latent_shape = (1, FRAMES, VIEWS, LAT_H, LAT_W, 16)
+    state = pipe.reset_streaming(latent_shape, template, gen)
+    writer = PNGWriter(str(REPO / "build" / "stream_frames"))
+
+    def tick(i, state, text):
+        refreshed = i % TEXT_INTERVAL == 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if refreshed:
+            text = stage({"image_description": [[prompts(i)]]})
+        state = pipe.send_frame_condition(state, stream_frame(text, cams))
+        state, latent, ready = pipe.receive_frame(state)
+        frame = pipe.decode_latents(latent) if ready else None
+        torch.cuda.synchronize()
+        return state, text, frame, ready, refreshed, time.perf_counter() - t0
+
+    n_ticks = FRAMES + STREAM_TIMED
+    readies, walls, write_s = [], [], []
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_ticks):
+        state, text, frame, ready, refreshed, dt = tick(i, state, text)
+        readies.append(ready)
+        walls.append((dt, refreshed))
+        if ready:
+            want = (1, VIEWS, 8 * LAT_H, 8 * LAT_W, 3)
+            if tuple(frame.shape) != want or not torch.isfinite(frame).all():
+                fail(f"emitted frame {tuple(frame.shape)} is not finite or "
+                     f"not {want}")
+            t0 = time.perf_counter()
+            writer.write(frame_to_image(frame[0]))
+            write_s.append(time.perf_counter() - t0)
+        log(f"stream tick {i}: {1e3 * dt:.1f} ms, ready {ready}"
+            f"{', text refreshed' if refreshed else ''}")
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check_ready_schedule(readies, FRAMES)
+    forwards = n_ticks * 2 * spi
+    check_stream_census(counts, forwards)
+
+    steady = median_spread([1e3 * w for w, r in walls[FRAMES:] if not r])
+    if steady["n"] < 5:
+        fail(f"only {steady['n']} steady ticks were timed")
+    amortised = steady["median"] + refresh["median"] / TEXT_INTERVAL
+    log(f"stream: {steady['median']:.1f} ms a frame in steady state, median "
+        f"of {steady['n']} ticks ({steady['min']:.1f}-{steady['max']:.1f}); "
+        f"{amortised:.1f} ms with the text refreshed every {TEXT_INTERVAL} "
+        f"frames (+{refresh['median']:.1f} / {TEXT_INTERVAL}); peak memory "
+        f"{peak_gib:.2f} GiB (text encoders, DiT, VAE); PNG writer "
+        f"{1e3 * min(write_s):.1f}-{1e3 * max(write_s):.1f} ms a frame "
+        f"(host, outside the tick)")
+    log(f"launches on the stream path ({n_ticks} ticks, {forwards} DiT "
+        f"forwards): K1 by seq {json.dumps(counts['flash_tail_by_seq'])}, "
+        f"K3 by shape {json.dumps(counts['adaln_modulate_by_shape'])}, K4 by "
+        f"shape {json.dumps(counts['residual_adaln_modulate_by_shape'])}")
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    n_prof = 3 if profile else 1
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        prof_s = 0.0
+        for i in range(n_ticks, n_ticks + n_prof):
+            state, text, _, _, _, dt = tick(i, state, text)
+            prof_s += dt
+    device_ms, busy = busy_share(prof, prof_s)
+    log(f"stream tick under the profiler: wall {1e3 * prof_s / n_prof:.1f} "
+        f"ms, device {device_ms / n_prof:.1f} ms, busy {100 * busy:.1f}%")
+    log(_kernel_time_table(prof, prof_s, "stream tick", n_prof))
+    return counts, {"steady_ms": steady, "amortised_ms": amortised,
+                    "refresh_ms": refresh, "peak_gib": peak_gib,
+                    "busy": busy}
+
+
+def check_tiny_text(dev) -> None:
+    """A tiny CLIP (both pooling rules) and T5 on the card against the CPU
+    (fp32), and no attention kernel launched by them."""
+    from opendwm_tpu_torch.models import text_encoders as te
+    from opendwm_tpu_torch.ops import flash_attention, flash_tail
+
+    torch.manual_seed(SEED)
+    g = torch.Generator().manual_seed(SEED)
+    ids = torch.randint(3, 90, (3, 20), generator=g)
+    ids[:, 12] = 97
+    models = [te.CLIPTextEncoder(vocab_size=99, hidden_size=32,
+                                 num_layers=2, num_heads=4, act=act,
+                                 eos_token_id=eos, projection_dim=16)
+              for act, eos in (("quick_gelu", 2), ("gelu", 97))]
+    models.append(te.T5TextEncoder(vocab_size=99, d_model=32, d_kv=8,
+                                   d_ff=48, num_layers=2, num_heads=4))
+    def parts(out):  # T5's output, or CLIP's last state and pooled
+        return [out] if isinstance(out, torch.Tensor) else list(out[:2])
+
+    flash_attention.reset_launches()
+    flash_tail.reset_launches()
+    errs = []
+    with torch.no_grad():
+        for m in models:
+            ref = parts(m.eval()(ids))
+            out = parts(m.to(dev)(ids.to(dev)))
+            errs += [max_err(o.cpu(), r) for o, r in zip(out, ref)]
+    launched = flash_attention.launches + flash_tail.launches
+    log(f"tiny CLIPs and T5, the card vs the CPU (fp32): max_abs_err "
+        f"{max(errs):.3e} (tol {TINY_TOL}); attention kernel launches "
+        f"{launched}")
+    if not max(errs) <= TINY_TOL:
+        fail(f"tiny text encoders disagree: {errs}")
+    if launched:
+        fail(f"the text encoders launched an attention kernel {launched} "
+             "times")
+
+
+def check_tiny_stream(dev, DiTCrossviewTemporal, StreamingCTSDPipeline,
+                      flash_tail) -> None:
+    """A tiny streaming pipeline (a 2-layer DiT with an ImageAdapter, 3
+    frames, 2 views, 6 steps) on the card against the CPU with the same
+    weights, frames and tail noise, 4 ticks in each CFG form (fp32)."""
+    from opendwm_tpu_torch.schedulers import FlowMatchEulerScheduler
+
+    b, t, v, h, w, c, lt = 1, 3, 2, 16, 24, 16, 40
+    g = torch.Generator().manual_seed(SEED)
+    model = DiTCrossviewTemporal(**TINY_STREAM_DIT).eval()
+    random_init_(model, g)
+    card_model = copy.deepcopy(model).to(dev)
+    frames = [{"encoder_hidden_states": torch.randn(b, 1, v, lt, 24,
+                                                    generator=g),
+               "pooled_projections": torch.randn(b, 1, v, 16, generator=g),
+               "uncond_encoder_hidden_states": torch.randn(
+                   b, 1, v, lt, 24, generator=g),
+               "3dbox_images": torch.rand(b, 1, v, 2 * h, 2 * w, 3,
+                                          generator=g),
+               "hdmap_images": torch.rand(b, 1, v, 2 * h, 2 * w, 3,
+                                          generator=g)}
+              for _ in range(4)]
+    noise = [torch.randn(b, t, v, h, w, c, generator=g)] + [
+        torch.randn(b, 1, v, h, w, c, generator=g) for _ in range(4)]
+    template = {"encoder_hidden_states": torch.zeros(b, t, v, lt, 24),
+                "pooled_projections": torch.zeros(b, t, v, 16),
+                "condition_image_tensor": torch.zeros(b, t, v, 2 * h, 2 * w,
+                                                      6)}
+    errs = {}
+    for sequential in (False, True):
+        outs = []
+        for m, d in ((model, torch.device("cpu")), (card_model, dev)):
+            pipe = StreamingCTSDPipeline(
+                model=m, train_scheduler=FlowMatchEulerScheduler(),
+                test_scheduler=FlowMatchEulerScheduler(),
+                common_config={"uncondition_image_color": 0.25},
+                inference_config={"inference_steps": 6,
+                                  "guidance_scale": 2.0,
+                                  "sequential_cfg": sequential,
+                                  "text_prompt_interval": 2})
+            state = pipe.reset_streaming(
+                (b, t, v, h, w, c), _to(template, d), noise=noise[0])
+            flash_tail.reset_launches()
+            ticks = []
+            for fb, fresh in zip(frames, noise[1:]):
+                state = pipe.send_frame_condition(state, _to(fb, d))
+                state, out, ready = pipe.receive_frame(state, fresh)
+                ticks.append((out.cpu(), ready))
+            outs.append(ticks)
+        k1 = flash_tail.launches
+        if [r for _, r in outs[0]] != [r for _, r in outs[1]]:
+            fail("tiny stream: ready differs between the card and the CPU")
+        form = "sequential" if sequential else "batched"
+        errs[form] = max(max_err(a, b_) for (a, _), (b_, _) in
+                         zip(outs[1], outs[0]))
+        if k1 == 0:
+            fail(f"tiny stream ({form} CFG) launched no K1 on the card")
+    log(f"tiny stream, 4 ticks, the card vs the CPU (fp32): max_abs_err "
+        f"{json.dumps(errs)} (tol {TINY_TOL})")
+    if not all(e <= TINY_TOL for e in errs.values()):
+        fail(f"tiny stream disagrees: {errs}")
+
+
 def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
@@ -1980,6 +2443,9 @@ def main() -> None:
         draw_training_randoms,
         get_conditions,
     )
+    from opendwm_tpu_torch.pipelines.ctsd_streaming import (
+        StreamingCTSDPipeline,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2030,12 +2496,21 @@ def main() -> None:
     check_tiny_unet_train_step(dev, create_instance_from_config,
                                draw_training_randoms, flash_attention,
                                flash_tail)
+    check_tiny_text(dev)
+    check_tiny_stream(dev, DiTCrossviewTemporal, StreamingCTSDPipeline,
+                      flash_tail)
     gc.collect()
     torch.cuda.empty_cache()
     log_clocks("before the serving slice")
     serve = run_slice(dev, create_instance_from_config, sd35_vae, ops,
                       get_conditions,
                       profile="--profile-dit" in sys.argv[1:])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the stream slice")
+    stream, stream_metrics = run_stream_slice(
+        dev, create_instance_from_config, sd35_vae, ops, get_conditions,
+        profile="--profile-stream" in sys.argv[1:])
     gc.collect()
     torch.cuda.empty_cache()
     log_clocks("before the UNet serving slice")
@@ -2080,10 +2555,14 @@ def main() -> None:
         f"{train_metrics['update_s']:.4f} s, bm (FlatAdamW) "
         f"{bm_train_metrics['update_s']:.4f} s")
     log_clocks("at the end")
+    log(f"stream: {stream_metrics['steady_ms']['median']:.1f} ms a frame "
+        f"steady, {stream_metrics['amortised_ms']:.1f} with the text "
+        f"refresh amortised, peak {stream_metrics['peak_gib']:.2f} GiB, busy "
+        f"{100 * stream_metrics['busy']:.1f}%")
     paths = {"serve": serve, "train": train, "unet_serve": unet,
              "unet_train": unet_train, "bm_serve": bm_serve,
              "bm_unet_serve": bm_unet, "bm_train": bm_train,
-             "tailvar": tailvar, "attn602": attn602}
+             "stream": stream, "tailvar": tailvar, "attn602": attn602}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
               if p != "attn602" and c["flash_attention_segment"]}
     if strays:

@@ -63,6 +63,18 @@ _LAZY_MODULES: dict[str, str] = {
     "SyntheticCTSDDataset": "opendwm_tpu_torch.datasets.synthetic",
     "dwm.datasets.common": "opendwm_tpu_torch.datasets.common",
     "CollateFnIgnoring": "opendwm_tpu_torch.datasets.common",
+    "transformers.CLIPTextModel": "opendwm_tpu_torch.models.text_encoders",
+    "transformers.CLIPTextModelWithProjection":
+        "opendwm_tpu_torch.models.text_encoders",
+    "transformers.T5EncoderModel": "opendwm_tpu_torch.models.text_encoders",
+    "CLIPTextEncoder": "opendwm_tpu_torch.models.text_encoders",
+    "T5TextEncoder": "opendwm_tpu_torch.models.text_encoders",
+    "SD3TextStage": "opendwm_tpu_torch.models.text_stage",
+    "CLIPTextStage": "opendwm_tpu_torch.models.text_stage",
+    "dwm.pipelines.ctsd.StreamingCrossviewTemporalSD":
+        "opendwm_tpu_torch.pipelines.ctsd_streaming",
+    "StreamingCTSDPipeline": "opendwm_tpu_torch.pipelines.ctsd_streaming",
+    "SyntheticStreamingAdapter": "opendwm_tpu_torch.datasets.synthetic",
 }
 
 
@@ -86,8 +98,8 @@ def get_class(class_name: str):
     raise KeyError(
         f"{class_name!r} has no PyTorch port yet (opendwm_tpu_torch covers "
         "the CTSD-3.5 MMDiT and CTSD-2.1 UNet serving and training paths, "
-        "with the layout ImageAdapter and the image VAE; see ROADMAP.md "
-        "Queue 1)."
+        "with the layout ImageAdapter and the image VAE, streaming serving "
+        "and the CLIP/T5 text stage; see ROADMAP.md Queue 1)."
     )
 
 

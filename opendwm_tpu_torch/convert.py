@@ -1,8 +1,9 @@
 """Weight bridge from the JAX package's flax params to port state dicts.
 
 The inverses of ``opendwm_tpu/convert/torch_import.py``'s
-``convert_ctsd_dit``, ``convert_ctsd_unet`` and ``convert_autoencoder_kl``:
-a nested dict of
+``convert_ctsd_dit``, ``convert_ctsd_unet`` and ``convert_autoencoder_kl``,
+and maps of the CLIP and T5 text encoders onto port names that mirror
+their flax trees: a nested dict of
 numpy arrays (``{"params": {...}}`` or the inner tree) becomes a flat
 ``{reference_name: np.ndarray}`` dict that ``load_state_dict`` takes
 (through :func:`to_torch`). Rules, reversed:
@@ -16,7 +17,9 @@ The way back, for the DiT and the UNet: ``flax_param_name`` names a port
 parameter as the JAX package's trees name it (its ``freezing_pattern``
 regexes are written against those names), and
 ``dit_flax_from_state_dict`` / ``unet_flax_from_state_dict`` map a port
-state dict (weights or gradients) onto the flax tree.
+state dict (weights or gradients) onto the flax tree; the text encoders'
+``clip_flax_from_state_dict`` / ``t5_flax_from_state_dict`` do the same
+from the one parameter list that their forward maps read.
 """
 
 from __future__ import annotations
@@ -359,6 +362,112 @@ def unet_state_dict_from_flax(params: Mapping) -> dict:
 
     walk(_tree(params), [])
     return sd
+
+
+# Text encoders: (flax path, kind) of every parameter. Kinds: "kernel"
+# (Dense, transposed), "embed" (Embed's ``embedding``), "scale"
+# (LayerNorm), "bias", "raw" (a parameter of the same name and layout).
+# The port's name is the path with dots, ``layers_3`` as ``layers.3``.
+_FLAX_LEAF = {"kernel": "kernel", "embed": "embedding", "scale": "scale",
+              "bias": "bias", "raw": None}
+_PORT_SUFFIX = {"kernel": ".weight", "embed": ".weight", "scale": ".weight",
+                "bias": ".bias", "raw": ""}
+
+
+def _clip_params(num_layers: int, projection: bool) -> list:
+    pairs = [("token_embedding", "embed"), ("position_embedding", "raw")]
+    for i in range(num_layers):
+        for name in ("self_attn/q_proj", "self_attn/k_proj",
+                     "self_attn/v_proj", "self_attn/out_proj", "fc1", "fc2"):
+            pairs += [(f"layers_{i}/{name}", "kernel"),
+                      (f"layers_{i}/{name}", "bias")]
+        for name in ("layer_norm1", "layer_norm2"):
+            pairs += [(f"layers_{i}/{name}", "scale"),
+                      (f"layers_{i}/{name}", "bias")]
+    pairs += [("final_layer_norm", "scale"), ("final_layer_norm", "bias")]
+    if projection:
+        pairs.append(("text_projection", "kernel"))
+    return pairs
+
+
+def _t5_params(num_layers: int) -> list:
+    pairs = [("shared", "embed")]
+    for i in range(num_layers):
+        for name in ("attention/q", "attention/k", "attention/v",
+                     "attention/o", "wi_0", "wi_1", "wo"):
+            pairs.append((f"block_{i}/{name}", "kernel"))
+        for name in ("ln_attn/weight", "ln_ff/weight"):
+            pairs.append((f"block_{i}/{name}", "raw"))
+    pairs += [("block_0/attention/relative_attention_bias", "raw"),
+              ("final_layer_norm/weight", "raw")]
+    return pairs
+
+
+def _port_name(path: str, kind: str) -> str:
+    name = re.sub(r"(layers|block)_(\d+)", r"\1.\2", path).replace("/", ".")
+    return name + _PORT_SUFFIX[kind]
+
+
+def _from_flax(tree: Mapping, pairs: list) -> dict:
+    sd = {}
+    for path, kind in pairs:
+        node = _get(tree, path)
+        leaf = _FLAX_LEAF[kind]
+        value = np.asarray(node if leaf is None else node[leaf])
+        sd[_port_name(path, kind)] = value.T if kind == "kernel" else value
+    return sd
+
+
+def _to_flax(state_dict: Mapping, pairs: list) -> dict:
+    tree: dict = {}
+    for path, kind in pairs:
+        value = state_dict[_port_name(path, kind)]
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().float().numpy()
+        value = np.asarray(value)
+        if kind == "kernel":
+            value = value.T
+        leaf = _FLAX_LEAF[kind]
+        parts = path.split("/") + ([] if leaf is None else [leaf])
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return {"params": tree}
+
+
+def _layer_count(names, prefix: str) -> int:
+    found = [int(m.group(1)) for n in names
+             if (m := re.match(rf"{prefix}[._](\d+)", n))]
+    return 1 + max(found) if found else 0
+
+
+def clip_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``CLIPTextEncoder`` params → the port's state dict (numpy)."""
+    tree = _tree(params)
+    return _from_flax(tree, _clip_params(_count(tree, "layers"),
+                                         "text_projection" in tree))
+
+
+def clip_flax_from_state_dict(state_dict: Mapping) -> dict:
+    """The port's ``CLIPTextEncoder`` state dict (tensors or arrays) → the
+    flax ``{"params": tree}`` of numpy arrays."""
+    return _to_flax(state_dict, _clip_params(
+        _layer_count(state_dict, "layers"),
+        "text_projection.weight" in state_dict))
+
+
+def t5_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``T5TextEncoder`` params → the port's state dict (numpy)."""
+    tree = _tree(params)
+    return _from_flax(tree, _t5_params(_count(tree, "block")))
+
+
+def t5_flax_from_state_dict(state_dict: Mapping) -> dict:
+    """The port's ``T5TextEncoder`` state dict (tensors or arrays) → the
+    flax ``{"params": tree}`` of numpy arrays."""
+    return _to_flax(state_dict, _t5_params(_layer_count(state_dict,
+                                                        "block")))
 
 
 def to_torch(state_dict: Mapping[str, np.ndarray]) -> dict:

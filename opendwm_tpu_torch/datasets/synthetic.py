@@ -1,6 +1,7 @@
 """Synthetic latent-space CTSD batches for smoke tests, benchmarks and CLI
-drives (``opendwm_tpu/datasets/synthetic.py:SyntheticCTSDDataset``): the
-same items from the same seeds, as numpy arrays."""
+drives (``opendwm_tpu/datasets/synthetic.py:SyntheticCTSDDataset``), and
+the streaming CLI's synthetic live source: the same items from the same
+seeds, as numpy arrays."""
 
 from __future__ import annotations
 
@@ -62,3 +63,40 @@ class SyntheticCTSDDataset:
                  self.w * self.image_scale, 3),
             ).astype(np.float32)
         return item
+
+
+@register("SyntheticStreamingAdapter")
+class SyntheticStreamingAdapter:
+    """A live source for the streaming CLI
+    (``opendwm_tpu/datasets/synthetic.py:SyntheticStreamingAdapter``):
+    each ``query_data()`` tick emits one frame's canonical batch with
+    pre-encoded conditions, drawn from ``default_rng(seed + tick)``."""
+
+    def __init__(
+        self,
+        view_count: int = 2,
+        text_length: int = 4,
+        text_dim: int = 24,
+        pooled_dim: int = 16,
+        seed: int = 0,
+    ):
+        self.v = view_count
+        self.text_length, self.text_dim = text_length, text_dim
+        self.pooled_dim = pooled_dim
+        self.tick = 0
+        self.seed = seed
+        self.sensor_channels = [f"CAM_{i}" for i in range(view_count)]
+
+    def query_data(self) -> dict:
+        rng = np.random.default_rng(self.seed + self.tick)
+        self.tick += 1
+        return {
+            "fps": np.float32(10.0),
+            "pts": np.zeros((1, 1, self.v), np.float32),
+            "encoder_hidden_states": rng.standard_normal(
+                (1, 1, self.v, self.text_length, self.text_dim)
+            ).astype(np.float32),
+            "pooled_projections": rng.standard_normal(
+                (1, 1, self.v, self.pooled_dim)
+            ).astype(np.float32),
+        }

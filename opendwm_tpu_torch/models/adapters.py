@@ -100,6 +100,7 @@ class ImageAdapter(nn.Module):
             body.append(AdapterBlock(prev, ch, num_res_blocks, down))
             prev = ch
         self.body = nn.ModuleList(body)
+        self.channels = tuple(channels[:len(body)])  # each stage's width
         self.zero_convs = None
         if use_zero_convs:
             self.zero_convs = nn.ModuleList(

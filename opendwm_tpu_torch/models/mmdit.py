@@ -309,6 +309,15 @@ class DiTCrossviewTemporal(nn.Module):
         if condition_image_adapter_config is not None:
             self.condition_image_adapter = ImageAdapter(
                 **condition_image_adapter_config)
+            # Each stage's feature is added to the joint blocks' tokens
+            # (the JAX model fails later, at that addition).
+            for i, width in enumerate(self.condition_image_adapter.channels):
+                if width != dim:
+                    raise ValueError(
+                        f"ImageAdapter stage {i} is {width} wide, but the "
+                        f"DiT's tokens are num_attention_heads x "
+                        f"attention_head_dim = {num_attention_heads} x "
+                        f"{attention_head_dim} = {dim} wide")
         else:
             self.condition_image_adapter = None
         self.norm_out = Modulation(dim, 2)

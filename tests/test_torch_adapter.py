@@ -17,6 +17,7 @@ drawn with numpy (``torch_port_helpers.random_flax_params``); the zero
 gates are redrawn N(0, 1) so that the gated residuals are not near zero.
 """
 
+import copy
 import json
 import re
 from pathlib import Path
@@ -48,6 +49,7 @@ from torch_port_helpers import (
     TINY_BM_DIT,
     layout_rasters,
     random_flax_params,
+    redraw_gates,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -65,23 +67,10 @@ ADAPTERS = {
 }
 
 
-def _redraw_gates(tree, rng):
-    """The flax tree with every ``zero_gates`` leaf drawn N(0, 1)."""
-    out = {}
-    for name, node in tree.items():
-        if name == "zero_gates":
-            out[name] = rng.standard_normal(node.shape).astype(np.float32)
-        elif isinstance(node, dict):
-            out[name] = _redraw_gates(node, rng)
-        else:
-            out[name] = node
-    return out
-
-
 def _params(init, seed: int, *args, **kwargs) -> dict:
     shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *args, **kwargs)
     tree = jax.tree.map(np.asarray, random_flax_params(shapes, seed))
-    return _redraw_gates(tree, np.random.default_rng(seed))
+    return redraw_gates(tree, np.random.default_rng(seed))
 
 
 def _rel_max(a, b) -> float:
@@ -306,3 +295,27 @@ def test_flagship_configs_build_the_adapter():
         assert isinstance(adapter, ImageAdapter) and \
             len(adapter.body) == n_stages
         assert pipe.model.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("channels,stage", [([32, 40], 1), ([24, 32], 0)])
+def test_dit_refuses_adapter_of_another_width(channels, stage):
+    """Every adapter feature is added to the joint blocks' tokens, so each
+    stage must be num_attention_heads x attention_head_dim wide (4 x 8 =
+    32 here); the port says so when it is built, naming both widths."""
+    kw = copy.deepcopy(TINY_BM_DIT)
+    kw["condition_image_adapter_config"]["channels"] = channels
+    with pytest.raises(ValueError, match=rf"stage {stage} is "
+                       rf"{channels[stage]} wide.* = 32 wide"):
+        DiTCrossviewTemporal(**kw)
+
+
+def test_xs_configs_adapter_is_wider_than_their_dit():
+    """The two XS configs pair a 20 x 64 = 1280-wide DiT with a 1536-wide
+    ImageAdapter; the port refuses them when it builds them."""
+    for name in ("ctsd_35_xs_df6v3_tirda_bm_nwao.json",
+                 "ctsd_35_xs_df6v3_tirda_bm_nwao_streaming.json"):
+        cfg = json.loads((REPO / "configs/experimental" / name).read_text())
+        model = dict(cfg["pipeline"]["model"], num_layers=1)
+        with torch.device("meta"), pytest.raises(
+                ValueError, match="1536 wide.* = 1280 wide"):
+            create_instance_from_config(model)

@@ -287,11 +287,12 @@ def test_port_imports_no_jax():
     code = (
         "import sys, torch\n"
         "from opendwm_tpu_torch import checkpoint, config, convert, ops, "
-        "train\n"
+        "streaming, train\n"
         "from opendwm_tpu_torch.datasets import common, synthetic\n"
-        "from opendwm_tpu_torch.models import autoencoders, layers, mmdit, "
-        "unet\n"
-        "from opendwm_tpu_torch.pipelines import ctsd, optim\n"
+        "from opendwm_tpu_torch.models import adapters, autoencoders, "
+        "layers, mmdit, text_encoders, text_stage, unet\n"
+        "from opendwm_tpu_torch.pipelines import ctsd, ctsd_streaming, "
+        "optim\n"
         "from opendwm_tpu_torch.schedulers import DDIMScheduler, "
         "FlowMatchEulerScheduler\n"
         "q = torch.randn(1, 130, 2, 8)\n"

@@ -9,7 +9,10 @@ paths ran the d-1536 kernel, and that the smoke builds every CUDA source.
 Also the shape of the backward's fp32 dQ workspace; and the layout
 phases' gates: the rasters must move a denoiser's output, ``random_init_``
 draws the ImageAdapter's zero convs and gates non-zero, and the bf16
-moments hold 2 bytes an element. No kernel runs here.
+moments hold 2 bytes an element; the stream phase's gates: the ``ready``
+schedule, the bf16 text stage's bar, the stream path's launch census, the
+text encoders' weight scales and the tiny streaming DiT. No kernel runs
+here.
 """
 
 import importlib.util
@@ -196,13 +199,15 @@ def _counts(**over):
     ("bm_train", {"flash_tail_backward_sm90": 3}, False),
     ("bm_serve", {"flash_tail_sm90": 9}, False),
     ("bm_unet_serve", {"flash_attention_sm90": 4}, False),
+    ("stream", {"flash_tail_sm90": 9}, False),
 ])
 def test_model_paths_run_the_hopper_bodies(smoke, path, over, ok):
-    """Every K1/K7 forward launch of the seven model paths and every K2/K7
+    """Every K1/K7 forward launch of the eight model paths and every K2/K7
     backward launch of the three training paths must have run the Hopper
     body; one launch of an old body fails the run."""
     assert set(smoke.TRAIN_PATHS) < set(smoke.MODEL_PATHS)
-    assert {"bm_serve", "bm_unet_serve", "bm_train"} < set(smoke.MODEL_PATHS)
+    assert {"bm_serve", "bm_unet_serve", "bm_train", "stream"} < \
+        set(smoke.MODEL_PATHS)
     paths = {p: _counts() for p in smoke.MODEL_PATHS}
     paths[path] = _counts(**over)
     if ok:
@@ -246,11 +251,13 @@ def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
     ("train", {"k3": 0, "k3_fixed": 0}, False),
     ("bm_serve", {"k4_fixed": 46}, False),
     ("bm_train", {"k4": 0, "k4_fixed": 0}, False),
+    ("stream", {"k4_fixed": 46}, False),
 ])
 def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
-    """Every K3/K4 launch of the four DiT paths must have run the d-1536
+    """Every K3/K4 launch of the five DiT paths must have run the d-1536
     kernel of ``csrc/adaln.cu``, and each path must have launched both."""
-    assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train"}
+    assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train",
+                                    "stream"}
     paths = {p: _adaln_counts() for p in smoke.DIT_PATHS}
     paths[path] = _adaln_counts(**over)
     if ok:
@@ -389,3 +396,99 @@ def test_random_init_draws_the_adapter_nonzero(smoke):
     assert adapter.zero_gates.abs().min() > 0
     feats = adapter(torch.rand(1, 8, 8, 6))
     assert all(f.abs().max() > 0 for f in feats)
+
+
+@pytest.mark.parametrize("readies,ok", [
+    ([False] * 5 + [True] * 7, True),
+    ([False] * 6 + [True] * 6, False),   # ready one tick late
+    ([False] * 4 + [True] * 8, False),   # ready before the window is full
+    ([False] * 5 + [True, False] + [True] * 5, False),
+])
+def test_ready_schedule(smoke, readies, ok):
+    """``ready`` is False while the 6 ticks fill the queue, True from the
+    6th on."""
+    if ok:
+        smoke.check_ready_schedule(readies, 6)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_ready_schedule(readies, 6)
+
+
+@pytest.mark.parametrize("errs,ok", [
+    ({"encoder_hidden_states": 0.017, "pooled_projections": 0.013}, True),
+    ({"encoder_hidden_states": 0.017, "pooled_projections": 0.031}, False),
+    ({"encoder_hidden_states": float("nan")}, False),
+])
+def test_text_bar(smoke, errs, ok):
+    """The bf16 text stage within 3e-2 in relative norm of the fp32 one,
+    on every output; a NaN fails."""
+    assert smoke.TEXT_REL_TOL == 3e-2
+    if ok:
+        smoke.check_text_bar(errs)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_text_bar(errs)
+
+
+def _stream_counts(**over) -> dict:
+    forwards = 120
+    counts = {"flash_tail_by_seq": {602: 2880, 448: 1560, 168: 720},
+              "adaln_modulate": 62 * forwards,
+              "residual_adaln_modulate": 47 * forwards,
+              "flash_attention": 0, "flash_attention_segment": 0}
+    counts.update(over)
+    return counts
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"flash_tail_by_seq": {602: 2880, 448: 1560}}, False),
+    ({"adaln_modulate": 62 * 120 - 1}, False),
+    ({"residual_adaln_modulate": 46 * 120}, False),
+    ({"flash_attention": 1}, False),     # the text encoders reached K7
+    ({"flash_attention_segment": 2}, False),
+])
+def test_stream_census(smoke, over, ok):
+    """The stream path's launches: K1 at s = 602, 448 and 168, K3 62 and
+    K4 47 a DiT forward, no K7 and no K7-seg."""
+    if ok:
+        smoke.check_stream_census(_stream_counts(**over), 120)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_stream_census(_stream_counts(**over), 120)
+
+
+def test_text_init_draws_the_reference_scales(smoke):
+    """``text_init_`` draws CLIP and T5 weights in the scales of their
+    reference initializers: norms 1, biases 0, T5's q at 1/sqrt(d d_kv)."""
+    from opendwm_tpu_torch.models import text_encoders as te
+
+    g = torch.Generator().manual_seed(0)
+    clip = te.CLIPTextEncoder(vocab_size=500, hidden_size=64, num_layers=2,
+                              num_heads=4, projection_dim=32)
+    t5 = te.T5TextEncoder(vocab_size=500, d_model=64, d_kv=16, d_ff=128,
+                          num_layers=2, num_heads=4)
+    for m in (clip, t5):
+        smoke.text_init_(m, g)
+    assert (clip.layers[0].layer_norm1.weight == 1).all()
+    assert (clip.layers[0].self_attn.q_proj.bias == 0).all()
+    assert (t5.block[1].ln_ff.weight == 1).all()
+    for p, std in ((clip.token_embedding.weight, 0.02),
+                   (clip.layers[1].self_attn.k_proj.weight,
+                    64 ** -0.5 * 4 ** -0.5),
+                   (clip.layers[0].fc1.weight, 128 ** -0.5),
+                   (t5.shared.weight, 1.0),
+                   (t5.block[0].attention.q.weight, (64 * 16) ** -0.5),
+                   (t5.block[1].wo.weight, 128 ** -0.5)):
+        assert abs(p.std().item() / std - 1) < 0.1, (p.shape, std)
+
+
+def test_tiny_stream_dit_reaches_k1(smoke):
+    """The tiny streaming check's DiT builds (its adapter as wide as its
+    tokens) and its joint attention, 96 latent + 40 text tokens, is a
+    shape the tail kernel takes."""
+    from opendwm_tpu_torch.models.mmdit import DiTCrossviewTemporal
+
+    model = DiTCrossviewTemporal(**smoke.TINY_STREAM_DIT)
+    assert model.inner_dim == 32
+    assert flash_tail.supported(96 + 40, 96 + 40, 16)

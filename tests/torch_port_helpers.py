@@ -24,6 +24,45 @@ def random_flax_params(shapes, seed: int):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+def flax_text_params(module, ids_shape, seed: int):
+    """Params of a flax text encoder drawn with numpy: matrices N(0,
+    1/fan_in), embeddings and the relative bias N(0, 1), norm scales 1 +
+    N(0, 0.05^2), biases N(0, 0.05^2)."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                            jnp.zeros(ids_shape, jnp.int32))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        noise = rng.standard_normal(leaf.shape)
+        name = path[-1].key
+        if name in ("embedding", "relative_attention_bias"):
+            value = noise
+        elif name == "position_embedding":
+            value = 0.1 * noise
+        elif len(leaf.shape) >= 2:
+            value = noise / np.sqrt(leaf.shape[0])
+        elif name in ("scale", "weight"):
+            value = 1.0 + 0.05 * noise
+        else:
+            value = 0.05 * noise
+        return value.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def redraw_gates(tree, rng):
+    """The flax tree with every ``zero_gates`` leaf drawn N(0, 1)."""
+    out = {}
+    for name, node in tree.items():
+        if name == "zero_gates":
+            out[name] = rng.standard_normal(node.shape).astype(np.float32)
+        elif isinstance(node, dict):
+            out[name] = redraw_gates(node, rng)
+        else:
+            out[name] = node
+    return out
+
+
 def to_torch_tree(tree):
     """A (nested dict) tree of arrays as torch tensors."""
     if isinstance(tree, dict):
