@@ -2,8 +2,9 @@
 """Drive the PyTorch port's CTSD-3.5 serving and training paths, its
 streaming serving path with the CLIP/T5 text stage, its CTSD-2.1 UNet
 serving and training paths, the layout-conditioned (box + map) flagship's
-DiT and UNet serving and DiT training paths, the tail-attention tiling
-experiment and the attention shoot-out on one GPU.
+DiT and UNet serving and DiT training paths, int8 W8A8 serving of the DiT,
+the UNet and the VAE, the tail-attention tiling experiment and the
+attention shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-stream]
@@ -142,6 +143,28 @@ Phases; any failure raises and exits non-zero:
    ctsd_21_tirda_bm_nwa.json`` (phase 7's UNet plus its 5-stage adapter)
    as phase 7, with the same rasters gate and profile. K7 and K1 as in
    phase 7;
+10b. int8 serving: phase 5's DiT and its SD3.5 VAE, and phase 7's UNet,
+   each quantized on the card by the port's quantizer
+   (``ops/quant.quantize_state_dict``, through
+   ``opendwm_tpu_torch/perf/exp_int8_fidelity.py``'s ``build_pair``) from
+   its bf16 weights and run beside its bf16 twin. The DiT: CFG forwards
+   of both timed in turns (median of ``INT8_TIMED``), one profiled
+   forward of each by kernel family with the int8 GEMM (``_int_mm``) and
+   the quantize/dequantize work as lines of their own, then
+   ``exp_int8_fidelity.run``: the forward's fidelity (cosine,
+   ``max_rel_err``, ``max_rel_err_where_big``) and phase 5's 2-window
+   rollout with both (the latents' cosine); the int8 rollout's latents
+   decoded by the int8 VAE in chunks of 6 against the bf16 VAE, peak
+   memory. The UNet: a CFG forward of both timed in turns and its
+   cosine. Gates: cosine at least 0.995 (DiT forward) and 0.99 (UNet
+   forward, VAE decode), finite outputs; K1, K3 (62) and K4 (47) a CFG
+   forward of the int8 DiT, K7 (5) on the int8 UNet; a census
+   (``Int8Census``) in which every quantized layer call ran one
+   ``_int_mm`` and no float GEMM, and the ``_int_mm`` launches of a
+   forward, of the rollout and of the decode equal the ``QLinear`` /
+   ``QConv2d`` calls that the architecture implies; ``int8_mm`` at each
+   shape of these paths that it pads and at their largest unpadded one
+   (random int8 operands) equal to the float64 product bit for bit;
 11. bm DiT train slice: the flagship at full width and depth, fp32
    masters, bf16 compute, remat as the config sets it, flat AdamW with
    bf16 moments (``BM_OPTIMIZER``, as ``bench.py`` trains); 3 steps from
@@ -154,16 +177,17 @@ Phases; any failure raises and exits non-zero:
    phase 6's; ``--profile-train`` profiles it as it does phase 6.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the eight model paths
+but the shoot-out, every K1 and K7 forward launch of the ten model paths
 must have run the Hopper forward, every K2 and K7 backward launch of
 the three training paths the Hopper backward, every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
-of the five DiT paths the d-1536 kernel (their launch counters).
+of the six DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -210,8 +234,10 @@ RASTER_MIN_MOVE = 1e-3
 # The paths whose launch counters the body gates read.
 TRAIN_PATHS = ("train", "unet_train", "bm_train")
 MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
-               "bm_unet_serve", "bm_train", "stream")
-DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream")
+               "bm_unet_serve", "bm_train", "stream", "int8_serve",
+               "int8_unet")
+DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
+             "int8_serve")
 TINY_CONFIG = REPO / "configs/ctsd/ctsd_35_6views_video_synthetic.json"
 SEED = 0
 STEPS = 4  # cut from the config's 40
@@ -220,6 +246,9 @@ FRAMES, VIEWS, LAT_H, LAT_W, TEXT_TOKENS = 6, 6, 32, 56, 154
 DECODE_CHUNK = 12  # frames per VAE decode call
 ATTN_SHAPES = ((72, 602), (72, 448), (192, 168))  # (batch, seq); 24x64 heads
 TRAIN_ATTN_SHAPES = ((36, 602), (36, 448), (96, 168))  # batch 1: train, stream
+# The int8 phase: CFG forwards timed a model (in turns with the bf16 twin),
+# and the int8 VAE decode's chunk (bench.py:807).
+INT8_TIMED, INT8_DECODE_CHUNK = 5, 6
 TRAIN_STEPS = 3  # steps 2 and 3 are timed
 PROFILE_STEPS = 3  # with --profile-train/-unet-train: 3 more, then 3 profiled
 # The CUDA sources, built together (one nvcc each, all at once).
@@ -1619,6 +1648,263 @@ def run_unet_slice(dev, create_instance_from_config, sd21_vae, ops,
                     "peak_gib": peak_gib}
 
 
+def turns_s(fns: dict, kwargs: dict, rounds: int = INT8_TIMED) -> dict:
+    """Host seconds of ``rounds`` calls of each ``fns[name](**kwargs)``
+    (each ending in a synchronize), in turns whose order alternates (a b,
+    b a, ...), after one warm-up call each: the median and the spread."""
+    times: dict = {name: [] for name in fns}
+    with torch.inference_mode():
+        for fn in fns.values():
+            fn(**kwargs)
+        for r in range(rounds):
+            for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[name](**kwargs)
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+    return {name: median_spread(ts) for name, ts in times.items()}
+
+
+def int8_census(exp, ops, qmodel, kwargs: dict, want: int, what: str):
+    """One forward of the int8 ``qmodel`` under ``exp.Int8Census``: every
+    quantized layer ran one ``_int_mm`` and no float GEMM, and the
+    ``_int_mm`` launches are the ``want`` layer calls that the
+    architecture implies. Returns (the forward's launch counts, the
+    census summary)."""
+    ops.reset_launch_counts()
+    census = exp.Int8Census(qmodel)
+    with torch.inference_mode(), census:
+        out = qmodel(**kwargs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    try:
+        summary = census.check(want, what)
+    except AssertionError as e:
+        fail(str(e))
+    log(f"{what}: census {json.dumps(summary)}; _int_mm launches "
+        f"{counts['int8_mm']} (want {want})")
+    if counts["int8_mm"] != want:
+        fail(f"{what}: {counts['int8_mm']} _int_mm launches, not the "
+             f"{want} quantized layer calls of the architecture")
+    if not torch.isfinite(out).all():
+        fail(f"{what}: the int8 forward is not finite")
+    return counts, summary
+
+
+def int8_profile(exp, model, kwargs: dict, what: str, quantized: bool):
+    """One profiled forward: the device time by family and, for an int8
+    model, the int8 GEMM and the quantize/dequantize work as lines of
+    their own (``exp.int8_split``)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    ranges = exp.int8_ranges(model) if quantized else contextlib.nullcontext()
+    with torch.inference_mode(), ranges, profiler(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(**kwargs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    log(_kernel_time_table(prof, dt, what))
+    split = exp.int8_split(prof)
+    total = sum(v["ms"] for v in split.values())
+    table = sum(t for t, _, _ in _device_kernels(prof)) / 1e3
+    log(f"  {what}: the split covers {total:.3f} of the table's {table:.3f} "
+        "device ms")
+    for key, v in split.items():
+        log(f"  {what} {key}: {v['ms']:.3f} device ms in {v['kernels']} "
+            f"kernels ({100 * v['ms'] / max(total, 1e-9):.1f}%)")
+    return {"wall_s": dt, "device_ms": total, **split}
+
+
+def int8_mm_exact(dev, ops, shapes) -> list:
+    """``int8_mm`` at full width against an exact product: one call at
+    each shape of the int8 paths that ``int8_mm`` pads (rows under 17, K
+    or N not a multiple of 8) and at the largest one it does not, on random
+    int8 operands, equal to the float64 product (exact: each sum of int8
+    products here is an integer far below 2^53), taken in row blocks."""
+    shapes = {tuple(map(int, key.split(","))) for key in shapes}
+    padded = sorted(sh for sh in shapes
+                    if sh[0] <= 16 or sh[1] % 8 or sh[2] % 8)
+    plain = sorted(set(shapes) - set(padded), key=lambda sh: sh[0] * sh[1] *
+                   sh[2])[-1:]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    rows = []
+    for m, k, n in padded + plain:
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        y = ops.quant.int8_mm(a, w)
+        wt = w.double().t()
+        equal = tuple(y.shape) == (m, n) and y.dtype == torch.int32 and all(
+            torch.equal(y[i:i + 65536].double(), a[i:i + 65536].double() @ wt)
+            for i in range(0, m, 65536))
+        rows.append({"shape": [m, k, n], "padded": (m, k, n) in padded,
+                     "equal": equal})
+        if not equal:
+            fail(f"int8_mm at ({m}, {k}, {n}) differs from the exact product")
+    log(f"int8_mm at the int8 paths' shapes, equal to the exact product: "
+        f"{json.dumps(rows)}")
+    return rows
+
+
+def run_int8_slice(dev, sd35_vae, ops, get_conditions, exp):
+    """int8 W8A8 serving at full width: phase 5's DiT and phase 7's UNet,
+    each quantized on the card by the port's quantizer from its bf16
+    weights (``exp_int8_fidelity.build_pair``) and run beside its bf16
+    twin; the SD3.5 VAE likewise for the decode."""
+    out: dict = {}
+    # The DiT: draws in phase 5's order (model, VAE, batch).
+    cfg = json.loads(CONFIG.read_text())["pipeline"]
+    cfg["inference_config"]["inference_steps"] = STEPS
+    gen = torch.Generator(dev).manual_seed(SEED)
+    pipe, qpipe = exp.build_pair(cfg, dev, random_init_, gen)
+    with torch.device("meta"):
+        vae = sd35_vae(dtype=torch.bfloat16)
+        qvae = sd35_vae(dtype=torch.bfloat16, quantization="int8")
+    vae.to_empty(device=dev)
+    random_init_(vae, gen)
+    qvae.to_empty(device=dev)
+    qvae.load_state_dict(ops.quant.quantize_state_dict(vae.state_dict(),
+                                                       qvae))
+    model, qmodel = pipe.model.eval(), qpipe.model.eval()
+    qpipe.set_vae(qvae.eval())
+    n8 = sum(b.numel() for b in qmodel.buffers() if b.dtype == torch.int8)
+    log(f"int8 DiT: {n8 / 1e9:.3f}B int8 weights quantized on the card from "
+        f"the bf16 ones of {CONFIG.relative_to(REPO)}")
+    batch = make_batch(dev, gen)
+    latent_shape = (1, FRAMES, VIEWS, LAT_H, LAT_W, 16)
+    kwargs = dict(
+        sample=torch.randn((2,) + latent_shape[1:], generator=gen,
+                           device=dev),
+        timestep=torch.full((2, FRAMES, VIEWS), 500.0, device=dev),
+        **get_conditions(batch, pipe.common_config,
+                         do_classifier_free_guidance=True))
+    times = turns_s({"bf16": model, "int8": qmodel}, kwargs)
+    log(f"DiT CFG forward (batch 2 x {FRAMES * VIEWS} view-frames), s: "
+        f"bf16 {json.dumps(times['bf16'])}, int8 {json.dumps(times['int8'])}"
+        f"; int8 / bf16 {times['int8']['median'] / times['bf16']['median']:.3f}")
+    counts, census = int8_census(exp, ops, qmodel, kwargs,
+                                 exp.dit_int8_calls(cfg["model"]),
+                                 "int8 DiT CFG forward")
+    k3, k4 = counts["adaln_modulate"], counts["residual_adaln_modulate"]
+    if k3 != K3_PER_FORWARD or k4 != K4_PER_FORWARD:
+        fail(f"int8 DiT: K3/K4 launched {k3}/{k4} times in a CFG forward, "
+             f"not {K3_PER_FORWARD}/{K4_PER_FORWARD}")
+    for s in (602, 448, 168):
+        if counts["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"int8 DiT: K1 never launched at s={s} in a CFG forward")
+    profiles = {name: int8_profile(exp, m, kwargs, f"DiT {name} CFG forward",
+                                   name == "int8")
+                for name, m in (("bf16", model), ("int8", qmodel))}
+
+    def before(name):  # the int8 rollout runs last: count it and the decode
+        if name == "int8":
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+
+    total_frames = FRAMES + (WINDOWS - 1) * (FRAMES - 1)
+    report, lat = exp.run(pipe, qpipe, kwargs, batch, latent_shape,
+                          total_frames, SEED, before=before)
+    del kwargs
+    fwd, roll = report["forward"], report["rollout"]
+    log(f"DiT int8 forward fidelity: {json.dumps(fwd)}")
+    log(f"rollouts ({WINDOWS} windows x {STEPS} steps), s: "
+        f"{json.dumps(report['rollout_s'])}")
+    if not fwd["cosine"] >= exp.DIT_COSINE:
+        fail(f"int8 DiT forward cosine {fwd['cosine']} < {exp.DIT_COSINE}")
+    t0 = time.perf_counter()
+    frames = qpipe.decode_latents(lat, chunk_size=INT8_DECODE_CHUNK)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    serve_counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref_frames = vae.decode_from_scaled(lat, chunk_size=INT8_DECODE_CHUNK)
+    torch.cuda.synchronize()
+    bf16_decode_s = time.perf_counter() - t0
+    dec = exp.forward_fidelity(ref_frames, frames)
+    want_frames = (1, total_frames, VIEWS, 8 * LAT_H, 8 * LAT_W, 3)
+    if not torch.isfinite(lat).all() or \
+            tuple(frames.shape) != want_frames or \
+            not torch.isfinite(frames).all():
+        fail(f"int8 rollout or decode not finite/expected "
+             f"({tuple(frames.shape)})")
+    forwards = WINDOWS * STEPS
+    chunks = -(-total_frames * VIEWS // INT8_DECODE_CHUNK)
+    want = forwards * exp.dit_int8_calls(cfg["model"]) + \
+        chunks * exp.vae_decoder_int8_calls(qvae.block_out_channels)
+    log(f"int8 decode: frames {want_frames} in chunks of "
+        f"{INT8_DECODE_CHUNK}, {decode_s:.3f} s (the bf16 VAE "
+        f"{bf16_decode_s:.3f} s); fidelity to the bf16 VAE on the same "
+        f"latents {json.dumps(dec)}")
+    log(f"int8 rollout fidelity: {json.dumps(roll)}; peak memory (int8 "
+        f"rollout + decode, bf16 twin resident) {peak_gib:.2f} GiB")
+    log(f"launches during the int8 rollout and decode: "
+        f"{json.dumps(serve_counts)}")
+    if not dec["cosine"] >= exp.VAE_COSINE:
+        fail(f"int8 VAE decode cosine {dec['cosine']} < {exp.VAE_COSINE}")
+    k3, k4 = (serve_counts["adaln_modulate"],
+              serve_counts["residual_adaln_modulate"])
+    if serve_counts["int8_mm"] != want or k3 != K3_PER_FORWARD * forwards \
+            or k4 != K4_PER_FORWARD * forwards:
+        fail(f"int8 rollout + decode: {serve_counts['int8_mm']} _int_mm "
+             f"(want {want}), K3/K4 {k3}/{k4} in {forwards} CFG forwards")
+    out["dit"] = {"forward_s": times, **report, "decode": dec,
+                  "decode_s": decode_s, "bf16_decode_s": bf16_decode_s,
+                  "peak_gib": peak_gib, "census": census,
+                  "profiles": profiles}
+    del pipe, qpipe, model, qmodel, vae, qvae, lat, frames, ref_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the int8 UNet")
+
+    ucfg = json.loads(UNET_CONFIG.read_text())["pipeline"]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    upipe, uqpipe = exp.build_pair(ucfg, dev, random_init_, gen)
+    umodel, uqmodel = upipe.model.eval(), uqpipe.model.eval()
+    batch = make_batch(dev, gen, UNET_TEXT_TOKENS, UNET_TEXT_DIM, None)
+    kwargs = dict(
+        sample=torch.randn((2, FRAMES, VIEWS, LAT_H, LAT_W, UNET_LAT_C),
+                           generator=gen, device=dev),
+        timestep=torch.full((2, FRAMES, VIEWS), 500, device=dev),
+        **get_conditions(batch, upipe.common_config,
+                         do_classifier_free_guidance=True))
+    times = turns_s({"bf16": umodel, "int8": uqmodel}, kwargs)
+    with torch.inference_mode():
+        fwd = exp.forward_fidelity(umodel(**kwargs), uqmodel(**kwargs))
+    log(f"UNet CFG forward, s: bf16 {json.dumps(times['bf16'])}, int8 "
+        f"{json.dumps(times['int8'])}; int8 / bf16 "
+        f"{times['int8']['median'] / times['bf16']['median']:.3f}")
+    log(f"UNet int8 forward fidelity: {json.dumps(fwd)}")
+    if not fwd["cosine"] >= exp.UNET_COSINE:
+        fail(f"int8 UNet forward cosine {fwd['cosine']} < {exp.UNET_COSINE}")
+    unet_counts, census = int8_census(exp, ops, uqmodel, kwargs,
+                                      exp.unet_int8_calls(ucfg["model"]),
+                                      "int8 UNet CFG forward")
+    k7_key = f"{2 * FRAMES * VIEWS},{LAT_H * LAT_W},{LAT_H * LAT_W},5,64"
+    k7 = unet_counts["flash_attention_by_shape"].get(k7_key, 0)
+    if k7 != UNET_K7_PER_FORWARD or \
+            unet_counts["flash_attention"] != UNET_K7_PER_FORWARD:
+        fail(f"int8 UNet: K7 launched "
+             f"{unet_counts['flash_attention_by_shape']} in a CFG forward, "
+             f"not {UNET_K7_PER_FORWARD} at ({k7_key})")
+    for s in (336, 448, 168):
+        if unet_counts["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"int8 UNet: K1 never launched at s={s} in a CFG forward")
+    out["unet"] = {"forward_s": times, "forward": fwd, "census": census}
+    out["int8_mm_exact"] = int8_mm_exact(
+        dev, ops, {**counts["int8_mm_by_shape"],
+                   **serve_counts["int8_mm_by_shape"],
+                   **unet_counts["int8_mm_by_shape"]})
+    return serve_counts, unet_counts, out
+
+
 FAMILIES = (  # kernel families of the profiles, matched in order, lowercase
     ("K1/K7 fwd sm90 (CUDA)", ("flash_fwd_sm90",)),
     ("K1/K2 flash_tail (CUDA)", ("flash_tail",)),
@@ -2438,7 +2724,11 @@ def main() -> None:
         flash_tail,
         fused_adaln,
     )
-    from opendwm_tpu_torch.perf import exp_attn602, exp_tailvar
+    from opendwm_tpu_torch.perf import (
+        exp_attn602,
+        exp_int8_fidelity,
+        exp_tailvar,
+    )
     from opendwm_tpu_torch.pipelines.ctsd import (
         draw_training_randoms,
         get_conditions,
@@ -2543,6 +2833,11 @@ def main() -> None:
                                 layout=True, tag="bm unet")
     gc.collect()
     torch.cuda.empty_cache()
+    log_clocks("before the int8 serving slice")
+    int8_serve, int8_unet, _ = run_int8_slice(
+        dev, sd35_vae, ops, get_conditions, exp_int8_fidelity)
+    gc.collect()
+    torch.cuda.empty_cache()
     log_clocks("before the bm DiT train slice")
     bm_train, bm_train_metrics = run_train_slice(
         dev, create_instance_from_config, ops, config=BM_CONFIG,
@@ -2562,7 +2857,8 @@ def main() -> None:
     paths = {"serve": serve, "train": train, "unet_serve": unet,
              "unet_train": unet_train, "bm_serve": bm_serve,
              "bm_unet_serve": bm_unet, "bm_train": bm_train,
-             "stream": stream, "tailvar": tailvar, "attn602": attn602}
+             "stream": stream, "int8_serve": int8_serve,
+             "int8_unet": int8_unet, "tailvar": tailvar, "attn602": attn602}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
               if p != "attn602" and c["flash_attention_segment"]}
     if strays:

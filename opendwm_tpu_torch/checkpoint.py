@@ -77,11 +77,14 @@ def latest_step(output_path: str) -> Optional[int]:
     return max(steps, default=None)
 
 
-def save_model_only(path: str, model: torch.nn.Module) -> None:
-    """The weights alone, as one ``torch.save`` of the state dict."""
+def save_model_only(path: str, model) -> None:
+    """The weights alone, as one ``torch.save`` of the state dict
+    (``model``: a module, or a state dict)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(model.state_dict(), path)
+    state = model.state_dict() if isinstance(model, torch.nn.Module) \
+        else dict(model)
+    torch.save(state, path)
 
 
 def load_model_only(path: str, model: Optional[torch.nn.Module] = None):

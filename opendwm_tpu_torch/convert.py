@@ -11,7 +11,11 @@ numpy arrays (``{"params": {...}}`` or the inner tree) becomes a flat
 - flax Dense ``kernel`` (in, out) → Linear ``weight`` (out, in);
 - flax Conv ``kernel`` (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh, kw),
   and (kt, kh, kw, in, out) → Conv3d ``weight`` (out, in, kt, kh, kw);
-- LayerNorm/GroupNorm/RMSNorm ``scale`` → ``weight``, ``bias`` → ``bias``.
+- LayerNorm/GroupNorm/RMSNorm ``scale`` → ``weight``, ``bias`` → ``bias``;
+- int8 trees (``quantize_param_tree``'s): ``QDense`` ``kernel_q`` (in,
+  out) → ``QLinear`` ``weight_q`` (out, in), ``QConv`` ``kernel_q`` (kh,
+  kw, in, out) → ``QConv2d`` ``weight_q`` (out, kh, kw, in), each
+  ``kernel_scale`` → ``weight_scale``, unchanged.
 
 The way back, for the DiT and the UNet: ``flax_param_name`` names a port
 parameter as the JAX package's trees name it (its ``freezing_pattern``
@@ -50,16 +54,21 @@ def _has(tree: Mapping, path: str) -> bool:
     return True
 
 
-def _linear(tree, sd, src: str, dst: str):
-    node = _get(tree, src)
-    sd[f"{dst}.weight"] = np.asarray(node["kernel"]).T
-    sd[f"{dst}.bias"] = np.asarray(node["bias"])
+# flax kernel axes → port weight axes, float and int8 (``kernel_q``).
+_KERNEL_AXES = {("kernel", 2): (1, 0), ("kernel", 4): (3, 2, 0, 1),
+                ("kernel", 5): (4, 3, 0, 1, 2), ("kernel_q", 2): (1, 0),
+                ("kernel_q", 4): (3, 0, 1, 2)}
+_KERNEL_NAMES = {"kernel": "weight", "kernel_q": "weight_q",
+                 "kernel_scale": "weight_scale"}
 
 
-def _conv(tree, sd, src: str, dst: str):
+def _weights(tree, sd, src: str, dst: str):
+    """A Dense or Conv node (float or int8) → ``weight`` or ``weight_q``
+    and ``weight_scale``, and ``bias``."""
     node = _get(tree, src)
-    sd[f"{dst}.weight"] = np.asarray(node["kernel"]).transpose(3, 2, 0, 1)
-    sd[f"{dst}.bias"] = np.asarray(node["bias"])
+    for name, value in node.items():
+        leaf, value = _leaf(name, np.asarray(value))
+        sd[f"{dst}.{leaf}"] = value
 
 
 def _norm(tree, sd, src: str, dst: str):
@@ -79,19 +88,19 @@ def _count(tree, prefix: str) -> int:
 
 def _attention(tree, sd, src, dst):
     for p in ("to_q", "to_k", "to_v"):
-        _linear(tree, sd, f"{src}/{p}", f"{dst}.{p}")
-    _linear(tree, sd, f"{src}/to_out", f"{dst}.to_out.0")
+        _weights(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+    _weights(tree, sd, f"{src}/to_out", f"{dst}.to_out.0")
     for p in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
         if _has(tree, f"{src}/{p}"):
             _norm(tree, sd, f"{src}/{p}", f"{dst}.{p}")
     for p in ("add_q_proj", "add_k_proj", "add_v_proj", "to_add_out"):
         if _has(tree, f"{src}/{p}"):
-            _linear(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+            _weights(tree, sd, f"{src}/{p}", f"{dst}.{p}")
 
 
 def _feed_forward(tree, sd, src, dst):
-    _linear(tree, sd, f"{src}/proj_in", f"{dst}.net.0.proj")
-    _linear(tree, sd, f"{src}/proj_out", f"{dst}.net.2")
+    _weights(tree, sd, f"{src}/proj_in", f"{dst}.net.0.proj")
+    _weights(tree, sd, f"{src}/proj_out", f"{dst}.net.2")
 
 
 def _vt_block(tree, sd, src, dst):
@@ -120,13 +129,13 @@ def image_adapter_state_dict_from_flax(params: Mapping) -> dict:
     for i in range(_count(tree, "body")):
         body = f"body_{i}"
         if _has(tree, f"{body}/in_conv"):
-            _conv(tree, sd, f"{body}/in_conv", f"body.{i}.in_conv")
+            _weights(tree, sd, f"{body}/in_conv", f"body.{i}.in_conv")
         for j in range(_count(tree[body], "resnets")):
             for conv in ("block1", "block2"):
-                _conv(tree, sd, f"{body}/resnets_{j}/{conv}",
-                      f"body.{i}.resnets.{j}.{conv}")
+                _weights(tree, sd, f"{body}/resnets_{j}/{conv}",
+                         f"body.{i}.resnets.{j}.{conv}")
     for i in range(_count(tree, "zero_convs")):
-        _conv(tree, sd, f"zero_convs_{i}", f"zero_convs.{i}")
+        _weights(tree, sd, f"zero_convs_{i}", f"zero_convs.{i}")
     if "zero_gates" in tree:
         sd["zero_gates"] = np.asarray(tree["zero_gates"])
     return sd
@@ -140,21 +149,22 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
         raise NotImplementedError(
             f"params outside the ported slice: {sorted(unknown)}")
     sd: dict = {}
-    _conv(tree, sd, "pos_embed/proj", "pos_embed.proj")
-    _linear(tree, sd, "context_embedder", "context_embedder")
+    _weights(tree, sd, "pos_embed/proj", "pos_embed.proj")
+    _weights(tree, sd, "context_embedder", "context_embedder")
     for name in ("timestep_embedder", "text_embedder"):
         for lin in ("linear_1", "linear_2"):
-            _linear(tree, sd, f"time_text_embed/{name}/{lin}",
-                    f"time_text_embed.{name}.{lin}")
+            _weights(tree, sd, f"time_text_embed/{name}/{lin}",
+                     f"time_text_embed.{name}.{lin}")
     if "view_embedding" in tree:
         for lin in ("linear_1", "linear_2"):
-            _linear(tree, sd, f"view_embedding/{lin}", f"view_embedding.{lin}")
+            _weights(tree, sd, f"view_embedding/{lin}",
+                     f"view_embedding.{lin}")
 
     for i in range(num_layers):
         src, dst = f"transformer_blocks_{i}", f"transformer_blocks.{i}"
-        _linear(tree, sd, f"{src}/norm1/linear", f"{dst}.norm1.linear")
-        _linear(tree, sd, f"{src}/norm1_context/linear",
-                f"{dst}.norm1_context.linear")
+        _weights(tree, sd, f"{src}/norm1/linear", f"{dst}.norm1.linear")
+        _weights(tree, sd, f"{src}/norm1_context/linear",
+                 f"{dst}.norm1_context.linear")
         _attention(tree, sd, f"{src}/attn", f"{dst}.attn")
         if _has(tree, f"{src}/attn2"):
             _attention(tree, sd, f"{src}/attn2", f"{dst}.attn2")
@@ -168,7 +178,7 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
     for kind in ("view_pos_embeds", "time_pos_embeds"):
         for j in range(_count(tree, kind)):
             for lin in ("linear_1", "linear_2"):
-                _linear(tree, sd, f"{kind}_{j}/{lin}", f"{kind}.{j}.{lin}")
+                _weights(tree, sd, f"{kind}_{j}/{lin}", f"{kind}.{j}.{lin}")
     for kind in ("view_mixers", "time_mixers"):
         for j in range(_count(tree, kind)):
             node = tree[f"{kind}_{j}"]
@@ -180,8 +190,8 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
             tree["condition_image_adapter"])
         sd.update({f"condition_image_adapter.{k}": v
                    for k, v in adapter.items()})
-    _linear(tree, sd, "norm_out/linear", "norm_out.linear")
-    _linear(tree, sd, "proj_out", "proj_out")
+    _weights(tree, sd, "norm_out/linear", "norm_out.linear")
+    _weights(tree, sd, "proj_out", "proj_out")
     return sd
 
 
@@ -262,14 +272,14 @@ def _resnet(tree, sd, src, dst):
         _norm(tree, sd, f"{src}/{p}", f"{dst}.{p}")
     for p in ("conv1", "conv2", "conv_shortcut"):
         if _has(tree, f"{src}/{p}"):
-            _conv(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+            _weights(tree, sd, f"{src}/{p}", f"{dst}.{p}")
 
 
 def _vae_attention(tree, sd, src, dst):
     _norm(tree, sd, f"{src}/group_norm", f"{dst}.group_norm")
     for p in ("to_q", "to_k", "to_v"):
-        _linear(tree, sd, f"{src}/{p}", f"{dst}.{p}")
-    _linear(tree, sd, f"{src}/to_out", f"{dst}.to_out.0")
+        _weights(tree, sd, f"{src}/{p}", f"{dst}.{p}")
+    _weights(tree, sd, f"{src}/to_out", f"{dst}.to_out.0")
 
 
 def _blocks(tree, kind: str) -> dict[int, list[int]]:
@@ -294,22 +304,23 @@ def vae_state_dict_from_flax(params: Mapping) -> dict:
         if part not in tree:
             continue
         sub = tree[part]
-        _conv(sub, sd, "conv_in", f"{part}.conv_in")
+        _weights(sub, sd, "conv_in", f"{part}.conv_in")
         for i, js in _blocks(sub, kind).items():
             for j in js:
                 _resnet(sub, sd, f"{kind}_{i}_resnet_{j}",
                         f"{part}.{blocks}.{i}.resnets.{j}")
             name = f"{kind}_{i}_{'downsample' if kind == 'down' else 'upsample'}"
             if name in sub:
-                _conv(sub, sd, name, f"{part}.{blocks}.{i}.{sampler}.0.conv")
+                _weights(sub, sd, name,
+                         f"{part}.{blocks}.{i}.{sampler}.0.conv")
         for j in (0, 1):
             _resnet(sub, sd, f"mid_resnet_{j}", f"{part}.mid_block.resnets.{j}")
         _vae_attention(sub, sd, "mid_attn", f"{part}.mid_block.attentions.0")
         _norm(sub, sd, "conv_norm_out", f"{part}.conv_norm_out")
-        _conv(sub, sd, "conv_out", f"{part}.conv_out")
+        _weights(sub, sd, "conv_out", f"{part}.conv_out")
     for name in ("quant_conv", "post_quant_conv"):
         if name in tree:
-            _conv(tree, sd, name, name)
+            _weights(tree, sd, name, name)
     return sd
 
 
@@ -332,10 +343,10 @@ def _unet_piece(parent: str, name: str) -> str:
 
 def _leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     """A flax leaf as the torch parameter (name, value)."""
-    if name == "kernel":
-        axes = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[value.ndim]
-        return "weight", value.transpose(axes)
-    return {"scale": "weight"}.get(name, name), value
+    if (name, value.ndim) in _KERNEL_AXES:
+        value = value.transpose(_KERNEL_AXES[name, value.ndim])
+    return _KERNEL_NAMES.get(name, {"scale": "weight"}.get(name, name)), \
+        value
 
 
 def unet_state_dict_from_flax(params: Mapping) -> dict:

@@ -6,6 +6,14 @@ Public tensors are channel-last like the JAX package's (latents
 NCHW inside for PyTorch's convolutions. Parameter names are the diffusers
 ``AutoencoderKL`` state-dict names, so a released checkpoint loads with
 ``load_state_dict``.
+
+int8 W8A8 serving (``quantization="int8"``): the encoder's and decoder's
+resnet convs, ``conv_in``/``conv_out`` and samplers run as ``QConv2d``
+and the mid-block attention's ``to_q/k/v/out`` as ``QLinear``;
+``quant_conv``/``post_quant_conv`` stay float, as in the JAX model. An
+int8 model hands its input to ``conv_in`` in the dtype it arrives in
+(fp32 latents from a rollout): ``QConv2d`` quantizes what it is given,
+as flax's ``QConv`` does, where a float conv casts it first.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.models.layers import conv_factory, dense_factory
 
 
 def _group_norm(ch: int) -> nn.GroupNorm:
@@ -24,15 +33,17 @@ def _group_norm(ch: int) -> nn.GroupNorm:
 
 
 class ResnetBlock(nn.Module):
-    def __init__(self, in_channels: int, out_channels: Optional[int] = None):
+    def __init__(self, in_channels: int, out_channels: Optional[int] = None,
+                 quantized: bool = False):
         super().__init__()
         out_channels = out_channels or in_channels
+        conv = conv_factory(quantized)
         self.norm1 = _group_norm(in_channels)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = conv(in_channels, out_channels, 3, padding=1)
         self.norm2 = _group_norm(out_channels)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = conv(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (
-            nn.Conv2d(in_channels, out_channels, 1)
+            conv(in_channels, out_channels, 1)
             if in_channels != out_channels else None
         )
 
@@ -49,13 +60,14 @@ class AttnBlock(nn.Module):
     logits and softmax, probabilities in the value dtype, as the JAX
     package's einsum form."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quantized: bool = False):
         super().__init__()
+        lin = dense_factory(quantized)
         self.group_norm = _group_norm(channels)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+        self.to_q = lin(channels, channels)
+        self.to_k = lin(channels, channels)
+        self.to_v = lin(channels, channels)
+        self.to_out = nn.ModuleList([lin(channels, channels)])
 
     def forward(self, x):  # NCHW
         b, c, h, w = x.shape
@@ -68,9 +80,9 @@ class AttnBlock(nn.Module):
 
 
 class _Upsample(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quantized: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = conv_factory(quantized)(channels, channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -80,20 +92,20 @@ class _Downsample(nn.Module):
     """diffusers' ``Downsample2D``: pad (0, 1, 0, 1), then a stride-2 conv
     without padding."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quantized: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+        self.conv = conv_factory(quantized)(channels, channels, 3, stride=2)
 
     def forward(self, x):
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
 class _MidBlock(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quantized: bool = False):
         super().__init__()
-        self.resnets = nn.ModuleList(
-            [ResnetBlock(channels), ResnetBlock(channels)])
-        self.attentions = nn.ModuleList([AttnBlock(channels)])
+        self.resnets = nn.ModuleList([
+            ResnetBlock(channels, quantized=quantized) for _ in range(2)])
+        self.attentions = nn.ModuleList([AttnBlock(channels, quantized)])
 
     def forward(self, h):
         return self.resnets[1](self.attentions[0](self.resnets[0](h)))
@@ -101,14 +113,16 @@ class _MidBlock(nn.Module):
 
 class _UpBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, layers: int,
-                 upsample: bool):
+                 upsample: bool, quantized: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock(in_channels if j == 0 else out_channels, out_channels)
+            ResnetBlock(in_channels if j == 0 else out_channels, out_channels,
+                        quantized)
             for j in range(layers)
         ])
         self.upsamplers = (
-            nn.ModuleList([_Upsample(out_channels)]) if upsample else None
+            nn.ModuleList([_Upsample(out_channels, quantized)])
+            if upsample else None
         )
 
     def forward(self, h):
@@ -121,14 +135,16 @@ class _UpBlock(nn.Module):
 
 class _DownBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, layers: int,
-                 downsample: bool):
+                 downsample: bool, quantized: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock(in_channels if j == 0 else out_channels, out_channels)
+            ResnetBlock(in_channels if j == 0 else out_channels, out_channels,
+                        quantized)
             for j in range(layers)
         ])
         self.downsamplers = (
-            nn.ModuleList([_Downsample(out_channels)]) if downsample else None
+            nn.ModuleList([_Downsample(out_channels, quantized)])
+            if downsample else None
         )
 
     def forward(self, h):
@@ -147,19 +163,19 @@ class Encoder(nn.Module):
     def __init__(self,
                  block_out_channels: Sequence[int] = (128, 256, 512, 512),
                  layers_per_block: int = 2, latent_channels: int = 4,
-                 in_channels: int = 3):
+                 in_channels: int = 3, quantized: bool = False):
         super().__init__()
         chans = list(block_out_channels)
-        self.conv_in = nn.Conv2d(in_channels, chans[0], 3, padding=1)
+        conv = conv_factory(quantized)
+        self.conv_in = conv(in_channels, chans[0], 3, padding=1)
         self.down_blocks = nn.ModuleList([
             _DownBlock(chans[i - 1] if i else chans[0], ch, layers_per_block,
-                       downsample=i < len(chans) - 1)
+                       downsample=i < len(chans) - 1, quantized=quantized)
             for i, ch in enumerate(chans)
         ])
-        self.mid_block = _MidBlock(chans[-1])
+        self.mid_block = _MidBlock(chans[-1], quantized)
         self.conv_norm_out = _group_norm(chans[-1])
-        self.conv_out = nn.Conv2d(chans[-1], 2 * latent_channels, 3,
-                                  padding=1)
+        self.conv_out = conv(chans[-1], 2 * latent_channels, 3, padding=1)
 
     def forward(self, x):  # NCHW
         h = self.conv_in(x)
@@ -172,18 +188,19 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
                  layers_per_block: int = 3, latent_channels: int = 4,
-                 out_channels: int = 3):
+                 out_channels: int = 3, quantized: bool = False):
         super().__init__()
         chans = list(reversed(block_out_channels))
-        self.conv_in = nn.Conv2d(latent_channels, chans[0], 3, padding=1)
-        self.mid_block = _MidBlock(chans[0])
+        conv = conv_factory(quantized)
+        self.conv_in = conv(latent_channels, chans[0], 3, padding=1)
+        self.mid_block = _MidBlock(chans[0], quantized)
         self.up_blocks = nn.ModuleList([
             _UpBlock(chans[i - 1] if i else chans[0], ch, layers_per_block,
-                     upsample=i < len(chans) - 1)
+                     upsample=i < len(chans) - 1, quantized=quantized)
             for i, ch in enumerate(chans)
         ])
         self.conv_norm_out = _group_norm(chans[-1])
-        self.conv_out = nn.Conv2d(chans[-1], out_channels, 3, padding=1)
+        self.conv_out = conv(chans[-1], out_channels, 3, padding=1)
 
     def forward(self, z):  # NCHW
         h = self.mid_block(self.conv_in(z))
@@ -211,19 +228,21 @@ class AutoencoderKL(nn.Module):
         quantization: Optional[str] = None,
     ):
         super().__init__()
-        if quantization is not None:
-            raise NotImplementedError(
-                "int8 VAE serving is not ported yet (ROADMAP Queue 1, item 6)"
-            )
+        if quantization not in (None, "int8"):
+            raise ValueError(f"unknown quantization {quantization!r}")
+        self.quantized = quantization == "int8"
+        self.block_out_channels = tuple(block_out_channels)
         self.scaling_factor = scaling_factor
         self.shift_factor = shift_factor
         self.use_quant_conv = use_quant_conv
         self.downscale_factor = 2 ** (len(block_out_channels) - 1)
         self.latent_channels = latent_channels
         self.encoder = Encoder(block_out_channels,
-                               latent_channels=latent_channels)
+                               latent_channels=latent_channels,
+                               quantized=self.quantized)
         self.decoder = Decoder(block_out_channels,
-                               latent_channels=latent_channels)
+                               latent_channels=latent_channels,
+                               quantized=self.quantized)
         if use_quant_conv:
             self.quant_conv = nn.Conv2d(2 * latent_channels,
                                         2 * latent_channels, 1)
@@ -233,7 +252,12 @@ class AutoencoderKL(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.decoder.conv_in.weight.dtype
+        return self.decoder.conv_norm_out.weight.dtype
+
+    def _conv_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` for ``conv_in``: cast to ``dtype`` for a float conv, as
+        it arrives for an int8 one."""
+        return x if self.quantized else x.to(self.dtype)
 
     def latent_shape(self, image_shape: Sequence[int]) -> tuple:
         """The latents' shape for images of ``image_shape`` (..., H, W, 3)."""
@@ -246,7 +270,7 @@ class AutoencoderKL(nn.Module):
         ``(mean, logvar)``, each ``(..., h, w, c)``; logvar clipped to
         [-30, 20]."""
         lead = x.shape[:-3]
-        x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2).to(self.dtype)
+        x = self._conv_input(x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2))
         moments = self.encoder(x)
         if self.use_quant_conv:
             moments = self.quant_conv(moments)
@@ -278,9 +302,10 @@ class AutoencoderKL(nn.Module):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """``z``: ``(..., h, w, c)`` latents → ``(..., H, W, 3)`` images."""
         lead = z.shape[:-3]
-        z = z.reshape(-1, *z.shape[-3:]).permute(0, 3, 1, 2).to(self.dtype)
+        z = z.reshape(-1, *z.shape[-3:]).permute(0, 3, 1, 2)
         if self.use_quant_conv:
-            z = self.post_quant_conv(z)
+            z = self.post_quant_conv(z.to(self.dtype))
+        z = self._conv_input(z)
         out = self.decoder(z).permute(0, 2, 3, 1)
         return out.reshape(*lead, *out.shape[1:])
 

@@ -13,8 +13,10 @@ live in another dtype (fp32 master weights) than the computation (bf16).
 RMSNorm scales and mixer factors are applied in fp32 and cast, as in the
 JAX layers. ``GroupNorm`` takes channel-last input, as flax's does.
 
-Not ported yet: ``QDense``/``QConv`` (int8 serving, ROADMAP Queue 1 item
-6).
+int8 W8A8 serving: ``QLinear`` and ``QConv2d`` (flax ``QDense`` and
+``QConv``, ``ops/quant.py``), chosen by ``dense_factory`` /
+``conv_factory`` and the ``quantized`` flag of the blocks, as in the JAX
+layers.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from opendwm_tpu_torch.ops import quant
 from opendwm_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -98,12 +101,102 @@ class LayerNorm(nn.LayerNorm):
                             self.weight.to(dt), self.bias.to(dt), self.eps)
 
 
+class _Int8Weights(nn.Module):
+    """The int8 state of ``QLinear``/``QConv2d``: buffers ``weight_q``
+    (int8) and ``weight_scale`` (fp32, one per output channel), and a
+    float ``bias`` parameter. A dtype cast of the module (``.to(dtype)``,
+    ``.half()``) moves the scale but keeps it fp32, as flax keeps
+    ``kernel_scale``: it crosses ``_apply`` as its int32 bits. Fresh
+    weights are random int8 with scale 0.02 / 127, as flax draws them."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def _init_int8(self, shape: tuple, bias: bool) -> None:
+        self.register_buffer("weight_q", torch.randint(
+            -127, 128, shape, dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.full(
+            (shape[0],), 0.02 / 127, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(shape[0])) if bias else None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        if self.compute_dtype is not None:
+            return self.compute_dtype
+        return torch.float32 if self.bias is None else self.bias.dtype
+
+    def _apply(self, fn, recurse=True):
+        self._buffers["weight_scale"] = self.weight_scale.view(torch.int32)
+        try:
+            return super()._apply(fn, recurse)
+        finally:
+            self._buffers["weight_scale"] = \
+                self._buffers["weight_scale"].view(torch.float32)
+
+    def _add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class QLinear(_Int8Weights):
+    """flax ``QDense``: ``int8_matmul`` of the input, quantized per token
+    in the dtype it arrives in (it is not cast to ``compute_dtype`` first,
+    as ``Linear`` casts it), then the bias in ``compute_dtype``.
+    ``weight_q`` is ``(out_features, in_features)``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self._init_int8((out_features, in_features), bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._add_bias(quant.int8_matmul(
+            x, self.weight_q, self.weight_scale, self.dtype))
+
+
+class QConv2d(_Int8Weights):
+    """flax ``QConv`` behind ``nn.Conv2d``'s NCHW surface: ``int8_conv``
+    of the input, quantized with one scale for the whole tensor in the
+    dtype it arrives in, then the bias in ``compute_dtype``. ``padding``
+    is an int, ``"SAME"`` or ``"VALID"`` (flax's forms); ``weight_q`` is
+    channel-last, ``(out_channels, kh, kw, in_channels)``. The output is
+    an NCHW view of channel-last memory."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size, stride=1, padding: quant.Padding = 0,
+                 bias: bool = True):
+        super().__init__()
+        kh, kw = (kernel_size,) * 2 if isinstance(kernel_size, int) \
+            else kernel_size
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.stride = (stride,) * 2 if isinstance(stride, int) \
+            else tuple(stride)
+        self.padding = padding
+        self._init_int8((out_channels, kh, kw, in_channels), bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = quant.int8_conv(x.movedim(1, -1), self.weight_q,
+                            self.weight_scale, self.stride, self.padding,
+                            self.dtype)
+        return self._add_bias(y).movedim(-1, 1)
+
+
+def dense_factory(quantized: bool) -> type:
+    """``Linear``, or ``QLinear`` when the serving path runs int8."""
+    return QLinear if quantized else Linear
+
+
+def conv_factory(quantized: bool) -> type:
+    """``Conv2d``, or ``QConv2d`` when the serving path runs int8."""
+    return QConv2d if quantized else Conv2d
+
+
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
     """Make every ``Linear``/``Conv2d``/``Conv3d``/``LayerNorm``/
-    ``GroupNorm`` under ``module`` compute in ``dtype`` whatever dtype its
-    parameters are kept in."""
+    ``GroupNorm`` (and int8 ``QLinear``/``QConv2d``) under ``module``
+    compute in ``dtype`` whatever dtype its parameters are kept in."""
     for m in module.modules():
-        if isinstance(m, (Linear, Conv2d, Conv3d, LayerNorm, GroupNorm)):
+        if isinstance(m, (Linear, Conv2d, Conv3d, LayerNorm, GroupNorm,
+                          _Int8Weights)):
             m.compute_dtype = dtype
 
 
@@ -222,9 +315,10 @@ class RMSNorm(nn.Module):
 
 
 class _GELUProj(nn.Module):
-    def __init__(self, dim: int, inner: int, approximate: str):
+    def __init__(self, dim: int, inner: int, approximate: str,
+                 quantized: bool = False):
         super().__init__()
-        self.proj = Linear(dim, inner)
+        self.proj = dense_factory(quantized)(dim, inner)
         self.approximate = approximate
 
     def forward(self, x):
@@ -232,9 +326,9 @@ class _GELUProj(nn.Module):
 
 
 class _GEGLU(nn.Module):
-    def __init__(self, dim: int, inner: int):
+    def __init__(self, dim: int, inner: int, quantized: bool = False):
         super().__init__()
-        self.proj = Linear(dim, inner * 2)
+        self.proj = dense_factory(quantized)(dim, inner * 2)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -242,23 +336,24 @@ class _GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """diffusers ``FeedForward``; activation in {geglu, gelu-approximate, gelu}."""
+    """diffusers ``FeedForward``; activation in {geglu, gelu-approximate,
+    gelu}; ``quantized``: int8 projections (``QLinear``)."""
 
     def __init__(self, dim: int, dim_out: Optional[int] = None, mult: int = 4,
-                 activation: str = "geglu"):
+                 activation: str = "geglu", quantized: bool = False):
         super().__init__()
         inner = dim * mult
         if activation == "geglu":
-            act = _GEGLU(dim, inner)
+            act = _GEGLU(dim, inner, quantized)
         elif activation == "gelu-approximate":
-            act = _GELUProj(dim, inner, "tanh")
+            act = _GELUProj(dim, inner, "tanh", quantized)
         elif activation == "gelu":
-            act = _GELUProj(dim, inner, "none")
+            act = _GELUProj(dim, inner, "none", quantized)
         else:
             raise ValueError(f"Unknown activation {activation!r}")
-        self.net = nn.ModuleList(
-            [act, nn.Dropout(0.0), Linear(inner, dim_out or dim)]
-        )
+        self.net = nn.ModuleList([
+            act, nn.Dropout(0.0),
+            dense_factory(quantized)(inner, dim_out or dim)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
@@ -271,35 +366,38 @@ class Attention(nn.Module):
     projections (``add_*_proj``), the two streams attend over their
     concatenated tokens (sample first) and split. ``context_pre_only``
     drops the context output projection. ``qkv_bias=False`` gives the
-    reference UNet's bias-free q/k/v projections."""
+    reference UNet's bias-free q/k/v projections; ``quantized`` makes
+    every projection a ``QLinear``."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
                  qk_norm: Optional[str] = None, out_dim: Optional[int] = None,
                  joint: bool = False, context_pre_only: bool = False,
-                 context_dim: Optional[int] = None, qkv_bias: bool = True):
+                 context_dim: Optional[int] = None, qkv_bias: bool = True,
+                 quantized: bool = False):
         super().__init__()
         if qk_norm not in (None, "rms_norm"):
             raise ValueError(f"Unsupported qk_norm {qk_norm!r}")
         inner = heads * head_dim
         kv_dim = context_dim or dim
+        lin = dense_factory(quantized)
         self.heads, self.head_dim = heads, head_dim
         self.joint, self.context_pre_only = joint, context_pre_only
-        self.to_q = Linear(dim, inner, bias=qkv_bias)
-        self.to_k = Linear(kv_dim, inner, bias=qkv_bias)
-        self.to_v = Linear(kv_dim, inner, bias=qkv_bias)
-        self.to_out = nn.ModuleList([Linear(inner, out_dim or dim)])
+        self.to_q = lin(dim, inner, bias=qkv_bias)
+        self.to_k = lin(kv_dim, inner, bias=qkv_bias)
+        self.to_v = lin(kv_dim, inner, bias=qkv_bias)
+        self.to_out = nn.ModuleList([lin(inner, out_dim or dim)])
         if qk_norm == "rms_norm":
             self.norm_q = RMSNorm(head_dim)
             self.norm_k = RMSNorm(head_dim)
         if joint:
-            self.add_q_proj = Linear(dim, inner)
-            self.add_k_proj = Linear(dim, inner)
-            self.add_v_proj = Linear(dim, inner)
+            self.add_q_proj = lin(dim, inner)
+            self.add_k_proj = lin(dim, inner)
+            self.add_v_proj = lin(dim, inner)
             if qk_norm == "rms_norm":
                 self.norm_added_q = RMSNorm(head_dim)
                 self.norm_added_k = RMSNorm(head_dim)
             if not context_pre_only:
-                self.to_add_out = Linear(inner, dim)
+                self.to_add_out = lin(inner, dim)
 
     def _heads(self, x):
         return x.reshape(x.shape[0], x.shape[1], self.heads, self.head_dim)
@@ -427,18 +525,20 @@ class Mixer(nn.Module):
 
 class VTSelfAttentionBlock(nn.Module):
     """ff_in → self-attention → ff residual block of the cross-view and
-    temporal branches (reference crossview_temporal.py:536-582)."""
+    temporal branches (reference crossview_temporal.py:536-582);
+    ``quantized``: its feed-forwards and attention in int8."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
-                 qk_norm: Optional[str] = None, qkv_bias: bool = True):
+                 qk_norm: Optional[str] = None, qkv_bias: bool = True,
+                 quantized: bool = False):
         super().__init__()
         self.norm_in = LayerNorm(dim, eps=1e-5)
-        self.ff_in = FeedForward(dim, activation="geglu")
+        self.ff_in = FeedForward(dim, activation="geglu", quantized=quantized)
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, heads, head_dim, qk_norm=qk_norm,
-                               qkv_bias=qkv_bias)
+                               qkv_bias=qkv_bias, quantized=quantized)
         self.norm3 = LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim, activation="geglu")
+        self.ff = FeedForward(dim, activation="geglu", quantized=quantized)
 
     def forward(self, x, mask=None):
         h = x + self.ff_in(self.norm_in(x))
@@ -456,13 +556,16 @@ class TemporalBasicTransformerBlock(VTSelfAttentionBlock):
 
     def __init__(self, dim: int, heads: int, head_dim: int,
                  use_cross_attention: bool = False,
-                 cross_attention_dim: Optional[int] = None):
-        super().__init__(dim, heads, head_dim, qkv_bias=False)
+                 cross_attention_dim: Optional[int] = None,
+                 quantized: bool = False):
+        super().__init__(dim, heads, head_dim, qkv_bias=False,
+                         quantized=quantized)
         self.use_cross_attention = use_cross_attention
         if use_cross_attention:
             self.norm2 = LayerNorm(dim, eps=1e-5)
             self.attn2 = Attention(dim, heads, head_dim, qkv_bias=False,
-                                   context_dim=cross_attention_dim)
+                                   context_dim=cross_attention_dim,
+                                   quantized=quantized)
 
     def forward(self, x, context=None, mask=None):
         h = x + self.ff_in(self.norm_in(x))

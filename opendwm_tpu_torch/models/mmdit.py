@@ -3,9 +3,13 @@
 Ported: the SD3.5 joint-block backbone (dual attention, qk-RMSNorm,
 ``context_pre_only`` last block), implicit perspective embedding, the
 ``rowwise`` cross-view and ``pointwise`` temporal branches mixed back by
-``AlphaBlender`` or ``Mixer``, and the layout ImageAdapter
+``AlphaBlender`` or ``Mixer``, the layout ImageAdapter
 (``condition_image_adapter_config``: one residual per stage, added to the
-tokens before each of the first ``len(channels)`` joint blocks). The joint
+tokens before each of the first ``len(channels)`` joint blocks), and int8
+W8A8 serving (``quantization="int8"``: every attention and feed-forward
+of the joint blocks and of the cross-view and temporal branches as
+``QLinear``; the modulations, embeddings, norms and ``proj_out`` stay
+float, as in the JAX model). The joint
 block's modulations run through the fused AdaLN kernels
 (``ops/fused_adaln.py``), which the JAX model writes out in jnp; its
 XLA-only optimisation barriers have no counterpart.
@@ -69,25 +73,31 @@ class Modulation(nn.Module):
 
 class JointTransformerBlock(nn.Module):
     """SD3 MMDiT block (diffusers ``JointTransformerBlock`` semantics);
-    ``dual_attention`` adds the SD3.5 latent-only second attention."""
+    ``dual_attention`` adds the SD3.5 latent-only second attention;
+    ``quantized`` runs the attentions and feed-forwards in int8."""
 
     def __init__(self, heads: int, head_dim: int,
                  qk_norm: Optional[str] = "rms_norm",
                  dual_attention: bool = False,
-                 context_pre_only: bool = False):
+                 context_pre_only: bool = False,
+                 quantized: bool = False):
         super().__init__()
         dim = heads * head_dim
+        q8 = dict(quantized=quantized)
         self.dual_attention = dual_attention
         self.context_pre_only = context_pre_only
         self.norm1 = Modulation(dim, 9 if dual_attention else 6)
         self.norm1_context = Modulation(dim, 2 if context_pre_only else 6)
         self.attn = Attention(dim, heads, head_dim, qk_norm=qk_norm,
-                              joint=True, context_pre_only=context_pre_only)
+                              joint=True, context_pre_only=context_pre_only,
+                              **q8)
         if dual_attention:
-            self.attn2 = Attention(dim, heads, head_dim, qk_norm=qk_norm)
-        self.ff = FeedForward(dim, activation="gelu-approximate")
+            self.attn2 = Attention(dim, heads, head_dim, qk_norm=qk_norm,
+                                   **q8)
+        self.ff = FeedForward(dim, activation="gelu-approximate", **q8)
         if not context_pre_only:
-            self.ff_context = FeedForward(dim, activation="gelu-approximate")
+            self.ff_context = FeedForward(dim, activation="gelu-approximate",
+                                          **q8)
 
     def forward(self, x, context, temb):
         mods = self.norm1(temb)
@@ -224,8 +234,8 @@ class DiTCrossviewTemporal(nn.Module):
             )
         if mask_module_config is not None:
             raise _not_ported("mask_module_config (MaskGWM)", "item 3")
-        if quantization is not None:
-            raise _not_ported(f"quantization={quantization!r}", "item 6")
+        if quantization not in (None, "int8"):
+            raise ValueError(f"unknown quantization {quantization!r}")
         if sequence_parallel_axis is not None:
             raise _not_ported("sequence_parallel_axis", "item 13")
         if attention_backend is not None:
@@ -252,6 +262,7 @@ class DiTCrossviewTemporal(nn.Module):
         self.remat_block_layers = None if remat_block_layers is None \
             else list(remat_block_layers)
         self.remat_saved_ops = _REMAT_SAVED_OPS[remat_policy]
+        quantized = quantization == "int8"
 
         self.pos_embed = PatchEmbed(
             patch_size, in_channels, dim, pos_embed_max_size,
@@ -276,7 +287,7 @@ class DiTCrossviewTemporal(nn.Module):
             JointTransformerBlock(
                 num_attention_heads, attention_head_dim, qk_norm=qk_norm,
                 dual_attention=i in dual_attention_layers,
-                context_pre_only=i == num_layers - 1,
+                context_pre_only=i == num_layers - 1, quantized=quantized,
             )
             for i in range(num_layers)
         ])
@@ -289,7 +300,7 @@ class DiTCrossviewTemporal(nn.Module):
         def branch():
             return VTSelfAttentionBlock(
                 dim, num_attention_heads, attention_head_dim,
-                qk_norm=qk_norm_on_additional_modules,
+                qk_norm=qk_norm_on_additional_modules, quantized=quantized,
             )
 
         if enable_crossview:

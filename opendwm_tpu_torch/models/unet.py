@@ -31,8 +31,13 @@ blocks checkpoint them; remat changes memory, never values.
 The layout ImageAdapter (``condition_image_adapter_config``) adds its
 first residual after ``conv_in`` and each later one after a down block,
 where the sum also replaces that block's last skip state, as in the JAX
-model. Options outside the slice raise ``NotImplementedError`` naming
-their ROADMAP item: the depth net and int8 serving.
+model. int8 W8A8 serving (``quantization="int8"``) runs the 2-D convs
+(the spatial resnets', ``conv_in``/``conv_out``, the down/upsamplers) as
+``QConv2d`` and the transformer models' ``proj_in``/``proj_out`` and
+their blocks' attention and GEGLU as ``QLinear``; the ``(3, 1, 1)``
+temporal convs, the time projections, embeddings and the adapter stay
+float, as in the JAX model. The depth net raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,7 +53,6 @@ from opendwm_tpu_torch.models.adapters import ImageAdapter
 from opendwm_tpu_torch.models.layers import (
     AlphaBlender,
     Attention,
-    Conv2d,
     Conv3d,
     FeedForward,
     GroupNorm,
@@ -57,6 +61,8 @@ from opendwm_tpu_torch.models.layers import (
     TemporalBasicTransformerBlock,
     TimestepEmbedding,
     checkpointed,
+    conv_factory,
+    dense_factory,
     set_compute_dtype,
     timestep_embedding,
 )
@@ -84,17 +90,19 @@ def _not_ported(option: str, item: str):
 
 class SpatialResnetBlock(nn.Module):
     """diffusers ResnetBlock2D (silu, temb added after conv1); input
-    ``(n, h, w, c)``, temb ``(n, c_t)``."""
+    ``(n, h, w, c)``, temb ``(n, c_t)``; ``quantized``: int8 convs."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 temb_channels: int, eps: float = 1e-5):
+                 temb_channels: int, eps: float = 1e-5,
+                 quantized: bool = False):
         super().__init__()
+        conv = conv_factory(quantized)
         self.norm1 = _gn(in_channels, eps)
-        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = conv(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = Linear(temb_channels, out_channels)
         self.norm2 = _gn(out_channels, eps)
-        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
-        self.conv_shortcut = Conv2d(in_channels, out_channels, 1) \
+        self.conv2 = conv(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = conv(in_channels, out_channels, 1) \
             if in_channels != out_channels else None
 
     def forward(self, x, temb):
@@ -133,11 +141,12 @@ class CTResBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: int, eps: float = 1e-5,
-                 enable_temporal: bool = True, merge_factor: float = 0.5):
+                 enable_temporal: bool = True, merge_factor: float = 0.5,
+                 quantized: bool = False):
         super().__init__()
         self.enable_temporal = enable_temporal
         self.spatial_res_block = SpatialResnetBlock(
-            in_channels, out_channels, temb_channels, eps)
+            in_channels, out_channels, temb_channels, eps, quantized)
         if enable_temporal:
             self.temporal_res_block = TemporalResnetBlock(
                 out_channels, temb_channels, eps)
@@ -162,15 +171,17 @@ class BasicTransformerBlock(nn.Module):
     the text, GEGLU feed-forward."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
-                 cross_attention_dim: int):
+                 cross_attention_dim: int, quantized: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=False)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=False,
+                               quantized=quantized)
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, heads, head_dim, qkv_bias=False,
-                               context_dim=cross_attention_dim)
+                               context_dim=cross_attention_dim,
+                               quantized=quantized)
         self.norm3 = LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim, activation="geglu")
+        self.ff = FeedForward(dim, activation="geglu", quantized=quantized)
 
     def forward(self, x, context):
         x = x + self.attn1(self.norm1(x))
@@ -188,31 +199,35 @@ class TransformerModel(nn.Module):
                  enable_crossview: bool = True, enable_temporal: bool = True,
                  enable_rowwise_crossview: bool = False,
                  enable_rowwise_temporal: bool = False,
-                 merge_factor: float = 0.5):
+                 merge_factor: float = 0.5, quantized: bool = False):
         super().__init__()
         c = channels
+        lin = dense_factory(quantized)
         self.enable_crossview = enable_crossview
         self.enable_temporal = enable_temporal
         self.rowwise_crossview = enable_rowwise_crossview
         self.rowwise_temporal = enable_rowwise_temporal
         self.norm = _gn(c, 1e-6)
-        self.proj_in = Linear(c, c)
+        self.proj_in = lin(c, c)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(c, heads, head_dim, cross_attention_dim)
+            BasicTransformerBlock(c, heads, head_dim, cross_attention_dim,
+                                  quantized)
             for _ in range(num_layers)])
         if enable_crossview:
             self.crossview_transformer_blocks = nn.ModuleList([
-                TemporalBasicTransformerBlock(c, heads, head_dim)
+                TemporalBasicTransformerBlock(c, heads, head_dim,
+                                              quantized=quantized)
                 for _ in range(num_layers)])
             self.view_pos_embed = TimestepEmbedding(c, c * 4, c)
             self.view_mixer = AlphaBlender(merge_factor)
         if enable_temporal:
             self.temporal_transformer_blocks = nn.ModuleList([
-                TemporalBasicTransformerBlock(c, heads, head_dim)
+                TemporalBasicTransformerBlock(c, heads, head_dim,
+                                              quantized=quantized)
                 for _ in range(num_layers)])
             self.time_pos_embed = TimestepEmbedding(c, c * 4, c)
             self.time_mixer = AlphaBlender(merge_factor)
-        self.proj_out = Linear(c, c)
+        self.proj_out = lin(c, c)
 
     @staticmethod
     def _position_embedding(embed: nn.Module, index: torch.Tensor,
@@ -288,9 +303,9 @@ class TransformerModel(nn.Module):
 class Downsample(nn.Module):
     """Pad (0, 1, 0, 1), then a VALID stride-2 3x3 convolution."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quantized: bool = False):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, stride=2)
+        self.conv = conv_factory(quantized)(channels, channels, 3, stride=2)
 
     def forward(self, x):  # (n, h, w, c)
         return _conv(self.conv, F.pad(x, (0, 0, 0, 1, 0, 1)))
@@ -299,9 +314,9 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """Nearest x2, then a 3x3 convolution."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quantized: bool = False):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, padding=1)
+        self.conv = conv_factory(quantized)(channels, channels, 3, padding=1)
 
     def forward(self, x):  # (n, h, w, c)
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
@@ -330,7 +345,8 @@ class DownBlock(nn.Module):
         self.attentions = None if transformer is None else nn.ModuleList([
             TransformerModel(out_channels, **transformer)
             for _ in range(num_layers)])
-        self.downsamplers = nn.ModuleList([Downsample(out_channels)]) \
+        self.downsamplers = nn.ModuleList([
+            Downsample(out_channels, resnet["quantized"])]) \
             if add_downsample else None
 
     def forward(self, x, temb, context, disable_crossview, disable_temporal,
@@ -390,7 +406,8 @@ class UpBlock(nn.Module):
         self.attentions = None if transformer is None else nn.ModuleList([
             TransformerModel(out_channels, **transformer)
             for _ in skip_channels])
-        self.upsamplers = nn.ModuleList([Upsample(out_channels)]) \
+        self.upsamplers = nn.ModuleList([
+            Upsample(out_channels, resnet["quantized"])]) \
             if add_upsample else None
 
     def forward(self, x, res_states, temb, context, disable_crossview,
@@ -464,8 +481,10 @@ class UNetCrossviewTemporal(nn.Module):
         super().__init__()
         if depth_net_config is not None:
             raise _not_ported("depth_net_config (DepthNet)", "item 9")
-        if quantization is not None:
-            raise _not_ported(f"quantization={quantization!r}", "item 6")
+        if quantization not in (None, "int8"):
+            raise ValueError(f"unknown quantization {quantization!r}")
+        quantized = quantization == "int8"
+        conv = conv_factory(quantized)
         chans = list(block_out_channels)
         heads = list(num_attention_heads)
         n = len(chans)
@@ -473,14 +492,14 @@ class UNetCrossviewTemporal(nn.Module):
         temb = ch0 * 4
         self.addition_time_embed_dim = addition_time_embed_dim
 
-        self.conv_in = Conv2d(in_channels, ch0, 3, padding=1)
+        self.conv_in = conv(in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch0, temb)
         self.add_embedding = TimestepEmbedding(
             projection_class_embeddings_input_dim, temb) \
             if projection_class_embeddings_input_dim is not None else None
 
         resnet = dict(eps=norm_eps, enable_temporal=enable_temporal,
-                      merge_factor=merge_factor)
+                      merge_factor=merge_factor, quantized=quantized)
         remat = gradient_checkpointing
 
         def transformer(ch: int, nh: int) -> dict:
@@ -492,7 +511,7 @@ class UNetCrossviewTemporal(nn.Module):
                 enable_temporal=enable_temporal,
                 enable_rowwise_crossview=enable_rowwise_crossview,
                 enable_rowwise_temporal=enable_rowwise_temporal,
-                merge_factor=merge_factor)
+                merge_factor=merge_factor, quantized=quantized)
 
         downs, prev = [], ch0
         skips = [ch0]  # conv_in, then every resnet and downsample output
@@ -518,7 +537,7 @@ class UNetCrossviewTemporal(nn.Module):
             prev = ch
         self.up_blocks = nn.ModuleList(ups)
         self.conv_norm_out = _gn(ch0, norm_eps)
-        self.conv_out = Conv2d(ch0, out_channels, 3, padding=1)
+        self.conv_out = conv(ch0, out_channels, 3, padding=1)
         self.condition_image_adapter = ImageAdapter(
             **condition_image_adapter_config) \
             if condition_image_adapter_config is not None else None

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the port, each beside its plain version."""
+"""Hand-written Hopper kernels of the port, each beside its plain version,
+and the int8 product of int8 serving (``quant``: ``torch._int_mm``)."""
 
 from __future__ import annotations
 
@@ -6,6 +7,7 @@ from opendwm_tpu_torch.ops import (
     flash_attention,
     flash_tail,
     fused_adaln,
+    quant,
     tail_variants,
 )
 
@@ -14,6 +16,7 @@ def reset_launch_counts() -> None:
     flash_attention.reset_launches()
     flash_tail.reset_launches()
     fused_adaln.reset_launches()
+    quant.reset_launches()
     tail_variants.reset_launches()
 
 
@@ -60,4 +63,8 @@ def launch_counts() -> dict:
         "tail_qsplit_by_bq": dict(tail_variants.qsplit_launches_by_bq),
         "tail_hpack_sm90": tail_variants.hpack_sm90_launches,
         "tail_qsplit_sm90": tail_variants.qsplit_sm90_launches,
+        "int8_mm": quant.launches,
+        "int8_mm_by_shape": {
+            ",".join(map(str, k)): n
+            for k, n in quant.launches_by_shape.items()},
     }

@@ -200,14 +200,16 @@ def _counts(**over):
     ("bm_serve", {"flash_tail_sm90": 9}, False),
     ("bm_unet_serve", {"flash_attention_sm90": 4}, False),
     ("stream", {"flash_tail_sm90": 9}, False),
+    ("int8_serve", {"flash_tail_sm90": 9}, False),
+    ("int8_unet", {"flash_attention_sm90": 4}, False),
 ])
 def test_model_paths_run_the_hopper_bodies(smoke, path, over, ok):
-    """Every K1/K7 forward launch of the eight model paths and every K2/K7
+    """Every K1/K7 forward launch of the ten model paths and every K2/K7
     backward launch of the three training paths must have run the Hopper
     body; one launch of an old body fails the run."""
     assert set(smoke.TRAIN_PATHS) < set(smoke.MODEL_PATHS)
-    assert {"bm_serve", "bm_unet_serve", "bm_train", "stream"} < \
-        set(smoke.MODEL_PATHS)
+    assert {"bm_serve", "bm_unet_serve", "bm_train", "stream", "int8_serve",
+            "int8_unet"} < set(smoke.MODEL_PATHS)
     paths = {p: _counts() for p in smoke.MODEL_PATHS}
     paths[path] = _counts(**over)
     if ok:
@@ -252,12 +254,13 @@ def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
     ("bm_serve", {"k4_fixed": 46}, False),
     ("bm_train", {"k4": 0, "k4_fixed": 0}, False),
     ("stream", {"k4_fixed": 46}, False),
+    ("int8_serve", {"k3_fixed": 61}, False),
 ])
 def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
-    """Every K3/K4 launch of the five DiT paths must have run the d-1536
+    """Every K3/K4 launch of the six DiT paths must have run the d-1536
     kernel of ``csrc/adaln.cu``, and each path must have launched both."""
     assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train",
-                                    "stream"}
+                                    "stream", "int8_serve"}
     paths = {p: _adaln_counts() for p in smoke.DIT_PATHS}
     paths[path] = _adaln_counts(**over)
     if ok:

@@ -316,9 +316,10 @@ def test_unet_weight_bridge_round_trip():
 
 
 def test_unported_unet_options_raise():
-    for option in ({"depth_net_config": {}}, {"quantization": "int8"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            unet.UNetCrossviewTemporal(**TINY, **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        unet.UNetCrossviewTemporal(**TINY, depth_net_config={})
+    with pytest.raises(ValueError, match="quantization"):
+        unet.UNetCrossviewTemporal(**TINY, quantization="int4")
 
 
 def test_ctsd21_config_resolves_to_port_classes():
