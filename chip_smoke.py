@@ -3,8 +3,9 @@
 streaming serving path with the CLIP/T5 text stage, its CTSD-2.1 UNet
 serving and training paths, the layout-conditioned (box + map) flagship's
 DiT and UNet serving and DiT training paths, int8 W8A8 serving of the DiT,
-the UNet and the VAE, the tail-attention tiling experiment and the
-attention shoot-out on one GPU.
+the UNet and the VAE, LiDAR serving (MaskGIT generation, its rollout and
+the LiDAR DiT), the tail-attention tiling experiment and the attention
+shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-stream]
@@ -31,10 +32,12 @@ Phases; any failure raises and exits non-zero:
 3. kernels: each Hopper kernel against its plain PyTorch version on the
    same inputs, at the shapes the serving and training paths give it, in
    bf16 (the attention kernels also in fp32), with both times: K1 (and
-   its variant that writes the log-sum-exp for the backward) at the DiT's
-   and the UNet's shapes, K2 (the attention backward) at the DiT's and the
-   UNet's training shapes, K3 and K4 (at the DiT's serving and training
-   shapes in bf16, at the first also in fp16 and fp32; x' equal to the
+   its variant that writes the log-sum-exp for the backward) at the DiT's,
+   the UNet's and the LiDAR DiT's shapes, K2 (the attention backward) at
+   the DiT's and the UNet's training shapes, K3 and K4 (at the DiT's
+   serving and training shapes in bf16 on the d-1536 kernel, at the first
+   also in fp16 and fp32, and at the LiDAR DiT's d-1024 shapes on the
+   runtime-width kernel; x' equal to the
    plain version's bit for bit, bf16 and fp16 also within 2^-8 in relative
    norm; each timed eager, as device time replayed from a CUDA graph,
    as device time with inputs from device memory rather than L2, and as
@@ -174,11 +177,42 @@ Phases; any failure raises and exits non-zero:
    profiler gives the encoder's and the adapter's device ms. Its peak
    memory and its update alone (``optimizer.step()`` between two
    synchronizes, as phase 6 times the fused AdamW's) are logged beside
-   phase 6's; ``--profile-train`` profiles it as it does phase 6.
+   phase 6's; ``--profile-train`` profiles it as it does phase 6;
+12. LiDAR MaskGIT generation: ``configs/lidar/lidar_maskgit_layout_ns.json``
+   at full width in bf16 compute (as ``bench.py:247-252``): the Swin VQ
+   tokenizer (12-block encoder and decoder, 512 wide, ws 8, 2048 codes)
+   and the 24-block MaskGIT (512 wide, ws 2, 80 x 80 tokens, the layout
+   adapter), at ``bench.py``'s geometry (1 frame of 32768 points, random
+   640 x 640 x 3 box and map rasters), 20 steps, CFG 3.0, blank code 0.
+   First a tiny MaskGIT on the card against the CPU
+   (``perf/lidar_tiny.py``, 1e-3); the rasters must move the logits;
+   5 generations timed (s per frame: median and spread), one split into
+   voxelize / encode + quantize / steps / decode, one profiled (busy
+   share, device time by family); every index set, voxels binary, finite
+   logits. No kernel runs on this path;
+13. LiDAR MaskGIT rollout: ``configs/lidar/
+   lidar_maskgit_temporal_vq80k_layout_ns.json`` (temporal blocks, the
+   extra embedding, 80000 cosine codes) through
+   ``autoregressive_inference_pipeline``: 11 frames, 3 reference frames,
+   windows of 8 (2 windows), 20 steps each; the categorical step runs over
+   row chunks (``pipelines/lidar_maskgit.py``), as 102,400 rows x 80,000
+   codes do not fit in fp32 at once. A tiny temporal MaskGIT against the
+   CPU first; one step profiled (busy share, the sampling's share); s per
+   generated frame, peak memory; the reference frames stay pinned;
+14. LiDAR DiT: ``configs/lidar/lidar_diffusion_dit_temporal_ns.json`` (16
+   joint blocks at d 1024 in bf16, 8 rowwise temporal branches, the
+   6-channel BEV adapter; the vq80k tokenizer in fp32) on 6 frames with
+   one reference frame, CFG 3.0 (the one cut: inference_steps 50 -> 4).
+   A tiny rowwise DiT (reaching K1) and a tiny pipeline against the CPU
+   first; CFG forwards timed, the rasters gate, one forward profiled with
+   the plain joint attention at s 1601 as a range of its own; the census:
+   K1 8 a CFG forward, all at (80, 240, 16, 64) on the Hopper forward, K3
+   33 and K4 31 a forward, all on the runtime-width kernel
+   (``adaln_any_kernel``) at (12, 1600, 1024) and (12, 1, 1024).
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the ten model paths
-must have run the Hopper forward, every K2 and K7 backward launch of
+but the shoot-out, every K1 and K7 forward launch of the eleven model
+paths must have run the Hopper forward, every K2 and K7 backward launch of
 the three training paths the Hopper backward, every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
 of the six DiT paths the d-1536 kernel (their launch counters).
@@ -210,6 +244,7 @@ from opendwm_tpu_torch.perf.measure import (  # noqa: E402
     host_us,
     max_err,
     packed_segment_ids,
+    range_device_ms,
     rel_err,
     scaled_err,
     segment_attention_bound,
@@ -235,9 +270,33 @@ RASTER_MIN_MOVE = 1e-3
 TRAIN_PATHS = ("train", "unet_train", "bm_train")
 MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
                "bm_unet_serve", "bm_train", "stream", "int8_serve",
-               "int8_unet")
+               "int8_unet", "lidar_dit")
 DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
              "int8_serve")
+# LiDAR serving (bench.py:228-394's geometry): MaskGIT generation on the
+# layout config (bf16 compute, as bench.py:247-252 sets it), the temporal
+# vq80k config's autoregressive rollout, and the temporal LiDAR DiT (its
+# d-1024 K3/K4 run the runtime-width kernel, so it is no DIT_PATHS path).
+LIDAR_MASKGIT_CONFIG = REPO / "configs/lidar/lidar_maskgit_layout_ns.json"
+LIDAR_ROLLOUT_CONFIG = \
+    REPO / "configs/lidar/lidar_maskgit_temporal_vq80k_layout_ns.json"
+LIDAR_DIT_CONFIG = REPO / "configs/lidar/lidar_diffusion_dit_temporal_ns.json"
+LIDAR_PATHS = ("lidar_maskgit", "lidar_maskgit_rollout", "lidar_dit")
+LIDAR_POINTS, LIDAR_RASTER = 32768, 640  # a frame's points; BEV raster side
+LIDAR_BLANK_CODE = (0,)
+MASKGIT_STEPS, MASKGIT_TIMED = 20, 5  # the config's 20 steps, no cut
+# 11 frames, 3 reference frames, windows of 8: 2 windows
+ROLLOUT_FRAMES, ROLLOUT_REF, ROLLOUT_WINDOW = 11, 3, 8
+LIDAR_DIT_FRAMES, LIDAR_DIT_REF = 6, 1
+LIDAR_DIT_STEPS = 4  # cut from the config's 50
+LIDAR_DIT_FORWARDS = 3  # CFG forwards timed alone
+# The LiDAR DiT's K1 launches (its 8 rowwise temporal branches at CFG
+# batch 2: b·v·gh = 80 sequences of t·gw = 240 tokens, 16 x 64 heads)
+# and K3/K4 launches a CFG forward (16 joint blocks, none dual, the last
+# context_pre_only: K3 2 a block + norm_out, K4 1 a block + 15).
+LIDAR_K1_SHAPE = (80, 240, 16)
+LIDAR_K1_PER_FORWARD, LIDAR_K3_PER_FORWARD, LIDAR_K4_PER_FORWARD = 8, 33, 31
+LIDAR_TINY_TOL = 1e-3
 TINY_CONFIG = REPO / "configs/ctsd/ctsd_35_6views_video_synthetic.json"
 SEED = 0
 STEPS = 4  # cut from the config's 40
@@ -257,6 +316,9 @@ SOURCES = ("flash_tail.cu", "flash_attention.cu", "adaln.cu")
 # text (154) tokens at the CFG batch of serving and at training's batch 1.
 ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536), (36, 448, 1536),
                 (36, 154, 1536))
+# ... and the LiDAR DiT's at d 1024 (CFG batch 2 x 6 frames: 1600 latent
+# tokens, 1 text token), which run the runtime-width kernel.
+LIDAR_ADALN_SHAPES = ((12, 1600, 1024), (12, 1, 1024))
 # K3 and K4 launches a DiT CFG forward (models/mmdit.py): K3 at :92 (24
 # blocks), :96/:100 (24), :105 (13 dual-attention blocks) and :439 (1); K4
 # at :107/:111 (24) and :118 (23: the last block is context_pre_only).
@@ -440,8 +502,10 @@ def log_clocks(when: str) -> None:
 def check_attention(dev, flash_tail):
     g = torch.Generator(dev).manual_seed(SEED)
     rows = []
-    for b, s in ATTN_SHAPES + TRAIN_ATTN_SHAPES:  # the stream's too
-        q, k, v = (torch.randn(b, s, 24, 64, generator=g, device=dev,
+    shapes = [(b, s, 24) for b, s in ATTN_SHAPES + TRAIN_ATTN_SHAPES] + \
+        [LIDAR_K1_SHAPE]  # the stream's and the LiDAR DiT's too
+    for b, s, h in shapes:
+        q, k, v = (torch.randn(b, s, h, 64, generator=g, device=dev,
                                dtype=torch.bfloat16) for _ in range(3))
         scale = 64 ** -0.5
         out = flash_tail.tail_masked_attention(q, k, v, scale)
@@ -452,17 +516,17 @@ def check_attention(dev, flash_tail):
             lambda: flash_tail.tail_masked_attention(q, k, v, scale),
             lambda: flash_tail.tail_masked_attention_plain(q, k, v, scale))
         lib_ms = sdpa_ms(q, k, v, scale)
-        log(f"K1 flash_tail bf16 ({b},{s},24,64): max_abs_err {err:.3e}, "
+        log(f"K1 flash_tail bf16 ({b},{s},{h},64): max_abs_err {err:.3e}, "
             f"scaled {scaled:.3e} (tol {ATTN_TOL}), rel norm {rel:.3e} (tol "
             f"{ATTN_REL_TOL}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"sdpa {fmt_ms(lib_ms)}")
         if not (scaled <= ATTN_TOL and rel <= ATTN_REL_TOL):
             fail(f"flash_tail disagrees at s={s}: scaled {scaled}, rel {rel}")
-        rows.append({"shape": [b, s, 24, 64], "dtype": "bf16",
+        rows.append({"shape": [b, s, h, 64], "dtype": "bf16",
                      "max_abs_err": err, "scaled_err": scaled,
                      "rel_err": rel,
                      **yardsticks(ms, plain_ms, lib_ms,
-                                  attention_bound(b, s, s, 24, 64))})
+                                  attention_bound(b, s, s, h, 64))})
     q, k, v = (torch.randn(192, 168, 24, 64, generator=g, device=dev)
                for _ in range(3))
     err = max_err(flash_tail.tail_masked_attention(q, k, v, 0.125),
@@ -1006,10 +1070,19 @@ def check_adaln_errors(name: str, shape, e: dict) -> None:
              f"{e}")
 
 
+def adaln_census(fused_adaln, residual: bool) -> tuple:
+    """(launches, launches on the d-1536 kernel) of K4 or K3 so far."""
+    if residual:
+        return fused_adaln.res_launches, fused_adaln.res_fixed_launches
+    return fused_adaln.launches, fused_adaln.fixed_launches
+
+
 def check_adaln(dev, fused_adaln):
     """K3 and K4 against their plain versions at the serving and training
     shapes in bf16, and at the first in fp16 and fp32; each launch on the
-    d-1536 kernel. Each bf16 row is timed four ways: eager (``ms``, CUDA
+    d-1536 kernel; then at the LiDAR DiT's d-1024 shapes in bf16, each
+    launch on the runtime-width kernel. Each bf16 row is timed four ways:
+    eager (``ms``, CUDA
     events around 10 queued calls, as the attention kernels), device
     (``device_ms``: the 10 calls replayed from a CUDA graph), cold device
     (``device_ms_cold``: the same over copies of the inputs that together
@@ -1019,21 +1092,22 @@ def check_adaln(dev, fused_adaln):
     g = torch.Generator(dev).manual_seed(SEED + 1)
     rows = {"adaln_modulate": [], "residual_adaln_modulate": []}
     cases = [(s, torch.bfloat16) for s in ADALN_SHAPES] + \
-        [(ADALN_SHAPES[0], torch.float16), (ADALN_SHAPES[0], torch.float32)]
+        [(ADALN_SHAPES[0], torch.float16), (ADALN_SHAPES[0], torch.float32)] \
+        + [(s, torch.bfloat16) for s in LIDAR_ADALN_SHAPES]
     for (n, l, d), dtype in cases:
         inputs = adaln_inputs(n, l, d, dtype, dev, g)
         for name in rows:
             residual = name.startswith("residual")
             kernel, plain = adaln_case(fused_adaln, name, *inputs)
-            fixed_before = (fused_adaln.res_fixed_launches if residual
-                            else fused_adaln.fixed_launches)
+            before = adaln_census(fused_adaln, residual)
             outs, refs = kernel(), plain()
             torch.cuda.synchronize()
-            fixed = (fused_adaln.res_fixed_launches if residual
-                     else fused_adaln.fixed_launches) - fixed_before
-            if fixed != 1:
-                fail(f"{name} at {(n, l, d)} {dtype} did not run the d-1536 "
-                     "kernel")
+            launched, fixed = (a - b for a, b in zip(
+                adaln_census(fused_adaln, residual), before))
+            want = 1 if d == fused_adaln.FIXED_D else 0
+            if launched != 1 or fixed != want:
+                fail(f"{name} at {(n, l, d)} {dtype} did not run the "
+                     f"{'d-1536' if want else 'runtime-width'} kernel")
             if not residual:
                 outs, refs = (outs,), (refs,)
             e = adaln_errors(outs, refs, dtype)
@@ -1285,11 +1359,14 @@ def random_init_(module, gen) -> None:
     """Weights ~ N(0, 1/fan_in), norm scales 1, biases 0, AlphaBlender
     mix factors 2 (the config's merge factor), the ImageAdapter's zero
     gates N(0, 1) (its zero convs are weights: N(0, 1/fan_in), not zero),
+    the MaskGIT rotary frequencies at their init (π·linspace(1, 5)),
     drawn on the module's device."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("mix_factor"):
                 p.fill_(2.0)
+            elif name.endswith("rope.freqs"):
+                p.copy_(torch.linspace(1.0, 5.0, p.numel()) * torch.pi)
             elif name.endswith("zero_gates"):
                 p.normal_(0.0, 1.0, generator=gen)
             elif p.ndim >= 2:
@@ -2618,6 +2695,420 @@ def check_tiny_stream(dev, DiTCrossviewTemporal, StreamingCTSDPipeline,
         fail(f"tiny stream disagrees: {errs}")
 
 
+# -- LiDAR serving ------------------------------------------------------------
+
+def lidar_batch(dev, gen, frames: int) -> dict:
+    """``bench.py``'s LiDAR geometry (``:276-288``): ``LIDAR_POINTS`` points
+    a frame uniform in [-50, 50]³, all valid, and random ``LIDAR_RASTER``²
+    x 3 box and map BEV rasters a frame (a quarter of the pixels uniform,
+    the rest 0), so that the rasters move the output."""
+    shape = (frames, LIDAR_RASTER, LIDAR_RASTER, 3)
+
+    def raster():
+        on = torch.rand(shape, generator=gen, device=dev) < 0.25
+        return torch.rand(shape, generator=gen, device=dev) * on
+
+    return {
+        "lidar_points": torch.rand(1, frames, LIDAR_POINTS, 3, generator=gen,
+                                   device=dev) * 100 - 50,
+        "lidar_points_mask": torch.ones(1, frames, LIDAR_POINTS,
+                                        dtype=torch.bool, device=dev),
+        "3dbox_bev_images": raster(), "hdmap_bev_images": raster()}
+
+
+def build_lidar(create_instance_from_config, config: Path, dev,
+                parts: tuple, bf16: tuple = ()):
+    """The pipeline of ``config`` at full width with ``bf16``'s modules in
+    bf16 compute, its ``parts`` drawn on the card from ``SEED``."""
+    cfg = json.loads(config.read_text())["pipeline"]
+    for part in bf16:
+        node = cfg
+        for key in part:
+            node = node[key]
+        node["dtype"] = {"_class_name": "get_class",
+                         "class_name": "torch.bfloat16"}
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    for part in parts:
+        module = getattr(pipe, part)
+        module.to_empty(device=dev)
+        random_init_(module, gen)
+        module.eval()
+        n = sum(p.numel() for p in module.parameters())
+        log(f"  {config.name} {part}: {type(module).__name__}, "
+            f"{n / 1e6:.2f}M params")
+    return pipe, gen
+
+
+def check_lidar_tiny_gaps(gaps: dict, what: str) -> None:
+    """A tiny LiDAR path on the card against the CPU
+    (``perf/lidar_tiny.py``): every relative norm (``*_rel``) within
+    ``LIDAR_TINY_TOL``, every ``*_equal`` bit for bit, every code score gap
+    (``*_gap``) within the tie tolerance, every code index set; the
+    voxelizer's boundary points able to see a reciprocal product; the
+    MaskGIT paths launch no kernel, the DiT's reaches K1."""
+    from opendwm_tpu_torch.perf.lidar_tiny import TIE_TOL
+
+    log(f"tiny {what} on the card vs the CPU: {json.dumps(gaps)}")
+    bad = {k: v for k, v in gaps.items()
+           if (k.endswith("_rel") and not v <= LIDAR_TINY_TOL)
+           or (k.endswith("_equal") and v is not True)
+           or (k.endswith("_gap") and not v <= TIE_TOL)}
+    if bad or not gaps.get("pipeline_ids_nonnegative", True) or \
+            gaps.get("boundary_reciprocal_flips", 1) == 0:
+        fail(f"tiny {what}: the card disagrees with the CPU: {gaps}")
+    if gaps.get("kernel_launches", 0) or gaps.get("dit_k1_launches", 1) == 0:
+        fail(f"tiny {what}: wrong kernel launches: {gaps}")
+
+
+def check_nearest(gaps: dict, what: str) -> None:
+    """The quantizer's code search at full width (``lidar_tiny.
+    nearest_gaps``): cut into more than one chunk, and every chosen code
+    the best by float64 scores, the chunked and the unchunked call apart
+    only at ties."""
+    from opendwm_tpu_torch.perf.lidar_tiny import TIE_TOL
+
+    log(f"{what}: the code search in chunks: {json.dumps(gaps)}")
+    if gaps["chunks"] < 2 or not gaps["chunk_flip_gap"] <= TIE_TOL or \
+            not gaps["shortfall_gap"] <= TIE_TOL:
+        fail(f"{what}: the code search is not exact up to ties: {gaps}")
+
+
+def check_lidar_outputs(voxels: dict, indices, what: str) -> None:
+    """Every code index set (≥ 0) and every voxel grid binary."""
+    if indices is not None and not bool((indices >= 0).all()):
+        fail(f"{what}: a code index stayed masked")
+    for name, v in voxels.items():
+        values = set(torch.unique(v).tolist())
+        if not values <= {0.0, 1.0}:
+            fail(f"{what}: {name} is not binary: {sorted(values)[:5]}")
+
+
+@contextlib.contextmanager
+def ranged(module, attr: str, name: str):
+    """``module.attr`` (a function) runs inside a profiler range ``name``."""
+    fn = getattr(module, attr)
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+
+    setattr(module, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, attr, fn)
+
+
+def profiled(fn, what: str, ranges=()):
+    """One call of ``fn`` under ``torch.profiler`` (after the caller's
+    warm-up), with each ``(module, attr, name)`` of ``ranges`` in its own
+    range: logs the device time by family and each range's device ms and
+    share; returns {wall_s, device_ms, busy, ranges}."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    with contextlib.ExitStack() as stack:
+        for module, attr, name in ranges:
+            stack.enter_context(ranged(module, attr, name))
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    log(_kernel_time_table(prof, wall, what))
+    device_ms, busy = busy_share(prof, wall)
+    out = {"wall_s": wall, "device_ms": device_ms, "busy": busy,
+           "ranges": {}}
+    for _, _, name in ranges:
+        ms, n = range_device_ms(prof, name)
+        out["ranges"][name] = {"ms": ms, "kernels": n,
+                               "share": ms / device_ms if device_ms else 0.0}
+        log(f"{what}: {name} {ms:.3f} device ms in {n} kernels, "
+            f"{100 * ms / max(device_ms, 1e-9):.2f}% of {device_ms:.3f}")
+    return out
+
+
+def sync_s(fn):
+    """(fn(), host seconds of the call, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def maskgit_split(pipe, batch, gen) -> dict:
+    """One generation timed part by part, as ``inference_pipeline`` runs
+    it: voxelize, encode + quantize, the ``MASKGIT_STEPS`` steps, decode
+    (the predicted and the VQ voxels, each binarised)."""
+    from opendwm_tpu_torch.pipelines.lidar_maskgit import (
+        get_maskgit_conditions,
+        gumbel_sigmoid,
+    )
+
+    vq = pipe.vq
+    with torch.inference_mode():
+        vox, t_vox = sync_s(lambda: vq.voxelizer(
+            batch["lidar_points"], batch["lidar_points_mask"]))
+        (code, _, idx), t_enc = sync_s(lambda: vq.vector_quantizer(
+            vq.lidar_encoder(vox.reshape(-1, *vox.shape[2:]))))
+        ctx = get_maskgit_conditions(batch, do_classifier_free_guidance=True)
+        init = torch.full(idx.reshape(code.shape[0], -1).shape, -1,
+                          device=code.device)
+        (x, ids), t_steps = sync_s(lambda: pipe._iterative_decode(
+            code.dtype, init, ctx, 1, 1, gen))
+        _, t_dec = sync_s(lambda: (
+            gumbel_sigmoid(vq.lidar_decoder(x)[1],
+                           generator=gen),
+            gumbel_sigmoid(vq.lidar_decoder(code)[1],
+                           generator=gen)))
+    if not bool((ids >= 0).all()):
+        fail("lidar_maskgit: the split run left a code index masked")
+    return {"voxelize_s": t_vox, "encode_quantize_s": t_enc,
+            "steps_s": t_steps, "decode_s": t_dec}
+
+
+def run_lidar_maskgit(dev, create_instance_from_config, ops):
+    """MaskGIT generation at full width (``LIDAR_MASKGIT_CONFIG`` in bf16
+    compute): the rasters gate, ``MASKGIT_TIMED`` generations timed
+    (median and spread), one split by part, one profiled."""
+    from opendwm_tpu_torch.perf import lidar_tiny
+    from opendwm_tpu_torch.pipelines.lidar_maskgit import (
+        get_maskgit_conditions,
+    )
+
+    check_lidar_tiny_gaps(lidar_tiny.maskgit_gaps(dev, temporal=False),
+                          "MaskGIT")
+    pipe, gen = build_lidar(
+        create_instance_from_config, LIDAR_MASKGIT_CONFIG, dev,
+        ("vq", "model"), bf16=(("vq_point_cloud", "lidar_encoder"),
+                               ("vq_point_cloud", "lidar_decoder"),
+                               ("bi_directional_transformer",)))
+    pipe.blank_code = LIDAR_BLANK_CODE
+    pipe.inference_config["sample_steps"] = MASKGIT_STEPS
+    batch = lidar_batch(dev, gen, 1)
+    with torch.inference_mode():
+        _, code, idx = pipe.tokenize(batch["lidar_points"],
+                                     batch["lidar_points_mask"])
+        ids = idx.clone()
+        ids[:, ::2] = -1
+        ctx = get_maskgit_conditions(batch)
+        kw = dict(batch_size=1, num_frames=1)
+        logits = pipe.model(code, ids, ctx, **kw)
+        if not bool(torch.isfinite(logits).all()):
+            fail("lidar_maskgit: the logits are not finite")
+        move = check_rasters_move(
+            logits, pipe.model(code, ids, torch.zeros_like(ctx), **kw),
+            "lidar_maskgit logits")
+    del logits, code
+    pipe.inference_pipeline(batch, generator=gen)  # warm-up
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(MASKGIT_TIMED):
+        out, dt = sync_s(lambda: pipe.inference_pipeline(batch,
+                                                         generator=gen))
+        times.append(dt)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_lidar_outputs({k: out[k] for k in ("pred_voxels", "vq_voxels")},
+                        out["pred_indices"], "lidar_maskgit")
+    split = maskgit_split(pipe, batch, gen)
+    prof = profiled(lambda: pipe.inference_pipeline(batch, generator=gen),
+                    "LiDAR MaskGIT generation (1 frame, 20 steps, CFG)")
+    spread = median_spread(times)
+    log(f"lidar_maskgit: s per generated frame {json.dumps(spread)}; "
+        f"split {json.dumps(split)}; peak {peak:.2f} GiB; busy "
+        f"{100 * prof['busy']:.1f}%; rasters move the logits by {move:.4e}; "
+        f"voxels occupied {float(out['pred_voxels'].float().mean()):.4f}; "
+        f"launches {json.dumps(counts)}")
+    return counts, {"s_per_frame": spread, "split": split, "peak_gib": peak,
+                    "busy": prof["busy"], "device_ms": prof["device_ms"]}
+
+
+def run_lidar_rollout(dev, create_instance_from_config, ops):
+    """The temporal vq80k MaskGIT's autoregressive rollout at full width:
+    ``ROLLOUT_FRAMES`` frames, ``ROLLOUT_REF`` reference frames, windows of
+    ``ROLLOUT_WINDOW``; one step profiled at the window's shape first."""
+    from opendwm_tpu_torch.perf import lidar_tiny
+    from opendwm_tpu_torch.pipelines import lidar_maskgit
+
+    check_lidar_tiny_gaps(lidar_tiny.maskgit_gaps(dev, temporal=True),
+                          "temporal MaskGIT")
+    pipe, gen = build_lidar(
+        create_instance_from_config, LIDAR_ROLLOUT_CONFIG, dev,
+        ("vq", "model"), bf16=(("vq_point_cloud", "lidar_encoder"),
+                               ("vq_point_cloud", "lidar_decoder"),
+                               ("bi_directional_transformer",)))
+    pipe.blank_code = LIDAR_BLANK_CODE
+    batch = lidar_batch(dev, gen, ROLLOUT_FRAMES)
+    tw, ref = ROLLOUT_WINDOW, ROLLOUT_REF
+    window = {k: v[:, :tw] if k.startswith("lidar") else v[:tw]
+              for k, v in batch.items()}
+    with torch.inference_mode():
+        _, _, idx = pipe.tokenize(window["lidar_points"],
+                                  window["lidar_points_mask"])
+        init = idx.clone()
+        init[ref:] = -1
+        ctx = lidar_maskgit.get_maskgit_conditions(
+            window, do_classifier_free_guidance=True)
+    pipe.inference_config["sample_steps"] = 1
+
+    def one_step():
+        with torch.inference_mode():
+            pipe._iterative_decode(torch.float32, init, ctx, 1, tw, gen)
+
+    one_step()  # warm-up
+    step = profiled(one_step, "LiDAR MaskGIT rollout step (8 frames, CFG)",
+                    ranges=((lidar_maskgit, "sample_tokens",
+                             "sample_tokens"),))
+    pipe.inference_config["sample_steps"] = MASKGIT_STEPS
+    del ctx, init
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, dt = sync_s(lambda: pipe.autoregressive_inference_pipeline(
+        batch, generator=gen, num_reference_frame=ref, window_frames=tw))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_lidar_outputs({"pred_voxels": out["pred_voxels"]},
+                        out["pred_indices"], "lidar_maskgit_rollout")
+    want = (1, ROLLOUT_FRAMES, pipe.vq.voxelizer.depth, LIDAR_RASTER,
+            LIDAR_RASTER)
+    if tuple(out["pred_voxels"].shape) != want:
+        fail(f"rollout voxels {tuple(out['pred_voxels'].shape)} != {want}")
+    if not torch.equal(out["pred_indices"][0, :ref], idx[:ref]):
+        fail("rollout: the reference frames' codes were not pinned")
+    generated = ROLLOUT_FRAMES - ref
+    log(f"lidar_maskgit_rollout: {ROLLOUT_FRAMES} frames ({generated} "
+        f"generated) in {dt:.3f} s: {dt / generated:.4f} s per generated "
+        f"frame; peak {peak:.2f} GiB; the profiled step {step['wall_s']:.4f} "
+        f"s, busy {100 * step['busy']:.1f}%; launches {json.dumps(counts)}")
+    return counts, {"s": dt, "s_per_generated_frame": dt / generated,
+                    "peak_gib": peak, "step_s": step["wall_s"],
+                    "busy": step["busy"], "step_device_ms": step["device_ms"],
+                    "sample_tokens": step["ranges"]["sample_tokens"]}
+
+
+def check_lidar_dit_census(c: dict, forwards: int) -> None:
+    """The LiDAR DiT path's launches over ``forwards`` CFG forwards: K1
+    ``LIDAR_K1_PER_FORWARD`` a forward, all at ``LIDAR_K1_SHAPE`` and on
+    the Hopper forward; K3 and K4 ``LIDAR_K3/K4_PER_FORWARD`` a forward,
+    all on the runtime-width kernel (``adaln_any_kernel``) at exactly the
+    ``LIDAR_ADALN_SHAPES``; no K7."""
+    shape = ",".join(map(str, LIDAR_K1_SHAPE + (64,)))
+    k1 = LIDAR_K1_PER_FORWARD * forwards
+    log(f"lidar_dit: K1 {c['flash_tail']} launches by shape "
+        f"{json.dumps(c['flash_tail_by_shape'])}, on the Hopper forward "
+        f"{json.dumps(c['flash_tail_sm90_by_shape'])}")
+    if c["flash_tail"] != k1 or c["flash_tail_by_shape"] != {shape: k1} or \
+            c["flash_tail_sm90_by_shape"] != {shape: k1}:
+        fail(f"lidar_dit: K1 should have launched {k1} times at ({shape}), "
+             f"all on the Hopper forward")
+    allowed = {",".join(map(str, s)) for s in LIDAR_ADALN_SHAPES}
+    for key, per in (("adaln_modulate", LIDAR_K3_PER_FORWARD),
+                     ("residual_adaln_modulate", LIDAR_K4_PER_FORWARD)):
+        log(f"lidar_dit: {key} {c[key]} launches, {c[f'{key}_fixed']} on "
+            f"the d-1536 kernel, by shape {json.dumps(c[f'{key}_by_shape'])}")
+        if c[key] != per * forwards or c[f"{key}_fixed"] != 0 or \
+                set(c[f"{key}_by_shape"]) != allowed:
+            fail(f"lidar_dit: {key} should have launched {per * forwards} "
+                 f"times, all on the runtime-width kernel at {allowed}")
+    if c["flash_attention"] or c["flash_attention_segment"]:
+        fail("lidar_dit: K7 launched on the LiDAR DiT path")
+
+
+def run_lidar_dit(dev, create_instance_from_config, ops, get_conditions):
+    """The temporal LiDAR DiT at full width (``LIDAR_DIT_CONFIG``: the
+    d-1024 DiT in bf16, the fp32 vq80k tokenizer): CFG forwards timed, the
+    rasters gate, one forward profiled with the plain joint attention at
+    s 1601 as its own range, then ``generate`` with one reference frame
+    and the launch census."""
+    from opendwm_tpu_torch.ops import attention
+    from opendwm_tpu_torch.perf import lidar_tiny
+
+    check_lidar_tiny_gaps(lidar_tiny.dit_gaps(dev), "rowwise DiT")
+    pipe, gen = build_lidar(create_instance_from_config, LIDAR_DIT_CONFIG,
+                            dev, ("model", "autoencoder"))
+    log(f"lidar_dit cut: inference_steps "
+        f"{pipe.inference_config['inference_steps']} -> {LIDAR_DIT_STEPS}")
+    pipe.inference_config["inference_steps"] = LIDAR_DIT_STEPS
+    model = pipe.model
+    batch = lidar_batch(dev, gen, LIDAR_DIT_FRAMES)
+    prepared = pipe.prepare_batch(batch)
+    with torch.inference_mode():
+        vox = prepared["gt_voxels"]
+        feats = pipe.autoencoder.lidar_encoder(vox.reshape(-1,
+                                                           *vox.shape[2:]))
+        check_nearest(lidar_tiny.nearest_gaps(
+            pipe.autoencoder.vector_quantizer,
+            feats.reshape(-1, feats.shape[-1])), "lidar_dit tokenizer")
+    del vox, feats
+    latents = prepared["latents"]
+    conds = get_conditions(prepared, pipe.common_config,
+                           do_classifier_free_guidance=True)
+    kwargs = dict(sample=torch.randn((2, *latents.shape[1:]), generator=gen,
+                                     device=dev),
+                  timestep=torch.full((2, *latents.shape[1:3]), 500.0,
+                                      device=dev), **conds)
+    fwd_s = []
+    with torch.inference_mode():
+        for _ in range(1 + LIDAR_DIT_FORWARDS):
+            out, dt = sync_s(lambda: model(**kwargs))
+            fwd_s.append(dt)
+        if out.shape != kwargs["sample"].shape or \
+                not bool(torch.isfinite(out).all()):
+            fail("lidar_dit: the CFG forward is not finite or misshapen")
+        one = {k: v[1:] for k, v in kwargs.items()}
+        move = check_rasters_move(
+            model(**one), model(**{**one, "condition_image_tensor":
+                                   torch.zeros_like(one[
+                                       "condition_image_tensor"])}),
+            "lidar_dit output")
+        prof = profiled(lambda: model(**kwargs),
+                        "LiDAR DiT CFG forward (12 frames x 1601 tokens)",
+                        ranges=((attention, "_plain_attention",
+                                 "plain_attention"),))
+    del out, kwargs, one
+    forward_s = min(fwd_s[1:])
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    got, dt = sync_s(lambda: pipe.generate(
+        batch, generator=gen, image_latents=latents,
+        reference_frame_count=LIDAR_DIT_REF))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_lidar_dit_census(counts, LIDAR_DIT_STEPS)
+    check_lidar_outputs({"pred_voxels": got["pred_voxels"]}, None,
+                        "lidar_dit")
+    if tuple(got["latents"].shape) != tuple(latents.shape) or \
+            not bool(torch.isfinite(got["latents"]).all()):
+        fail("lidar_dit: the generated latents are not finite or misshapen")
+    if not torch.equal(got["latents"][:, :LIDAR_DIT_REF],
+                       latents[:, :LIDAR_DIT_REF]):
+        fail("lidar_dit: the reference frame was not injected")
+    generated = LIDAR_DIT_FRAMES - LIDAR_DIT_REF
+    attn = prof["ranges"]["plain_attention"]
+    log(f"lidar_dit: CFG forward {forward_s:.4f} s (of "
+        f"{', '.join(f'{t:.4f}' for t in fwd_s)}); generate {dt:.3f} s "
+        f"({LIDAR_DIT_STEPS} steps, {generated} generated frames): "
+        f"{dt / generated:.4f} s per generated frame; peak {peak:.2f} GiB; "
+        f"busy {100 * prof['busy']:.1f}%; plain joint attention at s 1601 "
+        f"{attn['ms']:.3f} device ms ({100 * attn['share']:.2f}%); rasters "
+        f"move the output by {move:.4e}")
+    return counts, {"forward_s": forward_s, "generate_s": dt,
+                    "s_per_generated_frame": dt / generated,
+                    "peak_gib": peak, "busy": prof["busy"],
+                    "device_ms": prof["device_ms"],
+                    "plain_attention": attn}
+
+
 def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
@@ -2849,7 +3340,18 @@ def main() -> None:
         f"GiB; the update alone: nwao (fused AdamW) "
         f"{train_metrics['update_s']:.4f} s, bm (FlatAdamW) "
         f"{bm_train_metrics['update_s']:.4f} s")
+    lidar = {}
+    for name, run, args in (
+            ("lidar_maskgit", run_lidar_maskgit, ()),
+            ("lidar_maskgit_rollout", run_lidar_rollout, ()),
+            ("lidar_dit", run_lidar_dit, (get_conditions,))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log_clocks(f"before the {name} phase")
+        lidar[name] = run(dev, create_instance_from_config, ops, *args)
     log_clocks("at the end")
+    log(f"LiDAR serving ({card}): "
+        + json.dumps({k: m for k, (_, m) in lidar.items()}))
     log(f"stream: {stream_metrics['steady_ms']['median']:.1f} ms a frame "
         f"steady, {stream_metrics['amortised_ms']:.1f} with the text "
         f"refresh amortised, peak {stream_metrics['peak_gib']:.2f} GiB, busy "
@@ -2858,7 +3360,8 @@ def main() -> None:
              "unet_train": unet_train, "bm_serve": bm_serve,
              "bm_unet_serve": bm_unet, "bm_train": bm_train,
              "stream": stream, "int8_serve": int8_serve,
-             "int8_unet": int8_unet, "tailvar": tailvar, "attn602": attn602}
+             "int8_unet": int8_unet, "tailvar": tailvar, "attn602": attn602,
+             **{k: c for k, (c, _) in lidar.items()}}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
               if p != "attn602" and c["flash_attention_segment"]}
     if strays:

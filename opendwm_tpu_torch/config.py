@@ -75,6 +75,20 @@ _LAZY_MODULES: dict[str, str] = {
         "opendwm_tpu_torch.pipelines.ctsd_streaming",
     "StreamingCTSDPipeline": "opendwm_tpu_torch.pipelines.ctsd_streaming",
     "SyntheticStreamingAdapter": "opendwm_tpu_torch.datasets.synthetic",
+    "dwm.models.voxelizer": "opendwm_tpu_torch.ops.voxelize",
+    "Voxelizer": "opendwm_tpu_torch.ops.voxelize",
+    "dwm.models.vq_point_cloud": "opendwm_tpu_torch.models.vq_point_cloud",
+    "VQPointCloud": "opendwm_tpu_torch.models.vq_point_cloud",
+    "VectorQuantizer": "opendwm_tpu_torch.models.vq_point_cloud",
+    "VQEncoder": "opendwm_tpu_torch.models.vq_point_cloud",
+    "VQDecoder": "opendwm_tpu_torch.models.vq_point_cloud",
+    "dwm.models.maskgit_model": "opendwm_tpu_torch.models.maskgit",
+    "BidirectionalTransformerWithAdapter": "opendwm_tpu_torch.models.maskgit",
+    "dwm.pipelines.lidar_maskgit": "opendwm_tpu_torch.pipelines.lidar_maskgit",
+    "MaskGITPipeline": "opendwm_tpu_torch.pipelines.lidar_maskgit",
+    "dwm.pipelines.lidar_diffusion":
+        "opendwm_tpu_torch.pipelines.lidar_diffusion",
+    "LidarDiffusionPipeline": "opendwm_tpu_torch.pipelines.lidar_diffusion",
 }
 
 
@@ -98,8 +112,9 @@ def get_class(class_name: str):
     raise KeyError(
         f"{class_name!r} has no PyTorch port yet (opendwm_tpu_torch covers "
         "the CTSD-3.5 MMDiT and CTSD-2.1 UNet serving and training paths, "
-        "with the layout ImageAdapter and the image VAE, streaming serving "
-        "and the CLIP/T5 text stage; see ROADMAP.md Queue 1)."
+        "with the layout ImageAdapter and the image VAE, streaming serving, "
+        "the CLIP/T5 text stage and LiDAR serving (VQ tokenizer, MaskGIT, "
+        "the LiDAR DiT); see ROADMAP.md Queue 1)."
     )
 
 

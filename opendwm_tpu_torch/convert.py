@@ -17,6 +17,12 @@ numpy arrays (``{"params": {...}}`` or the inner tree) becomes a flat
   kw, in, out) → ``QConv2d`` ``weight_q`` (out, kh, kw, in), each
   ``kernel_scale`` → ``weight_scale``, unchanged.
 
+The LiDAR tokenizer (``VQPointCloud``) and the MaskGIT transformer
+(``BidirectionalTransformer``) mirror their flax trees:
+``lidar_state_dict_from_flax`` and ``lidar_flax_from_state_dict`` map
+them both ways (the tokenizer's ``ConvTranspose`` kernel is flipped in
+space; see ``_transposed_conv_weight``).
+
 The way back, for the DiT and the UNet: ``flax_param_name`` names a port
 parameter as the JAX package's trees name it (its ``freezing_pattern``
 regexes are written against those names), and
@@ -479,6 +485,98 @@ def t5_flax_from_state_dict(state_dict: Mapping) -> dict:
     flax ``{"params": tree}`` of numpy arrays."""
     return _to_flax(state_dict, _t5_params(_layer_count(state_dict,
                                                         "block")))
+
+
+# LiDAR models: the port's modules mirror the flax trees, so one walk maps
+# both ways. ``{X}_{i}`` of these lists is ``{X}.{i}``; a feed-forward's
+# ``proj_in``/``proj_out`` are ``net.0.proj``/``net.2``.
+_LIDAR_LISTS = ("blocks", "temporal_blocks", "body", "resnets", "zero_convs")
+_LIDAR_SKIPPED = ("density_mlp_1", "density_mlp_2")
+
+
+def _transposed_conv_weight(kernel: np.ndarray) -> np.ndarray:
+    """flax ``ConvTranspose`` kernel (kh, kw, in, out), built without
+    ``transpose_kernel`` → ``ConvTranspose2d`` weight (in, out, kh, kw):
+    flax correlates the dilated input with the kernel, so at kernel 2,
+    stride 2 output pixel 2i + a reads tap 1 − a; torch's reads tap a."""
+    return kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+
+
+def lidar_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``VQPointCloud`` or ``BidirectionalTransformer`` params (or a
+    tree of one of their submodules) → the port's state dict (numpy).
+    The DVGO density MLP of a trained tokenizer (``density_mlp_1/2``) is
+    training-only and dropped: the port's ``VQPointCloud`` holds none."""
+    sd: dict = {}
+
+    def walk(node, path: list[str]):
+        for name, value in node.items():
+            parent = path[-1] if path else ""
+            if isinstance(value, Mapping):
+                if not path and name in _LIDAR_SKIPPED:
+                    continue
+                m = re.fullmatch(r"(.+)_(\d+)", name)
+                if m and m.group(1) in _LIDAR_LISTS:
+                    name = f"{m.group(1)}.{m.group(2)}"
+                elif parent == "ff":
+                    name = {"proj_in": "net.0.proj", "proj_out": "net.2"}[name]
+                walk(value, path + [name])
+                continue
+            value = np.asarray(value)
+            if name == "kernel" and parent == "upsample":
+                value, name = _transposed_conv_weight(value), "weight"
+            elif name == "kernel":
+                value = value.transpose(_KERNEL_AXES["kernel", value.ndim])
+                name = "weight"
+            elif name == "scale" or (name == "embedding" and
+                                     parent == "extra_embedding"):
+                name = "weight"
+            sd[".".join(path + [name])] = np.ascontiguousarray(value)
+
+    walk(_tree(params), [])
+    return sd
+
+
+def lidar_flax_from_state_dict(state_dict: Mapping) -> dict:
+    """The port's ``VQPointCloud`` or ``BidirectionalTransformer`` state dict
+    (tensors or arrays) → the flax ``{"params": tree}`` of numpy arrays,
+    inverting ``lidar_state_dict_from_flax`` bit for bit."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        value = np.asarray(value)
+        *mods, leaf = name.split(".")
+        path: list[str] = []
+        i = 0
+        while i < len(mods):
+            if mods[i] in _LIDAR_LISTS and i + 1 < len(mods) and \
+                    mods[i + 1].isdigit():
+                path.append(f"{mods[i]}_{mods[i + 1]}")
+                i += 2
+            elif mods[i] == "net" and path and path[-1] == "ff":
+                first = mods[i + 1] == "0"
+                path.append("proj_in" if first else "proj_out")
+                i += 3 if first else 2
+            else:
+                path.append(mods[i])
+                i += 1
+        parent = path[-1] if path else ""
+        if leaf == "weight":
+            if parent == "extra_embedding":
+                leaf = "embedding"
+            elif value.ndim == 1:
+                leaf = "scale"
+            else:
+                value = value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1) \
+                    if parent == "upsample" \
+                    else value.transpose(_FLAX_AXES[value.ndim])
+                leaf = "kernel"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return {"params": tree}
 
 
 def to_torch(state_dict: Mapping[str, np.ndarray]) -> dict:

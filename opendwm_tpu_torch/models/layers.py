@@ -65,6 +65,19 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in ``compute_dtype``, as ``Linear``
+    (no output padding or size: the LiDAR decoder's 2x up-sampling)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias,
+                                  self.stride, self.padding)
+
+
 class Conv3d(nn.Conv3d):
     """``nn.Conv3d`` computing in ``compute_dtype``, as ``Linear``."""
 
@@ -191,12 +204,13 @@ def conv_factory(quantized: bool) -> type:
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
-    """Make every ``Linear``/``Conv2d``/``Conv3d``/``LayerNorm``/
-    ``GroupNorm`` (and int8 ``QLinear``/``QConv2d``) under ``module``
-    compute in ``dtype`` whatever dtype its parameters are kept in."""
+    """Make every ``Linear``/``Conv2d``/``ConvTranspose2d``/``Conv3d``/
+    ``LayerNorm``/``GroupNorm`` (and int8 ``QLinear``/``QConv2d``) under
+    ``module`` compute in ``dtype`` whatever dtype its parameters are kept
+    in."""
     for m in module.modules():
-        if isinstance(m, (Linear, Conv2d, Conv3d, LayerNorm, GroupNorm,
-                          _Int8Weights)):
+        if isinstance(m, (Linear, Conv2d, ConvTranspose2d, Conv3d, LayerNorm,
+                          GroupNorm, _Int8Weights)):
             m.compute_dtype = dtype
 
 

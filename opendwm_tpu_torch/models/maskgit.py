@@ -1,0 +1,190 @@
+"""MaskGIT backbone for LiDAR token modelling
+(``opendwm_tpu/models/maskgit.py``), in PyTorch.
+
+A bidirectional transformer over VQ code tokens: mask-token substitution
+where ``x_id == -1``, optional ``extra_embedding`` input codes, Swin
+blocks over the token grid (window 2: 4-token windows, which the
+attention dispatch sends to its fp32 tiny-sequence form), optionally
+interleaved with temporal blocks (rotary attention over the frames of
+each token, plain einsum as in the JAX model), per-block residuals from
+the layout ``ImageAdapter``, and a LayerNorm + GELU head to ``n_e`` logits.
+
+Parameters keep the flax names (``blocks.blocks.3`` for
+``blocks/blocks_3``, ``blocks.temporal_blocks.3`` for
+``blocks/temporal_blocks_3``) and are kept in fp32, as flax keeps them;
+``dtype`` is the compute dtype. The top-k cosine perturbation of the
+extra embedding (``_perturb``) is a training augmentation and raises
+(ROADMAP Queue 1, item 11b).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.models.adapters import ImageAdapter
+from opendwm_tpu_torch.models.layers import (
+    FeedForward,
+    LayerNorm,
+    Linear,
+    set_compute_dtype,
+)
+from opendwm_tpu_torch.models.vq_point_cloud import (
+    SwinBlock,
+    position_table,
+    training_only,
+)
+
+
+class RotaryEmbedding(nn.Module):
+    """Learned-frequency rotary embedding ('pixel' init) over the sequence
+    axis of ``(..., seq, heads, head_dim)`` tensors; pairs are interleaved
+    (even, odd) and the result is fp32 when the frequencies are."""
+
+    def __init__(self, head_dim: int, max_freq: float = 10.0):
+        super().__init__()
+        self.freqs = nn.Parameter(
+            torch.linspace(1.0, max_freq / 2, head_dim // 2) * math.pi)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = torch.arange(x.shape[-3], dtype=torch.float32, device=x.device)
+        angles = t[:, None] * self.freqs[None, :]
+        cos = torch.cos(angles)[None, :, None, :]
+        sin = torch.sin(angles)[None, :, None, :]
+        x1, x2 = x[..., 0::2], x[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+        return out.reshape(x.shape)
+
+
+class TemporalTransformerBlock(nn.Module):
+    """Pre-LN (eps 1e-6) self-attention with rotary q/k over the frames,
+    fp32 logits and softmax, then a tanh-GELU feed-forward. Input
+    ``(n, t, c)``."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        self.norm1 = LayerNorm(dim, eps=1e-6)
+        self.to_q = Linear(dim, inner)
+        self.to_k = Linear(dim, inner)
+        self.to_v = Linear(dim, inner)
+        self.rope = RotaryEmbedding(head_dim)
+        self.to_out = Linear(inner, dim)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
+        self.ff = FeedForward(dim, activation="gelu-approximate")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.norm1(x)
+        shape = (*n.shape[:-1], self.heads, self.head_dim)
+        q = self.rope(self.to_q(n).reshape(shape))
+        k = self.rope(self.to_k(n).reshape(shape))
+        v = self.to_v(n).reshape(shape)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        probs = torch.softmax(logits * self.head_dim ** -0.5, -1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        x = x + self.to_out(out.reshape(*x.shape[:-1], -1))
+        return x + self.ff(self.norm2(x))
+
+
+class MaskgitTransformer(nn.Module):
+    """Swin blocks over the token grid, each followed by a temporal block
+    when ``enable_temporal``; the i-th context residual is added after
+    block i."""
+
+    def __init__(self, dim: int, input_resolution: Sequence[int], depth: int,
+                 num_heads: int, window_size: int = 2,
+                 enable_temporal: bool = False):
+        super().__init__()
+        self.dim = dim
+        self.blocks = nn.ModuleList([
+            SwinBlock(dim, num_heads, window_size,
+                      0 if i % 2 == 0 else window_size // 2,
+                      tuple(input_resolution))
+            for i in range(depth)])
+        self.temporal_blocks = nn.ModuleList([
+            TemporalTransformerBlock(dim, num_heads, dim // num_heads)
+            for _ in range(depth)]) if enable_temporal else None
+
+    def forward(self, x: torch.Tensor, context: Optional[list] = None,
+                batch_size: Optional[int] = None,
+                num_frames: Optional[int] = None) -> torch.Tensor:
+        context = list(context) if context is not None else []
+        l, c = x.shape[-2], self.dim
+        for i, spatial in enumerate(self.blocks):
+            x = spatial(x)
+            if self.temporal_blocks is not None:
+                b, t = batch_size, num_frames
+                x = x.reshape(b, t, l, c).transpose(1, 2).reshape(b * l, t, c)
+                x = self.temporal_blocks[i](x)
+                x = x.reshape(b, l, t, c).transpose(1, 2).reshape(b * t, l, c)
+            if context:
+                x = x + context.pop(0)
+        return x
+
+
+@register(
+    "BidirectionalTransformerWithAdapter",
+    aliases=("dwm.models.maskgit_model.BidirectionalTransformerWithAdapter",),
+)
+class BidirectionalTransformer(nn.Module):
+    """Inputs: ``x`` (N, L, e_dim) quantized features (ignored with
+    ``use_extra_embedding``), ``x_id`` (N, L) code indices with −1 at
+    masked positions, ``context`` an optional (N, H, W, C) BEV layout
+    raster, ``batch_size``/``num_frames`` when temporal. Returns (N, L,
+    n_e) logits in the compute dtype."""
+
+    def __init__(self, n_e: int, e_dim: int, img_size: Sequence[int],
+                 hidden_dim: int = 512, depth: int = 24, num_heads: int = 16,
+                 window_size: int = 2, use_extra_embedding: bool = False,
+                 enable_temporal: bool = False,
+                 condition_adapter_config: Optional[dict] = None,
+                 enable_perturbation: bool = False,
+                 perturbation_ratio: float = 0.1, perturbation_topk: int = 5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_e, self.e_dim, self.hidden_dim = n_e, e_dim, hidden_dim
+        self.img_size = tuple(img_size)
+        self.mask_token = nn.Parameter(torch.randn(1, 1, e_dim) * 0.02)
+        self.extra_embedding = nn.Embedding(n_e, e_dim) \
+            if use_extra_embedding else None
+        self.decoder_embed = Linear(e_dim, hidden_dim)
+        self.condition_adapter = ImageAdapter(**condition_adapter_config) \
+            if condition_adapter_config is not None else None
+        self.blocks = MaskgitTransformer(hidden_dim, self.img_size, depth,
+                                         num_heads, window_size,
+                                         enable_temporal)
+        self.norm = LayerNorm(hidden_dim, eps=1e-5)
+        self.pred = Linear(hidden_dim, n_e)
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
+        self._tables: dict = {}
+
+    def forward(self, x: Optional[torch.Tensor], x_id: torch.Tensor,
+                context: Optional[torch.Tensor] = None,
+                batch_size: Optional[int] = None,
+                num_frames: Optional[int] = None,
+                perturb_generator: Optional[torch.Generator] = None,
+                ) -> torch.Tensor:
+        if perturb_generator is not None:
+            raise training_only("the extra embedding's top-k perturbation")
+        masked = (x_id == -1)[..., None]
+        if self.extra_embedding is not None:
+            tok = self.extra_embedding(x_id.clamp(min=0)).to(self.dtype)
+        else:
+            tok = x
+        h = torch.where(masked, self.mask_token.to(tok.dtype), tok)
+        h = self.decoder_embed(h)
+        h = h + position_table(self._tables, self.hidden_dim,
+                               *self.img_size, h)
+        ctx = None
+        if self.condition_adapter is not None and context is not None:
+            ctx = [f.reshape(f.shape[0], -1, f.shape[-1])
+                   for f in self.condition_adapter(context.to(self.dtype))]
+        h = self.blocks(h, ctx, batch_size=batch_size, num_frames=num_frames)
+        return self.pred(F.gelu(self.norm(h)))

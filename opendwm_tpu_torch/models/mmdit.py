@@ -2,8 +2,8 @@
 
 Ported: the SD3.5 joint-block backbone (dual attention, qk-RMSNorm,
 ``context_pre_only`` last block), implicit perspective embedding, the
-``rowwise`` cross-view and ``pointwise`` temporal branches mixed back by
-``AlphaBlender`` or ``Mixer``, the layout ImageAdapter
+``rowwise`` cross-view and ``pointwise`` or ``rowwise`` temporal branches
+mixed back by ``AlphaBlender`` or ``Mixer``, the layout ImageAdapter
 (``condition_image_adapter_config``: one residual per stage, added to the
 tokens before each of the first ``len(channels)`` joint blocks), and int8
 W8A8 serving (``quantization="int8"``: every attention and feed-forward
@@ -222,7 +222,8 @@ class DiTCrossviewTemporal(nn.Module):
                 f"crossview_attention_type={crossview_attention_type!r}",
                 "item 3",
             )
-        if enable_temporal and temporal_attention_type != "pointwise":
+        if enable_temporal and temporal_attention_type not in ("pointwise",
+                                                               "rowwise"):
             raise _not_ported(
                 f"temporal_attention_type={temporal_attention_type!r}",
                 "item 3",
@@ -252,6 +253,7 @@ class DiTCrossviewTemporal(nn.Module):
         self.enable_temporal = enable_temporal
         self.crossview_block_layers = list(crossview_block_layers)
         self.temporal_block_layers = list(temporal_block_layers)
+        self.temporal_attention_type = temporal_attention_type
         self.disable_view_emb_on_temporal_module = \
             disable_view_emb_on_temporal_module
         self.perspective_modeling_type = perspective_modeling_type
@@ -485,14 +487,21 @@ class DiTCrossviewTemporal(nn.Module):
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, t, v, hh, ww, -1)
         return x[:, :, 0] if squeeze_view else x
 
-    @staticmethod
-    def _temporal_branch(block, mixer, x, emb, shape, disable):
-        """``pointwise``: each spatial token attends over the t frames."""
+    def _temporal_branch(self, block, mixer, x, emb, shape, disable):
+        """``pointwise``: each spatial token attends over the t frames;
+        ``rowwise``: each latent row attends over its t frames' rows
+        (sequences of t·gw tokens, ``mmdit.py:606-610``)."""
         b, t, v, gh, gw, c = shape
         l = gh * gw
-        h = (x + emb).reshape(b, t, v, l, c).permute(0, 2, 3, 1, 4)
-        h = block(h.reshape(b * v * l, t, c))
-        h = h.reshape(b, v, l, t, c).permute(0, 3, 1, 2, 4)
+        if self.temporal_attention_type == "rowwise":
+            h = (x + emb).reshape(b, t, v, gh, gw, c)
+            h = block(h.permute(0, 2, 3, 1, 4, 5).reshape(b * v * gh, t * gw,
+                                                         c))
+            h = h.reshape(b, v, gh, t, gw, c).permute(0, 3, 1, 2, 4, 5)
+        else:
+            h = (x + emb).reshape(b, t, v, l, c).permute(0, 2, 3, 1, 4)
+            h = block(h.reshape(b * v * l, t, c))
+            h = h.reshape(b, v, l, t, c).permute(0, 3, 1, 2, 4)
         h = h.reshape(b, t * v, l, c)
         out = mixer(x.reshape(b, t * v, l, c), h, image_only_indicator=disable)
         return out.reshape(b * t * v, l, c)

@@ -41,6 +41,12 @@ def launch_counts() -> dict:
             for k, n in flash_attention.segment_launches_by_shape.items()},
         "flash_tail": flash_tail.launches,
         "flash_tail_by_seq": dict(flash_tail.launches_by_seq),
+        "flash_tail_by_shape": {
+            ",".join(map(str, k)): n
+            for k, n in flash_tail.launches_by_shape.items()},
+        "flash_tail_sm90_by_shape": {
+            ",".join(map(str, k)): n
+            for k, n in flash_tail.sm90_launches_by_shape.items()},
         "flash_tail_with_lse": flash_tail.lse_launches,
         "flash_tail_sm90": flash_tail.sm90_launches,
         "flash_tail_backward": flash_tail.backward_launches,

@@ -36,12 +36,15 @@ from opendwm_tpu_torch.ops import _build
 
 MAX_PADDED_SEQ = 1024  # dispatch bound kept from the JAX package
 
-# Kernel launches, in total and by sequence length: the forward (K1, with
-# the launches that also wrote the log-sum-exp counted apart, and those that
-# ran the Hopper forward of csrc/flash_fwd_sm90.cuh) and the backward (K2,
-# with those that ran the Hopper backward of csrc/flash_bwd_sm90.cuh).
+# Kernel launches, in total, by sequence length and by (B, S, H, D): the
+# forward (K1, with the launches that also wrote the log-sum-exp counted
+# apart, and those that ran the Hopper forward of csrc/flash_fwd_sm90.cuh,
+# also by shape) and the backward (K2, with those that ran the Hopper
+# backward of csrc/flash_bwd_sm90.cuh).
 launches = 0
 launches_by_seq: dict[int, int] = {}
+launches_by_shape: dict[tuple, int] = {}
+sm90_launches_by_shape: dict[tuple, int] = {}
 lse_launches = 0
 sm90_launches = 0
 backward_launches = 0
@@ -55,6 +58,8 @@ def reset_launches() -> None:
     launches = lse_launches = sm90_launches = backward_launches = 0
     sm90_backward_launches = 0
     launches_by_seq.clear()
+    launches_by_shape.clear()
+    sm90_launches_by_shape.clear()
     backward_launches_by_seq.clear()
 
 
@@ -183,8 +188,12 @@ def _launch_forward(q, k, v, scale: float, with_lse: bool):
             rc = lib.flash_tail_forward(*ptrs, *args)
     _raise_on_error(lib, rc, "forward")
     launches += 1
-    sm90_launches += lib.flash_tail_forward_takes_sm90(*ptrs, d, is_bf16)
+    sm90 = lib.flash_tail_forward_takes_sm90(*ptrs, d, is_bf16)
+    sm90_launches += sm90
     launches_by_seq[s] = launches_by_seq.get(s, 0) + 1
+    launches_by_shape[b, s, h, d] = launches_by_shape.get((b, s, h, d), 0) + 1
+    sm90_launches_by_shape[b, s, h, d] = \
+        sm90_launches_by_shape.get((b, s, h, d), 0) + sm90
     lse_launches += int(with_lse)
     return out, lse
 

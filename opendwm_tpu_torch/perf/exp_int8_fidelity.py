@@ -30,7 +30,6 @@ quantized layer) and the rest.
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 import copy
 import time
@@ -41,6 +40,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from opendwm_tpu_torch.config import create_instance_from_config
 from opendwm_tpu_torch.models.layers import QConv2d, QLinear
 from opendwm_tpu_torch.ops.quant import quantize_state_dict
+from opendwm_tpu_torch.perf.measure import kernels_ms, range_kernels
 
 QUANTIZED = (QLinear, QConv2d)
 # The JAX package's bars (tests/test_quant.py): cosine to the float path.
@@ -316,26 +316,11 @@ def int8_split(prof) -> dict:
     on the device timeline: casts, amax, division, rounding, padding,
     im2col, dequantize, bias) and ``other``. Each kernel is counted once,
     as the profile's own table counts it."""
-    from torch.autograd import DeviceType
-
-    events = list(prof.events())
-    gemms = {k.name for e in events if e.name == "aten::_int_mm"
+    gemms = {k.name for e in prof.events() if e.name == "aten::_int_mm"
              for k in e.kernels}
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    ranges = sorted((e.time_range.start, e.time_range.end)
-                    for e in device if e.name == RANGE)
-    starts = [s for s, _ in ranges]
-    out = {k: {"ms": 0.0, "kernels": 0}
-           for k in ("int8_gemm", "quant_dequant", "other")}
-    for e in device:
-        if e.name == RANGE or getattr(e, "is_user_annotation", False):
-            continue
-        if e.name in gemms:
-            key = "int8_gemm"
-        else:
-            i = bisect.bisect_right(starts, e.time_range.start) - 1
-            inside = i >= 0 and e.time_range.end <= ranges[i][1]
-            key = "quant_dequant" if inside else "other"
-        out[key]["ms"] += e.time_range.elapsed_us() / 1e3
-        out[key]["kernels"] += 1
-    return out
+    inside, outside = range_kernels(prof, RANGE)
+    parts = {"int8_gemm": [e for e in inside + outside if e.name in gemms],
+             "quant_dequant": [e for e in inside if e.name not in gemms],
+             "other": [e for e in outside if e.name not in gemms]}
+    return {k: {"ms": kernels_ms(v), "kernels": len(v)}
+            for k, v in parts.items()}

@@ -3,6 +3,7 @@ and the experiments in this package."""
 
 from __future__ import annotations
 
+import bisect
 import subprocess
 import time
 
@@ -182,6 +183,39 @@ def segment_attention_bound(q_ids, kv_ids, h, d, causal=False,
         4 * (b * sq + b * sk)
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
     return bound(flops, nbytes, peak)
+
+
+def range_kernels(prof, name: str) -> tuple:
+    """The kernels of a ``torch.profiler`` profile's device timeline, each
+    once (the GPU-side spans of profiler ranges are not kernels), split
+    into (those that ran inside a GPU-side span of a range called
+    ``name``, the rest)."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device
+                   if e.name == name)
+    starts = [s for s, _ in spans]
+    inside, outside = [], []
+    for e in device:
+        if e.name == name or getattr(e, "is_user_annotation", False):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        within = i >= 0 and e.time_range.end <= spans[i][1]
+        (inside if within else outside).append(e)
+    return inside, outside
+
+
+def kernels_ms(kernels) -> float:
+    """Device ms of profiler kernel events."""
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def range_device_ms(prof, name: str) -> tuple:
+    """(device ms, kernels) of the kernels that ran inside the GPU-side
+    spans of the profiler ranges called ``name``."""
+    inside, _ = range_kernels(prof, name)
+    return kernels_ms(inside), len(inside)
 
 
 def card_line() -> str:

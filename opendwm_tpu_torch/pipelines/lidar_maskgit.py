@@ -1,0 +1,418 @@
+"""LiDAR MaskGIT pipeline, serving half
+(``opendwm_tpu/pipelines/lidar_maskgit.py``), in PyTorch.
+
+Ported: tokenization by the frozen VQ tokenizer, the T-step iterative
+unmasking decode (categorical sampling, blank-code suppression for the
+first 10 steps, CFG, confidence re-masking on the gamma schedule with
+Gumbel noise), single-window generation and prediction
+(``inference_pipeline``) and the autoregressive window rollout
+(``autoregressive_inference_pipeline``), then the VQ decode and the
+Gumbel-sigmoid binarisation. The JAX ``lax.scan`` over steps is a Python
+loop here.
+
+Every random draw is explicit: from a ``torch.Generator``, or replayed
+from ``draws`` (a test feeds the JAX package's): per step the Gumbel
+noise of the categorical draw (``jax.random.categorical`` is
+``argmax(logits + gumbel)``) and the confidence uniforms, and
+``gumbel_sigmoid``'s two uniforms.
+
+The categorical step never holds the fp32 logits of all rows at once:
+the head's output stays in its compute dtype and the fp32 cast, the
+blank suppression, the CFG combine, the Gumbel-max draw and the chosen
+probability (``exp(logit - logsumexp)``) run over chunks of at most
+``SAMPLE_CHUNK_ELEMS`` logits (the temporal rollout's step holds 102,400
+rows x 80,000 codes: 32.8 GB in fp32). Rows are independent, so the
+chunking changes no result.
+
+Training (``loss_fn``, ``train_step``, ``random_mask``) waits for ROADMAP
+Queue 1 item 11b; ``save_results`` and ``evaluate_pipeline`` for item 12.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.ops.voxelize import voxels_to_points
+
+SAMPLE_CHUNK_ELEMS = 2 ** 28  # fp32 logits a chunk of the categorical step
+BLANK_STEPS = 10  # steps that suppress the blank codes, whatever T is
+
+
+def gamma_fn(mode: str = "cosine"):
+    """The masking schedule: the ratio of tokens still masked at progress
+    ``r`` (a float32 tensor, as the JAX schedule computes it)."""
+    if mode == "linear":
+        return lambda r: 1 - r
+    if mode == "cosine":
+        return lambda r: torch.cos(r * math.pi / 2)
+    if mode == "square":
+        return lambda r: 1 - r ** 2
+    if mode == "cubic":
+        return lambda r: 1 - r ** 3
+    raise NotImplementedError(mode)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1, {item})")
+
+
+def random_mask(*args, **kwargs):
+    raise _not_ported("random_mask (MaskGIT training)", "item 11b")
+
+
+def gumbel_noise(shape, generator=None, device=None) -> torch.Tensor:
+    """fp32 Gumbel noise ``-log(-log(u))``, u uniform on [tiny, 1), as
+    ``jax.random.gumbel`` draws it."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
+
+
+def gumbel_sigmoid(logits: torch.Tensor, uniforms=None, generator=None,
+                   hard: bool = True, tau: float = 1.0) -> torch.Tensor:
+    """Binary Gumbel relaxation of voxel logits (reference
+    ``functional.py``): ``uniforms`` (u1, u2) of the logits' shape, drawn
+    from ``generator`` when not given."""
+    if uniforms is None:
+        uniforms = [torch.rand(logits.shape, generator=generator,
+                               device=logits.device) for _ in range(2)]
+    g1, g2 = (-torch.log(-torch.log(u.to(logits.device) + 1e-20))
+              for u in uniforms)
+    soft = torch.sigmoid((logits.float() + g1 - g2) / tau)
+    if hard:
+        return (soft > 0.5).to(logits.dtype)
+    return soft
+
+
+def get_maskgit_conditions(batch: dict, *, box_condition_mask=None,
+                           hdmap_condition_mask=None,
+                           do_classifier_free_guidance: bool = False,
+                           uncond_color: float = 0.0):
+    """BEV layout raster context: the 3-D box and HD-map BEV images
+    concatenated on channels, with per-sample dropout and the CFG
+    unconditional half first. None when no layout is present."""
+    images = []
+    for key, mask in (("3dbox_bev_images", box_condition_mask),
+                      ("hdmap_bev_images", hdmap_condition_mask)):
+        img = batch.get(key)
+        if img is not None:
+            if mask is not None:
+                img = torch.where(mask.reshape(-1, *(1,) * (img.ndim - 1)),
+                                  img, uncond_color)
+            images.append(img)
+    if not images:
+        return None
+    ctx = torch.cat(images, -1)
+    if do_classifier_free_guidance:
+        ctx = torch.cat([torch.full_like(ctx, uncond_color), ctx])
+    return ctx
+
+
+def sample_tokens(logits: torch.Tensor, gumbel, *, guidance=None,
+                  blank: Optional[torch.Tensor] = None):
+    """One categorical step over ``logits`` ((2n or n, l, n_e), any float
+    dtype; with ``guidance`` the unconditional half leads): in fp32 per
+    chunk of rows, the (distinct) ``blank`` codes lowered by 10000, the
+    CFG combine
+    ``u + guidance (c − u)``, ``argmax(logits + gumbel(r0, r1))`` (the
+    Gumbel noise of flat rows r0:r1) and the chosen code's probability
+    ``exp(logit − logsumexp)``. Returns ((n, l) int64 ids, (n, l) fp32
+    probabilities). A chunk holds ``SAMPLE_CHUNK_ELEMS`` logits."""
+    n_e = logits.shape[-1]
+    halves = logits.chunk(2) if guidance is not None else (logits,)
+    flat = [h.reshape(-1, n_e) for h in halves]
+    rows = flat[0].shape[0]
+    step = max(1, SAMPLE_CHUNK_ELEMS // n_e)
+    ids, probs = [], []
+    for r0 in range(0, rows, step):
+        r1 = min(r0 + step, rows)
+        parts = [f[r0:r1].float() for f in flat]
+        if blank is not None:
+            for p in parts:
+                p[:, blank] += -10000.0
+        lg = parts[0] if guidance is None else \
+            parts[0] + guidance * (parts[1] - parts[0])
+        chosen = (lg + gumbel(r0, r1)).argmax(-1)
+        ids.append(chosen)
+        probs.append(torch.exp(lg.gather(-1, chosen[:, None])[:, 0]
+                               - torch.logsumexp(lg, -1)))
+    shape = halves[0].shape[:-1]
+    return torch.cat(ids).reshape(shape), torch.cat(probs).reshape(shape)
+
+
+@register(
+    "MaskGITPipeline", aliases=("dwm.pipelines.lidar_maskgit.MaskGITPipeline",)
+)
+class MaskGITPipeline:
+    """MaskGIT serving on a frozen VQ tokenizer (``vq_point_cloud``, its
+    weights given by ``load_vq_params``) and a bidirectional transformer
+    (``bi_directional_transformer``); both stay on the device they were
+    moved to."""
+
+    def __init__(self, vq_point_cloud, bi_directional_transformer,
+                 common_config: Optional[dict] = None,
+                 training_config: Optional[dict] = None,
+                 inference_config: Optional[dict] = None,
+                 optimizer_config: Optional[dict] = None,
+                 lr_scheduler_config: Optional[dict] = None, mesh=None,
+                 sharding_policy: Optional[str] = None,
+                 sharding_min_size: Optional[int] = None,
+                 blank_code: Optional[Sequence[int]] = None):
+        if mesh is not None:
+            raise _not_ported("device meshes", "item 13")
+        self.vq = vq_point_cloud
+        self.model = bi_directional_transformer
+        self.common_config = common_config or {}
+        self.training_config = training_config or {}
+        self.inference_config = inference_config or {}
+        self.optimizer_config = optimizer_config
+        self.blank_code = tuple(blank_code) if blank_code else ()
+        self.gamma = gamma_fn(self.common_config.get("gamma_mode", "cosine"))
+
+    # -- setup -----------------------------------------------------------
+
+    def load_vq_params(self, state_dict: dict) -> None:
+        """The tokenizer's weights (a port state dict, e.g.
+        ``convert.vq_point_cloud_state_dict_from_flax`` of the flax tree)."""
+        self.vq.load_state_dict(state_dict)
+
+    def loss_fn(self, *args, **kwargs):
+        raise _not_ported("MaskGIT training (loss_fn)", "item 11b")
+
+    def train_step(self, *args, **kwargs):
+        raise _not_ported("MaskGIT training (train_step)", "item 11b")
+
+    def save_results(self, *args, **kwargs):
+        raise _not_ported("MaskGIT save_results", "item 12")
+
+    def evaluate_pipeline(self, *args, **kwargs):
+        raise _not_ported("MaskGIT evaluate_pipeline", "item 12")
+
+    # -- inference -------------------------------------------------------
+
+    @torch.inference_mode()
+    def tokenize(self, points, points_mask):
+        """Frozen VQ tokenize: (voxels (b, t, D, H, W), code (N, L, D),
+        indices (N, L))."""
+        voxels, z_q, _, idx = self.vq.encode(points, points_mask)
+        return voxels, z_q, idx.reshape(z_q.shape[0], -1)
+
+    def _lookup_codes(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.vq.vector_quantizer.lookup(ids)
+
+    def _decode_draws(self, draws: Optional[dict], step: int, n_e: int,
+                      generator, device):
+        """(gumbel(r0, r1), confidence uniforms of shape s) of ``step``."""
+
+        def gumbel(r0, r1):
+            if draws is None:
+                return gumbel_noise((r1 - r0, n_e), generator, device)
+            return draws["sample"][step].reshape(-1, n_e)[r0:r1].to(device)
+
+        def confidence(shape):
+            if draws is None:
+                return torch.rand(shape, generator=generator, device=device)
+            return draws["confidence"][step].to(device)
+
+        return gumbel, confidence
+
+    @torch.inference_mode()
+    def _iterative_decode(self, code_dtype, init_idx, ctx, b: int, t: int,
+                          generator=None, draws: Optional[dict] = None):
+        """T-step iterative unmasking over one window. ``init_idx`` (n, l)
+        carries −1 at masked positions; known positions are pinned for the
+        whole schedule and never re-masked. Returns (x_final,
+        idx_final)."""
+        ic = self.inference_config
+        T = ic.get("sample_steps", self.common_config.get("T", 20))
+        use_blank = ic.get("use_blank_code", True) and len(self.blank_code)
+        use_maskgit = ic.get("use_maskgit", False)
+        do_cfg = ic.get("do_classifier_free_guidance", False)
+        guidance = ic.get("guidance_scale", 3.0) if do_cfg else None
+        choice_temperature = 2.0
+        device = init_idx.device
+        mask_token = self.model.mask_token.to(code_dtype)
+        blank = torch.as_tensor(sorted(set(self.blank_code)),
+                                device=device) if use_blank else None
+        unknown = init_idx == -1
+        num_unknown = unknown.sum(-1)
+
+        x = torch.where(unknown[..., None], mask_token,
+                        self._lookup_codes(init_idx.clamp(min=0))
+                        .to(code_dtype))
+        code_idx = init_idx
+        for step in range(T):
+            x_in = torch.cat([x, x]) if do_cfg else x
+            idx_in = torch.cat([code_idx, code_idx]) if do_cfg else code_idx
+            logits = self.model(x_in, idx_in, context=ctx,
+                                batch_size=2 * b if do_cfg else b,
+                                num_frames=t)
+            gumbel, confidence = self._decode_draws(
+                draws, step, logits.shape[-1], generator, device)
+            sample_ids, prob = sample_tokens(
+                logits, gumbel, guidance=guidance,
+                blank=blank if step < BLANK_STEPS else None)
+            del logits
+            known = code_idx != -1
+            sample_ids = torch.where(known, code_idx, sample_ids)
+            prob = torch.where(known, 1e10, prob)
+
+            ratio = torch.tensor(step + 1.0, device=device) / T
+            mask_len = torch.clamp(torch.minimum(
+                (num_unknown * self.gamma(ratio)).to(torch.int32),
+                num_unknown - 1), min=1)
+            conf = torch.log(torch.clamp(prob, min=1e-20))
+            if not use_maskgit:
+                g = confidence(prob.shape)
+                gumbels = -torch.log(-torch.log(torch.clamp(g, min=1e-20)))
+                conf = conf + choice_temperature * (1.0 - ratio) * gumbels
+            cutoff = torch.sort(conf, -1).values.gather(
+                -1, mask_len[:, None].long())
+            remask = (conf < cutoff) & unknown if step < T - 1 \
+                else torch.zeros_like(unknown)
+            code_idx = torch.where(remask, -1, sample_ids)
+            x = torch.where(remask[..., None], mask_token,
+                            self._lookup_codes(sample_ids).to(code_dtype))
+        return x, code_idx
+
+    @torch.inference_mode()
+    def inference_pipeline(self, batch: dict, generator=None,
+                           task_type: str = "generation",
+                           num_reference_frame: int = 3,
+                           draws: Optional[dict] = None) -> dict:
+        """Iterative unmasking decode of one window: gt, predicted and
+        VQ-reconstructed voxels (binary) and the code indices. ``draws``:
+        ``{"decode": {"sample": [T], "confidence": [T]}, "pred_voxels":
+        (u1, u2), "vq_voxels": (u1, u2)}``."""
+        do_cfg = self.inference_config.get("do_classifier_free_guidance",
+                                           False)
+        points = batch["lidar_points"]
+        b, t = points.shape[:2]
+        voxels, code, code_indices = self.tokenize(
+            points, batch["lidar_points_mask"])
+        n = code_indices.shape[0]
+        if task_type == "prediction":
+            frame = torch.arange(t, device=points.device).expand(b, t)
+            is_ref = (frame < num_reference_frame).reshape(n)[:, None]
+            init_idx = torch.where(is_ref, code_indices, -1)
+        else:
+            init_idx = torch.full_like(code_indices, -1)
+        ctx = get_maskgit_conditions(batch,
+                                     do_classifier_free_guidance=do_cfg)
+        x_final, idx_final = self._iterative_decode(
+            code.dtype, init_idx, ctx, b, t, generator,
+            None if draws is None else draws["decode"])
+        _, pred_logits = self.vq.lidar_decoder(x_final)
+        return self._finish_inference(pred_logits, code, voxels, idx_final,
+                                      b, t, task_type, generator, draws)
+
+    @torch.inference_mode()
+    def autoregressive_inference_pipeline(
+            self, batch: dict, generator=None,
+            num_reference_frame: Optional[int] = None,
+            window_frames: Optional[int] = None,
+            use_ground_truth_as_reference: bool = True,
+            draws: Optional[Sequence[dict]] = None) -> dict:
+        """Long-horizon rollout: decode a window of ``window_frames``,
+        slide forward carrying the last ``num_reference_frame`` frames'
+        sampled codes as the next window's pinned tokens; the BEV layout is
+        re-sliced per window by absolute frame range (a short last window
+        repeats its last frame). ``draws``: one ``{"decode": ...,
+        "voxels": (u1, u2)}`` a window. Returns pred/gt voxels (b, total,
+        D, H, W), the predicted indices and points with their masks."""
+        ic, cc, tc = (self.inference_config, self.common_config,
+                      self.training_config)
+        ref = num_reference_frame or cc.get("max_reference_frame", 3)
+        tw = window_frames or tc.get("num_training_frames", 8)
+        do_cfg = ic.get("do_classifier_free_guidance", False)
+        points = batch["lidar_points"]
+        b, total = points.shape[:2]
+        if tw <= ref:
+            raise ValueError(f"window_frames {tw} must exceed "
+                             f"num_reference_frame {ref}")
+        n_windows = max(1, -(-(total - ref) // (tw - ref)))
+        if draws is not None and len(draws) != n_windows:
+            raise ValueError(f"{n_windows} windows need {n_windows} draws")
+
+        gt_voxels, _, all_indices = self.tokenize(
+            points, batch["lidar_points_mask"])
+        l = all_indices.shape[-1]
+        all_indices = all_indices.reshape(b, total, l)
+
+        def window_conditions(start: int, end: int):
+            wb = {}
+            for key in ("3dbox_bev_images", "hdmap_bev_images"):
+                x = batch.get(key)
+                if x is None:
+                    continue
+                if x.ndim == 4:  # flattened (b * total, H, W, C)
+                    x = x.reshape(b, total, *x.shape[1:])
+                x = x[:, start:end]
+                if end - start < tw:
+                    pad = x[:, -1:].expand(-1, tw - (end - start),
+                                           *x.shape[2:])
+                    x = torch.cat([x, pad], 1)
+                wb[key] = x.reshape(b * tw, *x.shape[2:])
+            return get_maskgit_conditions(
+                wb, do_classifier_free_guidance=do_cfg,
+                uncond_color=cc.get("uncondition_image_color", 0.0))
+
+        device = points.device
+        is_ref_row = (torch.arange(tw, device=device) < ref)[None, :, None]
+        is_ref_row = is_ref_row.expand(b, tw, l).reshape(b * tw, l)
+        ref_ids = all_indices[:, :ref] if use_ground_truth_as_reference \
+            else None
+        outputs_vox, outputs_idx = [], []
+        for w in range(n_windows):
+            start = w * (tw - ref)
+            end = min(start + tw, total)
+            ctx = window_conditions(start, end)
+            if ref_ids is None:
+                init_idx = torch.full((b * tw, l), -1, dtype=torch.long,
+                                      device=device)
+            else:
+                pad = torch.full((b, tw - ref, l), -1, dtype=ref_ids.dtype,
+                                 device=device)
+                padded = torch.cat([ref_ids, pad], 1).reshape(b * tw, l)
+                init_idx = torch.where(is_ref_row, padded, -1)
+            win = None if draws is None else draws[w]
+            x_final, idx_final = self._iterative_decode(
+                torch.float32, init_idx, ctx, b, tw, generator,
+                None if win is None else win["decode"])
+            _, logits = self.vq.lidar_decoder(x_final)
+            vox = gumbel_sigmoid(logits, None if win is None
+                                 else win["voxels"], generator)
+            vox = vox.reshape(b, tw, *vox.shape[1:])
+            ids = idx_final.reshape(b, tw, l)
+            crop = 0 if w == 0 else ref
+            outputs_vox.append(vox[:, crop:])
+            outputs_idx.append(ids[:, crop:])
+            ref_ids = ids[:, -ref:]
+
+        pred_voxels = torch.cat(outputs_vox, 1)[:, :total]
+        pred_indices = torch.cat(outputs_idx, 1)[:, :total]
+        pred_points, pred_points_mask = voxels_to_points(pred_voxels,
+                                                         self.vq.voxelizer)
+        return {"gt_voxels": gt_voxels, "pred_voxels": pred_voxels,
+                "pred_indices": pred_indices, "pred_points": pred_points,
+                "pred_points_mask": pred_points_mask,
+                "task_type": "autoregressive_prediction"}
+
+    def _finish_inference(self, pred_logits, code, voxels, idx_final, b, t,
+                          task_type, generator=None, draws=None):
+        _, vq_logits = self.vq.lidar_decoder(code)
+        pred = gumbel_sigmoid(pred_logits, None if draws is None
+                              else draws["pred_voxels"], generator)
+        vq = gumbel_sigmoid(vq_logits, None if draws is None
+                            else draws["vq_voxels"], generator)
+        return {
+            "gt_voxels": voxels.reshape(b, t, *voxels.shape[2:]),
+            "pred_voxels": pred.reshape(b, t, *pred.shape[1:]),
+            "vq_voxels": vq.reshape(b, t, *vq.shape[1:]),
+            "pred_indices": idx_final.reshape(b, t, -1),
+            "task_type": task_type,
+        }

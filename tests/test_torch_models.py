@@ -254,8 +254,8 @@ def test_config_get_state_and_dtype_names():
 
 
 def test_unported_names_and_options_raise():
-    with pytest.raises(KeyError, match="dwm.pipelines.lidar_maskgit"):
-        get_class("dwm.pipelines.lidar_maskgit.MaskGITPipeline")
+    with pytest.raises(KeyError, match="dwm.pipelines.lidar_vqvae"):
+        get_class("dwm.pipelines.lidar_vqvae.LidarCodebook")
     cfg = _synthetic_model_config()
     cfg["crossview_attention_type"] = "full"
     with pytest.raises(NotImplementedError, match="ROADMAP"):

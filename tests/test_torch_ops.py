@@ -284,17 +284,18 @@ def test_flash_tail_supported_matches_jax():
 
 
 def test_port_imports_no_jax():
+    """Every module of the package (walked, so new modules are covered)
+    imports, and nothing of JAX, flax, optax or the JAX package comes
+    with it."""
     code = (
-        "import sys, torch\n"
-        "from opendwm_tpu_torch import checkpoint, config, convert, ops, "
-        "streaming, train\n"
-        "from opendwm_tpu_torch.datasets import common, synthetic\n"
-        "from opendwm_tpu_torch.models import adapters, autoencoders, "
-        "layers, mmdit, text_encoders, text_stage, unet\n"
-        "from opendwm_tpu_torch.pipelines import ctsd, ctsd_streaming, "
-        "optim\n"
-        "from opendwm_tpu_torch.schedulers import DDIMScheduler, "
-        "FlowMatchEulerScheduler\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import opendwm_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'opendwm_tpu_torch.')]\n"
+        "assert 'opendwm_tpu_torch.pipelines.lidar_maskgit' in names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "from opendwm_tpu_torch import config, ops\n"
         "q = torch.randn(1, 130, 2, 8)\n"
         "ops.attention.dot_product_attention(q, q, q)\n"
         "q = torch.randn(1, 256, 2, 8)\n"

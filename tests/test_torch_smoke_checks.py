@@ -495,3 +495,255 @@ def test_tiny_stream_dit_reaches_k1(smoke):
     model = DiTCrossviewTemporal(**smoke.TINY_STREAM_DIT)
     assert model.inner_dim == 32
     assert flash_tail.supported(96 + 40, 96 + 40, 16)
+
+
+def _lidar_dit_counts(**over) -> dict:
+    """The LiDAR DiT path's counts over 4 CFG forwards, as they should be."""
+    shape = "80,240,16,64"
+    counts = {
+        "flash_tail": 32, "flash_tail_by_shape": {shape: 32},
+        "flash_tail_sm90_by_shape": {shape: 32},
+        "adaln_modulate": 132, "adaln_modulate_fixed": 0,
+        "adaln_modulate_by_shape": {"12,1600,1024": 68, "12,1,1024": 64},
+        "residual_adaln_modulate": 124, "residual_adaln_modulate_fixed": 0,
+        "residual_adaln_modulate_by_shape": {"12,1600,1024": 64,
+                                             "12,1,1024": 60},
+        "flash_attention": 0, "flash_attention_segment": 0}
+    counts.update(over)
+    return counts
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"flash_tail": 31}, False),
+    ({"flash_tail_sm90_by_shape": {"80,240,16,64": 31}}, False),
+    ({"flash_tail_by_shape": {"80,240,16,64": 31, "80,256,16,64": 1}},
+     False),
+    ({"adaln_modulate_fixed": 1}, False),
+    ({"residual_adaln_modulate_fixed": 124}, False),
+    ({"residual_adaln_modulate_by_shape": {"12,1600,1024": 124}}, False),
+    ({"residual_adaln_modulate": 120}, False),
+    ({"flash_attention": 1}, False),
+])
+def test_lidar_dit_census(smoke, over, ok):
+    """The LiDAR DiT path: K1 8 a CFG forward, all at (80, 240, 16, 64) on
+    the Hopper forward; K3 33 and K4 31 a forward, all on the
+    runtime-width kernel at both d-1024 shapes; no K7. The path is a model
+    path but not a d-1536 one."""
+    assert "lidar_dit" in smoke.MODEL_PATHS
+    assert "lidar_dit" not in smoke.DIT_PATHS
+    assert smoke.LIDAR_K1_SHAPE + (64,) == (80, 240, 16, 64)
+    if ok:
+        smoke.check_lidar_dit_census(_lidar_dit_counts(**over), 4)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_lidar_dit_census(_lidar_dit_counts(**over), 4)
+
+
+def test_lidar_census_counts_follow_the_config(smoke):
+    """K1/K3/K4 a CFG forward of the LiDAR DiT, from its config: one K1 a
+    temporal branch, K3 two a joint block plus ``norm_out``, K4 one a
+    block plus one a block that is not ``context_pre_only``; the d-1024
+    shapes at CFG batch 2 x 6 frames of 40 x 40 patches."""
+    import json
+
+    cfg = json.loads(smoke.LIDAR_DIT_CONFIG.read_text())["pipeline"]["model"]
+    layers = cfg["num_layers"]
+    assert smoke.LIDAR_K1_PER_FORWARD == len(cfg["temporal_block_layers"])
+    assert smoke.LIDAR_K3_PER_FORWARD == 2 * layers + 1
+    assert smoke.LIDAR_K4_PER_FORWARD == 2 * layers - 1
+    width = cfg["attention_head_dim"] * cfg["num_attention_heads"]
+    gw = cfg["sample_size"] // cfg["patch_size"]
+    n = 2 * smoke.LIDAR_DIT_FRAMES
+    assert smoke.LIDAR_ADALN_SHAPES == ((n, gw * gw, width), (n, 1, width))
+    assert smoke.LIDAR_K1_SHAPE == (2 * gw, smoke.LIDAR_DIT_FRAMES * gw,
+                                    cfg["num_attention_heads"])
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"logits_rel": 2e-3}, False),
+    ({"encoder_rel": float("nan")}, False),
+    ({"voxels_equal": False}, False),
+    ({"pipeline_ids_nonnegative": False}, False),
+    ({"kernel_launches": 1}, False),
+    ({"pipeline_ids_equal_share": 0.9}, True),  # reported, not gated
+    ({"boundary_voxels_equal": False}, False),
+    ({"boundary_reciprocal_flips": 0}, False),  # the points see nothing
+    ({"indices_equal_share": 0.98, "index_flip_gap": 5e-7}, True),  # a tie
+    ({"indices_equal_share": 0.98, "index_flip_gap": 2e-6}, False),
+])
+def test_lidar_tiny_gaps_gate(smoke, over, ok):
+    gaps = {"voxels_equal": True, "boundary_voxels_equal": True,
+            "boundary_reciprocal_flips": 4, "encoder_rel": 1e-6,
+            "indices_equal_share": 1.0, "index_flip_gap": 0.0,
+            "logits_rel": 1e-6, "decoder_rel": 1e-6,
+            "pipeline_ids_equal_share": 1.0, "pipeline_ids_nonnegative": True,
+            "kernel_launches": 0, **over}
+    if ok:
+        smoke.check_lidar_tiny_gaps(gaps, "MaskGIT")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_lidar_tiny_gaps(gaps, "MaskGIT")
+
+
+@pytest.mark.parametrize("k1,ok", [(8, True), (0, False)])
+def test_lidar_tiny_dit_gate_needs_k1(smoke, k1, ok):
+    gaps = {"dit_rel": 1e-6, "dit_k1_launches": k1,
+            "reference_latents_rel": 1e-6, "latents_rel": 1e-6,
+            "voxels_equal_share": 1.0}
+    if ok:
+        smoke.check_lidar_tiny_gaps(gaps, "rowwise DiT")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_lidar_tiny_gaps(gaps, "rowwise DiT")
+
+
+@pytest.mark.parametrize("wrong", [None, "argmin", "last_chunk"])
+@pytest.mark.parametrize("cosine", [False, True])
+def test_code_search_gate(smoke, monkeypatch, cosine, wrong):
+    """``check_nearest`` on ``lidar_tiny.nearest_gaps`` over 7 chunks:
+    passes the quantizer as it is, fails one whose search picks the
+    second-best code of a row or skips the last chunk's rows."""
+    from opendwm_tpu_torch.models import vq_point_cloud as tvq
+    from opendwm_tpu_torch.perf import lidar_tiny
+
+    q = tvq.VectorQuantizer(300, 16, cosine_similarity=cosine)
+    g = torch.Generator().manual_seed(int(cosine))
+    with torch.no_grad():
+        q.embedding.normal_(0, 0.25, generator=g)
+    flat = torch.randn(200, 16, generator=g) * 0.25
+    monkeypatch.setattr(tvq, "QUANTIZER_CHUNK_ELEMS", 300 * 30)
+    nearest = q.nearest
+
+    def broken(z, codes):  # only the chunked call
+        idx = nearest(z, codes)
+        if tvq.QUANTIZER_CHUNK_ELEMS == 300 * 30 and wrong == "argmin":
+            s = lidar_tiny.code_scores(cosine, z[:1], codes.double())
+            idx[0] = s.topk(2).indices[0, 1]
+        if tvq.QUANTIZER_CHUNK_ELEMS == 300 * 30 and wrong == "last_chunk":
+            idx[180:] = 0
+        return idx
+
+    monkeypatch.setattr(q, "nearest", broken)
+    gaps = lidar_tiny.nearest_gaps(q, flat)
+    assert gaps["chunks"] == 7
+    if wrong is None:
+        assert gaps["rows_differ"] == 0
+        smoke.check_nearest(gaps, "tiny")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_nearest(gaps, "tiny")
+
+
+@pytest.mark.parametrize("case,ok", [("ok", True), ("masked", False),
+                                     ("not_binary", False)])
+def test_lidar_outputs_gate(smoke, case, ok):
+    ids = torch.zeros(1, 3, 16, dtype=torch.long)
+    vox = torch.tensor([0.0, 1.0, 1.0])
+    if case == "masked":
+        ids[0, 1, 3] = -1
+    elif case == "not_binary":
+        vox[0] = 0.5
+    if ok:
+        smoke.check_lidar_outputs({"pred_voxels": vox}, ids, "lidar")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_lidar_outputs({"pred_voxels": vox}, ids, "lidar")
+
+
+def test_random_init_sets_the_rotary_frequencies(smoke):
+    """The MaskGIT rotary frequencies are drawn at their init, not zeroed
+    as other 1-D parameters that are no norm scale."""
+    from opendwm_tpu_torch.models.maskgit import TemporalTransformerBlock
+
+    block = TemporalTransformerBlock(32, 2, 16)
+    want = block.rope.freqs.detach().clone()
+    with torch.no_grad():
+        block.rope.freqs.zero_()
+    smoke.random_init_(block, torch.Generator().manual_seed(0))
+    torch.testing.assert_close(block.rope.freqs.detach(), want)
+
+
+class _Span:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+    def elapsed_us(self):
+        return self.end - self.start
+
+
+class _Event:
+    def __init__(self, name, start, end, annotation=False):
+        from torch.autograd import DeviceType
+
+        self.name, self.device_type = name, DeviceType.CUDA
+        self.time_range = _Span(start, end)
+        self.is_user_annotation = annotation
+
+
+def test_range_split_counts_kernels_inside_the_spans():
+    """``range_device_ms`` sums the kernels that ran inside the GPU-side
+    spans of a range (each once) and nothing outside them; ``int8_split``
+    splits by the same rule, the int8 GEMM's kernels apart wherever they
+    ran."""
+    from types import SimpleNamespace
+
+    from opendwm_tpu_torch.perf.exp_int8_fidelity import RANGE, int8_split
+    from opendwm_tpu_torch.perf.measure import range_device_ms
+
+    def events(name):
+        return [_Event(name, 100, 200),
+                _Event("gemm", 110, 150), _Event("softmax", 150, 190),
+                _Event("gemm", 210, 260),
+                _Event(name, 300, 350),
+                _Event("gemm", 305, 345), _Event("other", 340, 360),
+                _Event("annotation", 301, 302, annotation=True)]
+
+    prof = SimpleNamespace(events=lambda: events("plain_attention"))
+    ms, n = range_device_ms(prof, "plain_attention")
+    assert n == 3 and ms == pytest.approx((40 + 40 + 40) / 1e3)
+
+    int_mm = SimpleNamespace(name="aten::_int_mm", device_type=None,
+                             kernels=[SimpleNamespace(name="gemm")])
+    prof = SimpleNamespace(events=lambda: events(RANGE) + [int_mm])
+    split = int8_split(prof)
+    assert split["int8_gemm"] == {"ms": pytest.approx(0.13), "kernels": 3}
+    assert split["quant_dequant"] == {"ms": pytest.approx(0.04),
+                                      "kernels": 1}
+    assert split["other"] == {"ms": pytest.approx(0.02), "kernels": 1}
+
+
+def test_rollout_sampling_in_chunks_is_unchunked(monkeypatch):
+    """The temporal MaskGIT's decode with the categorical step cut into
+    chunks of 5 rows gives the codes of one chunk, from one generator
+    seed (the chunks draw their noise in row order)."""
+    from opendwm_tpu_torch.perf import lidar_tiny
+    from opendwm_tpu_torch.pipelines import lidar_maskgit
+
+    pipe = lidar_tiny.tiny_maskgit(temporal=True)
+    batch = lidar_tiny.lidar_batch(torch.Generator().manual_seed(0), 3, 128)
+    runs = []
+    for chunk in (lidar_maskgit.SAMPLE_CHUNK_ELEMS, 5 * lidar_tiny.N_E):
+        monkeypatch.setattr(lidar_maskgit, "SAMPLE_CHUNK_ELEMS", chunk)
+        runs.append(pipe.autoregressive_inference_pipeline(
+            batch, generator=torch.Generator().manual_seed(1),
+            num_reference_frame=1, window_frames=2))
+    assert torch.equal(runs[0]["pred_indices"], runs[1]["pred_indices"])
+    assert torch.equal(runs[0]["pred_voxels"], runs[1]["pred_voxels"])
+    assert (runs[0]["pred_indices"] >= 0).all()
+
+
+def test_tiny_lidar_dit_reaches_k1():
+    """The tiny rowwise DiT of the LiDAR DiT phase's card check: its
+    rowwise temporal sequences (t·gw tokens, 64-wide heads) are a shape
+    K1 takes and K7 does not (the dispatch tries K7 first)."""
+    from opendwm_tpu_torch.ops import flash_attention
+    from opendwm_tpu_torch.perf import lidar_tiny
+
+    cfg = lidar_tiny.ROWWISE_DIT
+    seq = lidar_tiny.ROWWISE_FRAMES * (lidar_tiny.ROWWISE_LATENT[1]
+                                       // cfg["patch_size"])
+    assert cfg["temporal_attention_type"] == "rowwise"
+    assert flash_tail.supported(seq, seq, cfg["attention_head_dim"])
+    assert not flash_attention.supported(seq, seq, cfg["attention_head_dim"])

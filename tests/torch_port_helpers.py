@@ -146,3 +146,28 @@ TINY_BM_DIT = dict(
         in_channels=6, channels=[32, 32], is_downblocks=[True, False],
         num_res_blocks=2, downscale_factor=2, use_zero_convs=True),
 )
+
+
+def rel(port, ref) -> float:
+    """``||port - ref|| / ||ref||`` in float64."""
+    port = np.asarray(port, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.linalg.norm(port - ref) / np.linalg.norm(ref))
+
+
+def flax_init(module, *args, seed: int = 0, **kwargs):
+    """fp32 numpy params of flax ``module`` for ``module.init(*args,
+    **kwargs)``, from ``jax.eval_shape`` and ``random_flax_params``."""
+    shapes = jax.eval_shape(
+        lambda *a: module.init(jax.random.PRNGKey(0), *a, **kwargs), *args)
+    return jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        random_flax_params(shapes, seed))
+
+
+def load_lidar(port_module, params):
+    """``port_module`` (a LiDAR tokenizer or MaskGIT module) with the flax
+    ``params`` through ``convert.lidar_state_dict_from_flax``."""
+    from opendwm_tpu_torch.convert import lidar_state_dict_from_flax, to_torch
+
+    port_module.load_state_dict(to_torch(lidar_state_dict_from_flax(params)))
+    return port_module
