@@ -4,8 +4,9 @@ streaming serving path with the CLIP/T5 text stage, its CTSD-2.1 UNet
 serving and training paths, the layout-conditioned (box + map) flagship's
 DiT and UNet serving and DiT training paths, int8 W8A8 serving of the DiT,
 the UNet and the VAE, LiDAR serving (MaskGIT generation, its rollout and
-the LiDAR DiT), the tail-attention tiling experiment and the attention
-shoot-out on one GPU.
+the LiDAR DiT), UniMLVG serving and training, the DiT's other cross-view
+and temporal types and MaskGWM, the causal temporal VAE, the
+tail-attention tiling experiment and the attention shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-stream]
@@ -33,16 +34,21 @@ Phases; any failure raises and exits non-zero:
    same inputs, at the shapes the serving and training paths give it, in
    bf16 (the attention kernels also in fp32), with both times: K1 (and
    its variant that writes the log-sum-exp for the backward) at the DiT's,
-   the UNet's and the LiDAR DiT's shapes, K2 (the attention backward) at
-   the DiT's and the UNet's training shapes, K3 and K4 (at the DiT's
-   serving and training shapes in bf16 on the d-1536 kernel, at the first
-   also in fp16 and fp32, and at the LiDAR DiT's d-1024 shapes on the
+   the UNet's and the LiDAR DiT's shapes and the masked step's (36, 490 |
+   336, 24, 64), K2 (the attention backward) at the DiT's, the UNet's and
+   the masked step's training shapes, K3 and K4 (at the DiT's serving,
+   training and masked shapes in bf16 on the d-1536 kernel, at the first
+   also in fp16 and fp32, at the masked step's fp32 stream (36, 448,
+   1536) in fp32, and at the LiDAR DiT's d-1024 shapes on the
    runtime-width kernel; x' equal to the
    plain version's bit for bit, bf16 and fp16 also within 2^-8 in relative
    norm; each timed eager, as device time replayed from a CUDA graph,
    as device time with inputs from device memory rather than L2, and as
    host µs a call), K7 (flash
-   attention at the UNet's 1792 tokens, at 6400 and causal with q != kv;
+   attention at the UNet's 1792 tokens, at 6400 and causal with q != kv,
+   and at the DiT's other branch types' (12, 2688), (72, 2688) and (12,
+   8064) at 24 x 64 heads, where the plain version runs over batch chunks
+   whose fp32 logits stay under 8 GiB;
    its backward at the UNet's training shape (36 x 1792), at 6400 and
    causal with q shorter and longer than kv, and its forward with the
    log-sum-exp against the serving launch), K7-seg (flash attention with
@@ -208,14 +214,53 @@ Phases; any failure raises and exits non-zero:
    the plain joint attention at s 1601 as a range of its own; the census:
    K1 8 a CFG forward, all at (80, 240, 16, 64) on the Hopper forward, K3
    33 and K4 31 a forward, all on the runtime-width kernel
-   (``adaln_any_kernel``) at (12, 1600, 1024) and (12, 1, 1024).
+   (``adaln_any_kernel``) at (12, 1600, 1024) and (12, 1, 1024);
+15. UniMLVG serving: ``configs/unimlvg/ctsd_unimlvg_stage3_tirda_bm_nwa.json``
+   (24 layers, the 6 x 1536 adapter, explicit perspective and view
+   modeling, ``pred`` with 3 visible frames, bf16; the one cut: 40 -> 4
+   steps) at phase 9's geometry with a seeded camera rig
+   (``perf/unimlvg_tiny.camera_rig``: invertible intrinsics, extrinsics
+   60° apart, ego poses 0.5 m further forward each frame). First the tiny
+   pipeline on the card against the CPU (2-step CFG inference and a
+   2-window rollout, 1e-3, K1 launched); CFG forwards timed (median of
+   ``UNIMLVG_TIMED``); moving the camera transforms by 1 m and the rasters
+   each move the output by more than ``RASTER_MIN_MOVE``; one profiled
+   CFG forward (busy share, device ms by family); a 2-window rollout with
+   CFG 4.0 and the SD3.5 VAE decode: s per generated 6-view frame, peak
+   memory, the census (K1 at (72, 602, 24, 64) and at s 448 and 168, K3
+   62 and K4 47 a CFG forward at (72, 448 | 154, 1536));
+16. branch types and MaskGWM, on phase 15's DiT: the tiny types and a
+   tiny masked step (forward and every gradient) against the CPU (1e-3,
+   K7 launched by the types, K1 and K2 by the step); one CFG forward with each of cross-view ``full``,
+   ``fuse``, ``adj_fuse`` and temporal ``full``, timed, K7 launched
+   exactly ``BRANCH_K7``'s count at its shape (6 or 12 a forward at (12,
+   2688), (12, 8064), (72, 2688)) on the Hopper forward; then a
+   MaskController of its defaults attached (ratio 0.25, decode layer 5:
+   336 of 448 tokens kept) and one masked forward + backward at batch 1
+   with perspective modeling off (the ray embedding cannot meet the
+   shortened rows, in the JAX model either): K1 and K2 at (36, 490 | 336,
+   24, 64) and K3/K4 at (36, 336, 1536), no launch at a shape phase 3 did
+   not hold against its plain version, the stream bf16 up to the first
+   decoder layer and fp32 from it (as in the JAX model), s, peak memory;
+17. UniMLVG training: the same config's ``loss_fn`` at full width and
+   depth, fp32 masters, bf16 compute, remat as the config sets it, flat
+   AdamW with bf16 moments (``BM_OPTIMIZER``); a tiny step on the card
+   against the CPU first (``check_step_errors``), then 3 steps as phase 6
+   (s per step, peak memory, K1/K2 at s 602, 448, 168, 2 B a moment);
+18. the causal temporal VAE at the JAX defaults: the tiny VAE on the card
+   against the CPU (1e-4) and causal; the full-width VAE in fp32 on 9
+   frames of 64 x 112 (a change to the last frame leaves latent frame 0
+   within 1e-5); in bf16, ``decode_from_scaled`` of 6 views x 5 latent
+   frames of 32 x 56 to 17 frames of 256 x 448 and ``encode_to_scaled``
+   back, ``TVAE_CHUNK`` views a call, each timed with its peak memory.
+   Phases 15-18 log their seconds.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the eleven model
+but the shoot-out, every K1 and K7 forward launch of the fifteen model
 paths must have run the Hopper forward, every K2 and K7 backward launch of
-the three training paths the Hopper backward, every bf16 K5 and K6
+the five training paths the Hopper backward, every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
-of the six DiT paths the d-1536 kernel (their launch counters).
+of the ten DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
 
@@ -225,6 +270,7 @@ import contextlib
 import copy
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -267,12 +313,15 @@ BM_OPTIMIZER = {"flat": True, "mu_dtype": "bfloat16"}
 # convs left at zero) moves it by exactly 0.
 RASTER_MIN_MOVE = 1e-3
 # The paths whose launch counters the body gates read.
-TRAIN_PATHS = ("train", "unet_train", "bm_train")
+TRAIN_PATHS = ("train", "unet_train", "bm_train", "unimlvg_train",
+               "mask_step")
 MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
                "bm_unet_serve", "bm_train", "stream", "int8_serve",
-               "int8_unet", "lidar_dit")
+               "int8_unet", "lidar_dit", "unimlvg_serve", "unimlvg_train",
+               "branch_types", "mask_step")
 DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
-             "int8_serve")
+             "int8_serve", "unimlvg_serve", "unimlvg_train", "branch_types",
+             "mask_step")
 # LiDAR serving (bench.py:228-394's geometry): MaskGIT generation on the
 # layout config (bf16 compute, as bench.py:247-252 sets it), the temporal
 # vq80k config's autoregressive rollout, and the temporal LiDAR DiT (its
@@ -297,6 +346,42 @@ LIDAR_DIT_FORWARDS = 3  # CFG forwards timed alone
 LIDAR_K1_SHAPE = (80, 240, 16)
 LIDAR_K1_PER_FORWARD, LIDAR_K3_PER_FORWARD, LIDAR_K4_PER_FORWARD = 8, 33, 31
 LIDAR_TINY_TOL = 1e-3
+# UniMLVG stage 3 (the best video model the repo publishes, with explicit
+# perspective and view modeling and ``pred`` with 3 visible frames) and the
+# DiT's other options, at phases 5 and 9's geometry; its CFG forwards are
+# timed UNIMLVG_TIMED times (median).
+UNIMLVG_CONFIG = REPO / "configs/unimlvg/ctsd_unimlvg_stage3_tirda_bm_nwa.json"
+UNIMLVG_TIMED = 5
+# The other branch types on the same DiT at the CFG batch (24 x 64 heads):
+# each type's K7 shape (batch, tokens) and launches a CFG forward (6
+# cross-view layers, 12 temporal ones). full: 2 x 6 frames of 6 views x
+# 448 tokens; fuse: 2 x 6 views of 6 frames x 3 views x 448; adj_fuse:
+# 2 x 36 view-frames of 2 frames x 3 views x 448; temporal full: 2 x 6
+# views of 6 frames x 448.
+BRANCH_K7 = {"crossview_full": ("crossview_attention_type", "full",
+                                (12, 2688), 6),
+             "crossview_fuse": ("crossview_attention_type", "fuse",
+                                (12, 8064), 6),
+             "crossview_adj_fuse": ("crossview_attention_type", "adj_fuse",
+                                    (72, 2688), 6),
+             "temporal_full": ("temporal_attention_type", "full",
+                               (12, 2688), 12)}
+DIT_K7_SHAPES = ((12, 2688), (72, 2688), (12, 8064))
+# The plain attention at those shapes runs over batch chunks whose fp32
+# logits stay under this many bytes (all of (12, 8064) would take 75 GB).
+PLAIN_LOGIT_BYTES = 8 << 30
+# MaskGWM's defaults (ratio 0.25, decode layer 5): 336 of 448 latent tokens
+# a view-frame kept, so a batch-1 step's joint attention is 336 + 154
+# tokens long and its dual attention 336 (K1 forward, K2 backward); K3/K4
+# modulate the 336 kept tokens, and from the first decoder layer on the
+# fp32 stream of all 448 (as in the JAX model).
+MASK_ATTN_SHAPES = ((36, 490, 24), (36, 336, 24))
+MASK_ADALN_SHAPE, MASK_ADALN_FP32_SHAPE = (36, 336, 1536), (36, 448, 1536)
+# The causal temporal VAE at the JAX defaults (128/256/256/512 channels, 3
+# blocks a stage, 16 latent channels) in bf16: 5 latent frames of 6 views
+# decode to 17 frames of 256 x 448 and encode back, the views folded
+# through the batch TVAE_CHUNK at a time; the tiny VAE's tolerance.
+TVAE_LATENT_FRAMES, TVAE_CHUNK, TVAE_TOL = 5, 2, 1e-4
 TINY_CONFIG = REPO / "configs/ctsd/ctsd_35_6views_video_synthetic.json"
 SEED = 0
 STEPS = 4  # cut from the config's 40
@@ -315,7 +400,7 @@ SOURCES = ("flash_tail.cu", "flash_attention.cu", "adaln.cu")
 # K3/K4 (batch x view-frames, tokens, width): the DiT's latent (448) and
 # text (154) tokens at the CFG batch of serving and at training's batch 1.
 ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536), (36, 448, 1536),
-                (36, 154, 1536))
+                (36, 154, 1536), MASK_ADALN_SHAPE)
 # ... and the LiDAR DiT's at d 1024 (CFG batch 2 x 6 frames: 1600 latent
 # tokens, 1 text token), which run the runtime-width kernel.
 LIDAR_ADALN_SHAPES = ((12, 1600, 1024), (12, 1, 1024))
@@ -329,6 +414,14 @@ K3_PER_FORWARD, K4_PER_FORWARD = 62, 47
 UNET_TEXT_TOKENS, UNET_TEXT_DIM, UNET_LAT_C = 77, 1024, 4
 UNET_K1_SHAPES = ((384, 336, 5), (72, 448, 10), (192, 168, 10))
 UNET_K2_SHAPES = ((192, 336, 5), (36, 448, 10), (96, 168, 10))  # batch 1
+# (batch, seq, heads) at head dim 64 where phase 3 holds K1 (bf16) and K2
+# (bf16, the Hopper backward) against their plain versions: the DiT's
+# serving and training shapes (the stream's too), the LiDAR DiT's, and the
+# masked step's; the UNet's K1 shapes apart (check_unet_attention).
+K1_CHECKED = tuple((b, s, 24) for b, s in ATTN_SHAPES + TRAIN_ATTN_SHAPES) \
+    + (LIDAR_K1_SHAPE,) + MASK_ATTN_SHAPES
+K2_CHECKED = tuple((b, s, 24) for b, s in TRAIN_ATTN_SHAPES) \
+    + UNET_K2_SHAPES + MASK_ATTN_SHAPES
 K7_SHAPES = ((72, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
              (8, 1792, 3584, 5, True))  # (batch, q, kv, heads, causal)
 # The K7 backward at the UNet's training batch (1 x 36 view-frames, no
@@ -502,9 +595,7 @@ def log_clocks(when: str) -> None:
 def check_attention(dev, flash_tail):
     g = torch.Generator(dev).manual_seed(SEED)
     rows = []
-    shapes = [(b, s, 24) for b, s in ATTN_SHAPES + TRAIN_ATTN_SHAPES] + \
-        [LIDAR_K1_SHAPE]  # the stream's and the LiDAR DiT's too
-    for b, s, h in shapes:
+    for b, s, h in K1_CHECKED:
         q, k, v = (torch.randn(b, s, h, 64, generator=g, device=dev,
                                dtype=torch.bfloat16) for _ in range(3))
         scale = 64 ** -0.5
@@ -539,15 +630,14 @@ def check_attention(dev, flash_tail):
 
 
 def check_attention_backward(dev, flash_tail):
-    """K2 against the plain backward at the DiT's and the UNet's training
-    shapes in bf16 (each launch on the Hopper backward) and at one fp32
-    shape (an old body); K1 with the log-sum-exp against the serving K1 at
-    s602."""
+    """K2 against the plain backward at ``K2_CHECKED`` (the DiT's, the
+    UNet's and the masked step's training shapes) in bf16 (each launch on
+    the Hopper backward) and at one fp32 shape (an old body); K1 with the
+    log-sum-exp against the serving K1 at s602."""
     g = torch.Generator(dev).manual_seed(SEED + 2)
     scale = 64 ** -0.5
     rows = []
-    cases = [(b, s, 24, torch.bfloat16) for b, s in TRAIN_ATTN_SHAPES] + \
-        [(b, s, h, torch.bfloat16) for b, s, h in UNET_K2_SHAPES] + \
+    cases = [(b, s, h, torch.bfloat16) for b, s, h in K2_CHECKED] + \
         [(*TRAIN_ATTN_SHAPES[2], 24, torch.float32)]
     for b, s, h, dtype in cases:
         q, k, v, do = (torch.randn(b, s, h, 64, generator=g, device=dev,
@@ -679,6 +769,52 @@ def check_unet_attention(dev, flash_tail, flash_attention):
         del q, k, v
         torch.cuda.empty_cache()
     return k1_rows, k7_rows
+
+
+def check_dit_k7(dev, flash_attention):
+    """K7 at the DiT's other branch types' shapes (``DIT_K7_SHAPES``, 24 x
+    64 heads, bf16) against its plain version, which runs over batch
+    chunks (``PLAIN_LOGIT_BYTES``), with both times, the bound and SDPA's
+    time."""
+    g = torch.Generator(dev).manual_seed(SEED + 7)
+    scale = 64 ** -0.5
+    rows = []
+    for b, s in DIT_K7_SHAPES:
+        q, k, v = (torch.randn(b, s, 24, 64, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        chunk = max(1, min(b, PLAIN_LOGIT_BYTES // (24 * s * s * 4)))
+
+        def kernel():
+            return flash_attention.flash_attention(q, k, v, scale)
+
+        def plain():
+            return torch.cat([flash_attention.flash_attention_plain(
+                q[i:i + chunk], k[i:i + chunk], v[i:i + chunk], scale)
+                for i in range(0, b, chunk)])
+
+        out, ref = kernel(), plain()
+        err, scaled, rel = max_err(out, ref), scaled_err(out, ref), \
+            rel_err(out, ref)
+        del out, ref
+        ms, plain_ms = time_pair(kernel, plain)
+        lib_ms = sdpa_ms(q, k, v, scale)
+        log(f"K7 flash_attention bf16 ({b},{s},{s},24,64) [DiT branch]: "
+            f"max_abs_err {err:.3e}, scaled {scaled:.3e} (tol {ATTN_TOL}), "
+            f"rel norm {rel:.3e} (tol {ATTN_REL_TOL}), kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms (batch chunks of {chunk}), sdpa "
+            f"{fmt_ms(lib_ms)}")
+        if not (scaled <= ATTN_TOL and rel <= ATTN_REL_TOL):
+            fail(f"flash_attention disagrees at the DiT's ({b},{s}): scaled "
+                 f"{scaled}, rel {rel}")
+        rows.append({"shape": [b, s, s, 24, 64], "causal": False,
+                     "dtype": "bf16", "max_abs_err": err,
+                     "scaled_err": scaled, "rel_err": rel,
+                     "plain_batch_chunk": chunk,
+                     **yardsticks(ms, plain_ms, lib_ms,
+                                  attention_bound(b, s, s, 24, 64))})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_flash_attention_backward(dev, flash_attention):
@@ -1092,7 +1228,8 @@ def check_adaln(dev, fused_adaln):
     g = torch.Generator(dev).manual_seed(SEED + 1)
     rows = {"adaln_modulate": [], "residual_adaln_modulate": []}
     cases = [(s, torch.bfloat16) for s in ADALN_SHAPES] + \
-        [(ADALN_SHAPES[0], torch.float16), (ADALN_SHAPES[0], torch.float32)] \
+        [(ADALN_SHAPES[0], torch.float16), (ADALN_SHAPES[0], torch.float32),
+         (MASK_ADALN_FP32_SHAPE, torch.float32)] \
         + [(s, torch.bfloat16) for s in LIDAR_ADALN_SHAPES]
     for (n, l, d), dtype in cases:
         inputs = adaln_inputs(n, l, d, dtype, dev, g)
@@ -1390,16 +1527,16 @@ def layout_rasters(dev, gen) -> dict:
     return {"3dbox_images": raster(), "hdmap_images": raster()}
 
 
-def check_rasters_move(out_with, out_without, what: str) -> float:
-    """The relative norm by which the layout rasters move a denoiser's
-    output against the uncondition colour; fails unless it is finite and
-    above ``RASTER_MIN_MOVE`` (equal outputs: the adapter added nothing)."""
-    move = rel_err(out_with, out_without)
-    log(f"{what}: the rasters move the output by {move:.4e} in relative "
-        f"norm against the uncondition colour (gate > {RASTER_MIN_MOVE})")
+def check_moves(out_a, out_b, what: str, cause: str) -> float:
+    """The relative norm by which ``cause`` moves a denoiser's output;
+    fails unless it is finite and above ``RASTER_MIN_MOVE`` (equal outputs:
+    the input reached nothing)."""
+    move = rel_err(out_a, out_b)
+    log(f"{what}: {cause} move the output by {move:.4e} in relative norm "
+        f"(gate > {RASTER_MIN_MOVE})")
     if not move > RASTER_MIN_MOVE:  # also fails on NaN
-        fail(f"{what}: the output with the rasters is the output without "
-             f"them (relative norm {move})")
+        fail(f"{what}: {cause} do not move the output (relative norm "
+             f"{move})")
     return move
 
 
@@ -1479,7 +1616,7 @@ def make_batch(dev, gen, text_tokens: int = TEXT_TOKENS,
 def serve_layout_checks(model, common_config: dict, batch: dict,
                         get_conditions, cfg_kwargs: dict, what: str) -> dict:
     """A layout path's adapter at full width: the rasters gate on one
-    forward of batch 1 (``check_rasters_move``), then the device ms
+    forward of batch 1 (``check_moves``), then the device ms
     (profiler) of the ImageAdapter at the CFG batch and of the CFG forward
     that runs it."""
     kwargs = {**get_conditions(batch, common_config),
@@ -1488,9 +1625,10 @@ def serve_layout_checks(model, common_config: dict, batch: dict,
     rasters = kwargs["condition_image_tensor"]
     uncond = torch.full_like(rasters, common_config["uncondition_image_color"])
     with torch.inference_mode():
-        move = check_rasters_move(
+        move = check_moves(
             model(**kwargs),
-            model(**{**kwargs, "condition_image_tensor": uncond}), what)
+            model(**{**kwargs, "condition_image_tensor": uncond}), what,
+            "the rasters (against the uncondition colour)")
         adapter_ms = profile_ms(lambda: model.condition_image_adapter(
             cfg_kwargs["condition_image_tensor"].to(model.dtype)))
         forward_ms = profile_ms(lambda: model(**cfg_kwargs))
@@ -2118,12 +2256,7 @@ def run_train_slice(dev, create_instance_from_config, ops,
         batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W, 16,
                                        generator=gen, device=dev)
     counts, metrics = drive_train(dev, pipe, batch, ops, tag, profile)
-    for s in (602, 448, 168):
-        if counts["flash_tail_by_seq"].get(s, 0) == 0:
-            fail(f"flash_tail never launched at s={s} in the {tag} steps")
-        if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
-            fail(f"the K2 backward never launched at s={s} in the {tag} "
-                 "steps")
+    check_train_seqs(counts, tag)
     check_moment_bytes(*metrics["moments"], moment_bytes // 2, tag)
     if layout:
         rasters = torch.cat([batch["3dbox_images"], batch["hdmap_images"]],
@@ -2140,6 +2273,17 @@ def run_train_slice(dev, create_instance_from_config, ops,
             f"{step_ms:.1f} ms wall); ImageAdapter forward "
             f"{metrics['adapter_ms']:.3f} device ms (profiler)")
     return counts, metrics
+
+
+def check_train_seqs(counts: dict, tag: str) -> None:
+    """K1 and the K2 backward launched at the DiT's three sequence lengths
+    (602 joint, 448 dual, 168 rowwise cross-view) in a train path's steps."""
+    for s in (602, 448, 168):
+        if counts["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"flash_tail never launched at s={s} in the {tag} steps")
+        if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
+            fail(f"the K2 backward never launched at s={s} in the {tag} "
+                 "steps")
 
 
 def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False):
@@ -2901,9 +3045,9 @@ def run_lidar_maskgit(dev, create_instance_from_config, ops):
         logits = pipe.model(code, ids, ctx, **kw)
         if not bool(torch.isfinite(logits).all()):
             fail("lidar_maskgit: the logits are not finite")
-        move = check_rasters_move(
+        move = check_moves(
             logits, pipe.model(code, ids, torch.zeros_like(ctx), **kw),
-            "lidar_maskgit logits")
+            "lidar_maskgit logits", "the rasters (against zeros)")
     del logits, code
     pipe.inference_pipeline(batch, generator=gen)  # warm-up
 
@@ -3065,11 +3209,11 @@ def run_lidar_dit(dev, create_instance_from_config, ops, get_conditions):
                 not bool(torch.isfinite(out).all()):
             fail("lidar_dit: the CFG forward is not finite or misshapen")
         one = {k: v[1:] for k, v in kwargs.items()}
-        move = check_rasters_move(
+        move = check_moves(
             model(**one), model(**{**one, "condition_image_tensor":
                                    torch.zeros_like(one[
                                        "condition_image_tensor"])}),
-            "lidar_dit output")
+            "lidar_dit output", "the rasters (against zeros)")
         prof = profiled(lambda: model(**kwargs),
                         "LiDAR DiT CFG forward (12 frames x 1601 tokens)",
                         ranges=((attention, "_plain_attention",
@@ -3107,6 +3251,452 @@ def run_lidar_dit(dev, create_instance_from_config, ops, get_conditions):
                     "peak_gib": peak, "busy": prof["busy"],
                     "device_ms": prof["device_ms"],
                     "plain_attention": attn}
+
+
+def merge_counts(total: dict, more: dict) -> dict:
+    """``launch_counts`` dicts added entry by entry (the by-shape dicts
+    too)."""
+    out = dict(total)
+    for key, value in more.items():
+        if isinstance(value, dict):
+            merged = dict(out.get(key, {}))
+            for k, n in value.items():
+                merged[k] = merged.get(k, 0) + n
+            out[key] = merged
+        else:
+            out[key] = out.get(key, 0) + value
+    return out
+
+
+def check_gaps(gaps: dict, tols: dict, what: str) -> None:
+    """A tiny path on the card against the CPU (``perf/unimlvg_tiny.py``):
+    every key of ``tols`` within its bar; every ``*_launches`` key above 0."""
+    log(f"{what}, the card vs the CPU (fp32): {json.dumps(gaps)}")
+    bad = {k: gaps[k] for k, tol in tols.items() if not gaps[k] <= tol}
+    bad.update({k: n for k, n in gaps.items()
+                if k.endswith("_launches") and n <= 0})
+    if bad:
+        fail(f"{what} disagrees with the CPU or launched no kernel: {bad}")
+
+
+def unimlvg_batch(dev, gen, unimlvg_tiny) -> dict:
+    """Phase 9's batch (text, random box and map rasters) with the seeded
+    camera rig of ``unimlvg_tiny.camera_rig`` (ego poses included)."""
+    batch = make_batch(dev, gen, layout=True)
+    batch.update(unimlvg_tiny.camera_rig(gen, 1, FRAMES, VIEWS,
+                                         (8 * LAT_H, 8 * LAT_W), dev))
+    return batch
+
+
+def check_unimlvg_census(c: dict, forwards: int, tag: str) -> None:
+    """K1 at the joint attention's (72, 602, 24, 64) and at the other two
+    sequence lengths, K3/K4 62/47 a CFG forward at (72, 448 | 154, 1536)."""
+    k1 = c["flash_tail_by_shape"].get("72,602,24,64", 0)
+    k3, k4 = c["adaln_modulate"], c["residual_adaln_modulate"]
+    log(f"{tag} census: K1 by shape {json.dumps(c['flash_tail_by_shape'])} "
+        f"({c['flash_tail_sm90']} of {c['flash_tail']} on the Hopper "
+        f"forward); K3 {k3} ({k3 / forwards:g} a CFG forward) by shape "
+        f"{json.dumps(c['adaln_modulate_by_shape'])}, K4 {k4} "
+        f"({k4 / forwards:g}) by shape "
+        f"{json.dumps(c['residual_adaln_modulate_by_shape'])}; K7 "
+        f"{c['flash_attention']}")
+    for s in (602, 448, 168):
+        if c["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"flash_tail never launched at s={s} on the {tag} path")
+    shapes = set(c["adaln_modulate_by_shape"]) | \
+        set(c["residual_adaln_modulate_by_shape"])
+    if k1 == 0 or k3 != K3_PER_FORWARD * forwards or \
+            k4 != K4_PER_FORWARD * forwards or \
+            not {"72,448,1536", "72,154,1536"} <= shapes:
+        fail(f"{tag}: K1 at (72, 602) {k1} times, K3/K4 {k3}/{k4} times in "
+             f"{forwards} CFG forwards (want {K3_PER_FORWARD}/"
+             f"{K4_PER_FORWARD} a forward) at {sorted(shapes)}")
+
+
+def run_unimlvg_slice(dev, create_instance_from_config, sd35_vae, ops,
+                      get_conditions, unimlvg_tiny):
+    """UniMLVG stage 3 serving at full width (``UNIMLVG_CONFIG``, the one
+    cut: 40 -> ``STEPS`` steps): the tiny pipeline against the CPU first;
+    CFG forwards timed (median of ``UNIMLVG_TIMED``); the camera and
+    raster gates at batch 1; one profiled CFG forward; a 2-window rollout
+    with CFG 4.0 and the SD3.5 VAE decode, with the launch census. Returns
+    (counts, metrics, the pipeline) for the branch-type phase."""
+    check_gaps(unimlvg_tiny.unimlvg_gaps(dev),
+               {"inference_rel": TINY_TOL, "rollout_rel": TINY_TOL},
+               "tiny UniMLVG (2-step CFG inference, 2-window rollout)")
+    cfg = json.loads(UNIMLVG_CONFIG.read_text())["pipeline"]
+    log(f"unimlvg serve cut: inference_steps "
+        f"{cfg['inference_config']['inference_steps']} -> {STEPS}")
+    cfg["inference_config"]["inference_steps"] = STEPS
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+        vae = sd35_vae(dtype=torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    for module in (pipe.model, vae):
+        module.to_empty(device=dev)
+        random_init_(module, gen)
+        module.eval()
+    pipe.set_vae(vae)
+    model, cc = pipe.model, pipe.common_config
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"unimlvg serve: {UNIMLVG_CONFIG.relative_to(REPO)} "
+        f"({type(pipe).__name__}), {len(model.transformer_blocks)} joint "
+        f"blocks, width {model.inner_dim}, {n_params / 1e9:.3f}B params, "
+        f"{model.dtype}, perspective {model.perspective_modeling_type}, "
+        f"ar_input_type {cc['ar_input_type']} with {cc['visible_frame']} "
+        f"visible frames; guidance {cfg['inference_config']['guidance_scale']}")
+
+    batch = unimlvg_batch(dev, gen, unimlvg_tiny)
+    latent_shape = (1, FRAMES, VIEWS, LAT_H, LAT_W, 16)
+    total_frames = FRAMES + (WINDOWS - 1) * (FRAMES - 1)
+    conds = get_conditions(batch, cc, do_classifier_free_guidance=True)
+    kwargs = dict(sample=torch.randn((2,) + latent_shape[1:], generator=gen,
+                                     device=dev),
+                  timestep=torch.full((2, FRAMES, VIEWS), 500.0, device=dev),
+                  **conds)
+    with torch.inference_mode():
+        out = model(**kwargs)  # warm-up
+        fwd_s = [sync_s(lambda: model(**kwargs))[1]
+                 for _ in range(UNIMLVG_TIMED)]
+        if out.shape != kwargs["sample"].shape or \
+                not torch.isfinite(out).all():
+            fail("UniMLVG forward output is not finite or has the wrong "
+                 "shape")
+        one = dict(sample=kwargs["sample"][:1],
+                   timestep=kwargs["timestep"][:1])
+        moved = dict(batch, camera_transforms=batch["camera_transforms"]
+                     .clone())
+        moved["camera_transforms"][..., :3, 3] += 1.0
+        camera_move = check_moves(
+            model(**one, **get_conditions(batch, cc)),
+            model(**one, **get_conditions(moved, cc)), "unimlvg serve",
+            "the camera transforms (+1 m)")
+        del out, moved
+        layout = serve_layout_checks(model, cc, batch, get_conditions,
+                                     kwargs, "unimlvg serve DiT")
+        prof = profiled(lambda: model(**kwargs), "UniMLVG CFG forward")
+    forward_s = median_spread(fwd_s)
+    del kwargs, conds
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    latents, rollout_s = sync_s(lambda: pipe.autoregressive_inference_pipeline(
+        batch, latent_shape, total_frames=total_frames,
+        reference_frame_count=1, generator=gen))
+    frames, decode_s = sync_s(lambda: pipe.decode_latents(
+        latents, chunk_size=DECODE_CHUNK))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_latents = (1, total_frames, VIEWS, LAT_H, LAT_W, 16)
+    want_frames = (1, total_frames, VIEWS, 8 * LAT_H, 8 * LAT_W, 3)
+    if tuple(latents.shape) != want_latents or \
+            not torch.isfinite(latents).all() or \
+            tuple(frames.shape) != want_frames or \
+            not torch.isfinite(frames).all():
+        fail(f"UniMLVG rollout latents {tuple(latents.shape)} or frames "
+             f"{tuple(frames.shape)} not finite or not as expected")
+    forwards = WINDOWS * STEPS
+    per_frame = (rollout_s + decode_s) / total_frames
+    log(f"unimlvg serve: CFG forward {forward_s['median']:.4f} s (median of "
+        f"{UNIMLVG_TIMED}, {forward_s['min']:.4f}-{forward_s['max']:.4f}); "
+        f"rollout {WINDOWS} windows x {STEPS} steps {rollout_s:.3f} s, "
+        f"decode {decode_s:.3f} s, {per_frame:.4f} s per generated 6-view "
+        f"frame ({total_frames} frames); peak {peak:.2f} GiB; busy "
+        f"{100 * prof['busy']:.1f}% of the profiled forward "
+        f"({prof['device_ms']:.1f} device ms)")
+    check_unimlvg_census(counts, forwards, "unimlvg serve")
+    del latents, frames
+    pipe.set_vae(None)
+    return counts, {"forward_s": forward_s, "rollout_s": rollout_s,
+                    "decode_s": decode_s, "s_per_generated_frame": per_frame,
+                    "peak_gib": peak, "busy": prof["busy"],
+                    "forward_device_ms": prof["device_ms"],
+                    "camera_move": camera_move, **layout}, pipe
+
+
+def run_branch_types(dev, pipe, ops, get_conditions, unimlvg_tiny,
+                     mask_layers):
+    """The other branch types and MaskGWM on the UniMLVG DiT at full width:
+    the tiny types and masked step against the CPU first; then one CFG
+    forward (after a warm-up) with each of cross-view ``full``, ``fuse``,
+    ``adj_fuse`` and temporal ``full`` in place of the config's, each
+    launching K7 exactly at its shape (``BRANCH_K7``); then a MaskController
+    of its defaults attached and one masked forward + backward at batch 1
+    on one ``draw_mask_noise`` draw, with perspective modeling off: the per-token ray
+    embedding cannot meet the shortened rows (the JAX model fails to
+    broadcast). Returns the launch counts of the type forwards and of the
+    masked step, and the metrics."""
+    check_gaps(unimlvg_tiny.branch_gaps(dev),
+               {f"{name}_rel": TINY_TOL for name in BRANCH_K7},
+               "tiny branch types")
+    check_gaps(unimlvg_tiny.masked_step_gaps(dev),
+               {"forward_rel": TINY_TOL, "grad_rel": TINY_TOL},
+               "tiny masked DiT step (forward and every gradient, K1 and "
+               "K2 launched)")
+    model, cc = pipe.model, pipe.common_config
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    batch = unimlvg_batch(dev, gen, unimlvg_tiny)
+    kwargs = dict(sample=torch.randn(2, FRAMES, VIEWS, LAT_H, LAT_W, 16,
+                                     generator=gen, device=dev),
+                  timestep=torch.full((2, FRAMES, VIEWS), 500.0, device=dev),
+                  **get_conditions(batch, cc,
+                                   do_classifier_free_guidance=True))
+    total, metrics = {}, {}
+    saved = (model.crossview_attention_type, model.temporal_attention_type)
+    for name, (attr, kind, (b, s), per_forward) in BRANCH_K7.items():
+        setattr(model, attr, kind)
+        with torch.inference_mode():
+            model(**kwargs)
+            ops.reset_launch_counts()
+            out, dt = sync_s(lambda: model(**kwargs))
+        c = ops.launch_counts()
+        total = merge_counts(total, c)
+        want = {f"{b},{s},{s},24,64": per_forward}
+        log(f"branch {name}: CFG forward {dt:.4f} s; K7 by shape "
+            f"{json.dumps(c['flash_attention_by_shape'])} "
+            f"({c['flash_attention_sm90']} on the Hopper forward), K1 "
+            f"{c['flash_tail']}")
+        if c["flash_attention_by_shape"] != want or \
+                c["flash_attention_sm90"] != per_forward or \
+                not torch.isfinite(out).all():
+            fail(f"branch {name}: K7 launched {c['flash_attention_by_shape']}"
+                 f" ({c['flash_attention_sm90']} on the Hopper forward), not "
+                 f"{want}, or the output is not finite")
+        metrics[name] = {"forward_s": dt, "k7_shape": [b, s, s, 24, 64],
+                         "k7_launches": per_forward}
+        setattr(model, attr, saved[0] if attr.startswith("cross")
+                else saved[1])
+        del out
+
+    attn = model.transformer_blocks[0].attn
+    model.mask_module = mask_layers.MaskController(
+        hidden_size=model.inner_dim, num_heads=attn.heads,
+        attention_head_dim=attn.head_dim, dtype=model.dtype).to(
+            device=dev, dtype=model.dtype)
+    n_blocks = len(model.transformer_blocks)
+    first_fp32 = n_blocks - model.mask_module.decode_layer
+    random_init_(model.mask_module, gen)
+    saved_perspective = model.perspective_modeling_type
+    model.perspective_modeling_type = ""
+    one = dict(sample=kwargs["sample"][:1], timestep=kwargs["timestep"][:1],
+               **get_conditions(batch, cc),
+               mask_noise=mask_layers.draw_mask_noise(
+                   VIEWS, FRAMES, LAT_H * LAT_W // 4, generator=gen,
+                   device=dev))
+    del kwargs
+    params = [p for p in model.parameters()]
+    stream = []  # the dtype each joint block's x arrives in
+    hooks = [block.register_forward_pre_hook(
+        lambda _, args: stream.append(args[0].dtype))
+        for block in model.transformer_blocks]
+
+    def step():
+        out = model(**one)
+        loss = out.float().square().mean()
+        loss.backward()
+        for p in params:
+            p.grad = None
+        return loss.item()
+
+    try:
+        step()  # warm-up
+        stream.clear()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss, dt = sync_s(step)
+        mask = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        for hook in hooks:
+            hook.remove()
+        model.perspective_modeling_type = saved_perspective
+        model.mask_module = None
+    check_mask_step(mask, stream[:n_blocks], first_fp32, loss)
+    log(f"masked step (MaskGWM defaults: ratio 0.25, decode layer 5; "
+        f"perspective off): forward + backward {dt:.4f} s, loss {loss:.6f}, "
+        f"peak {peak:.2f} GiB")
+    metrics["mask_step"] = {"s": dt, "loss": loss, "peak_gib": peak,
+                            "k1_by_shape": mask["flash_tail_by_shape"]}
+    return total, mask, metrics
+
+
+def check_mask_step(c: dict, stream: list, first_fp32: int,
+                    loss: float) -> None:
+    """The masked step launched K1 and K2 at both of ``MASK_ATTN_SHAPES``
+    and K3/K4 at ``MASK_ADALN_SHAPE``, and at no shape phase 3 did not
+    hold against its plain version (K1 ``K1_CHECKED``, K2 ``K2_CHECKED``'s
+    24-head sequences, K3/K4 ``ADALN_SHAPES``); its stream ran in bf16 up
+    to the first decoder layer (``first_fp32``) and in fp32 from it
+    (``stream``: the dtype each joint block's x arrived in, forward only);
+    the loss is finite."""
+    k1 = set(c["flash_tail_by_shape"])
+    k2 = set(c["flash_tail_backward_by_seq"])
+    k3 = set(c["adaln_modulate_by_shape"])
+    k4 = set(c["residual_adaln_modulate_by_shape"])
+    log(f"masked step census: K1 by shape {json.dumps(c['flash_tail_by_shape'])}"
+        f" ({c['flash_tail_sm90']} of {c['flash_tail']} on the Hopper "
+        f"forward), K2 by sequence "
+        f"{json.dumps(c['flash_tail_backward_by_seq'])} "
+        f"({c['flash_tail_backward_sm90']} of {c['flash_tail_backward']} on "
+        f"the Hopper backward), K3 by shape "
+        f"{json.dumps(c['adaln_modulate_by_shape'])}, K4 by shape "
+        f"{json.dumps(c['residual_adaln_modulate_by_shape'])}; the stream "
+        f"into the joint blocks {[str(d)[6:] for d in stream]}")
+    checked_k1 = {f"{b},{s},{h},64" for b, s, h in K1_CHECKED}
+    checked_k2 = {s for _, s, h in K2_CHECKED if h == 24}
+    checked_adaln = {",".join(map(str, x)) for x in ADALN_SHAPES}
+    want_k1 = {f"{b},{s},{h},64" for b, s, h in MASK_ATTN_SHAPES}
+    want_k2 = {s for _, s, _ in MASK_ATTN_SHAPES}
+    want_adaln = ",".join(map(str, MASK_ADALN_SHAPE))
+    unchecked = (k1 - checked_k1) | {str(s) for s in k2 - checked_k2} | \
+        ((k3 | k4) - checked_adaln)
+    missing = (want_k1 - k1) | {str(s) for s in want_k2 - k2} | \
+        {f"K3 {want_adaln}"} - {f"K3 {x}" for x in k3} | \
+        {f"K4 {want_adaln}"} - {f"K4 {x}" for x in k4}
+    if unchecked or missing:
+        fail(f"the masked step launched kernels at shapes phase 3 did not "
+             f"check ({sorted(unchecked)}) or not at its own "
+             f"({sorted(missing)})")
+    want = [torch.bfloat16] * first_fp32 + \
+        [torch.float32] * (len(stream) - first_fp32)
+    if stream != want:
+        fail(f"the masked stream ran in {stream}, not bf16 up to block "
+             f"{first_fp32} and fp32 from it")
+    if not math.isfinite(loss):
+        fail(f"the masked step's loss {loss} is not finite")
+
+
+def check_tiny_unimlvg_step(dev, unimlvg_tiny, draw_unimlvg_randoms):
+    """One AdamW step of the tiny UniMLVG pipeline (``pred``, remat on):
+    the kernel path on the card against the plain path on the CPU, fp32,
+    on the same draws."""
+    ref_pipe = unimlvg_tiny.tiny_pipeline(
+        SEED, gradient_checkpointing=True,
+        crossview_gradient_checkpointing=True,
+        temporal_gradient_checkpointing=True)
+    pipe = copy.deepcopy(ref_pipe)
+    pipe.model.to(dev)
+    g = torch.Generator().manual_seed(SEED)
+    batch = unimlvg_tiny.tiny_batch(g)
+    draws = draw_unimlvg_randoms(batch["latents"].shape, "pred", g)
+    ref = _one_step(ref_pipe, batch, draws)
+    out = _one_step(pipe, _to(batch, dev), _to(draws, dev))
+    check_step_errors(step_errors(out, ref), "tiny UniMLVG train step (pred, "
+                      "remat, AdamW)")
+
+
+def run_unimlvg_train(dev, create_instance_from_config, ops, unimlvg_tiny,
+                      draw_unimlvg_randoms, profile: bool = False):
+    """UniMLVG stage 3's ``loss_fn`` at full width and depth: fp32 masters
+    under bf16 compute, remat as the config sets it, flat AdamW with bf16
+    moments (``BM_OPTIMIZER``, as phase 11 trains the same 4.08B model: the
+    config's fp32 moments put masters, gradients and moments at ~65 GB
+    before activations); the tiny step against the CPU first, then
+    ``drive_train`` on a batch of latents, rasters and the camera rig."""
+    check_tiny_unimlvg_step(dev, unimlvg_tiny, draw_unimlvg_randoms)
+    tag = "unimlvg train"
+    cfg = json.loads(UNIMLVG_CONFIG.read_text())["pipeline"]
+    cfg["model"]["param_dtype"] = torch.float32
+    cfg["optimizer_config"].update(BM_OPTIMIZER)
+    mc = cfg["model"]
+    log(f"{tag}: {UNIMLVG_CONFIG.relative_to(REPO)}; AdamW "
+        f"{json.dumps(cfg['optimizer_config'])}, clip "
+        f"{cfg['training_config']['max_norm_for_grad_clip']}; remat: joint "
+        f"blocks {mc['gradient_checkpointing']}, cross-view "
+        f"{mc['crossview_gradient_checkpointing']}, temporal "
+        f"{mc['temporal_gradient_checkpointing']}")
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    pipe.model.to_empty(device=dev)
+    random_init_(pipe.model, gen)
+    batch = unimlvg_batch(dev, gen, unimlvg_tiny)
+    batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W, 16,
+                                   generator=gen, device=dev)
+    counts, metrics = drive_train(dev, pipe, batch, ops, tag, profile)
+    check_train_seqs(counts, tag)
+    check_moment_bytes(*metrics["moments"], 2, tag)
+    log(f"{tag}: K2 {counts['flash_tail_backward']} launches in the timed "
+        f"steps by sequence {json.dumps(counts['flash_tail_backward_by_seq'])}"
+        f" ({counts['flash_tail_backward_sm90']} on the Hopper backward)")
+    return counts, metrics
+
+
+def run_temporal_vae(dev, ops, TemporalAutoencoderKL, unimlvg_tiny):
+    """The causal temporal VAE at the JAX defaults: the tiny VAE against
+    the CPU first (``TVAE_TOL``, causal on the card); the full-width VAE in
+    fp32 on one view of 9 frames of 64 x 112, where a change to the last
+    frame must leave latent frame 0 within 1e-5; then in bf16
+    ``decode_from_scaled`` of 6 views x ``TVAE_LATENT_FRAMES`` latent
+    frames of 32 x 56 into 17 frames of 256 x 448 and ``encode_to_scaled``
+    of them back, each after a warm-up on one chunk, timed with its peak
+    memory. No kernel of the port runs here (cuDNN convolutions)."""
+    gaps = unimlvg_tiny.vae_gaps(dev)
+    check_gaps(gaps, {"mean_rel": TVAE_TOL, "logvar_rel": TVAE_TOL,
+                      "decode_rel": TVAE_TOL, "causal_gap": 1e-5},
+               "tiny temporal VAE")
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    with torch.device("meta"):
+        vae32 = TemporalAutoencoderKL()
+        vae = TemporalAutoencoderKL(dtype=torch.bfloat16)
+    vae32.to_empty(device=dev)
+    random_init_(vae32, gen)
+    n_params = sum(p.numel() for p in vae32.parameters())
+    video = torch.rand(1, 9, 64, 112, 3, generator=gen, device=dev) * 2 - 1
+    later = video.clone()
+    later[:, -1] = -later[:, -1]
+    with torch.inference_mode():
+        first, _ = vae32.encode(video)
+        second, _ = vae32.encode(later)
+    causal_gap = max_err(first[:, 0], second[:, 0])
+    last_move = max_err(first[:, -1], second[:, -1])
+    log(f"temporal VAE ({n_params / 1e6:.1f}M params): fp32, 9 frames of 64 "
+        f"x 112, the last frame flipped: latent frame 0 moves "
+        f"{causal_gap:.3e} (tol 1e-5), the last latent frame "
+        f"{last_move:.3e}")
+    if not (causal_gap <= 1e-5 and last_move > 0):
+        fail(f"the temporal VAE is not causal on the card: {causal_gap}, "
+             f"{last_move}")
+    vae.to_empty(device=dev)
+    vae.load_state_dict(vae32.state_dict())
+    vae.eval()
+    del vae32, video, later, first, second
+    torch.cuda.empty_cache()
+
+    t_out = 1 + vae.temporal_downscale * (TVAE_LATENT_FRAMES - 1)
+    latents = torch.randn(1, TVAE_LATENT_FRAMES, VIEWS, LAT_H, LAT_W, 16,
+                          generator=gen, device=dev)
+    ops.reset_launch_counts()
+    metrics = {}
+    with torch.inference_mode():
+        vae.decode_from_scaled(latents[:, :, :TVAE_CHUNK])
+        torch.cuda.reset_peak_memory_stats()
+        frames, decode_s = sync_s(lambda: vae.decode_from_scaled(
+            latents, chunk_size=TVAE_CHUNK))
+        metrics["decode"] = {"s": decode_s, "peak_gib":
+                             torch.cuda.max_memory_allocated() / 2**30}
+        vae.encode_to_scaled(frames[:, :, :TVAE_CHUNK])
+        torch.cuda.reset_peak_memory_stats()
+        back, encode_s = sync_s(lambda: vae.encode_to_scaled(
+            frames, chunk_size=TVAE_CHUNK))
+        metrics["encode"] = {"s": encode_s, "peak_gib":
+                             torch.cuda.max_memory_allocated() / 2**30}
+    counts = ops.launch_counts()
+    want_frames = (1, t_out, VIEWS, 8 * LAT_H, 8 * LAT_W, 3)
+    if tuple(frames.shape) != want_frames or \
+            tuple(back.shape) != tuple(latents.shape) or \
+            not torch.isfinite(frames).all() or \
+            not torch.isfinite(back).all():
+        fail(f"temporal VAE frames {tuple(frames.shape)} / latents "
+             f"{tuple(back.shape)} not finite or not as expected")
+    log(f"temporal VAE (bf16, {TVAE_CHUNK} views a call): decode "
+        f"{tuple(latents.shape)} -> {want_frames} {decode_s:.3f} s, peak "
+        f"{metrics['decode']['peak_gib']:.2f} GiB; encode back "
+        f"{encode_s:.3f} s, peak {metrics['encode']['peak_gib']:.2f} GiB; "
+        f"frame range [{frames.min().item():.3f}, "
+        f"{frames.max().item():.3f}]")
+    metrics.update(causal_gap=causal_gap, tiny=gaps)
+    return counts, metrics
 
 
 def census_sm90(_build, sources, body: str) -> dict:
@@ -3207,7 +3797,9 @@ def main() -> None:
     from opendwm_tpu_torch import ops
     from opendwm_tpu_torch.config import create_instance_from_config
     from opendwm_tpu_torch.models.autoencoders import sd21_vae, sd35_vae
+    from opendwm_tpu_torch.models import mask_layers
     from opendwm_tpu_torch.models.mmdit import DiTCrossviewTemporal
+    from opendwm_tpu_torch.models.temporal_vae import TemporalAutoencoderKL
     from opendwm_tpu_torch.models.unet import UNetCrossviewTemporal
     from opendwm_tpu_torch.ops import (
         _build,
@@ -3219,6 +3811,7 @@ def main() -> None:
         exp_attn602,
         exp_int8_fidelity,
         exp_tailvar,
+        unimlvg_tiny,
     )
     from opendwm_tpu_torch.pipelines.ctsd import (
         draw_training_randoms,
@@ -3227,6 +3820,7 @@ def main() -> None:
     from opendwm_tpu_torch.pipelines.ctsd_streaming import (
         StreamingCTSDPipeline,
     )
+    from opendwm_tpu_torch.pipelines.unimlvg import draw_unimlvg_randoms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3264,6 +3858,7 @@ def main() -> None:
     k7_bwd_rows, k7_lse_timing = check_flash_attention_backward(
         dev, flash_attention)
     k7_seg_rows = check_flash_attention_segment(dev, flash_attention)
+    dit_k7_rows = check_dit_k7(dev, flash_attention)
     k7_at_k1, k7_bwd_at_k2 = check_k7_at_tail_shapes(dev, flash_tail,
                                                      flash_attention)
     tailvar, tiling_rows = run_tailvar(dev, ops, exp_tailvar)
@@ -3349,7 +3944,43 @@ def main() -> None:
         torch.cuda.empty_cache()
         log_clocks(f"before the {name} phase")
         lidar[name] = run(dev, create_instance_from_config, ops, *args)
+    phase_s = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the UniMLVG serving phase")
+    t0 = time.perf_counter()
+    unimlvg_serve, unimlvg_metrics, unimlvg_pipe = run_unimlvg_slice(
+        dev, create_instance_from_config, sd35_vae, ops, get_conditions,
+        unimlvg_tiny)
+    phase_s["unimlvg_serve"] = time.perf_counter() - t0
+    log_clocks("before the branch-type and MaskGWM phase")
+    t0 = time.perf_counter()
+    branch_types, mask_step, branch_metrics = run_branch_types(
+        dev, unimlvg_pipe, ops, get_conditions, unimlvg_tiny, mask_layers)
+    phase_s["branch_types_and_mask_step"] = time.perf_counter() - t0
+    del unimlvg_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the UniMLVG train phase")
+    t0 = time.perf_counter()
+    unimlvg_train, unimlvg_train_metrics = run_unimlvg_train(
+        dev, create_instance_from_config, ops, unimlvg_tiny,
+        draw_unimlvg_randoms, profile="--profile-train" in sys.argv[1:])
+    phase_s["unimlvg_train"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the temporal VAE phase")
+    t0 = time.perf_counter()
+    temporal_vae, tvae_metrics = run_temporal_vae(
+        dev, ops, TemporalAutoencoderKL, unimlvg_tiny)
+    phase_s["temporal_vae"] = time.perf_counter() - t0
     log_clocks("at the end")
+    log(f"UniMLVG and the DiT's other options ({card}): " + json.dumps({
+        "phase_s": phase_s, "unimlvg_serve": unimlvg_metrics,
+        "branch_types": branch_metrics,
+        "unimlvg_train": {k: v for k, v in unimlvg_train_metrics.items()
+                          if k != "moments"},
+        "temporal_vae": tvae_metrics}))
     log(f"LiDAR serving ({card}): "
         + json.dumps({k: m for k, (_, m) in lidar.items()}))
     log(f"stream: {stream_metrics['steady_ms']['median']:.1f} ms a frame "
@@ -3361,7 +3992,10 @@ def main() -> None:
              "bm_unet_serve": bm_unet, "bm_train": bm_train,
              "stream": stream, "int8_serve": int8_serve,
              "int8_unet": int8_unet, "tailvar": tailvar, "attn602": attn602,
-             **{k: c for k, (c, _) in lidar.items()}}
+             **{k: c for k, (c, _) in lidar.items()},
+             "unimlvg_serve": unimlvg_serve, "branch_types": branch_types,
+             "mask_step": mask_step, "unimlvg_train": unimlvg_train,
+             "temporal_vae": temporal_vae}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
               if p != "attn602" and c["flash_attention_segment"]}
     if strays:
@@ -3419,7 +4053,8 @@ def main() -> None:
               adaln_rows["residual_adaln_modulate"], body=adaln_body,
               ptxas=adaln_ptxas, **adaln_times(adaln_rows["residual_adaln_modulate"])),
         entry("flash_attention_forward", "cuda", k7_src,
-              "opendwm_tpu/ops/attention.py:151", "flash_attention", k7_rows,
+              "opendwm_tpu/ops/attention.py:151", "flash_attention",
+              k7_rows + dit_k7_rows,
               lse_ms=k7_lse_timing["lse_ms"],
               serving_ms_beside_lse=k7_lse_timing["serving_ms"],
               lse_library_ms=k7_lse_timing["lse_library_ms"],

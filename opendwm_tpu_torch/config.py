@@ -89,6 +89,13 @@ _LAZY_MODULES: dict[str, str] = {
     "dwm.pipelines.lidar_diffusion":
         "opendwm_tpu_torch.pipelines.lidar_diffusion",
     "LidarDiffusionPipeline": "opendwm_tpu_torch.pipelines.lidar_diffusion",
+    "dwm.pipelines.unimlvg": "opendwm_tpu_torch.pipelines.unimlvg",
+    "Unimlvg": "opendwm_tpu_torch.pipelines.unimlvg",
+    "diffusers.AutoencoderKLCogVideoX":
+        "opendwm_tpu_torch.models.temporal_vae",
+    "TemporalAutoencoderKL": "opendwm_tpu_torch.models.temporal_vae",
+    "dwm.models.mask_layers": "opendwm_tpu_torch.models.mask_layers",
+    "MaskController": "opendwm_tpu_torch.models.mask_layers",
 }
 
 
@@ -113,8 +120,9 @@ def get_class(class_name: str):
         f"{class_name!r} has no PyTorch port yet (opendwm_tpu_torch covers "
         "the CTSD-3.5 MMDiT and CTSD-2.1 UNet serving and training paths, "
         "with the layout ImageAdapter and the image VAE, streaming serving, "
-        "the CLIP/T5 text stage and LiDAR serving (VQ tokenizer, MaskGIT, "
-        "the LiDAR DiT); see ROADMAP.md Queue 1)."
+        "the CLIP/T5 text stage, LiDAR serving (VQ tokenizer, MaskGIT, "
+        "the LiDAR DiT), UniMLVG, MaskGWM and the temporal VAE; see "
+        "ROADMAP.md Queue 1)."
     )
 
 

@@ -17,6 +17,11 @@ numpy arrays (``{"params": {...}}`` or the inner tree) becomes a flat
   kw, in, out) → ``QConv2d`` ``weight_q`` (out, kh, kw, in), each
   ``kernel_scale`` → ``weight_scale``, unchanged.
 
+The causal temporal VAE (``TemporalAutoencoderKL``) mirrors its flax tree
+(``temporal_vae_state_dict_from_flax``). The DiT's explicit perspective
+projection (``rayencoder_proj``) and MaskGWM module (``mask_module``) map
+both ways with the rest of the DiT.
+
 The LiDAR tokenizer (``VQPointCloud``) and the MaskGIT transformer
 (``BidirectionalTransformer``) mirror their flax trees:
 ``lidar_state_dict_from_flax`` and ``lidar_flax_from_state_dict`` map
@@ -119,6 +124,7 @@ def _vt_block(tree, sd, src, dst):
 
 _DIT_TOP_LEVEL = re.compile(
     r"(pos_embed|context_embedder|time_text_embed|view_embedding|"
+    r"rayencoder_proj|mask_module|"
     r"transformer_blocks_\d+|crossview_transformer_blocks_\d+|"
     r"temporal_transformer_blocks_\d+|view_pos_embeds_\d+|"
     r"time_pos_embeds_\d+|view_mixers_\d+|time_mixers_\d+|norm_out|proj_out|"
@@ -147,6 +153,30 @@ def image_adapter_state_dict_from_flax(params: Mapping) -> dict:
     return sd
 
 
+def mask_module_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``MaskController`` params (``mask_token``, ``mask_pos_proj``,
+    ``t_block``, ``sideblocks_{i}`` and ``temporal_sideblocks_{i}`` with
+    their ``scale_shift_table``, ``attn_*`` and ``mlp``) →
+    the port's state dict (numpy)."""
+    sd: dict = {}
+
+    def walk(node, path: list[str]):
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                m = re.fullmatch(r"((?:temporal_)?sideblocks)_(\d+)", name)
+                if m:
+                    name = f"{m.group(1)}.{m.group(2)}"
+                elif path and path[-1] == "mlp":
+                    name = {"proj_in": "net.0.proj", "proj_out": "net.2"}[name]
+                walk(value, path + [name])
+                continue
+            leaf, value = _leaf(name, np.asarray(value))
+            sd[".".join(path + [leaf])] = value
+
+    walk(_tree(params), [])
+    return sd
+
+
 def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
     """Flax ``DiTCrossviewTemporal`` params → reference state dict (numpy)."""
     tree = _tree(params)
@@ -165,6 +195,12 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
         for lin in ("linear_1", "linear_2"):
             _weights(tree, sd, f"view_embedding/{lin}",
                      f"view_embedding.{lin}")
+    if "rayencoder_proj" in tree:
+        _weights(tree, sd, "rayencoder_proj", "rayencoder_proj")
+    if "mask_module" in tree:
+        sd.update({f"mask_module.{k}": v for k, v in
+                   mask_module_state_dict_from_flax(
+                       tree["mask_module"]).items()})
 
     for i in range(num_layers):
         src, dst = f"transformer_blocks_{i}", f"transformer_blocks.{i}"
@@ -206,7 +242,8 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
 _FLAX_PIECES = (
     (re.compile(r"(^|\.)((?:crossview_|temporal_)?transformer_blocks|"
                 r"view_pos_embeds|time_pos_embeds|view_mixers|time_mixers|"
-                r"down_blocks|up_blocks|resnets|attentions|body|zero_convs)"
+                r"down_blocks|up_blocks|resnets|attentions|body|zero_convs|"
+                r"(?:temporal_)?sideblocks)"
                 r"\.(\d+)(?=\.)"),
      r"\1\2_\3"),
     (re.compile(r"\.to_out\.0\."), ".to_out."),
@@ -244,7 +281,7 @@ def _flax_from_state_dict(state_dict: Mapping, qkv_bias: bool) -> dict:
         if isinstance(value, torch.Tensor):
             value = value.detach().cpu().float().numpy()
         value = np.asarray(value)
-        if value.ndim in _FLAX_AXES:
+        if name.endswith(".weight") and value.ndim in _FLAX_AXES:
             value = value.transpose(_FLAX_AXES[value.ndim])
         *path, leaf = flax_param_name(name, value.ndim).split(".")
         node = tree
@@ -327,6 +364,26 @@ def vae_state_dict_from_flax(params: Mapping) -> dict:
     for name in ("quant_conv", "post_quant_conv"):
         if name in tree:
             _weights(tree, sd, name, name)
+    return sd
+
+
+def temporal_vae_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``TemporalAutoencoderKL`` params → the port's state dict
+    (numpy): the port's modules carry the flax names
+    (``encoder_down_0_res_1.conv1.conv``), so each leaf keeps its path;
+    Conv kernels (kt, kh, kw, in, out) become Conv3d weights (out, in, kt,
+    kh, kw) and GroupNorm scales weights."""
+    sd: dict = {}
+
+    def walk(node, path: list[str]):
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, path + [name])
+                continue
+            leaf, value = _leaf(name, np.asarray(value))
+            sd[".".join(path + [leaf])] = np.ascontiguousarray(value)
+
+    walk(_tree(params), [])
     return sd
 
 

@@ -1,15 +1,21 @@
 """Cross-view temporal MMDiT denoiser (``opendwm_tpu/models/mmdit.py``).
 
 Ported: the SD3.5 joint-block backbone (dual attention, qk-RMSNorm,
-``context_pre_only`` last block), implicit perspective embedding, the
-``rowwise`` cross-view and ``pointwise`` or ``rowwise`` temporal branches
-mixed back by ``AlphaBlender`` or ``Mixer``, the layout ImageAdapter
+``context_pre_only`` last block); implicit perspective embedding and
+explicit perspective modeling (``RayEncoder``: per-pixel camera rays of
+the latent grid, octave-encoded and projected by ``rayencoder_proj`` to a
+per-token view embedding); the cross-view branches (``rowwise``,
+``full``, and the camera-ring neighbourhoods ``fuse`` and ``adj_fuse``)
+and the temporal ones (``pointwise``, ``rowwise``, ``full``), mixed back
+by ``AlphaBlender`` or ``Mixer``; the layout ImageAdapter
 (``condition_image_adapter_config``: one residual per stage, added to the
-tokens before each of the first ``len(channels)`` joint blocks), and int8
-W8A8 serving (``quantization="int8"``: every attention and feed-forward
-of the joint blocks and of the cross-view and temporal branches as
-``QLinear``; the modulations, embeddings, norms and ``proj_out`` stay
-float, as in the JAX model). The joint
+tokens before each of the first ``len(channels)`` joint blocks); the
+MaskGWM hook (``mask_module_config``: tokens dropped before the blocks
+and rebuilt at the first decoder layer, ``models/mask_layers.py``); and
+int8 W8A8 serving (``quantization="int8"``: every attention and
+feed-forward of the joint blocks and of the cross-view and temporal
+branches as ``QLinear``; the modulations, embeddings, norms and
+``proj_out`` stay float, as in the JAX model). The joint
 block's modulations run through the fused AdaLN kernels
 (``ops/fused_adaln.py``), which the JAX model writes out in jnp; its
 XLA-only optimisation barriers have no counterpart.
@@ -29,6 +35,7 @@ ROADMAP item.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -37,6 +44,7 @@ import torch.nn.functional as F
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.models.adapters import ImageAdapter
+from opendwm_tpu_torch.models.mask_layers import MaskController
 from opendwm_tpu_torch.models.layers import (
     AlphaBlender,
     Attention,
@@ -119,11 +127,12 @@ class JointTransformerBlock(nn.Module):
             norm_x2 = adaln_modulate(x, scale2, shift2)
             x = x + gate_msa[:, None] * attn_out
             x, norm_x = residual_adaln_modulate(
-                x, self.attn2(norm_x2), gate2, scale_mlp, shift_mlp
+                x, self.attn2(norm_x2).to(x.dtype), gate2, scale_mlp,
+                shift_mlp
             )
         else:
             x, norm_x = residual_adaln_modulate(
-                x, attn_out, gate_msa, scale_mlp, shift_mlp
+                x, attn_out.to(x.dtype), gate_msa, scale_mlp, shift_mlp
             )
         x = x + gate_mlp[:, None] * self.ff(norm_x)
         if self.context_pre_only:
@@ -147,6 +156,45 @@ _REMAT_SAVED_OPS = {
 }
 
 
+def octave_encode(coords: torch.Tensor, n_octaves: int,
+                  start: int = 0) -> torch.Tensor:
+    """sin and cos of ``coords`` at ``2^k·π``, k = start .. start +
+    n_octaves - 1: (..., d) → (..., 2·d·n_octaves), all the sines first
+    (``RayEncoder._octave_encode``)."""
+    octaves = torch.pow(2.0, torch.arange(
+        start, start + n_octaves, dtype=torch.float32,
+        device=coords.device)) * math.pi
+    scaled = (coords[..., None] * octaves).flatten(-2)
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], -1)
+
+
+def get_rays(intrinsics: torch.Tensor, cam2ref: torch.Tensor,
+             hw: tuple[int, int]):
+    """Camera origins ``(N, 3)`` and unit ray directions ``(N, h, w, 3)``
+    through the pixel centres of an h x w grid, in fp32 (``mmdit.py:208``).
+    intrinsics: (N, 3, 3) at the grid's scale; cam2ref: (N, 4, 4)."""
+    h, w = hw
+    dev = intrinsics.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
+    ys = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
+    grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
+    pix = torch.stack([grid_x.reshape(-1), grid_y.reshape(-1),
+                       torch.ones(h * w, device=dev)])  # (3, h·w)
+    dirs = torch.linalg.inv(intrinsics.float()) @ pix
+    rays_d = cam2ref[:, :3, :3].float() @ dirs
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=1, keepdim=True)
+    rays_d = rays_d.transpose(1, 2).reshape(-1, h, w, 3)
+    return cam2ref[:, :3, 3].float(), rays_d
+
+
+# Octaves of the explicit perspective embedding: 8 for the camera origin,
+# 4 for the ray direction (3 · 2 · (8 + 4) = 72 features a token).
+RAY_POS_OCTAVES, RAY_DIR_OCTAVES = 8, 4
+RAY_FEATURES = 3 * 2 * (RAY_POS_OCTAVES + RAY_DIR_OCTAVES)
+CROSSVIEW_TYPES = ("rowwise", "full", "fuse", "adj_fuse")
+TEMPORAL_TYPES = ("pointwise", "rowwise", "full")
+
+
 def _not_ported(option: str, item: str):
     return NotImplementedError(
         f"{option} is not ported to PyTorch yet (ROADMAP Queue 1, {item})"
@@ -167,8 +215,17 @@ class DiTCrossviewTemporal(nn.Module):
       encoder_hidden_states (b, t, v, L, joint_attention_dim)
       pooled_projections    (b, t, v, pooled_projection_dim)
       added_time_ids        (b, t, v, K) numeric conditions (implicit mode)
+      camera_intrinsics_norm (b, t, v, 3, 3) intrinsics over the image size
+      camera2referego       (b, t, v, 4, 4) camera → reference ego (explicit)
       condition_image_tensor (b, t, v, H, W, C) layout rasters (the adapter)
       disable_crossview / disable_temporal: (b,) bool AlphaBlender overrides
+      crossview_attention_index (v, 3) the views ``fuse``/``adj_fuse``
+                            attend over (default: v - 1, v, v + 1 around
+                            the camera ring)
+      mask_noise            MaskGWM's masking draw
+                            (``mask_layers.draw_mask_noise``); without it
+                            the mask module is bypassed, as without
+                            ``mask_rng``
 
     Keyword names follow the reference JSON config. ``dtype`` is the dtype
     of the computation; ``param_dtype`` that of the parameters (default:
@@ -217,24 +274,16 @@ class DiTCrossviewTemporal(nn.Module):
         sequence_parallel_axis: Optional[str] = None,
     ):
         super().__init__()
-        if enable_crossview and crossview_attention_type != "rowwise":
-            raise _not_ported(
-                f"crossview_attention_type={crossview_attention_type!r}",
-                "item 3",
-            )
-        if enable_temporal and temporal_attention_type not in ("pointwise",
-                                                               "rowwise"):
-            raise _not_ported(
-                f"temporal_attention_type={temporal_attention_type!r}",
-                "item 3",
-            )
-        if perspective_modeling_type not in ("", "implicit"):
-            raise _not_ported(
-                f"perspective_modeling_type={perspective_modeling_type!r}",
-                "item 3",
-            )
-        if mask_module_config is not None:
-            raise _not_ported("mask_module_config (MaskGWM)", "item 3")
+        if enable_crossview and crossview_attention_type not in \
+                CROSSVIEW_TYPES:
+            raise ValueError(f"unsupported crossview_attention_type "
+                             f"{crossview_attention_type!r}")
+        if enable_temporal and temporal_attention_type not in TEMPORAL_TYPES:
+            raise ValueError(f"unsupported temporal_attention_type "
+                             f"{temporal_attention_type!r}")
+        if perspective_modeling_type not in ("", "implicit", "explicit"):
+            raise ValueError(f"unknown perspective_modeling_type "
+                             f"{perspective_modeling_type!r}")
         if quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {quantization!r}")
         if sequence_parallel_axis is not None:
@@ -253,6 +302,7 @@ class DiTCrossviewTemporal(nn.Module):
         self.enable_temporal = enable_temporal
         self.crossview_block_layers = list(crossview_block_layers)
         self.temporal_block_layers = list(temporal_block_layers)
+        self.crossview_attention_type = crossview_attention_type
         self.temporal_attention_type = temporal_attention_type
         self.disable_view_emb_on_temporal_module = \
             disable_view_emb_on_temporal_module
@@ -285,6 +335,8 @@ class DiTCrossviewTemporal(nn.Module):
             self.view_embedding = TimestepEmbedding(
                 projection_class_embeddings_input_dim, dim
             )
+        elif perspective_modeling_type == "explicit":
+            self.rayencoder_proj = Linear(RAY_FEATURES, dim, bias=False)
         self.transformer_blocks = nn.ModuleList([
             JointTransformerBlock(
                 num_attention_heads, attention_head_dim, qk_norm=qk_norm,
@@ -333,6 +385,10 @@ class DiTCrossviewTemporal(nn.Module):
                         f"{attention_head_dim} = {dim} wide")
         else:
             self.condition_image_adapter = None
+        self.mask_module = None if mask_module_config is None else \
+            MaskController(hidden_size=dim, num_heads=num_attention_heads,
+                           attention_head_dim=attention_head_dim,
+                           **mask_module_config)
         self.norm_out = Modulation(dim, 2)
         self.proj_out = Linear(dim, patch_size * patch_size * out_channels)
         self.to(param_dtype or dtype)
@@ -377,9 +433,13 @@ class DiTCrossviewTemporal(nn.Module):
         pooled_projections: torch.Tensor,
         condition_image_tensor: Optional[torch.Tensor] = None,
         added_time_ids: Optional[torch.Tensor] = None,
+        camera_intrinsics_norm: Optional[torch.Tensor] = None,
+        camera2referego: Optional[torch.Tensor] = None,
         disable_crossview: Optional[torch.Tensor] = None,
         disable_temporal: Optional[torch.Tensor] = None,
         crossview_attention_mask: Optional[torch.Tensor] = None,
+        crossview_attention_index: Optional[torch.Tensor] = None,
+        mask_noise: Optional[torch.Tensor] = None,
         **_unused,
     ) -> torch.Tensor:
         squeeze_view = sample.ndim == 5
@@ -418,6 +478,9 @@ class DiTCrossviewTemporal(nn.Module):
             feats = timestep_embedding(added_time_ids.reshape(-1), 256)
             view_cam_emb = self.view_embedding(
                 feats.reshape(n, -1).to(dt))[:, None, :]
+        elif self.perspective_modeling_type == "explicit":
+            view_cam_emb = self._ray_embedding(
+                camera_intrinsics_norm, camera2referego, n, gh, gw)
 
         # Each adapter feature (b, t, v, gh, gw, dim) → tokens, added before
         # joint block i (``mmdit.py:414-425``, ``:505-506``).
@@ -435,9 +498,31 @@ class DiTCrossviewTemporal(nn.Module):
         if disable_temporal is None:
             disable_temporal = torch.zeros(b, dtype=torch.bool,
                                            device=x.device)
-        shape = (b, t, v, gh, gw, dim)
+        # MaskGWM: drop tokens before the blocks, grouped by (b, v) with t
+        # as the frame axis; the adapter residuals are gathered alike
+        # (``mmdit.py:432-469``).
+        cur_gw, metas = gw, None
+        if self.mask_module is not None and mask_noise is not None:
+            x, metas, residuals = self.mask_module.random_masking(
+                mask_noise, _by_view(x, b, t, v), gh, gw,
+                [_by_view(r, b, t, v) for r in residuals])
+            keep = x.shape[2]
+            x = _by_frame(x, b, v)
+            residuals = [_by_frame(r, b, v) for r in residuals]
+            cur_gw = keep // gh
 
         for i, block in enumerate(self.transformer_blocks):
+            if metas is not None and self.mask_module.is_first_decoder_layer(
+                    i, self.num_layers):
+                temb_g = temb.reshape(b, t, v, -1).transpose(1, 2)
+                x = self.mask_module.mask_reconstruction(
+                    _by_view(x, b, t, v), metas, temb_g.reshape(b * v * t, -1))
+                # fp32 from here under a bf16 compute dtype, as in JAX:
+                # the mask token is read in fp32 and each residual add
+                # promotes (the joint block casts its branch outputs to
+                # x's dtype for K4).
+                x, cur_gw = _by_frame(x, b, v), gw
+            shape = (b, t, v, gh, cur_gw, dim)
             if i < len(residuals):
                 x = x + residuals[i]
             x, ctx = self._remat(block, self._remat_block(i))(
@@ -477,7 +562,7 @@ class DiTCrossviewTemporal(nn.Module):
                                 self.crossview_gradient_checkpointing),
                     self.view_mixers[j],
                     x, view_emb, shape, disable_crossview,
-                    crossview_attention_mask,
+                    crossview_attention_mask, crossview_attention_index,
                 )
 
         scale, shift = self.norm_out(temb)  # AdaLayerNormContinuous order
@@ -487,13 +572,37 @@ class DiTCrossviewTemporal(nn.Module):
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, t, v, hh, ww, -1)
         return x[:, :, 0] if squeeze_view else x
 
+    def _ray_embedding(self, intrinsics_norm, cam2ref, n: int, gh: int,
+                       gw: int) -> torch.Tensor:
+        """Explicit perspective (``mmdit.py:393-412``): the normalised
+        intrinsics at the latent grid's scale, a ray per token, octave
+        features of its origin and direction, ``rayencoder_proj`` → the
+        per-token view embedding (n, gh·gw, dim)."""
+        if intrinsics_norm is None or cam2ref is None:
+            raise ValueError("explicit perspective needs "
+                             "camera_intrinsics_norm and camera2referego")
+        scale = torch.tensor([[gw, 1, gw], [1, gh, gh], [1, 1, 1]],
+                             dtype=torch.float32, device=cam2ref.device)
+        k = intrinsics_norm.reshape(n, 3, 3).float() * scale
+        rays_o, rays_d = get_rays(k, cam2ref.reshape(n, 4, 4), (gh, gw))
+        pos = octave_encode(rays_o, RAY_POS_OCTAVES)[:, None, None]
+        ray = octave_encode(rays_d, RAY_DIR_OCTAVES)
+        raymap = torch.cat([pos.expand(n, gh, gw, pos.shape[-1]), ray], -1)
+        return self.rayencoder_proj(raymap.to(self.dtype)).reshape(
+            n, gh * gw, -1)
+
     def _temporal_branch(self, block, mixer, x, emb, shape, disable):
         """``pointwise``: each spatial token attends over the t frames;
         ``rowwise``: each latent row attends over its t frames' rows
-        (sequences of t·gw tokens, ``mmdit.py:606-610``)."""
+        (sequences of t·gw tokens, ``mmdit.py:606-610``); ``full``: all
+        t·gh·gw tokens of a view at once."""
         b, t, v, gh, gw, c = shape
         l = gh * gw
-        if self.temporal_attention_type == "rowwise":
+        if self.temporal_attention_type == "full":
+            h = (x + emb).reshape(b, t, v, l, c).transpose(1, 2)
+            h = block(h.reshape(b * v, t * l, c))
+            h = h.reshape(b, v, t, l, c).transpose(1, 2)
+        elif self.temporal_attention_type == "rowwise":
             h = (x + emb).reshape(b, t, v, gh, gw, c)
             h = block(h.permute(0, 2, 3, 1, 4, 5).reshape(b * v * gh, t * gw,
                                                          c))
@@ -506,14 +615,56 @@ class DiTCrossviewTemporal(nn.Module):
         out = mixer(x.reshape(b, t * v, l, c), h, image_only_indicator=disable)
         return out.reshape(b * t * v, l, c)
 
-    @staticmethod
-    def _crossview_branch(block, mixer, x, emb, shape, disable, mask):
-        """``rowwise``: each latent row attends across the v views."""
+    def _crossview_branch(self, block, mixer, x, emb, shape, disable, mask,
+                          neighbor_index=None):
+        """``rowwise``: each latent row attends across the v views;
+        ``full``: every token of a frame's v views at once; ``fuse``: each
+        view over its 3-view neighbourhood (``neighbor_index``, default
+        v - 1, v, v + 1 around the ring) in all t frames jointly; ``adj_fuse``:
+        the neighbourhood in this frame and the one before. ``fuse`` and
+        ``adj_fuse`` keep the centre view (of this frame) of each sequence
+        (``mmdit.py:625-685``)."""
         b, t, v, gh, gw, c = shape
-        h = (x + emb).reshape(b * t, v, gh, gw, c).permute(0, 2, 1, 3, 4)
-        h = block(h.reshape(b * t * gh, v * gw, c), mask=mask)
-        h = h.reshape(b * t, gh, v, gw, c).permute(0, 2, 1, 3, 4)
-        h = h.reshape(b, t * v, gh * gw, c)
-        out = mixer(x.reshape(b, t * v, gh * gw, c), h,
+        l = gh * gw
+        kind = self.crossview_attention_type
+        h = x + emb
+        if kind in ("rowwise", "full"):
+            h = h.reshape(b * t, v, gh, gw, c).transpose(1, 2)
+            rows = b * t * gh if kind == "rowwise" else b * t
+            h = block(h.reshape(rows, -1, c), mask=mask)
+            h = h.reshape(b * t, gh, v, gw, c).transpose(1, 2)
+        else:
+            if neighbor_index is None:
+                vs = torch.arange(v, device=x.device)
+                neighbor_index = torch.stack([(vs - 1) % v, vs,
+                                              (vs + 1) % v], 1)
+            g = h.reshape(b, t, v, l, c).index_select(
+                2, neighbor_index.reshape(-1).to(x.device))
+            g = g.reshape(b, t, v, 3, l, c)
+            if kind == "fuse":
+                g = block(g.transpose(1, 2).reshape(b * v, t * 3 * l, c),
+                          mask=mask)
+                h = g.reshape(b, v, t, 3, l, c)[:, :, :, 1].transpose(1, 2)
+            else:
+                prev = torch.cat([g[:, :1], g[:, :-1]], 1)
+                pair = torch.stack([prev, g], 2)  # (b, t, 2, v, 3, l, c)
+                g = block(pair.transpose(2, 3).reshape(b * t * v, 6 * l, c),
+                          mask=mask)
+                h = g.reshape(b, t, v, 2, 3, l, c)[:, :, :, 1, 1]
+        h = h.reshape(b, t * v, l, c)
+        out = mixer(x.reshape(b, t * v, l, c), h,
                     image_only_indicator=disable)
-        return out.reshape(b * t * v, gh * gw, c)
+        return out.reshape(b * t * v, l, c)
+
+
+def _by_view(x: torch.Tensor, b: int, t: int, v: int) -> torch.Tensor:
+    """Tokens (b·t·v, l, c) → (b·v, t, l, c): MaskGWM groups by view."""
+    return x.reshape(b, t, v, *x.shape[1:]).transpose(1, 2).reshape(
+        b * v, t, *x.shape[1:])
+
+
+def _by_frame(x: torch.Tensor, b: int, v: int) -> torch.Tensor:
+    """(b·v, t, l, c) → (b·t·v, l, c), the inverse of ``_by_view``."""
+    t = x.shape[1]
+    return x.reshape(b, v, *x.shape[1:]).transpose(1, 2).reshape(
+        b * t * v, *x.shape[2:])

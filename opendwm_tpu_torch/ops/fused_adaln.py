@@ -142,10 +142,11 @@ def _check_rows(x, *others) -> None:
             raise ValueError("all fused_adaln inputs must lie on one device")
 
 
-def _vecs(n: int, d: int, *ts):
+def _vecs(n: int, d: int, x_dtype, *ts):
     """The modulation vectors as (n, d) views, contiguous along d, of one
-    type the kernels read: their own if they share one, else fp32 copies
-    (values the kernels would read as fp32 anyway)."""
+    type the kernels read: their own if they share one and x is not fp32,
+    else fp32 copies (values the kernels would read as fp32 anyway; an
+    fp32 x with fp32 vectors runs the d-1536 kernel)."""
     out = []
     for t in ts:
         if t.ndim != 2 or t.shape != (n, d):
@@ -154,7 +155,8 @@ def _vecs(n: int, d: int, *ts):
             raise ValueError("modulation vectors must be contiguous along d")
         out.append(t)
     dtype = out[0].dtype
-    if dtype not in _DTYPES or any(t.dtype != dtype for t in out):
+    if dtype not in _DTYPES or x_dtype == torch.float32 or \
+            any(t.dtype != dtype for t in out):
         out = [t.float() for t in out]
     return out
 
@@ -179,7 +181,7 @@ def _raise_on_error(rc: int, what: str) -> None:
 def _launch_adaln(x, scale, shift, eps):
     global launches, fixed_launches
     n, l, d = x.shape
-    scale, shift = _vecs(n, d, scale, shift)
+    scale, shift = _vecs(n, d, x.dtype, scale, shift)
     out = torch.empty_like(x)
     fixed = instance(d, x.dtype, scale.dtype,
                      *_addresses(x, out, scale, shift)) == "fixed"
@@ -201,7 +203,7 @@ def _launch_res_adaln(x, delta, gate, scale, shift, eps):
     if delta.shape != x.shape or delta.dtype != x.dtype or \
             not delta.is_contiguous():
         raise ValueError("delta must be contiguous, with x's shape and dtype")
-    gate, scale, shift = _vecs(n, d, gate, scale, shift)
+    gate, scale, shift = _vecs(n, d, x.dtype, gate, scale, shift)
     xo, yo = torch.empty_like(x), torch.empty_like(x)
     fixed = instance(d, x.dtype, gate.dtype, *_addresses(
         x, delta, xo, yo, gate, scale, shift)) == "fixed"

@@ -82,6 +82,35 @@ def get_action_ids(batch: dict, common_config: dict, action_condition_mask):
     return torch.where(is_conditioned[:, None, None, None], ids, -1000.0)
 
 
+def get_explicit_view_conditions(batch: dict, cfg: bool = False) -> dict:
+    """UniMLVG's explicit view modeling (``ctsd.py:196-226``):
+    ``camera2referego`` = inv(ego of frame 0, view 0) @ ego @ camera (ego
+    the identity without ``ego_transforms``, else its last v sensors), and
+    ``camera_intrinsics_norm`` (focal lengths and centre over the image
+    size ``(w, h)``); both doubled under CFG."""
+    cam = batch["camera_transforms"]
+    ego = batch.get("ego_transforms")
+    if ego is None:
+        ego = torch.eye(4, dtype=cam.dtype, device=cam.device).expand(
+            *cam.shape[:3], 4, 4)
+    else:
+        ego = ego[:, :, -cam.shape[2]:]
+    ref_inv = torch.linalg.inv(ego[:, 0, 0])[:, None, None]
+    cam2referego = ref_inv @ (ego @ cam)
+    intr = batch["camera_intrinsics"]
+    size = batch["image_size"]
+    k = torch.zeros_like(intr)
+    k[..., 0, 0] = intr[..., 0, 0] / size[..., 0]
+    k[..., 1, 1] = intr[..., 1, 1] / size[..., 1]
+    k[..., 0, 2] = intr[..., 0, 2] / size[..., 0]
+    k[..., 1, 2] = intr[..., 1, 2] / size[..., 1]
+    k[..., 2, 2] = 1.0
+    if cfg:
+        k, cam2referego = torch.cat([k, k]), torch.cat([cam2referego,
+                                                         cam2referego])
+    return {"camera_intrinsics_norm": k, "camera2referego": cam2referego}
+
+
 def added_time_ids_count(common_config: dict) -> Optional[int]:
     """How many numeric ids ``get_conditions`` assembles per view, or None
     when the batch carries precomputed ids."""
@@ -110,10 +139,6 @@ def get_conditions(
     rasters (``3dbox_images``, ``hdmap_images``). With CFG the
     unconditional half leads.
     """
-    if common_config.get("explicit_view_modeling", False):
-        raise NotImplementedError(
-            "explicit view modeling is not ported yet (ROADMAP Queue 1, "
-            "item 3)")
     if common_config.get("enable_depth_branch", False):
         raise NotImplementedError(
             "the depth branch is not ported yet (ROADMAP Queue 1, item 9)")
@@ -176,6 +201,9 @@ def get_conditions(
                     -1)
             ids = torch.cat([uncond, ids])
         conds["added_time_ids"] = ids
+
+    if common_config.get("explicit_view_modeling", False):
+        conds.update(get_explicit_view_conditions(batch, cfg))
 
     for key in ("latents", "vae_images", "encoder_hidden_states",
                 "pooled_projections", "camera_transforms", "fps"):

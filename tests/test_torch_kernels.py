@@ -182,6 +182,32 @@ def test_fused_adaln_kernels_match_plain(cuda, dtype, tol, d, l, mod_ndim):
             assert _rel_err(a, b) <= 2 ** -8
 
 
+def test_fused_adaln_fp32_x_with_bf16_vectors_runs_the_row_kernel(cuda):
+    """An fp32 x with bf16 modulation vectors and a bf16 delta cast to x's
+    dtype (the DiT's stream after MaskGWM's reconstruction) runs the d-1536
+    kernel on fp32 copies of the vectors, within 1e-5 of the plain
+    version, x' bit for bit."""
+    g = torch.Generator(cuda).manual_seed(6)
+    n, l, d = 3, 154, 1536
+    x = torch.randn(n, l, d, generator=g, device=cuda)
+    delta = torch.randn(n, l, d, generator=g, device=cuda).to(
+        torch.bfloat16).float()
+    gate, scale, shift = torch.randn(
+        n, 9 * d, generator=g, device=cuda).to(torch.bfloat16).chunk(9, -1)[:3]
+    fused_adaln.reset_launches()
+    out = fused_adaln.adaln_modulate(x, scale, shift)
+    xo, yo = fused_adaln.residual_adaln_modulate(x, delta, gate, scale, shift)
+    torch.cuda.synchronize()
+    assert fused_adaln.fixed_launches == fused_adaln.res_fixed_launches == 1
+    rx, ry = fused_adaln.residual_adaln_modulate_plain(x, delta, gate, scale,
+                                                       shift)
+    assert out.dtype == xo.dtype == yo.dtype == torch.float32
+    assert torch.equal(xo, rx)
+    assert _scaled_err(out, fused_adaln.adaln_modulate_plain(
+        x, scale, shift)) <= 1e-5
+    assert _scaled_err(yo, ry) <= 1e-5
+
+
 def test_fused_adaln_unaligned_rows_run_any_width(cuda):
     """Rows that are not 16-byte aligned run the runtime-width kernel at
     d 1536, with the same results."""

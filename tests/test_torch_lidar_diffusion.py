@@ -105,8 +105,8 @@ def test_rowwise_temporal_dit():
     got = tm(**{k: t(a) for k, a in inputs.items()}).detach()
     assert got.shape == inputs["sample"].shape
     assert rel(got, want) < REL_TOL
-    with pytest.raises(NotImplementedError, match="item 3"):
-        DiTCrossviewTemporal(**dict(cfg, temporal_attention_type="full"))
+    with pytest.raises(ValueError, match="temporal_attention_type"):
+        DiTCrossviewTemporal(**dict(cfg, temporal_attention_type="diagonal"))
 
 
 @pytest.fixture(scope="module")

@@ -257,6 +257,6 @@ def test_unported_names_and_options_raise():
     with pytest.raises(KeyError, match="dwm.pipelines.lidar_vqvae"):
         get_class("dwm.pipelines.lidar_vqvae.LidarCodebook")
     cfg = _synthetic_model_config()
-    cfg["crossview_attention_type"] = "full"
+    cfg["sequence_parallel_axis"] = "sp"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DiTCrossviewTemporal(**cfg)

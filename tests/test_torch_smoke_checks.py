@@ -11,8 +11,10 @@ phases' gates: the rasters must move a denoiser's output, ``random_init_``
 draws the ImageAdapter's zero convs and gates non-zero, and the bf16
 moments hold 2 bytes an element; the stream phase's gates: the ``ready``
 schedule, the bf16 text stage's bar, the stream path's launch census, the
-text encoders' weight scales and the tiny streaming DiT. No kernel runs
-here.
+text encoders' weight scales and the tiny streaming DiT; the UniMLVG
+phases' gates: the rollout's census, the branch types' K7 shapes and
+MaskGWM's K1 shape from the geometry, the tiny paths' bars, the cameras
+must move the output. No kernel runs here.
 """
 
 import importlib.util
@@ -202,14 +204,21 @@ def _counts(**over):
     ("stream", {"flash_tail_sm90": 9}, False),
     ("int8_serve", {"flash_tail_sm90": 9}, False),
     ("int8_unet", {"flash_attention_sm90": 4}, False),
+    ("unimlvg_serve", {"flash_tail_sm90": 9}, False),
+    ("unimlvg_train", {"flash_tail_backward_sm90": 3}, False),
+    ("branch_types", {"flash_attention_sm90": 4}, False),
+    ("mask_step", {"flash_tail_backward_sm90": 3}, False),
+    ("mask_step", {}, True),
 ])
 def test_model_paths_run_the_hopper_bodies(smoke, path, over, ok):
-    """Every K1/K7 forward launch of the ten model paths and every K2/K7
-    backward launch of the three training paths must have run the Hopper
-    body; one launch of an old body fails the run."""
+    """Every K1/K7 forward launch of the fifteen model paths and every
+    K2/K7 backward launch of the five training paths must have run the
+    Hopper body; one launch of an old body fails the run."""
     assert set(smoke.TRAIN_PATHS) < set(smoke.MODEL_PATHS)
     assert {"bm_serve", "bm_unet_serve", "bm_train", "stream", "int8_serve",
-            "int8_unet"} < set(smoke.MODEL_PATHS)
+            "int8_unet", "unimlvg_serve", "unimlvg_train", "branch_types",
+            "mask_step"} < set(smoke.MODEL_PATHS)
+    assert {"unimlvg_train", "mask_step"} < set(smoke.TRAIN_PATHS)
     paths = {p: _counts() for p in smoke.MODEL_PATHS}
     paths[path] = _counts(**over)
     if ok:
@@ -255,12 +264,17 @@ def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
     ("bm_train", {"k4": 0, "k4_fixed": 0}, False),
     ("stream", {"k4_fixed": 46}, False),
     ("int8_serve", {"k3_fixed": 61}, False),
+    ("unimlvg_serve", {"k3_fixed": 61}, False),
+    ("branch_types", {"k4_fixed": 46}, False),
+    ("mask_step", {"k3": 0, "k3_fixed": 0}, False),
 ])
 def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
-    """Every K3/K4 launch of the six DiT paths must have run the d-1536
+    """Every K3/K4 launch of the ten DiT paths must have run the d-1536
     kernel of ``csrc/adaln.cu``, and each path must have launched both."""
     assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train",
-                                    "stream", "int8_serve"}
+                                    "stream", "int8_serve", "unimlvg_serve",
+                                    "unimlvg_train", "branch_types",
+                                    "mask_step"}
     paths = {p: _adaln_counts() for p in smoke.DIT_PATHS}
     paths[path] = _adaln_counts(**over)
     if ok:
@@ -352,11 +366,11 @@ def test_rasters_must_move_the_output(smoke, move, ok):
     moved = base + move * base.norm() * direction
     assert smoke.RASTER_MIN_MOVE == 1e-3
     if ok:
-        got = smoke.check_rasters_move(moved, base, "made-up")
+        got = smoke.check_moves(moved, base, "made-up", "the rasters")
         assert got == pytest.approx(move, rel=1e-4)
     else:
         with pytest.raises(SystemExit):
-            smoke.check_rasters_move(moved, base, "made-up")
+            smoke.check_moves(moved, base, "made-up", "the rasters")
 
 
 class _FakeOptimizer:
@@ -747,3 +761,219 @@ def test_tiny_lidar_dit_reaches_k1():
     assert cfg["temporal_attention_type"] == "rowwise"
     assert flash_tail.supported(seq, seq, cfg["attention_head_dim"])
     assert not flash_attention.supported(seq, seq, cfg["attention_head_dim"])
+
+
+# -- UniMLVG, the branch types, MaskGWM and the temporal VAE (phases 15-18) --
+
+def _unimlvg_counts(**over) -> dict:
+    """The launch census of phase 15's rollout (8 CFG forwards) as the
+    card gave it."""
+    counts = {
+        "flash_tail": 344, "flash_tail_sm90": 344, "flash_attention": 0,
+        "flash_tail_by_seq": {602: 192, 448: 104, 168: 48},
+        "flash_tail_by_shape": {"72,602,24,64": 192, "72,448,24,64": 104,
+                                "192,168,24,64": 48},
+        "adaln_modulate": 496, "residual_adaln_modulate": 376,
+        "adaln_modulate_by_shape": {"72,448,1536": 304, "72,154,1536": 192},
+        "residual_adaln_modulate_by_shape": {"72,448,1536": 192,
+                                             "72,154,1536": 184}}
+    counts.update(over)
+    return counts
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"flash_tail_by_shape": {"72,448,24,64": 104, "192,168,24,64": 48}},
+     False),
+    ({"flash_tail_by_seq": {602: 192, 448: 104}}, False),
+    ({"adaln_modulate": 495}, False),
+    ({"residual_adaln_modulate": 377}, False),
+    ({"adaln_modulate_by_shape": {"72,448,1536": 496},
+      "residual_adaln_modulate_by_shape": {"72,448,1536": 376}}, False),
+])
+def test_unimlvg_census(smoke, over, ok):
+    """Phase 15: K1 at (72, 602, 24, 64) and at s 448 and 168, K3 62 and
+    K4 47 a CFG forward at both (72, 448 | 154, 1536) shapes."""
+    if ok:
+        smoke.check_unimlvg_census(_unimlvg_counts(**over), 8, "made-up")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_unimlvg_census(_unimlvg_counts(**over), 8,
+                                       "made-up")
+
+
+def test_branch_k7_shapes_follow_the_geometry(smoke):
+    """Each branch type's K7 shape from the geometry at the CFG batch (2 x
+    6 frames x 6 views of 16 x 28 patches) and its launches from the
+    UniMLVG config's branch layers; every shape a K7 shape and in phase
+    3's list."""
+    import json
+
+    from opendwm_tpu_torch.ops import flash_attention
+
+    model = json.loads(smoke.UNIMLVG_CONFIG.read_text())["pipeline"]["model"]
+    b, t, v = 2, smoke.FRAMES, smoke.VIEWS
+    l = (smoke.LAT_H // 2) * (smoke.LAT_W // 2)
+    want = {"crossview_full": ((b * t, v * l),
+                               len(model["crossview_block_layers"])),
+            "crossview_fuse": ((b * v, t * 3 * l),
+                               len(model["crossview_block_layers"])),
+            "crossview_adj_fuse": ((b * t * v, 2 * 3 * l),
+                                   len(model["crossview_block_layers"])),
+            "temporal_full": ((b * v, t * l),
+                              len(model["temporal_block_layers"]))}
+    assert {k: (shape, n) for k, (_, _, shape, n)
+            in smoke.BRANCH_K7.items()} == want
+    assert {shape for shape, _ in want.values()} == \
+        set(smoke.DIT_K7_SHAPES)
+    for _, s in smoke.DIT_K7_SHAPES:
+        assert flash_attention.supported(s, s, 64)
+    for name, (attr, kind, _, _) in smoke.BRANCH_K7.items():
+        assert attr.split("_")[0] == name.split("_")[0] and \
+            name.endswith(kind)
+
+
+def test_mask_k1_shape_follows_the_defaults(smoke):
+    """MaskGWM's defaults keep int(448 x 0.75) = 336 tokens a view-frame;
+    with the 154 text tokens the joint attention of a batch-1 step is K1's
+    (36, 490), its dual attention (36, 336); K3/K4 modulate (36, 336) and,
+    from the first decoder layer, the fp32 (36, 448). Phase 3 holds each
+    against its plain version."""
+    from opendwm_tpu_torch.models.mask_layers import MaskController
+
+    mc = MaskController(hidden_size=8, num_heads=2, attention_head_dim=4)
+    l = (smoke.LAT_H // 2) * (smoke.LAT_W // 2)
+    keep = mc.len_keep(l)
+    n = smoke.FRAMES * smoke.VIEWS
+    assert (mc.mask_ratio, mc.decode_layer, keep) == (0.25, 5, 336)
+    assert smoke.MASK_ATTN_SHAPES == ((n, keep + smoke.TEXT_TOKENS, 24),
+                                      (n, keep, 24))
+    assert smoke.MASK_ADALN_SHAPE == (n, keep, 1536)
+    assert smoke.MASK_ADALN_FP32_SHAPE == (n, l, 1536)
+    assert set(smoke.MASK_ATTN_SHAPES) <= set(smoke.K1_CHECKED)
+    assert set(smoke.MASK_ATTN_SHAPES) <= set(smoke.K2_CHECKED)
+    assert {smoke.MASK_ADALN_SHAPE, smoke.MASK_ADALN_FP32_SHAPE} <= \
+        set(smoke.ADALN_SHAPES)
+    for _, s, _ in smoke.MASK_ATTN_SHAPES:
+        assert flash_tail.supported(s, s, 64)
+    assert keep % (smoke.LAT_H // 2) == 0  # whole rows for the branches
+
+
+def _mask_counts(**over) -> dict:
+    """The masked step's launch census as the card gave it."""
+    counts = {"flash_tail": 77, "flash_tail_sm90": 77,
+              "flash_tail_by_shape": {"36,490,24,64": 38,
+                                      "36,336,24,64": 26,
+                                      "36,448,24,64": 1,
+                                      "36,602,24,64": 10,
+                                      "96,168,24,64": 2},
+              "flash_tail_backward": 39, "flash_tail_backward_sm90": 39,
+              "flash_tail_backward_by_seq": {602: 5, 168: 1, 448: 1,
+                                             490: 19, 336: 13},
+              "adaln_modulate_by_shape": {"36,336,1536": 40,
+                                          "36,448,1536": 12,
+                                          "36,154,1536": 50},
+              "residual_adaln_modulate_by_shape": {"36,336,1536": 38,
+                                                   "36,448,1536": 10,
+                                                   "36,154,1536": 46}}
+    counts.update(over)
+    return counts
+
+
+_STREAM = [torch.bfloat16] * 19 + [torch.float32] * 5
+
+
+@pytest.mark.parametrize("over,stream,loss,ok", [
+    ({}, _STREAM, 1.3, True),
+    ({"flash_tail_by_shape": {"36,490,24,64": 38, "36,336,24,64": 26,
+                              "36,126,24,64": 4}}, _STREAM, 1.3, False),
+    ({"flash_tail_by_shape": {"36,490,24,64": 38}}, _STREAM, 1.3, False),
+    ({"flash_tail_backward_by_seq": {602: 5, 336: 13}}, _STREAM, 1.3,
+     False),
+    ({"flash_tail_backward_by_seq": {490: 19, 336: 13, 252: 2}}, _STREAM,
+     1.3, False),
+    ({"adaln_modulate_by_shape": {"36,448,1536": 12}}, _STREAM, 1.3, False),
+    ({"residual_adaln_modulate_by_shape": {"36,336,1536": 38,
+                                           "36,400,1536": 1}},
+     _STREAM, 1.3, False),
+    ({}, [torch.bfloat16] * 24, 1.3, False),
+    ({}, [torch.float32] * 24, 1.3, False),
+    ({}, _STREAM, float("nan"), False),
+], ids=["ok", "k1-unchecked", "k1-missing", "k2-missing", "k2-unchecked",
+        "k3-missing", "k4-unchecked", "stream-bf16", "stream-fp32",
+        "loss-nan"])
+def test_mask_step_gate(smoke, over, stream, loss, ok):
+    """Phase 16's masked step: K1/K2 at both masked shapes and K3/K4 at
+    the kept tokens' shape, none at a shape phase 3 did not check, the
+    stream bf16 before block 19 and fp32 from it, a finite loss."""
+    if ok:
+        smoke.check_mask_step(_mask_counts(**over), stream, 19, loss)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_mask_step(_mask_counts(**over), stream, 19, loss)
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"inference_rel": 2e-3}, False),
+    ({"rollout_rel": float("nan")}, False),
+    ({"inference_k1_launches": 0}, False),
+])
+def test_tiny_gaps_gate(smoke, over, ok):
+    gaps = {"inference_rel": 1e-6, "rollout_rel": 1e-6,
+            "inference_k1_launches": 6, **over}
+    tols = {"inference_rel": smoke.TINY_TOL, "rollout_rel": smoke.TINY_TOL}
+    if ok:
+        smoke.check_gaps(gaps, tols, "made-up")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_gaps(gaps, tols, "made-up")
+
+
+@pytest.mark.parametrize("move,ok", [(0.0, False), (float("nan"), False),
+                                     (5e-4, False), (0.2, True)])
+def test_cameras_must_move_the_output(smoke, move, ok):
+    base = torch.linspace(1.0, 2.0, 64)
+    moved = base + move * base.norm() * torch.ones(64) / 8.0
+    if ok:
+        assert smoke.check_moves(moved, base, "made-up", "the cameras") == \
+            pytest.approx(move, rel=1e-4)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_moves(moved, base, "made-up", "the cameras")
+
+
+def test_merge_counts_adds_by_shape(smoke):
+    a = {"flash_attention": 6, "flash_attention_by_shape": {"12,2688": 6}}
+    b = {"flash_attention": 12, "flash_attention_by_shape": {"12,2688": 6,
+                                                             "72,2688": 6}}
+    assert smoke.merge_counts(smoke.merge_counts({}, a), b) == {
+        "flash_attention": 18,
+        "flash_attention_by_shape": {"12,2688": 12, "72,2688": 6}}
+
+
+def test_tiny_unimlvg_paths_reach_their_kernels(smoke):
+    """The card checks' tiny geometries: the UniMLVG DiT's joint attention
+    is a K1 shape; each branch type's sequences are K7 shapes; the masked
+    step's kept tokens fill whole rows, and its joint attention is a K1
+    shape before and after the reconstruction."""
+    from opendwm_tpu_torch.ops import flash_attention
+    from opendwm_tpu_torch.perf import unimlvg_tiny as u
+
+    h, w = u.LATENT
+    joint = (h // 2) * (w // 2) + u.TEXT
+    head = u.TINY_DIT["attention_head_dim"]
+    assert flash_tail.supported(joint, joint, head)
+    assert not flash_attention.supported(joint, joint, head)
+    t, v = u.BRANCH_FRAMES, u.BRANCH_VIEWS
+    l = (u.BRANCH_LATENT[0] // 2) * (u.BRANCH_LATENT[1] // 2)
+    for s in (v * l, t * 3 * l, 2 * 3 * l, t * l):
+        assert flash_attention.supported(s, s, head)
+    assert set(u.BRANCH_TYPES) == set(smoke.BRANCH_K7)
+    assert int(l * 0.75) % (u.BRANCH_LATENT[0] // 2) == 0
+    l = (u.MASK_LATENT[0] // 2) * (u.MASK_LATENT[1] // 2)
+    text = u.branch_inputs(torch.Generator())["encoder_hidden_states"]
+    for s in (int(l * 0.75), l):  # before and after the reconstruction
+        joint = s + text.shape[-2]
+        assert flash_tail.supported(joint, joint, head)
+    assert int(l * 0.75) % (u.MASK_LATENT[0] // 2) == 0
