@@ -5,8 +5,10 @@ serving and training paths, the layout-conditioned (box + map) flagship's
 DiT and UNet serving and DiT training paths, int8 W8A8 serving of the DiT,
 the UNet and the VAE, LiDAR serving (MaskGIT generation, its rollout and
 the LiDAR DiT), UniMLVG serving and training, the DiT's other cross-view
-and temporal types and MaskGWM, the causal temporal VAE, the
-tail-attention tiling experiment and the attention shoot-out on one GPU.
+and temporal types and MaskGWM, the causal temporal VAE, LiDAR training
+(the VQ and KL tokenizers with the DVGO renderer, MaskGIT, the LiDAR DiT)
+and the LiDAR UNet, the tail-attention tiling experiment and the attention
+shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-stream]
@@ -254,11 +256,44 @@ Phases; any failure raises and exits non-zero:
    frames of 32 x 56 to 17 frames of 256 x 448 and ``encode_to_scaled``
    back, ``TVAE_CHUNK`` views a call, each timed with its peak memory.
    Phases 15-18 log their seconds.
+19. LiDAR tokenizer training (``configs/lidar/lidar_vqvae_nwa.json``, fp32:
+   12 + 12 Swin blocks at 512, 2048 x 1024 codes, a 40 x 640 x 640 grid,
+   768 ray steps) on 4 x 2 frames of 32,768 points in the voxelizer's box
+   (1,024 a frame masked): the tiny ``LidarCodebook`` and ``LidarVAE``
+   steps on the card against the CPU first (``perf/lidar_train_tiny.py``,
+   1e-3); 3 steps (s a step, peak), the code ages and usage moved and the
+   reservoir full after step 1; one step profiled with the render and the
+   Swin encoder and decoder as ranges; the DVGO render's forward and
+   backward alone (samples a second, its share of a step); a forced
+   revival at the synthetic config's 64 codes (the codebook moves, the
+   ages are 0); then ``configs/lidar/lidar_vae_nwak.json``'s ``LidarVAE``
+   at the same geometry, 2 steps, finite, the KL term above 0;
+20. MaskGIT training (``configs/lidar/lidar_maskgit_vq80k_layout_ns.json``:
+   24 blocks at 512, 80,000 cosine codes, the extra embedding and its
+   perturbation, 6-channel rasters; the transformer in bf16 compute over
+   fp32 masters), the tokenizer saved by ``save_model_only`` and loaded
+   through ``load_vq_params``: the tiny step against the CPU first; 3
+   steps of 8 x 1 frame (s a step, peak, finite ``ce_loss`` and
+   ``acc_0``);
+21. LiDAR DiT training (``configs/lidar/lidar_diffusion_dit_temporal_ns.json``:
+   16 blocks at d 1024, bf16 compute over fp32 masters, remat as the config
+   sets it) at batch 4 of 6 frames: the tiny step against the CPU first (K1
+   and K2), then 3 steps as phase 6; K1 and K2 at (160, 240, 16, 64) only,
+   K3/K4 on the runtime-width kernel at (24, 1600 | 1, 1024), counted per
+   step;
+22. the LiDAR UNet (``configs/lidar/lidar_diffusion_unet_temporal_ns.json``:
+   a VAEPointCloud of 64 latent channels and the UNet 320-1280 in bf16 over
+   fp32 masters) on 80 x 80 latents x 4 frames x 1 view: the tiny pipeline
+   against the CPU first (K7 forward and backward); DDIM with CFG 3.0, cut
+   from 50 to 4 steps (s a generation, peak); 3 train steps at the
+   config's batch 4 as phase 6; K7 at (8 | 16, 6400, 6400, 5, 64) and K1
+   (and K2) at the shapes phase 3 held, nothing else.
+   Phases 19-22 log their seconds.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the fifteen model
+but the shoot-out, every K1 and K7 forward launch of the eighteen model
 paths must have run the Hopper forward, every K2 and K7 backward launch of
-the five training paths the Hopper backward, every bf16 K5 and K6
+the seven training paths the Hopper backward, every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
 of the ten DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
@@ -272,6 +307,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -314,11 +350,12 @@ BM_OPTIMIZER = {"flat": True, "mu_dtype": "bfloat16"}
 RASTER_MIN_MOVE = 1e-3
 # The paths whose launch counters the body gates read.
 TRAIN_PATHS = ("train", "unet_train", "bm_train", "unimlvg_train",
-               "mask_step")
+               "mask_step", "lidar_dit_train", "lidar_unet_train")
 MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
                "bm_unet_serve", "bm_train", "stream", "int8_serve",
                "int8_unet", "lidar_dit", "unimlvg_serve", "unimlvg_train",
-               "branch_types", "mask_step")
+               "branch_types", "mask_step", "lidar_dit_train",
+               "lidar_unet_serve", "lidar_unet_train")
 DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
              "int8_serve", "unimlvg_serve", "unimlvg_train", "branch_types",
              "mask_step")
@@ -346,6 +383,45 @@ LIDAR_DIT_FORWARDS = 3  # CFG forwards timed alone
 LIDAR_K1_SHAPE = (80, 240, 16)
 LIDAR_K1_PER_FORWARD, LIDAR_K3_PER_FORWARD, LIDAR_K4_PER_FORWARD = 8, 33, 31
 LIDAR_TINY_TOL = 1e-3
+# LiDAR training and the LiDAR UNet (phases 19-22), at the configs' full
+# width with random weights drawn on the card: the VQ tokenizer (4 x 2
+# frames of LIDAR_POINTS points in the voxelizer's box, the last
+# TOKENIZER_MASKED of each frame masked; 768 ray steps a point), the KL
+# tokenizer at the same geometry, MaskGIT on the 80k cosine codebook (8 x 1
+# frame), the LiDAR DiT (batch 4 of 6 frames) and the LiDAR UNet over a
+# VAEPointCloud (80 x 80 latents x 4 frames; DDIM with CFG cut from 50 to
+# LIDAR_UNET_STEPS steps, and a train step at the config's batch 4).
+LIDAR_VQVAE_CONFIG = REPO / "configs/lidar/lidar_vqvae_nwa.json"
+LIDAR_VAE_CONFIG = REPO / "configs/lidar/lidar_vae_nwak.json"
+LIDAR_VQVAE_SYNTHETIC = REPO / "configs/lidar/lidar_vqvae_synthetic.json"
+LIDAR_MASKGIT_TRAIN_CONFIG = \
+    REPO / "configs/lidar/lidar_maskgit_vq80k_layout_ns.json"
+LIDAR_UNET_CONFIG = \
+    REPO / "configs/lidar/lidar_diffusion_unet_temporal_ns.json"
+TOKENIZER_BATCH, TOKENIZER_FRAMES, TOKENIZER_MASKED = 4, 2, 1024
+LIDAR_TRAIN_STEPS, LIDAR_VAE_STEPS = 3, 2
+MASKGIT_TRAIN_BATCH = 8
+LIDAR_DIT_TRAIN_BATCH = 4
+LIDAR_UNET_FRAMES, LIDAR_UNET_BATCH, LIDAR_UNET_STEPS = 4, 4, 4
+# The LiDAR DiT's K1 (and K2) at the train batch: 4 x 40 rows of 6 x 40
+# tokens; its K3/K4 at 4 x 6 frames of 1600 latent tokens and 1 text token.
+LIDAR_DIT_TRAIN_K1_SHAPE = (160, 240, 16)
+LIDAR_TRAIN_ADALN_SHAPES = ((24, 1600, 1024), (24, 1, 1024))
+# The LiDAR UNet's K1 (batch, seq, heads) a forward, at CFG batch 2 of 4
+# frames (serving) and at the train batch of 4 x 4 frames: the level-0
+# rowwise temporal branch (80 rows of 4 x 80 tokens, 5 heads), the level-1
+# one (40 rows of 4 x 40, 10 heads) and the level-2 self-attention (20 x
+# 20 tokens, 20 heads); its K7 at the level-0 self-attention (80 x 80).
+LIDAR_UNET_K1_SERVE = ((160, 320, 5), (80, 160, 10), (8, 400, 20))
+LIDAR_UNET_K1_TRAIN = ((320, 320, 5), (160, 160, 10), (16, 400, 20))
+LIDAR_UNET_K7_SERVE, LIDAR_UNET_K7_TRAIN = (8, 6400, 6400, 5), \
+    (16, 6400, 6400, 5)
+# The LiDAR UNet's parameters that get no gradient: the added-time
+# embedding (the LiDAR pipeline feeds no added_time_ids) and the norm
+# before each cross-attention (one zero text token: a single key, so the
+# queries' gradient is 0), whose bias starts at 0 and so stays there.
+LIDAR_UNET_MAY_STAY = (r"^add_embedding\.",
+                       r"transformer_blocks\.\d+\.norm2\.bias$")
 # UniMLVG stage 3 (the best video model the repo publishes, with explicit
 # perspective and view modeling and ``pred`` with 3 visible frames) and the
 # DiT's other options, at phases 5 and 9's geometry; its CFG forwards are
@@ -419,16 +495,23 @@ UNET_K2_SHAPES = ((192, 336, 5), (36, 448, 10), (96, 168, 10))  # batch 1
 # serving and training shapes (the stream's too), the LiDAR DiT's, and the
 # masked step's; the UNet's K1 shapes apart (check_unet_attention).
 K1_CHECKED = tuple((b, s, 24) for b, s in ATTN_SHAPES + TRAIN_ATTN_SHAPES) \
-    + (LIDAR_K1_SHAPE,) + MASK_ATTN_SHAPES
+    + (LIDAR_K1_SHAPE, LIDAR_DIT_TRAIN_K1_SHAPE) + MASK_ATTN_SHAPES
 K2_CHECKED = tuple((b, s, 24) for b, s in TRAIN_ATTN_SHAPES) \
-    + UNET_K2_SHAPES + MASK_ATTN_SHAPES
+    + UNET_K2_SHAPES + MASK_ATTN_SHAPES + (LIDAR_DIT_TRAIN_K1_SHAPE,) \
+    + LIDAR_UNET_K1_TRAIN
 K7_SHAPES = ((72, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
-             (8, 1792, 3584, 5, True))  # (batch, q, kv, heads, causal)
+             (8, 1792, 3584, 5, True), LIDAR_UNET_K7_TRAIN + (False,))
+# (batch, q, kv, heads, causal)
 # The K7 backward at the UNet's training batch (1 x 36 view-frames, no
-# CFG), at the LiDAR UNet's BEV tokens, and causal with q shorter and
-# longer than kv; fp32 at a small causal shape.
+# CFG), at the LiDAR UNet's BEV tokens (and its train batch), and causal
+# with q shorter and longer than kv; fp32 at a small causal shape.
 K7_BWD_SHAPES = ((36, 1792, 1792, 5, False), (8, 6400, 6400, 5, False),
-                 (8, 1792, 3584, 5, True), (8, 3584, 1792, 5, True))
+                 (8, 1792, 3584, 5, True), (8, 3584, 1792, 5, True),
+                 LIDAR_UNET_K7_TRAIN + (False,))
+# the plain K7 backward runs over batch chunks of at most this many rows
+# (the fp32 probabilities, their gradient and dS at (16, 6400, 5) would
+# take ~40 GB)
+K7_BWD_PLAIN_BATCH = 8
 K7_BWD_FP32 = (2, 384, 256, 5, True)
 # K7-seg (flash attention with segment ids): the shoot-out's flashpad call
 # at S 602 padded to 640, pads in segment 1 (batch, seq, padded seq); and
@@ -695,12 +778,14 @@ def check_attention_backward(dev, flash_tail):
 
 
 def check_unet_attention(dev, flash_tail, flash_attention):
-    """K1 at the UNet's shapes and K7 at its own, each against its plain
+    """K1 at the UNet's shapes (the CTSD-2.1 UNet's and the LiDAR UNet's
+    serving and training ones) and K7 at its own, each against its plain
     version in bf16 with both times; K7 also in fp32."""
     g = torch.Generator(dev).manual_seed(SEED + 3)
     k1_rows, k7_rows = [], []
     scale = 64 ** -0.5
-    for b, s, h in UNET_K1_SHAPES:
+    for b, s, h in \
+            UNET_K1_SHAPES + LIDAR_UNET_K1_SERVE + LIDAR_UNET_K1_TRAIN:
         q, k, v = (torch.randn(b, s, h, 64, generator=g, device=dev,
                                dtype=torch.bfloat16) for _ in range(3))
         out = flash_tail.tail_masked_attention(q, k, v, scale)
@@ -843,9 +928,15 @@ def check_flash_attention_backward(dev, flash_attention):
             return flash_attention.flash_attention_backward(
                 q, k, v, out, do, lse, scale, causal)
 
-        def plain():
-            return flash_attention.flash_attention_backward_plain(
-                q, k, v, ref_out, ref_lse, do, scale, causal)
+        def plain():  # over batch chunks; lse rows are (batch, head)
+            lse_rows = ref_lse.reshape(b, h, -1)
+            parts = []
+            for i in range(0, b, K7_BWD_PLAIN_BATCH):
+                j = slice(i, i + K7_BWD_PLAIN_BATCH)
+                parts.append(flash_attention.flash_attention_backward_plain(
+                    q[j], k[j], v[j], ref_out[j],
+                    lse_rows[j].reshape(-1, sq), do[j], scale, causal))
+            return tuple(torch.cat(grads_) for grads_ in zip(*parts))
 
         before = flash_attention.sm90_backward_launches
         grads, ref = kernel(), plain()
@@ -1230,7 +1321,8 @@ def check_adaln(dev, fused_adaln):
     cases = [(s, torch.bfloat16) for s in ADALN_SHAPES] + \
         [(ADALN_SHAPES[0], torch.float16), (ADALN_SHAPES[0], torch.float32),
          (MASK_ADALN_FP32_SHAPE, torch.float32)] \
-        + [(s, torch.bfloat16) for s in LIDAR_ADALN_SHAPES]
+        + [(s, torch.bfloat16)
+           for s in LIDAR_ADALN_SHAPES + LIDAR_TRAIN_ADALN_SHAPES]
     for (n, l, d), dtype in cases:
         inputs = adaln_inputs(n, l, d, dtype, dev, g)
         for name in rows:
@@ -2286,12 +2378,15 @@ def check_train_seqs(counts: dict, tag: str) -> None:
                  "steps")
 
 
-def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False):
+def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False,
+                frames_per_step: int = FRAMES, unit: str = "6-view frames",
+                may_stay: tuple = ()):
     """``TRAIN_STEPS`` train steps of ``pipe`` on ``batch`` with an explicit
     generator, steps 2 onward timed; between step 1 and the timed steps, the
     launches by phase on one untimed forward + backward (no update). Fails
     on a non-finite loss or gradient norm, or if fewer than 99% of the
-    parameters changed; then times the update alone. Returns the launches
+    parameters changed (of those whose names match none of the
+    ``may_stay`` patterns); then times the update alone. Returns the launches
     of the timed steps and {s_per_step, peak_gib, update_s, moments:
     ``moment_census`` of the optimizer}."""
     state = pipe.init_state()
@@ -2329,7 +2424,8 @@ def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False):
     counts = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     moved = [not torch.equal(p.detach().reshape(-1)[:256], h)
-             for p, h in zip(params, heads_before)]
+             or any(re.search(pattern, n) for pattern in may_stay)
+             for n, p, h in zip(names, params, heads_before)]
     changed = sum(moved)
     unchanged = [n for n, m in zip(names, moved) if not m]
     s_per_step = sum(r[0] for r in records[1:]) / (len(records) - 1)
@@ -2337,7 +2433,7 @@ def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False):
         log(f"{tag} step {i}: {dt:.3f} s, sd_loss {loss_v:.6f}, grad_norm "
             f"{gn:.4f}{' (warm-up)' if i == 1 else ''}")
     log(f"{tag}: {s_per_step:.3f} s per step (steps 2-{TRAIN_STEPS}), "
-        f"{FRAMES / s_per_step:.2f} 6-view frames/s; peak memory "
+        f"{frames_per_step / s_per_step:.2f} {unit}/s; peak memory "
         f"{peak_gib:.2f} GiB; parameters changed: {changed} of "
         f"{len(params)} tensors (unchanged: {unchanged[:5]})")
     log(f"launches during the timed {tag} steps: {json.dumps(counts)}")
@@ -2841,29 +2937,43 @@ def check_tiny_stream(dev, DiTCrossviewTemporal, StreamingCTSDPipeline,
 
 # -- LiDAR serving ------------------------------------------------------------
 
-def lidar_batch(dev, gen, frames: int) -> dict:
-    """``bench.py``'s LiDAR geometry (``:276-288``): ``LIDAR_POINTS`` points
-    a frame uniform in [-50, 50]³, all valid, and random ``LIDAR_RASTER``²
-    x 3 box and map BEV rasters a frame (a quarter of the pixels uniform,
-    the rest 0), so that the rasters move the output."""
-    shape = (frames, LIDAR_RASTER, LIDAR_RASTER, 3)
-
-    def raster():
-        on = torch.rand(shape, generator=gen, device=dev) < 0.25
-        return torch.rand(shape, generator=gen, device=dev) * on
-
-    return {
-        "lidar_points": torch.rand(1, frames, LIDAR_POINTS, 3, generator=gen,
-                                   device=dev) * 100 - 50,
-        "lidar_points_mask": torch.ones(1, frames, LIDAR_POINTS,
-                                        dtype=torch.bool, device=dev),
-        "3dbox_bev_images": raster(), "hdmap_bev_images": raster()}
+def lidar_batch(dev, gen, frames: int, b: int = 1, voxelizer=None,
+                masked: int = 0, rasters: bool = True) -> dict:
+    """``bench.py``'s LiDAR geometry (``:276-288``): ``b`` x ``frames``
+    frames of ``LIDAR_POINTS`` points uniform in [-50, 50]³ (or in
+    ``voxelizer``'s box), all valid but the last ``masked`` of a frame
+    (masked and zeroed: padding); with ``rasters``, random
+    ``LIDAR_RASTER``² x 3 box and map BEV rasters a frame (b·frames, H,
+    W, 3; a quarter of the pixels uniform, the rest 0), so that the rasters
+    move the output."""
+    if voxelizer is None:
+        lo = torch.full((3,), -50.0, device=dev)
+        hi = torch.full((3,), 50.0, device=dev)
+    else:
+        v = voxelizer
+        lo = torch.tensor([v.x_min, v.y_min, v.z_min], device=dev)
+        hi = torch.tensor([v.x_max, v.y_max, v.z_max], device=dev)
+    pts = lo + torch.rand(b, frames, LIDAR_POINTS, 3, generator=gen,
+                          device=dev) * (hi - lo)
+    mask = torch.ones(b, frames, LIDAR_POINTS, dtype=torch.bool, device=dev)
+    if masked:
+        mask[..., -masked:] = False
+        pts[..., -masked:, :] = 0.0
+    batch = {"lidar_points": pts, "lidar_points_mask": mask}
+    if rasters:
+        shape = (b * frames, LIDAR_RASTER, LIDAR_RASTER, 3)
+        for key in ("3dbox_bev_images", "hdmap_bev_images"):
+            on = torch.rand(shape, generator=gen, device=dev) < 0.25
+            batch[key] = torch.rand(shape, generator=gen, device=dev) * on
+    return batch
 
 
 def build_lidar(create_instance_from_config, config: Path, dev,
-                parts: tuple, bf16: tuple = ()):
+                parts: tuple, bf16: tuple = (), fp32_masters: bool = False):
     """The pipeline of ``config`` at full width with ``bf16``'s modules in
-    bf16 compute, its ``parts`` drawn on the card from ``SEED``."""
+    bf16 compute (and with ``fp32_masters`` its ``model`` built with fp32
+    parameters, to train), its ``parts`` drawn on the card from ``SEED``,
+    in eval mode."""
     cfg = json.loads(config.read_text())["pipeline"]
     for part in bf16:
         node = cfg
@@ -2871,6 +2981,8 @@ def build_lidar(create_instance_from_config, config: Path, dev,
             node = node[key]
         node["dtype"] = {"_class_name": "get_class",
                          "class_name": "torch.bfloat16"}
+    if fp32_masters:
+        cfg["model"]["param_dtype"] = torch.float32
     with torch.device("meta"):
         pipe = create_instance_from_config(cfg)
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -3699,6 +3811,388 @@ def run_temporal_vae(dev, ops, TemporalAutoencoderKL, unimlvg_tiny):
     return counts, metrics
 
 
+def check_launch_shapes(c: dict, want: dict, tag: str) -> None:
+    """Each by-shape census of ``want`` (a ``launch_counts`` key such as
+    ``flash_tail_by_shape``: the shapes phase 3 held, as tuples) launched at
+    exactly those shapes, each at least once."""
+    for key, shapes in want.items():
+        allowed = {",".join(map(str, s)) for s in shapes}
+        got = {k for k, n in c.get(key, {}).items() if n}
+        log(f"{tag}: {key} {json.dumps(c.get(key, {}))}")
+        if got != allowed:
+            fail(f"{tag}: {key} launched at {sorted(got)}, phase 3 held "
+                 f"{sorted(allowed)}")
+
+
+def lidar_steps(pipe, state, batch, generator, steps: int, tag: str,
+                first: int = 1) -> dict:
+    """``steps`` train steps (numbered from ``first``) timed one by one
+    (host seconds ending in a synchronize) with the peak memory; fails on a
+    non-finite metric. Returns {s_per_step (the mean after the first),
+    step_s, peak_gib, metrics (the last step's)}."""
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(steps):
+        (state, metrics), dt = sync_s(lambda: pipe.train_step(
+            state, batch, generator))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        times.append(dt)
+        log(f"{tag} step {first + i}: {dt:.3f} s, {json.dumps(metrics)}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"{tag}: a metric of step {first + i} is not finite: "
+                 f"{metrics}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return {"s_per_step": sum(times[1:]) / max(1, len(times) - 1),
+            "step_s": times, "peak_gib": peak, "metrics": metrics}
+
+
+def render_alone(model, density, batch) -> dict:
+    """The DVGO render of ``density`` (frames, F, Zc, H, W) against the
+    batch's rays, forward and backward (its chunks recomputed), alone:
+    device ms by CUDA events over 2 runs after one warm-up, and samples
+    (rays x steps x frames) a second."""
+    grid = density.detach().requires_grad_()
+
+    def run():
+        depth_loss, sdf_loss, _ = model.render_frames(
+            grid, batch["lidar_points"], batch["lidar_points_mask"])
+        (depth_loss + sdf_loss).backward()
+        grid.grad = None
+        model.zero_grad(set_to_none=True)
+
+    run()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(2):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 2
+    frames, rays = grid.shape[0], batch["lidar_points"].shape[-2]
+    samples = frames * rays * model.ray_max_steps
+    return {"ms": ms, "samples": samples,
+            "samples_per_s": samples / (ms / 1e3)}
+
+
+def run_lidar_tokenizer_train(dev, create_instance_from_config, ops):
+    """Phase 19: the VQ tokenizer's ``LidarCodebook`` at full width
+    (``LIDAR_VQVAE_CONFIG``, fp32 as the config): the tiny step against the
+    CPU first; ``LIDAR_TRAIN_STEPS`` steps timed with the peak; the code
+    statistics and the reservoir; one step profiled with the render, the
+    encoder and the decoder as ranges; the render's forward and backward
+    alone (samples a second, its share of a step); a forced revival at the
+    synthetic config's size; then ``LidarVAE`` (``LIDAR_VAE_CONFIG``) at
+    the same geometry."""
+    from opendwm_tpu_torch.perf import lidar_train_tiny
+
+    tol = lidar_train_tiny.TOL
+    for name in ("codebook_gaps", "vae_gaps"):
+        gaps = getattr(lidar_train_tiny, name)(dev)
+        check_gaps(gaps, {k: tol for k in gaps if k.endswith("_rel")},
+                   f"tiny {name[:-5]} step")
+        if not all(v for k, v in gaps.items() if k.endswith("_equal")) or \
+                gaps.get("attention_kernels", 0):
+            fail(f"tiny {name[:-5]} step: {gaps}")
+
+    tag = "lidar tokenizer train"
+    pipe, gen = build_lidar(create_instance_from_config,
+                            LIDAR_VQVAE_CONFIG, dev, ("model",))
+    model = pipe.model
+    batch = lidar_batch(dev, gen, TOKENIZER_FRAMES, TOKENIZER_BATCH,
+                        model.voxelizer, TOKENIZER_MASKED, rasters=False)
+    n_e = model.vector_quantizer.n_e
+    log(f"{tag}: {LIDAR_VQVAE_CONFIG.relative_to(REPO)}: {n_e} codes x "
+        f"{model.vector_quantizer.e_dim}, grid "
+        f"{model.voxelizer.grid_shape}, {model.ray_max_steps} ray steps of "
+        f"{model.ray_stepsize} m, batch {TOKENIZER_BATCH} x "
+        f"{TOKENIZER_FRAMES} frames of {LIDAR_POINTS} points "
+        f"({TOKENIZER_MASKED} masked a frame)")
+    state = pipe.init_state()
+    generator = torch.Generator(dev).manual_seed(SEED + 1)
+    ops.reset_launch_counts()
+    first = lidar_steps(pipe, state, batch, generator, 1, tag)
+    if not state.reservoir_initialized or \
+            not bool((state.reservoir.abs().sum(-1) > 0).all()):
+        fail(f"{tag}: the reservoir is not full after step 1")
+    used = int((state.code_age == 0).sum())
+    tokens = int(state.code_usage.sum())
+    grid = model.lidar_encoder.img_size // model.lidar_encoder.patch_size
+    if used == 0 or tokens != TOKENIZER_BATCH * TOKENIZER_FRAMES * grid ** 2 \
+            or float(state.code_age.max()) != 10001.0:
+        fail(f"{tag}: code stats after step 1: {used} codes used, usage "
+             f"{tokens}, oldest {float(state.code_age.max())}")
+    timed = lidar_steps(pipe, state, batch, generator,
+                        LIDAR_TRAIN_STEPS - 1, tag, first=2)
+    counts = ops.launch_counts()
+    timed["s_per_step"] = sum(timed["step_s"]) / len(timed["step_s"])
+    timed["step_s"] = first["step_s"] + timed["step_s"]
+    timed["peak_gib"] = max(first["peak_gib"], timed["peak_gib"])
+    log(f"{tag}: {used} of {n_e} codes used at step 1; the reservoir full "
+        f"({state.reservoir.shape[0]} rows)")
+
+    prof = profiled(
+        lambda: pipe.train_step(state, batch, generator),
+        f"{tag} step (profiled)",
+        ranges=((model, "render_frames", "dvgo_render_forward"),
+                (model.lidar_encoder, "forward", "swin_encoder_forward"),
+                (model.lidar_decoder, "forward", "swin_decoder_forward")))
+    with torch.no_grad():
+        _, z, _, _ = model.encode(batch["lidar_points"],
+                                  batch["lidar_points_mask"])
+        density, _ = model.lidar_decoder(z, density=True)
+    del z
+    render = render_alone(model, density, batch)
+    del density
+    step_ms = 1e3 * timed["s_per_step"]
+    render["share_of_step"] = render["ms"] / step_ms
+    log(f"{tag}: the DVGO render alone (forward + backward, "
+        f"{TOKENIZER_BATCH * TOKENIZER_FRAMES} frames): {render['ms']:.1f} "
+        f"device ms, {render['samples']} samples, "
+        f"{render['samples_per_s'] / 1e9:.3f} G samples/s, "
+        f"{100 * render['share_of_step']:.1f}% of a {step_ms:.1f} ms step")
+
+    # a forced revival at the synthetic config's size
+    small, _ = build_lidar(create_instance_from_config,
+                           LIDAR_VQVAE_SYNTHETIC, dev, ("model",))
+    small_state = small.init_state()
+    v = small.model.voxelizer
+    small_batch = {"lidar_points": (torch.rand(
+        2, 2, 128, 3, generator=gen, device=dev) - 0.5) * 12,
+        "lidar_points_mask": torch.ones(2, 2, 128, dtype=torch.bool,
+                                        device=dev)}
+    small.train_step(small_state, small_batch, generator)
+    vq = small.model.vector_quantizer
+    small_state.code_age[: vq.n_e // 2] = float(vq.dead_limit)
+    before = vq.embedding.detach().clone()
+    (small_state, revived), revive_s = sync_s(
+        lambda: small.maybe_revive_codebook(small_state, seed=SEED))
+    if not revived or torch.equal(before, vq.embedding) or \
+            float(small_state.code_age.abs().sum()) != 0.0:
+        fail(f"{tag}: the forced revival did not revive the codebook "
+             f"({revived})")
+    log(f"{tag}: a forced revival at {vq.n_e} codes x {vq.e_dim} (grid "
+        f"{v.grid_shape}): {revive_s:.3f} s on the host; the codebook moved "
+        f"by {rel_err(vq.embedding.detach(), before):.3e}, ages 0")
+    del small, small_state, pipe, state, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vae_tag = "lidar vae train"
+    vpipe, vgen = build_lidar(create_instance_from_config,
+                              LIDAR_VAE_CONFIG, dev, ("model",))
+    vbatch = lidar_batch(dev, vgen, TOKENIZER_FRAMES, TOKENIZER_BATCH,
+                         vpipe.model.voxelizer, TOKENIZER_MASKED,
+                         rasters=False)
+    vstate = vpipe.init_state()
+    ops.reset_launch_counts()
+    vae = lidar_steps(vpipe, vstate, vbatch, generator, LIDAR_VAE_STEPS,
+                      vae_tag)
+    vae_counts = ops.launch_counts()
+    if not vae["metrics"]["kl_loss"] > 0:
+        fail(f"{vae_tag}: the KL term is {vae['metrics']['kl_loss']}")
+    frames = TOKENIZER_BATCH * TOKENIZER_FRAMES
+    log(f"{tag}: {timed['s_per_step']:.3f} s a step (steps 2-"
+        f"{LIDAR_TRAIN_STEPS}; {frames / timed['s_per_step']:.2f} frames/s), "
+        f"peak {timed['peak_gib']:.2f} GiB; {vae_tag}: "
+        f"{vae['s_per_step']:.3f} s a step, peak {vae['peak_gib']:.2f} GiB")
+    for key, c in (("tokenizer", counts), ("vae", vae_counts)):
+        if c["flash_tail"] or c["flash_attention"]:
+            fail(f"lidar {key} train: an attention kernel launched on a "
+                 "Swin path (its windows carry a position bias)")
+    metrics = {"tokenizer": {k: timed[k] for k in ("s_per_step", "step_s",
+                                                  "peak_gib")},
+               "render": render, "busy": prof["busy"],
+               "step_device_ms": prof["device_ms"],
+               "ranges": prof["ranges"], "revive_s": revive_s,
+               "vae": {k: vae[k] for k in ("s_per_step", "step_s",
+                                          "peak_gib")}}
+    return counts, vae_counts, metrics
+
+
+def run_lidar_maskgit_train(dev, create_instance_from_config, ops):
+    """Phase 20: MaskGIT training at full width
+    (``LIDAR_MASKGIT_TRAIN_CONFIG``: 24 blocks at 512, window 2, 80,000
+    cosine codes, the extra embedding and its perturbation, 6-channel
+    rasters; the transformer in bf16 compute over fp32 masters as phase 12
+    serves it, the tokenizer fp32, frozen, saved by ``save_model_only``
+    and loaded through ``load_vq_params``): the tiny step against the CPU
+    first; ``LIDAR_TRAIN_STEPS`` steps of ``MASKGIT_TRAIN_BATCH`` x 1 frame
+    timed with the peak; finite ``ce_loss`` and ``acc_0``."""
+    from opendwm_tpu_torch import checkpoint
+    from opendwm_tpu_torch.perf import lidar_train_tiny
+
+    gaps = lidar_train_tiny.maskgit_train_gaps(dev)
+    check_gaps(gaps, {k: lidar_train_tiny.TOL for k in gaps
+                      if k.endswith("_rel")}, "tiny MaskGIT step")
+    tag = "lidar maskgit train"
+
+    pipe, gen = build_lidar(create_instance_from_config,
+                            LIDAR_MASKGIT_TRAIN_CONFIG, dev, ("vq", "model"),
+                            bf16=(("bi_directional_transformer",),))
+    path = REPO / "build" / "lidar_maskgit_tokenizer.pt"
+    checkpoint.save_model_only(str(path), pipe.vq)
+    saved = pipe.vq.vector_quantizer.embedding.detach().clone()
+    with torch.no_grad():
+        pipe.vq.vector_quantizer.embedding.zero_()
+    pipe.load_vq_params(checkpoint.load_model_only(str(path)))
+    path.unlink()
+    if not torch.equal(pipe.vq.vector_quantizer.embedding, saved):
+        fail(f"{tag}: load_vq_params did not restore the tokenizer")
+    del saved
+    batch = lidar_batch(dev, gen, 1, MASKGIT_TRAIN_BATCH)
+    state = pipe.init_state()
+    generator = torch.Generator(dev).manual_seed(SEED + 1)
+    ops.reset_launch_counts()
+    out = lidar_steps(pipe, state, batch, generator, LIDAR_TRAIN_STEPS, tag)
+    counts = ops.launch_counts()
+    log(f"{tag}: {out['s_per_step']:.3f} s a step (steps 2-"
+        f"{LIDAR_TRAIN_STEPS}; {MASKGIT_TRAIN_BATCH / out['s_per_step']:.2f}"
+        f" frames/s), peak {out['peak_gib']:.2f} GiB, ce_loss "
+        f"{out['metrics']['ce_loss']:.4f}, acc_0 "
+        f"{out['metrics']['acc_0']:.4f}")
+    if counts["flash_tail"] or counts["flash_attention"]:
+        fail(f"{tag}: an attention kernel launched (its 4-token windows take "
+             "the tiny-sequence form)")
+    return counts, {k: out[k] for k in ("s_per_step", "step_s", "peak_gib",
+                                        "metrics")}
+
+
+def check_lidar_dit_train_census(c: dict, steps: int) -> None:
+    """The LiDAR DiT train steps' launches: K1 and K2 at
+    ``LIDAR_DIT_TRAIN_K1_SHAPE`` only, K2 8 a step (the 8 temporal
+    branches' backward); K3 and K4 on the runtime-width kernel at exactly
+    ``LIDAR_TRAIN_ADALN_SHAPES``, the same count every step and at least
+    a forward's; no K7."""
+    tag = "lidar dit train"
+    shape = (LIDAR_DIT_TRAIN_K1_SHAPE + (64,),)
+    check_launch_shapes(c, {"flash_tail_by_shape": shape,
+                            "flash_tail_backward_by_shape": shape}, tag)
+    if c["flash_tail_backward"] != LIDAR_K1_PER_FORWARD * steps or \
+            c["flash_tail"] < LIDAR_K1_PER_FORWARD * steps:
+        fail(f"{tag}: K1 {c['flash_tail']} and K2 "
+             f"{c['flash_tail_backward']} launches in {steps} steps")
+    for key, per in (("adaln_modulate", LIDAR_K3_PER_FORWARD),
+                     ("residual_adaln_modulate", LIDAR_K4_PER_FORWARD)):
+        log(f"{tag}: {key} {c[key]} launches ({c[key] / steps:g} a step), "
+            f"{c[f'{key}_fixed']} on the d-1536 kernel")
+        if c[key] % steps or c[key] < per * steps or c[f"{key}_fixed"]:
+            fail(f"{tag}: {key} launched {c[key]} times in {steps} steps, "
+                 f"{c[f'{key}_fixed']} on the d-1536 kernel")
+    check_launch_shapes(c, {"adaln_modulate_by_shape":
+                            LIDAR_TRAIN_ADALN_SHAPES,
+                            "residual_adaln_modulate_by_shape":
+                            LIDAR_TRAIN_ADALN_SHAPES}, tag)
+    if c["flash_attention"] or c["flash_attention_backward"]:
+        fail(f"{tag}: K7 launched")
+
+
+def run_lidar_dit_train(dev, create_instance_from_config, ops):
+    """Phase 21: the LiDAR DiT's train step at full width
+    (``LIDAR_DIT_CONFIG``: 16 blocks at d 1024, bf16 compute over fp32
+    masters, remat as the config sets it; the vq80k tokenizer frozen) on
+    ``LIDAR_DIT_TRAIN_BATCH`` x ``LIDAR_DIT_FRAMES`` frames: the tiny step
+    against the CPU first (K1 and K2), then ``drive_train`` and the
+    census."""
+    from opendwm_tpu_torch.perf import lidar_train_tiny
+
+    gaps = lidar_train_tiny.dit_train_gaps(dev)
+    check_gaps(gaps, {k: lidar_train_tiny.TOL for k in gaps
+                      if k.endswith("_rel")}, "tiny LiDAR DiT step")
+    tag = "lidar dit train"
+
+    pipe, gen = build_lidar(create_instance_from_config, LIDAR_DIT_CONFIG,
+                            dev, ("model", "autoencoder"), fp32_masters=True)
+    mc = json.loads(LIDAR_DIT_CONFIG.read_text())["pipeline"]["model"]
+    log(f"{tag}: remat: joint blocks {mc.get('gradient_checkpointing')}; "
+        f"batch {LIDAR_DIT_TRAIN_BATCH} x {LIDAR_DIT_FRAMES} frames")
+    batch = lidar_batch(dev, gen, LIDAR_DIT_FRAMES, LIDAR_DIT_TRAIN_BATCH)
+    frames = LIDAR_DIT_TRAIN_BATCH * LIDAR_DIT_FRAMES
+    counts, metrics = drive_train(dev, pipe, batch, ops, tag,
+                                  frames_per_step=frames,
+                                  unit="LiDAR frames")
+    check_lidar_dit_train_census(counts, TRAIN_STEPS - 1)
+    return counts, metrics
+
+
+def check_lidar_unet_census(c: dict, tag: str, k1: tuple, k7: tuple,
+                            backward: bool) -> None:
+    """The LiDAR UNet path's launches: K1 (and in training K2) at exactly
+    ``k1``'s shapes, K7 (and its backward) at ``k7``, no K3/K4 (the UNet
+    has no AdaLN)."""
+    k1 = tuple(s + (64,) for s in k1)
+    want = {"flash_tail_by_shape": k1,
+            "flash_attention_by_shape": (k7 + (64,),)}
+    if backward:
+        want.update({"flash_tail_backward_by_shape": k1,
+                     "flash_attention_backward_by_shape": (k7 + (64,),)})
+    check_launch_shapes(c, want, tag)
+    if c["adaln_modulate"] or c["residual_adaln_modulate"]:
+        fail(f"{tag}: K3/K4 launched on the UNet")
+
+
+def run_lidar_unet(dev, create_instance_from_config, ops):
+    """Phase 22: the LiDAR UNet (``LIDAR_UNET_CONFIG``: a VAEPointCloud of
+    64 latent channels, fp32, and the UNet 320-1280 in bf16 compute over
+    fp32 masters, remat as the config sets it) on 80 x 80 latents x
+    ``LIDAR_UNET_FRAMES`` frames x 1 view: the tiny pipeline against the
+    CPU first; serving: DDIM with CFG 3.0, cut from 50 to
+    ``LIDAR_UNET_STEPS`` steps, timed; one train step at the config's
+    batch; the census of both."""
+    from opendwm_tpu_torch.perf import lidar_train_tiny
+
+    gaps = lidar_train_tiny.unet_gaps(dev)
+    check_gaps(gaps, {k: lidar_train_tiny.TOL for k in gaps
+                      if k.endswith("_rel")}, "tiny LiDAR UNet")
+    if not gaps["voxels_equal"] or gaps["voxels_equal_share"] < 0.999:
+        fail(f"tiny LiDAR UNet: voxels differ: {gaps}")
+    tag = "lidar unet"
+
+    pipe, gen = build_lidar(create_instance_from_config, LIDAR_UNET_CONFIG,
+                            dev, ("model", "autoencoder"), fp32_masters=True)
+    log(f"{tag} cut: inference_steps "
+        f"{pipe.inference_config['inference_steps']} -> {LIDAR_UNET_STEPS}")
+    pipe.inference_config["inference_steps"] = LIDAR_UNET_STEPS
+    batch = lidar_batch(dev, gen, LIDAR_UNET_FRAMES,
+                        voxelizer=pipe.autoencoder.voxelizer, rasters=False)
+    pipe.generate(batch, generator=gen)  # warm-up
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        got, dt = sync_s(lambda: pipe.generate(batch, generator=gen))
+        times.append(dt)
+    serve_counts = ops.launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_lidar_unet_census(serve_counts, f"{tag} serve",
+                            LIDAR_UNET_K1_SERVE, LIDAR_UNET_K7_SERVE, False)
+    k7 = serve_counts["flash_attention"]
+    want = 2 * LIDAR_UNET_STEPS * UNET_K7_PER_FORWARD
+    if k7 != want:
+        fail(f"{tag} serve: K7 launched {k7} times in 2 generations, want "
+             f"{want}")
+    check_lidar_outputs({"pred_voxels": got["pred_voxels"]}, None,
+                        f"{tag} serve")
+    if not bool(torch.isfinite(got["latents"]).all()):
+        fail(f"{tag} serve: the latents are not finite")
+    log(f"{tag} serve: {min(times):.3f} s a generation of "
+        f"{LIDAR_UNET_FRAMES} frames ({LIDAR_UNET_STEPS} DDIM steps, CFG "
+        f"{pipe.inference_config['guidance_scale']}; of "
+        f"{', '.join(f'{t:.3f}' for t in times)}), peak {serve_peak:.2f} "
+        f"GiB")
+    del got
+    pipe.model.train()
+    train_batch = lidar_batch(dev, gen, LIDAR_UNET_FRAMES, LIDAR_UNET_BATCH,
+                              pipe.autoencoder.voxelizer, rasters=False)
+    frames = LIDAR_UNET_BATCH * LIDAR_UNET_FRAMES
+    train_counts, metrics = drive_train(
+        dev, pipe, train_batch, ops, f"{tag} train", frames_per_step=frames,
+        unit="LiDAR frames", may_stay=LIDAR_UNET_MAY_STAY)
+    check_lidar_unet_census(train_counts, f"{tag} train",
+                            LIDAR_UNET_K1_TRAIN, LIDAR_UNET_K7_TRAIN, True)
+    metrics.update(generate_s=min(times), serve_peak_gib=serve_peak)
+    return serve_counts, train_counts, metrics
+
+
 def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
@@ -3974,7 +4468,30 @@ def main() -> None:
     temporal_vae, tvae_metrics = run_temporal_vae(
         dev, ops, TemporalAutoencoderKL, unimlvg_tiny)
     phase_s["temporal_vae"] = time.perf_counter() - t0
+    lidar_train, lidar_train_metrics = {}, {}
+    for name, run in (("lidar_tokenizer_train", run_lidar_tokenizer_train),
+                      ("lidar_maskgit_train", run_lidar_maskgit_train),
+                      ("lidar_dit_train", run_lidar_dit_train),
+                      ("lidar_unet", run_lidar_unet)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log_clocks(f"before the {name} phase")
+        t0 = time.perf_counter()
+        *counts, lidar_train_metrics[name] = run(
+            dev, create_instance_from_config, ops)
+        lidar_train_metrics[name]["phase_s"] = time.perf_counter() - t0
+        log(f"{name}: {lidar_train_metrics[name]['phase_s']:.1f} s")
+        if name == "lidar_tokenizer_train":
+            lidar_train["lidar_tokenizer_train"], \
+                lidar_train["lidar_vae_train"] = counts
+        elif name == "lidar_unet":
+            lidar_train["lidar_unet_serve"], \
+                lidar_train["lidar_unet_train"] = counts
+        else:
+            lidar_train[name] = counts[0]
     log_clocks("at the end")
+    log(f"LiDAR training and the LiDAR UNet ({card}): "
+        + json.dumps(lidar_train_metrics))
     log(f"UniMLVG and the DiT's other options ({card}): " + json.dumps({
         "phase_s": phase_s, "unimlvg_serve": unimlvg_metrics,
         "branch_types": branch_metrics,
@@ -3995,7 +4512,7 @@ def main() -> None:
              **{k: c for k, (c, _) in lidar.items()},
              "unimlvg_serve": unimlvg_serve, "branch_types": branch_types,
              "mask_step": mask_step, "unimlvg_train": unimlvg_train,
-             "temporal_vae": temporal_vae}
+             "temporal_vae": temporal_vae, **lidar_train}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
               if p != "attn602" and c["flash_attention_segment"]}
     if strays:

@@ -3,8 +3,11 @@
 One file per step, written with ``torch.save``:
 
     {output}/checkpoints/{step}/state.pt   — model, optimizer, LR scheduler,
-                                             gradient accumulator, step and
-                                             the generator's state
+                                             gradient accumulator, step, the
+                                             generator's state and the
+                                             state's own extra fields (a
+                                             LiDAR codebook's ages, usage
+                                             and reservoir)
 
 so that loading it and taking the next step gives what an uninterrupted
 run gives. ``save_model_only`` / ``load_model_only`` handle the weights
@@ -14,6 +17,7 @@ no counterpart on one card.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from pathlib import Path
 from typing import Optional
@@ -21,6 +25,12 @@ from typing import Optional
 import torch
 
 _STATE_FILE = "state.pt"
+_BASE_FIELDS = ("step", "model", "optimizer", "lr_scheduler", "accumulator")
+
+
+def _extra_fields(state) -> list:
+    return [f.name for f in dataclasses.fields(state)
+            if f.name not in _BASE_FIELDS]
 
 
 def _step_dir(output_path: str, step: int) -> Path:
@@ -41,6 +51,7 @@ def save_checkpoint(output_path: str, step: int, state,
         "accumulator": None if state.accumulator is None
         else state.accumulator.state_dict(),
         "generator": None if generator is None else generator.get_state(),
+        "extra": {name: getattr(state, name) for name in _extra_fields(state)},
     }
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     torch.save(payload, tmp)
@@ -65,6 +76,8 @@ def load_checkpoint(output_path: str, step: int, state,
         state.accumulator.load_state_dict(payload["accumulator"])
     if generator is not None and payload["generator"] is not None:
         generator.set_state(payload["generator"].cpu())
+    for name, value in payload.get("extra", {}).items():
+        setattr(state, name, value)
     state.step = payload["step"]
     return state
 

@@ -96,6 +96,14 @@ _LAZY_MODULES: dict[str, str] = {
     "TemporalAutoencoderKL": "opendwm_tpu_torch.models.temporal_vae",
     "dwm.models.mask_layers": "opendwm_tpu_torch.models.mask_layers",
     "MaskController": "opendwm_tpu_torch.models.mask_layers",
+    "dwm.models.vae_point_cloud": "opendwm_tpu_torch.models.vae_point_cloud",
+    "dwm.models.lidar_vae_model": "opendwm_tpu_torch.models.vae_point_cloud",
+    "VAEPointCloud": "opendwm_tpu_torch.models.vae_point_cloud",
+    "dwm.pipelines.lidar_vqvae": "opendwm_tpu_torch.pipelines.lidar_vqvae",
+    "LidarCodebook": "opendwm_tpu_torch.pipelines.lidar_vqvae",
+    "dwm.pipelines.lidar_vae": "opendwm_tpu_torch.pipelines.lidar_vae",
+    "LidarVAE": "opendwm_tpu_torch.pipelines.lidar_vae",
+    "SyntheticLidarDataset": "opendwm_tpu_torch.datasets.synthetic",
 }
 
 
@@ -120,8 +128,9 @@ def get_class(class_name: str):
         f"{class_name!r} has no PyTorch port yet (opendwm_tpu_torch covers "
         "the CTSD-3.5 MMDiT and CTSD-2.1 UNet serving and training paths, "
         "with the layout ImageAdapter and the image VAE, streaming serving, "
-        "the CLIP/T5 text stage, LiDAR serving (VQ tokenizer, MaskGIT, "
-        "the LiDAR DiT), UniMLVG, MaskGWM and the temporal VAE; see "
+        "the CLIP/T5 text stage, LiDAR serving and training (the VQ and KL "
+        "tokenizers, MaskGIT, the LiDAR DiT and UNet), UniMLVG, MaskGWM "
+        "and the temporal VAE; see "
         "ROADMAP.md Queue 1)."
     )
 

@@ -22,11 +22,14 @@ The causal temporal VAE (``TemporalAutoencoderKL``) mirrors its flax tree
 projection (``rayencoder_proj``) and MaskGWM module (``mask_module``) map
 both ways with the rest of the DiT.
 
-The LiDAR tokenizer (``VQPointCloud``) and the MaskGIT transformer
-(``BidirectionalTransformer``) mirror their flax trees:
-``lidar_state_dict_from_flax`` and ``lidar_flax_from_state_dict`` map
-them both ways (the tokenizer's ``ConvTranspose`` kernel is flipped in
-space; see ``_transposed_conv_weight``).
+The LiDAR tokenizers (``VQPointCloud``, ``VAEPointCloud``) and the
+MaskGIT transformer (``BidirectionalTransformer``) mirror their flax
+trees: ``lidar_state_dict_from_flax`` and ``lidar_flax_from_state_dict``
+map them both ways (the tokenizer's ``ConvTranspose`` kernel is flipped
+in space; see ``_transposed_conv_weight``), the DVGO density MLP
+included; ``vae_point_cloud_state_dict_from_flax`` and
+``vae_point_cloud_flax_from_state_dict`` name the same walk for the KL
+tokenizer.
 
 The way back, for the DiT and the UNet: ``flax_param_name`` names a port
 parameter as the JAX package's trees name it (its ``freezing_pattern``
@@ -548,7 +551,6 @@ def t5_flax_from_state_dict(state_dict: Mapping) -> dict:
 # both ways. ``{X}_{i}`` of these lists is ``{X}.{i}``; a feed-forward's
 # ``proj_in``/``proj_out`` are ``net.0.proj``/``net.2``.
 _LIDAR_LISTS = ("blocks", "temporal_blocks", "body", "resnets", "zero_convs")
-_LIDAR_SKIPPED = ("density_mlp_1", "density_mlp_2")
 
 
 def _transposed_conv_weight(kernel: np.ndarray) -> np.ndarray:
@@ -560,18 +562,17 @@ def _transposed_conv_weight(kernel: np.ndarray) -> np.ndarray:
 
 
 def lidar_state_dict_from_flax(params: Mapping) -> dict:
-    """Flax ``VQPointCloud`` or ``BidirectionalTransformer`` params (or a
-    tree of one of their submodules) → the port's state dict (numpy).
-    The DVGO density MLP of a trained tokenizer (``density_mlp_1/2``) is
-    training-only and dropped: the port's ``VQPointCloud`` holds none."""
+    """Flax ``VQPointCloud``, ``VAEPointCloud`` or
+    ``BidirectionalTransformer`` params (or a tree of one of their
+    submodules) → the port's state dict (numpy). A tree without the DVGO
+    density MLP (``density_mlp_1/2``, flax creates it only when a forward
+    renders) maps to a state dict without it, which the tokenizers load."""
     sd: dict = {}
 
     def walk(node, path: list[str]):
         for name, value in node.items():
             parent = path[-1] if path else ""
             if isinstance(value, Mapping):
-                if not path and name in _LIDAR_SKIPPED:
-                    continue
                 m = re.fullmatch(r"(.+)_(\d+)", name)
                 if m and m.group(1) in _LIDAR_LISTS:
                     name = f"{m.group(1)}.{m.group(2)}"
@@ -634,6 +635,17 @@ def lidar_flax_from_state_dict(state_dict: Mapping) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(value)
     return {"params": tree}
+
+
+def vae_point_cloud_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``VAEPointCloud`` params → the port's state dict (numpy)."""
+    return lidar_state_dict_from_flax(params)
+
+
+def vae_point_cloud_flax_from_state_dict(state_dict: Mapping) -> dict:
+    """The port's ``VAEPointCloud`` state dict → the flax ``{"params":
+    tree}``, inverting ``vae_point_cloud_state_dict_from_flax``."""
+    return lidar_flax_from_state_dict(state_dict)
 
 
 def to_torch(state_dict: Mapping[str, np.ndarray]) -> dict:

@@ -1,5 +1,6 @@
 """Synthetic latent-space CTSD batches for smoke tests, benchmarks and CLI
-drives (``opendwm_tpu/datasets/synthetic.py:SyntheticCTSDDataset``), and
+drives (``opendwm_tpu/datasets/synthetic.py:SyntheticCTSDDataset``),
+padded LiDAR point clouds with BEV rasters (``SyntheticLidarDataset``), and
 the streaming CLI's synthetic live source: the same items from the same
 seeds, as numpy arrays."""
 
@@ -63,6 +64,39 @@ class SyntheticCTSDDataset:
                  self.w * self.image_scale, 3),
             ).astype(np.float32)
         return item
+
+
+@register("SyntheticLidarDataset")
+class SyntheticLidarDataset:
+    """Padded point clouds (uniform in ±``pc_range`` on every axis, all
+    valid) with a BEV layout raster per frame."""
+
+    def __init__(self, size: int = 64, sequence_length: int = 2,
+                 point_count: int = 256, pc_range: float = 6.0,
+                 bev_size: int = 128, seed: int = 0):
+        self.size = size
+        self.t = sequence_length
+        self.n = point_count
+        self.range = pc_range
+        self.bev_size = bev_size
+        self.seed = seed
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            index = int(index.split("-")[0])
+        rng = np.random.default_rng(self.seed + index)
+        return {
+            "lidar_points": rng.uniform(
+                -self.range, self.range, (self.t, self.n, 3)
+            ).astype(np.float32),
+            "lidar_points_mask": np.ones((self.t, self.n), bool),
+            "3dbox_bev_images": rng.uniform(
+                0, 1, (self.t, self.bev_size, self.bev_size, 3)
+            ).astype(np.float32),
+        }
 
 
 @register("SyntheticStreamingAdapter")

@@ -13,8 +13,11 @@ Parameters keep the flax names (``blocks.blocks.3`` for
 ``blocks/blocks_3``, ``blocks.temporal_blocks.3`` for
 ``blocks/temporal_blocks_3``) and are kept in fp32, as flax keeps them;
 ``dtype`` is the compute dtype. The top-k cosine perturbation of the
-extra embedding (``_perturb``) is a training augmentation and raises
-(ROADMAP Queue 1, item 11b).
+extra embedding (``_perturb``, a training augmentation) takes its draws
+explicitly (``draw_perturbation``: the uniforms that pick the tokens and
+the choice among each token's top-k neighbours); only the picked tokens'
+similarities are formed, ``PERTURB_CHUNK_ELEMS`` at a time (a full-width
+batch holds 51,200 tokens x 80,000 codes).
 """
 
 from __future__ import annotations
@@ -36,9 +39,11 @@ from opendwm_tpu_torch.models.layers import (
 )
 from opendwm_tpu_torch.models.vq_point_cloud import (
     SwinBlock,
+    _l2_normalize,
     position_table,
-    training_only,
 )
+
+PERTURB_CHUNK_ELEMS = 2 ** 28  # similarities a chunk of the perturbation
 
 
 class RotaryEmbedding(nn.Module):
@@ -149,6 +154,9 @@ class BidirectionalTransformer(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_e, self.e_dim, self.hidden_dim = n_e, e_dim, hidden_dim
+        self.enable_perturbation = enable_perturbation
+        self.perturbation_ratio = perturbation_ratio
+        self.perturbation_topk = perturbation_topk
         self.img_size = tuple(img_size)
         self.mask_token = nn.Parameter(torch.randn(1, 1, e_dim) * 0.02)
         self.extra_embedding = nn.Embedding(n_e, e_dim) \
@@ -169,12 +177,13 @@ class BidirectionalTransformer(nn.Module):
                 context: Optional[torch.Tensor] = None,
                 batch_size: Optional[int] = None,
                 num_frames: Optional[int] = None,
-                perturb_generator: Optional[torch.Generator] = None,
-                ) -> torch.Tensor:
-        if perturb_generator is not None:
-            raise training_only("the extra embedding's top-k perturbation")
+                perturb_draws: Optional[dict] = None) -> torch.Tensor:
+        """``perturb_draws`` (``draw_perturbation``) turns the extra
+        embedding's perturbation on, where the model enables it."""
         masked = (x_id == -1)[..., None]
         if self.extra_embedding is not None:
+            if self.enable_perturbation and perturb_draws is not None:
+                x_id = self._perturb(x_id, perturb_draws)
             tok = self.extra_embedding(x_id.clamp(min=0)).to(self.dtype)
         else:
             tok = x
@@ -188,3 +197,36 @@ class BidirectionalTransformer(nn.Module):
                    for f in self.condition_adapter(context.to(self.dtype))]
         h = self.blocks(h, ctx, batch_size=batch_size, num_frames=num_frames)
         return self.pred(F.gelu(self.norm(h)))
+
+    def draw_perturbation(self, shape, generator=None, device=None) -> dict:
+        """The perturbation's draws for ids of ``shape``, in the JAX
+        package's order: ``uniform`` (which tokens move) and ``choice``
+        (which of the top-k neighbours)."""
+        return {"uniform": torch.rand(shape, generator=generator,
+                                      device=device),
+                "choice": torch.randint(0, self.perturbation_topk, shape,
+                                        generator=generator, device=device)}
+
+    @torch.no_grad()
+    def _perturb(self, x_id: torch.Tensor, draws: dict) -> torch.Tensor:
+        """Replace ~``perturbation_ratio`` of the visible tokens with one of
+        their top-k cosine neighbours in the extra embedding: a token moves
+        where its uniform is below the ratio, to the neighbour its choice
+        names (rank 0 is the most similar)."""
+        table = self.extra_embedding.weight.float()
+        table_n = _l2_normalize(table)
+        move = (draws["uniform"].to(x_id.device) < self.perturbation_ratio) \
+            & (x_id != -1)
+        rows = move.nonzero(as_tuple=True)
+        ids = x_id[rows]
+        choice = draws["choice"].to(x_id.device)[rows]
+        step = max(1, PERTURB_CHUNK_ELEMS // table_n.shape[0])
+        neighbours = []
+        for r0 in range(0, ids.shape[0], step):
+            sim = table_n[ids[r0:r0 + step]] @ table_n.T
+            top = sim.topk(self.perturbation_topk, -1).indices
+            neighbours.append(top.gather(-1, choice[r0:r0 + step, None])[:, 0])
+        out = x_id.clone()
+        if neighbours:
+            out[rows] = torch.cat(neighbours).to(out.dtype)
+        return out

@@ -4,10 +4,14 @@ in PyTorch.
 Ported: the Swin primitives (window partition, relative position bias,
 shifted windows with the −100 mask), ``PatchMerging``, ``BasicLayer``,
 ``VectorQuantizer`` (Euclidean and cosine, ``lookup``), ``VQEncoder``,
-``VQDecoder`` and ``VQPointCloud.encode``: voxelize → encode → quantize
-and decode → voxel logits, everything a MaskGIT or LiDAR-DiT server runs.
-Training waits (ROADMAP Queue 1, item 11b): ``ray_render`` (DVGO),
-``update_code_stats``, ``kmeans_revive`` and ``soft_l1`` raise.
+``VQDecoder`` and ``VQPointCloud``: voxelize → encode → quantize and
+decode → voxel logits, everything a MaskGIT or LiDAR-DiT server runs; and
+the training half: the density MLP and the DVGO depth/SDF rendering
+(``ray_render``, frame by frame, each frame's rays in checkpointed chunks:
+``ops/dvgo.py``), ``soft_l1``, the code statistics
+(``update_code_stats``) and the host-side k-means dead-code revival
+(``kmeans_revive``, numpy and scipy as in the JAX package, so the same
+seed gives the same bits).
 
 Parameters keep the flax modules' names (``stage_0.blocks.1.attn.qkv``
 for ``stage_0/blocks_1/attn/qkv``; ``convert.py`` maps the trees) and are
@@ -41,15 +45,10 @@ from opendwm_tpu_torch.models.layers import (
     sincos_pos_embed_2d,
 )
 from opendwm_tpu_torch.ops.attention import dot_product_attention
+from opendwm_tpu_torch.ops.dvgo import DVGORenderer
 from opendwm_tpu_torch.ops.voxelize import Voxelizer
 
 QUANTIZER_CHUNK_ELEMS = 2 ** 28  # similarities a chunk: 1 GiB in fp32
-
-
-def training_only(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} trains the LiDAR tokenizer and is not ported yet (ROADMAP "
-        "Queue 1, item 11b)")
 
 
 # ---------------------------------------------------------------------------
@@ -299,16 +298,109 @@ class VectorQuantizer(nn.Module):
         return self.codes()[indices]
 
 
-def update_code_stats(*args, **kwargs):
-    raise training_only("update_code_stats")
+def update_code_stats(indices: torch.Tensor, code_age: torch.Tensor,
+                      code_usage: torch.Tensor, n_e: int):
+    """(age, usage) after one step's ``indices``: a used code's age
+    returns to 0, the others age by 1; usage adds the counts."""
+    counts = torch.zeros(n_e, dtype=code_usage.dtype,
+                         device=code_usage.device)
+    counts.index_add_(0, indices.reshape(-1),
+                      torch.ones(indices.numel(), dtype=code_usage.dtype,
+                                 device=code_usage.device))
+    age = torch.where(counts > 0, torch.zeros_like(code_age), code_age + 1.0)
+    return age, code_usage + counts
 
 
-def kmeans_revive(*args, **kwargs):
-    raise training_only("kmeans_revive")
+def kmeans_revive(codebook: np.ndarray, reservoir: np.ndarray,
+                  code_age: np.ndarray, dead_limit: int,
+                  seed: int = 0) -> np.ndarray:
+    """Host-side dead-code revival: k-means (scipy ``kmeans2``, 100
+    iterations, float64) over the reservoir and the live codes, started
+    from the live codes plus reservoir rows drawn from ``seed``. Returns
+    the new codebook in the codebook's dtype."""
+    import scipy.cluster.vq
+
+    rng = np.random.default_rng(seed)
+    n_e = codebook.shape[0]
+    live = codebook[code_age < dead_limit]
+    all_z = np.concatenate([reservoir, live])
+    rng.shuffle(all_z)
+    init = np.concatenate([
+        live,
+        reservoir[rng.permutation(len(reservoir))[: n_e - len(live)]],
+    ])
+    centroid, _ = scipy.cluster.vq.kmeans2(
+        all_z.astype(np.float64), init.astype(np.float64), minit="matrix",
+        iter=100)
+    return centroid.astype(codebook.dtype)
 
 
-def soft_l1(*args, **kwargs):
-    raise training_only("soft_l1")
+def soft_l1(pred: torch.Tensor, gt: torch.Tensor,
+            keep_ratio: float = 0.95) -> torch.Tensor:
+    """Mean of the smallest ``keep_ratio`` of the absolute errors."""
+    err = torch.abs(pred - gt).reshape(-1)
+    return torch.sort(err).values[:int(err.shape[0] * keep_ratio)].mean()
+
+
+DENSITY_MLP_KEYS = tuple(f"density_mlp_{i}.{leaf}" for i in (1, 2)
+                         for leaf in ("weight", "bias"))
+
+
+class RenderedTokenizer(nn.Module):
+    """What the two LiDAR autoencoders share for training: the density MLP
+    (the render grid's features → alpha logit: Dense(32), ReLU, Dense(1)
+    with the bias at ``bias_init``, in fp32 as flax ``Dense`` with no
+    dtype computes over fp32 features; flax's names ``density_mlp_1``/
+    ``_2``) and the loading of a serving state dict without it."""
+
+    def _init_rendering(self, voxelizer: Voxelizer, density_feats: int,
+                        bias_init: float, ray_stepsize: float,
+                        ray_max_steps: int) -> None:
+        self.voxelizer = voxelizer
+        self.ray_stepsize, self.ray_max_steps = ray_stepsize, ray_max_steps
+        self.density_mlp_1 = Linear(density_feats, 32)
+        self.density_mlp_2 = Linear(32, 1)
+        with torch.no_grad():
+            self.density_mlp_2.bias.fill_(bias_init)
+
+    def density_mlp(self, feats: torch.Tensor) -> torch.Tensor:
+        return self.density_mlp_2(F.relu(self.density_mlp_1(feats)))[..., 0]
+
+    def render_frames(self, density: torch.Tensor, points: torch.Tensor,
+                      points_mask: torch.Tensor):
+        """Depth and free-space losses of the density grids (b·t, F, Zc, H,
+        W) against the returns (b, t, N, 3+) seen from the origin, frame by
+        frame as the JAX ``vmap`` of one frame: (mean depth loss, mean SDF
+        loss, rendered depth (b·t, N))."""
+        v = self.voxelizer
+        renderer = DVGORenderer(
+            xyz_min=(v.x_min, v.y_min, v.z_min),
+            xyz_max=(v.x_max, v.y_max, v.z_max),
+            stepsize=self.ray_stepsize, max_steps=self.ray_max_steps)
+        frames = density.shape[0]
+        pts = points[..., :3].reshape(frames, -1, 3).float()
+        msk = points_mask.reshape(frames, -1)
+        depth_losses, sdf_losses, depths = [], [], []
+        for grid, rays, m in zip(density, pts, msk):
+            depth, sdf, _ = renderer.render(
+                self.density_mlp, torch.zeros_like(rays), rays, grid)
+            gt = torch.sqrt((rays * rays).sum(-1))
+            # a masked ray is a zero error, inside the 95% kept (as in the
+            # JAX package)
+            depth_losses.append(soft_l1(torch.where(m, depth, gt), gt))
+            sdf_losses.append(sdf)
+            depths.append(depth)
+        return (torch.stack(depth_losses).mean(),
+                torch.stack(sdf_losses).mean(), torch.stack(depths))
+
+    def load_state_dict(self, state_dict, strict: bool = True, **kwargs):
+        """As ``nn.Module.load_state_dict``; a serving state dict without
+        the density MLP keeps the module's own."""
+        if not any(k in state_dict for k in DENSITY_MLP_KEYS):
+            own = self.state_dict()
+            state_dict = dict(state_dict,
+                              **{k: own[k] for k in DENSITY_MLP_KEYS})
+        return super().load_state_dict(state_dict, strict, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +419,7 @@ class VQEncoder(nn.Module):
                  codebook_dim: int = 1024, window_size: int = 8,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.img_size, self.patch_size = img_size, patch_size
         p = patch_size // 2
         c = embed_dim // 2
         h = img_size // p
@@ -428,20 +521,22 @@ class VQDecoder(nn.Module):
 # ---------------------------------------------------------------------------
 
 @register("VQPointCloud", aliases=("dwm.models.vq_point_cloud.VQPointCloud",))
-class VQPointCloud(nn.Module):
+class VQPointCloud(RenderedTokenizer):
     """Composite LiDAR tokenizer. ``voxelizer`` is a static dataclass;
-    points arrive padded with a mask (static shapes). The density MLP of
-    the DVGO rendering is training-only and not held here."""
+    points arrive padded with a mask (static shapes). The density MLP
+    (``density_mlp_1``/``_2``, flax's names) serves the DVGO rendering of
+    training only; a serving state dict may leave it out."""
 
     def __init__(self, voxelizer: Voxelizer,
                  vector_quantizer: VectorQuantizer, lidar_encoder: VQEncoder,
                  lidar_decoder: VQDecoder, bias_init: float = -5.0,
                  ray_stepsize: float = 0.05, ray_max_steps: int = 512):
         super().__init__()
-        self.voxelizer = voxelizer
         self.vector_quantizer = vector_quantizer
         self.lidar_encoder = lidar_encoder
         self.lidar_decoder = lidar_decoder
+        self._init_rendering(voxelizer, lidar_decoder.density_feats,
+                             bias_init, ray_stepsize, ray_max_steps)
 
     def encode(self, points: torch.Tensor, points_mask: torch.Tensor):
         """points (b, t, N, 3+), mask (b, t, N) → (voxels (b, t, D, H, W),
@@ -451,16 +546,31 @@ class VQPointCloud(nn.Module):
         z_q, emb_loss, idx = self.vector_quantizer(feats)
         return voxels, z_q, emb_loss, idx
 
-    def ray_render(self, *args, **kwargs):
-        raise training_only("VQPointCloud.ray_render (DVGO)")
+    def ray_render(self, density: torch.Tensor, points: torch.Tensor,
+                   points_mask: torch.Tensor):
+        """density (b, t, F, Zc, H, W); points (b, t, N, 3+) from the
+        LiDAR origin → (depth loss, SDF loss, rendered depth (b, t, N))."""
+        b, t = density.shape[:2]
+        depth_loss, sdf_loss, depth = self.render_frames(
+            density.reshape(b * t, *density.shape[2:]), points, points_mask)
+        return depth_loss, sdf_loss, depth.reshape(b, t, -1)
 
     def forward(self, points: torch.Tensor, points_mask: torch.Tensor,
                 render_rays: bool = True) -> dict:
-        if render_rays:
-            self.ray_render()
+        """Voxelize, encode, quantize, decode; with ``render_rays`` the
+        DVGO depth and SDF losses too. The dict also carries ``z_q`` and
+        the indices, which the trainer's code statistics and reservoir
+        read."""
         voxels, z_q, emb_loss, idx = self.encode(points, points_mask)
         b, t = voxels.shape[:2]
-        _, logits = self.lidar_decoder(z_q)
-        return {"voxels": voxels,
-                "lidar_voxel": logits.reshape(b, t, *logits.shape[1:]),
-                "emb_loss": emb_loss, "indices": idx}
+        density, logits = self.lidar_decoder(z_q, density=render_rays)
+        result = {"voxels": voxels,
+                  "lidar_voxel": logits.reshape(b, t, *logits.shape[1:]),
+                  "emb_loss": emb_loss, "indices": idx, "z_q": z_q}
+        if render_rays:
+            result["depth_loss"], result["sdf_loss"], \
+                result["pred_depth"] = self.ray_render(
+                    density.reshape(b, t, *density.shape[1:]), points,
+                    points_mask)
+        return result
+

@@ -53,6 +53,9 @@ def launch_counts() -> dict:
         "flash_tail_backward_sm90": flash_tail.sm90_backward_launches,
         "flash_tail_backward_by_seq": dict(
             flash_tail.backward_launches_by_seq),
+        "flash_tail_backward_by_shape": {
+            ",".join(map(str, k)): n
+            for k, n in flash_tail.backward_launches_by_shape.items()},
         "adaln_modulate": fused_adaln.launches,
         "adaln_modulate_fixed": fused_adaln.fixed_launches,
         "adaln_modulate_by_shape": {

@@ -39,8 +39,8 @@ MAX_PADDED_SEQ = 1024  # dispatch bound kept from the JAX package
 # Kernel launches, in total, by sequence length and by (B, S, H, D): the
 # forward (K1, with the launches that also wrote the log-sum-exp counted
 # apart, and those that ran the Hopper forward of csrc/flash_fwd_sm90.cuh,
-# also by shape) and the backward (K2, with those that ran the Hopper
-# backward of csrc/flash_bwd_sm90.cuh).
+# also by shape) and the backward (K2, by sequence and by shape, with those
+# that ran the Hopper backward of csrc/flash_bwd_sm90.cuh).
 launches = 0
 launches_by_seq: dict[int, int] = {}
 launches_by_shape: dict[tuple, int] = {}
@@ -49,6 +49,7 @@ lse_launches = 0
 sm90_launches = 0
 backward_launches = 0
 backward_launches_by_seq: dict[int, int] = {}
+backward_launches_by_shape: dict[tuple, int] = {}
 sm90_backward_launches = 0
 
 
@@ -61,6 +62,7 @@ def reset_launches() -> None:
     launches_by_shape.clear()
     sm90_launches_by_shape.clear()
     backward_launches_by_seq.clear()
+    backward_launches_by_shape.clear()
 
 
 def _pad_len(n: int) -> int:
@@ -226,6 +228,8 @@ def _launch_backward(q, k, v, out, do, lse, scale: float):
     backward_launches += 1
     sm90_backward_launches += sm90
     backward_launches_by_seq[s] = backward_launches_by_seq.get(s, 0) + 1
+    backward_launches_by_shape[b, s, h, d] = \
+        backward_launches_by_shape.get((b, s, h, d), 0) + 1
     return dq, dk, dv
 
 

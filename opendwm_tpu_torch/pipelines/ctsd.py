@@ -399,6 +399,31 @@ class TrainState:
     accumulator: Optional[optim.GradientAccumulator] = None
 
 
+def build_train_state(model: torch.nn.Module, training_config: dict,
+                      optimizer_config, lr_scheduler_config,
+                      cls=TrainState, **extra):
+    """``cls`` around ``model``, which must hold fp32 master weights: AdamW
+    over its trainable parameters (``freezing_pattern``), the LR schedule
+    and, with ``gradient_accumulation_steps`` above 1, the accumulator;
+    ``extra`` fields go to ``cls``."""
+    low = sorted({str(p.dtype) for p in model.parameters()
+                  if p.dtype != torch.float32})
+    if low:
+        raise ValueError(
+            f"training needs fp32 master weights, the model holds {low}; "
+            "build it with param_dtype=torch.float32")
+    trainable, _ = optim.split_trainable(
+        model, training_config.get("freezing_pattern"))
+    optimizer, lr_scheduler = optim.build_optimizer(
+        trainable, optimizer_config, lr_scheduler_config)
+    accum = training_config.get("gradient_accumulation_steps")
+    model.train()
+    return cls(step=0, model=model, optimizer=optimizer,
+               lr_scheduler=lr_scheduler,
+               accumulator=optim.GradientAccumulator(accum)
+               if accum and accum > 1 else None, **extra)
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1, {item})")
@@ -457,26 +482,9 @@ class CTSDPipeline:
         """A ``TrainState`` around ``self.model``, which must hold fp32
         master weights (``param_dtype=torch.float32``); the compute dtype
         is the model's ``dtype``."""
-        model = self.model
-        low = sorted({str(p.dtype) for p in model.parameters()
-                      if p.dtype != torch.float32})
-        if low:
-            raise ValueError(
-                f"training needs fp32 master weights, the model holds {low}; "
-                "build it with param_dtype=torch.float32")
-        tc = self.training_config
-        trainable, _ = optim.split_trainable(model,
-                                             tc.get("freezing_pattern"))
-        optimizer, lr_scheduler = optim.build_optimizer(
-            trainable, self.optimizer_config, self.lr_scheduler_config)
-        accum = tc.get("gradient_accumulation_steps")
-        model.train()
-        return TrainState(
-            step=0, model=model, optimizer=optimizer,
-            lr_scheduler=lr_scheduler,
-            accumulator=optim.GradientAccumulator(accum)
-            if accum and accum > 1 else None,
-        )
+        return build_train_state(self.model, self.training_config,
+                                 self.optimizer_config,
+                                 self.lr_scheduler_config)
 
     def shard_state(self, state: TrainState):
         raise _not_ported("sharding the train state", "item 13")

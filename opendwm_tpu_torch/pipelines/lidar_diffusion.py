@@ -1,17 +1,17 @@
-"""LiDAR latent diffusion pipeline, serving half
-(``opendwm_tpu/pipelines/lidar_diffusion.py``), in PyTorch.
+"""LiDAR latent diffusion pipeline (``opendwm_tpu/pipelines/
+lidar_diffusion.py``), in PyTorch.
 
-The CTSD machinery (``pipelines/ctsd.py``: flow matching with CFG and
-reference-latent injection) over a frozen LiDAR tokenizer's BEV latents:
-the DiT runs with cross-view off and its temporal branch on, a zero text
-context of one token and zero pooled projections unless the batch carries
-text embeddings, and the 3-D box and HD-map BEV rasters routed into
-``3dbox_images`` (the DiT's ImageAdapter). ``encode_points`` /
-``decode_points`` adapt the ``VQPointCloud`` tokenizer (latent scale and
-bias, quantize before the decode, Gumbel-sigmoid binarisation).
-
-The ``VAEPointCloud`` tokenizer belongs to the LiDAR UNet (ROADMAP Queue
-1, item 9c) and raises; training waits for item 11b.
+The CTSD machinery (``pipelines/ctsd.py``: flow matching for the DiT,
+DDPM training and DDIM sampling for the UNet, CFG and reference-latent
+injection) over a frozen LiDAR tokenizer's BEV latents: the denoiser runs
+with a zero text context of one token and zero pooled projections unless
+the batch carries text embeddings, and the 3-D box and HD-map BEV rasters
+routed into ``3dbox_images`` (the DiT's ImageAdapter). ``encode_points``
+/ ``decode_points`` adapt the tokenizer: latent scale and bias; the
+``VQPointCloud``'s codes (quantized again before the decode) or the
+``VAEPointCloud``'s posterior mean (decoded as it is); Gumbel-sigmoid
+binarisation. Training encodes the points without gradient and hands
+the latents to the CTSD loss (``loss_from_draws``).
 """
 
 from __future__ import annotations
@@ -21,17 +21,17 @@ from typing import Optional
 import torch
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.models.vae_point_cloud import VAEPointCloud
 from opendwm_tpu_torch.models.vq_point_cloud import VQPointCloud
-from opendwm_tpu_torch.pipelines.ctsd import CTSDPipeline
+from opendwm_tpu_torch.pipelines.ctsd import (
+    CTSDPipeline,
+    TrainState,
+    draw_training_randoms,
+)
 from opendwm_tpu_torch.pipelines.lidar_maskgit import (
     get_maskgit_conditions,
     gumbel_sigmoid,
 )
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 @register(
@@ -68,37 +68,43 @@ class LidarDiffusionPipeline(CTSDPipeline):
         """The tokenizer's weights (a port state dict)."""
         self.autoencoder.load_state_dict(state_dict)
 
-    def _vq(self) -> VQPointCloud:
-        if not isinstance(self.autoencoder, VQPointCloud):
-            raise _not_ported(
-                f"a {type(self.autoencoder).__name__} autoencoder (the LiDAR "
-                "UNet's VAEPointCloud)", "item 9c")
-        return self.autoencoder
+    def _kind(self) -> type:
+        for kind in (VQPointCloud, VAEPointCloud):
+            if isinstance(self.autoencoder, kind):
+                return kind
+        raise ValueError(
+            f"unknown autoencoder {type(self.autoencoder).__name__}: the "
+            "LiDAR diffusion pipeline takes a VQPointCloud or a "
+            "VAEPointCloud")
 
     # -- latent adapters (reference :446-476) ------------------------------
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_points(self, points, points_mask):
-        """points → normalised BEV latents (b, t, 1, h, w, c) and the
-        voxels (b, t, D, H, W)."""
-        voxels, z_q, _, _ = self._vq().encode(points, points_mask)
-        n, l, c = z_q.shape
+        """points → normalised BEV latents (b, t, 1, h, w, c) (the codes,
+        or the posterior mean) and the voxels (b, t, D, H, W)."""
+        if self._kind() is VQPointCloud:
+            voxels, z, _, _ = self.autoencoder.encode(points, points_mask)
+        else:
+            voxels, z, _ = self.autoencoder.encode_lidar(points, points_mask)
+        n, l, c = z.shape
         h = w = int(round(l ** 0.5))
         b, t = voxels.shape[:2]
-        lat = z_q.reshape(b, t, 1, h, w, c)
+        lat = z.reshape(b, t, 1, h, w, c)
         return (lat - self.latent_bias) * self.latent_scale, voxels
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def decode_points(self, latents, uniforms=None, generator=None):
         """Normalised latents (b, t, 1, h, w, c) → binary voxels (b, t, D,
-        H, W): quantized to the nearest codes, decoded, binarised by
-        ``gumbel_sigmoid`` with ``uniforms`` (u1, u2) or draws from
-        ``generator``."""
-        vq = self._vq()
+        H, W): quantized to the nearest codes (VQ) or taken as they are
+        (VAE), decoded, binarised by ``gumbel_sigmoid`` with ``uniforms``
+        (u1, u2) or draws from ``generator``."""
         lat = latents / self.latent_scale + self.latent_bias
         b, t, v, h, w, c = lat.shape
-        code, _, _ = vq.vector_quantizer(lat.reshape(b * t, h * w, c))
-        _, logits = vq.lidar_decoder(code)
+        tokens = lat.reshape(b * t, h * w, c)
+        if self._kind() is VQPointCloud:
+            tokens, _, _ = self.autoencoder.vector_quantizer(tokens)
+        _, logits = self.autoencoder.lidar_decoder(tokens)
         vox = gumbel_sigmoid(logits, uniforms, generator)
         return vox.reshape(b, t, *vox.shape[1:])
 
@@ -129,14 +135,25 @@ class LidarDiffusionPipeline(CTSDPipeline):
             out["hdmap_images"] = None
         return out
 
-    def loss_fn(self, *args, **kwargs):
-        raise _not_ported("LiDAR diffusion training", "item 11b")
+    # -- training ----------------------------------------------------------
 
-    def loss_from_draws(self, *args, **kwargs):
-        raise _not_ported("LiDAR diffusion training", "item 11b")
+    def init_state(self) -> TrainState:
+        """The denoiser's train state; the tokenizer stays frozen."""
+        self.autoencoder.requires_grad_(False)
+        return super().init_state()
 
-    def init_state(self, *args, **kwargs):
-        raise _not_ported("LiDAR diffusion training", "item 11b")
+    def loss_from_draws(self, batch: dict, draws: dict):
+        """The CTSD loss (``draw_training_randoms``' draws) on the points'
+        latents, the BEV rasters as ``3dbox_images``."""
+        return super().loss_from_draws(self.prepare_batch(batch), draws)
+
+    def loss_fn(self, batch: dict, generator=None):
+        prepared = self.prepare_batch(batch)
+        latents = prepared["latents"]
+        draws = draw_training_randoms(
+            latents.shape, self.training_config, self.common_config,
+            generator, latents.device, self.train_scheduler)
+        return super().loss_from_draws(prepared, draws)
 
     # -- inference ---------------------------------------------------------
 

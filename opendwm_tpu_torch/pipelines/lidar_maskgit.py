@@ -24,8 +24,18 @@ probability (``exp(logit - logsumexp)``) run over chunks of at most
 rows x 80,000 codes: 32.8 GB in fp32). Rows are independent, so the
 chunking changes no result.
 
-Training (``loss_fn``, ``train_step``, ``random_mask``) waits for ROADMAP
-Queue 1 item 11b; ``save_results`` and ``evaluate_pipeline`` for item 12.
+Training: the frozen tokenizer's codes, the task (generation or
+prediction), the cosine-schedule mask by ranks of per-token noise
+(``random_mask``), the layout dropout and the extra embedding's top-k
+perturbation, then the label-smoothed (0.1) cross-entropy over the masked
+tokens in fp32 and the accuracy ``acc_0``. Its draws come in the JAX
+package's order (``draw_training_randoms``) or are given
+(``loss_from_draws``). The cross-entropy never forms the one-hot target
+or the fp32 log-softmax of all logits: ``smoothed_cross_entropy`` works on
+the masked rows, ``CE_CHUNK_ELEMS`` logits at a time, forward and
+backward (a full-width batch has 51,200 tokens x 80,000 codes: 16.4 GB a
+copy in fp32). ``save_results`` and ``evaluate_pipeline`` wait for ROADMAP
+Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -37,8 +47,12 @@ import torch
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.ops.voxelize import voxels_to_points
+from opendwm_tpu_torch.pipelines.ctsd import build_train_state
+from opendwm_tpu_torch.pipelines.lidar_vqvae import step_optimizer
 
 SAMPLE_CHUNK_ELEMS = 2 ** 28  # fp32 logits a chunk of the categorical step
+CE_CHUNK_ELEMS = 2 ** 28  # fp32 logits a chunk of the training loss
+LABEL_SMOOTHING = 0.1
 BLANK_STEPS = 10  # steps that suppress the blank codes, whatever T is
 
 
@@ -61,8 +75,81 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP Queue 1, {item})")
 
 
-def random_mask(*args, **kwargs):
-    raise _not_ported("random_mask (MaskGIT training)", "item 11b")
+def random_mask(noise: torch.Tensor, mask_ratio) -> torch.Tensor:
+    """Boolean mask (True = masked) of ``noise``'s shape (n, l): a token is
+    masked when its noise ranks at or above ``floor(l · (1 − ratio))``
+    in its row (``mask_ratio`` an fp32 scalar tensor)."""
+    l = noise.shape[1]
+    ranks = torch.argsort(torch.argsort(noise, dim=1, stable=True), dim=1,
+                          stable=True)
+    ratio = torch.as_tensor(mask_ratio, dtype=torch.float32,
+                            device=noise.device)
+    len_keep = torch.floor(l * (1.0 - ratio)).to(torch.int32)
+    return ranks >= len_keep
+
+
+class SmoothedCrossEntropy(torch.autograd.Function):
+    """Σ_i w_i · ce_i over the rows ``rows`` of ``logits`` (N, n) with
+    ``ce = −Σ_j target_j log softmax_j``, ``target = (1 − ε) onehot(y) +
+    ε / n``, which is ``lse − (1 − ε) logit_y − (ε / n) Σ_j logit_j``: in
+    fp32, a chunk of rows at a time, the gradient ``w_i (softmax −
+    target)`` likewise, zero on the other rows (fp32, or the logits' type
+    where it is wider)."""
+
+    @staticmethod
+    def forward(ctx, logits, rows, labels, weights, eps):
+        n = logits.shape[-1]
+        step = max(1, CE_CHUNK_ELEMS // n)
+        acc = torch.promote_types(logits.dtype, torch.float32)
+        total = torch.zeros((), dtype=acc, device=logits.device)
+        for r0 in range(0, rows.shape[0], step):
+            lg = logits[rows[r0:r0 + step]].to(acc)
+            y = labels[r0:r0 + step, None]
+            ce = torch.logsumexp(lg, -1) - (1 - eps) * lg.gather(-1, y)[:, 0] \
+                - (eps / n) * lg.sum(-1)
+            total += (ce * weights[r0:r0 + step]).sum()
+        ctx.save_for_backward(logits, rows, labels, weights)
+        ctx.eps = eps
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, rows, labels, weights = ctx.saved_tensors
+        eps, n = ctx.eps, logits.shape[-1]
+        out = torch.zeros_like(logits)
+        step = max(1, CE_CHUNK_ELEMS // n)
+        for r0 in range(0, rows.shape[0], step):
+            r = rows[r0:r0 + step]
+            acc = torch.promote_types(logits.dtype, torch.float32)
+            g = torch.softmax(logits[r].to(acc), -1) - eps / n
+            g.scatter_add_(-1, labels[r0:r0 + step, None],
+                           torch.full_like(g[:, :1], -(1 - eps)))
+            out[r] = (g * (grad * weights[r0:r0 + step])[:, None]).to(
+                out.dtype)
+        return out, None, None, None, None
+
+
+def smoothed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           mask: torch.Tensor, eps: float = LABEL_SMOOTHING):
+    """The MaskGIT loss and accuracy over the masked tokens: ``Σ ce ·
+    mask / (Σ mask + 1e-5)`` with label smoothing ``eps``, and the share
+    of masked tokens whose argmax logit is the label, likewise
+    normalised. logits (N, L, n), labels and mask (N, L)."""
+    flat = logits.reshape(-1, logits.shape[-1])
+    maskf = mask.reshape(-1).to(torch.promote_types(logits.dtype,
+                                                    torch.float32))
+    denom = maskf.sum() + 1e-5
+    rows = mask.reshape(-1).nonzero()[:, 0]
+    y = labels.reshape(-1)[rows]
+    loss = SmoothedCrossEntropy.apply(flat, rows, y,
+                                      maskf[rows] / denom, eps)
+    with torch.no_grad():
+        step = max(1, CE_CHUNK_ELEMS // flat.shape[-1])
+        hits = sum(int((flat[rows[r0:r0 + step]].argmax(-1)
+                        == y[r0:r0 + step]).sum())
+                   for r0 in range(0, rows.shape[0], step))
+        acc = torch.tensor(float(hits), device=flat.device) / denom
+    return loss, acc
 
 
 def gumbel_noise(shape, generator=None, device=None) -> torch.Tensor:
@@ -170,6 +257,7 @@ class MaskGITPipeline:
         self.training_config = training_config or {}
         self.inference_config = inference_config or {}
         self.optimizer_config = optimizer_config
+        self.lr_scheduler_config = lr_scheduler_config
         self.blank_code = tuple(blank_code) if blank_code else ()
         self.gamma = gamma_fn(self.common_config.get("gamma_mode", "cosine"))
 
@@ -177,14 +265,86 @@ class MaskGITPipeline:
 
     def load_vq_params(self, state_dict: dict) -> None:
         """The tokenizer's weights (a port state dict, e.g.
-        ``convert.vq_point_cloud_state_dict_from_flax`` of the flax tree)."""
+        ``convert.lidar_state_dict_from_flax`` of the flax tree, or a
+        ``save_model_only`` file of the port's tokenizer)."""
         self.vq.load_state_dict(state_dict)
 
-    def loss_fn(self, *args, **kwargs):
-        raise _not_ported("MaskGIT training (loss_fn)", "item 11b")
+    # -- training --------------------------------------------------------
 
-    def train_step(self, *args, **kwargs):
-        raise _not_ported("MaskGIT training (train_step)", "item 11b")
+    def init_state(self):
+        """A train state around the bidirectional transformer (fp32
+        masters); the tokenizer stays frozen."""
+        self.vq.requires_grad_(False)
+        return build_train_state(self.model, self.training_config,
+                                 self.optimizer_config,
+                                 self.lr_scheduler_config)
+
+    def draw_training_randoms(self, batch: dict, generator=None) -> dict:
+        """Everything ``loss_fn`` draws, in the JAX package's order
+        (``lidar_maskgit.py:197``): the task and ratio uniforms, the mask
+        noise (n, l), the reference-frame counts (b,) in [1, max_ref], the
+        box and map dropout uniforms (b,) and the perturbation's draws."""
+        points = batch["lidar_points"]
+        b, t = points.shape[:2]
+        dev = points.device
+        h, w = self.model.img_size
+        n, l = b * t, h * w
+        max_ref = min(t, self.training_config.get("max_reference_frame", 3))
+
+        def uniform(*shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
+        return {
+            "task": uniform(), "ratio": uniform(), "mask": uniform(n, l),
+            "ref": torch.randint(1, max_ref + 1, (b,), generator=generator,
+                                 device=dev),
+            "box": uniform(b), "map": uniform(b),
+            "perturb": self.model.draw_perturbation((n, l), generator, dev),
+        }
+
+    def loss_from_draws(self, batch: dict, draws: dict):
+        """(loss, {"ce_loss", "acc_0"}) of ``lidar_maskgit.py:192-251`` on
+        given draws (``draw_training_randoms``)."""
+        tc = self.training_config
+        points, pmask = batch["lidar_points"], batch["lidar_points_mask"]
+        b, t = points.shape[:2]
+        _, code, idx = self.tokenize(points, pmask)
+        n, l = idx.shape
+        dev = idx.device
+        is_prediction = draws["task"].to(dev) \
+            < tc.get("task_type_ratio", 0.0)
+        base = random_mask(draws["mask"].to(dev),
+                           self.gamma(draws["ratio"].to(dev)))
+        frame = torch.arange(t, device=dev)[None, :].expand(b, t)
+        future = (frame >= draws["ref"].to(dev)[:, None]).reshape(n)[:, None]
+        mask = torch.where(is_prediction, base & future, base)
+        x_indices = torch.where(mask, -1, idx)
+        ctx = get_maskgit_conditions(
+            batch,
+            box_condition_mask=draws["box"].to(dev)
+            < tc.get("3dbox_condition_ratio", 1.0),
+            hdmap_condition_mask=draws["map"].to(dev)
+            < tc.get("hdmap_condition_ratio", 1.0))
+        logits = self.model(code, x_indices, context=ctx, batch_size=b,
+                            num_frames=t, perturb_draws=draws["perturb"])
+        loss, acc = smoothed_cross_entropy(logits, idx, mask)
+        return loss, {"ce_loss": loss, "acc_0": acc}
+
+    def loss_fn(self, batch: dict, generator=None):
+        return self.loss_from_draws(
+            batch, self.draw_training_randoms(batch, generator))
+
+    def train_step(self, state, batch: dict, generator=None,
+                   draws: Optional[dict] = None):
+        """One step: loss, gradients, clip and AdamW of the transformer.
+        ``draws`` (``draw_training_randoms``) replaces the generator's.
+        Updates ``state`` in place and returns ``(state, metrics)``."""
+        if draws is None:
+            draws = self.draw_training_randoms(batch, generator)
+        loss, metrics = self.loss_from_draws(batch, draws)
+        step_optimizer(state, loss, self.training_config)
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
 
     def save_results(self, *args, **kwargs):
         raise _not_ported("MaskGIT save_results", "item 12")
@@ -194,7 +354,7 @@ class MaskGITPipeline:
 
     # -- inference -------------------------------------------------------
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def tokenize(self, points, points_mask):
         """Frozen VQ tokenize: (voxels (b, t, D, H, W), code (N, L, D),
         indices (N, L))."""

@@ -4,14 +4,20 @@ A JSON config is reflected into a pipeline and a dataset, then a step loop
 calls ``train_step``, logs and checkpoints at the configured intervals:
 
     python -m opendwm_tpu_torch.train -c config.json -o output/ \\
-        --device cuda [--max-steps N] [--log-steps N] \\
+        [--device cuda|cpu] [--max-steps N] [--log-steps N] \\
         [--checkpointing-steps N] [--resume-from STEP]
 
-The device is explicit: ``--device cuda`` without a card raises and never
+``--device`` defaults to ``cuda``, which raises without a card and never
 falls back to the CPU. The model keeps fp32 master weights
 (``param_dtype``) and computes in the config's ``dtype``, as the JAX
-package does. Randomness comes from one ``torch.Generator`` on the device,
-seeded from ``generator_seed`` and saved in each checkpoint; the data
+package does. Frozen stages load from the port's ``save_model_only`` files
+as the JAX CLI chains them: ``vq_checkpoint_path`` (``load_vq_params``),
+``autoencoder_checkpoint_path`` (``load_autoencoder_params``) and
+``blank_code_path`` (a JSON ``{"blank_code": [...]}`` for
+``pipeline.blank_code``); every module the pipeline holds moves to the
+device. As the JAX CLI, this loop never revives a LiDAR codebook.
+Randomness comes from one ``torch.Generator`` on the device, seeded from
+``generator_seed`` and saved in each checkpoint; the data
 order is a function of the seed and the step, so a resumed run takes the
 steps an uninterrupted one takes. Logs go to stdout and
 ``{output}/log/events.jsonl``, and to TensorBoard / Weights & Biases when
@@ -42,7 +48,7 @@ def create_parser():
                     "(PyTorch port).")
     parser.add_argument("-c", "--config-path", required=True)
     parser.add_argument("-o", "--output-path", required=True)
-    parser.add_argument("--device", required=True, choices=("cuda", "cpu"))
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--resume-from", type=int, default=None)
     parser.add_argument("--log-steps", type=int, default=100)
     parser.add_argument("--checkpointing-steps", type=int, default=0)
@@ -156,13 +162,24 @@ def _refuse_unported(args, config: dict) -> None:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP Queue 1, {item})")
     for key, item in (("vae_checkpoint_path", "item 4"),
-                      ("autoencoder_checkpoint_path", "item 11"),
-                      ("vq_checkpoint_path", "item 11"),
                       ("training_sampler", "item 8")):
         if config.get(key):
             raise NotImplementedError(
                 f"config key {key!r} is not ported yet (ROADMAP Queue 1, "
                 f"{item})")
+
+
+def load_frozen_stages(pipeline, config: dict) -> None:
+    """The frozen tokenizers (``save_model_only`` files) and the blank
+    codes a config names, into the pipelines that take them."""
+    for key, method in (("vq_checkpoint_path", "load_vq_params"),
+                        ("autoencoder_checkpoint_path",
+                         "load_autoencoder_params")):
+        if config.get(key) and hasattr(pipeline, method):
+            getattr(pipeline, method)(ckpt_lib.load_model_only(config[key]))
+    if config.get("blank_code_path") and hasattr(pipeline, "blank_code"):
+        with open(config["blank_code_path"]) as f:
+            pipeline.blank_code = tuple(json.load(f)["blank_code"])
 
 
 def main(args=None):
@@ -182,11 +199,17 @@ def main(args=None):
     seed = config.get("generator_seed", 0)
     torch.manual_seed(seed)
     pipe_cfg = dict(config["pipeline"])
-    # fp32 master weights under the config's compute dtype, as flax keeps
-    # its params.
-    pipe_cfg["model"] = dict(pipe_cfg["model"], param_dtype=torch.float32)
+    if "model" in pipe_cfg:
+        # fp32 master weights under the config's compute dtype, as flax
+        # keeps its params (the LiDAR tokenizers and MaskGIT hold fp32
+        # parameters whatever their dtype).
+        pipe_cfg["model"] = dict(pipe_cfg["model"],
+                                 param_dtype=torch.float32)
     pipeline = create_instance_from_config(pipe_cfg)
-    pipeline.model.to(device)
+    load_frozen_stages(pipeline, config)
+    for module in vars(pipeline).values():
+        if isinstance(module, torch.nn.Module):
+            module.to(device)
 
     dataset = create_instance_from_config(config["training_dataset"])
     dl_cfg = dict(config.get("training_dataloader", {}))

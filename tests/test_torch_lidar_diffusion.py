@@ -10,9 +10,12 @@ lidar_diffusion.py``) against the JAX package's on the CPU in fp32.
   ``3dbox_images``), ``encode_points``, and ``generate`` at 2 flow-match
   steps with CFG and one injected reference frame, fed JAX's initial noise
   and Gumbel-sigmoid uniforms: latents within 1e-3, the same voxels.
+- Training runs with the tokenizer frozen; a tokenizer that is neither
+  LiDAR autoencoder raises.
 - The repo's LiDAR DiT config builds through the port's registry.
 """
 
+import copy
 import json
 from pathlib import Path
 
@@ -201,13 +204,23 @@ def test_generate_matches_jax(pipes):
 
 
 def test_training_and_other_tokenizers_raise(pipes):
-    tp = pipes[2]
-    for fn in (tp.loss_fn, tp.init_state, tp.loss_from_draws):
-        with pytest.raises(NotImplementedError, match="11b"):
-            fn()
+    """Training runs (held against JAX in
+    test_torch_lidar_diffusion_train.py): a finite loss with the tokenizer
+    frozen; a tokenizer that is neither LiDAR autoencoder raises."""
+    tp, tbatch = pipes[2], pipes[4]
+    pipe = copy.copy(tp)
+    pipe.model = copy.deepcopy(tp.model)
+    pipe.autoencoder = copy.deepcopy(tp.autoencoder)
+    state = pipe.init_state()
+    assert not any(p.requires_grad for p in pipe.autoencoder.parameters())
+    loss, metrics = pipe.loss_fn(tbatch, torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss).item() and float(loss.detach()) > 0
+    state, _ = pipe.train_step(state, tbatch,
+                               torch.Generator().manual_seed(1))
+    assert state.step == 1
     other = LidarDiffusionPipeline(tp.model, torch.nn.Linear(2, 2),
                                    tp.train_scheduler, tp.test_scheduler)
-    with pytest.raises(NotImplementedError, match="9c"):
+    with pytest.raises(ValueError, match="VAEPointCloud"):
         other.encode_points(None, None)
 
 

@@ -15,7 +15,8 @@ on the CPU in fp32.
   within 1e-6 (none does on these draws).
 - ``VQPointCloud.encode``: voxels bit for bit, codes and indices as above.
 - The weight bridge: flax → port → flax bit for bit, the ``ConvTranspose``
-  kernel and the relative position tables included.
+  kernel and the relative position tables included; a serving tree
+  without the DVGO density MLP loads and maps back with the port's own.
 
 The JAX side's parameters come from ``jax.eval_shape`` of its init, drawn
 with numpy (``torch_port_helpers.flax_init``).
@@ -273,8 +274,14 @@ def test_vq_encode(vq_pair):
     out = tmodel(torch.from_numpy(pts), torch.from_numpy(mask),
                  render_rays=False)
     assert out["lidar_voxel"].shape == (1, 2, 8, 32, 32)
-    with pytest.raises(NotImplementedError, match="11b"):
-        tmodel(torch.from_numpy(pts), torch.from_numpy(mask))
+    assert "depth_loss" not in out
+    # with the rays rendered (training; held against JAX in
+    # test_torch_lidar_tokenizer_train.py): finite losses, a depth a ray
+    rendered = tmodel(torch.from_numpy(pts), torch.from_numpy(mask))
+    assert rendered["pred_depth"].shape == (1, 2, 3000)
+    assert torch.isfinite(rendered["depth_loss"]).item()
+    assert torch.isfinite(rendered["sdf_loss"]).item()
+    torch.testing.assert_close(rendered["lidar_voxel"], out["lidar_voxel"])
 
 
 def test_weight_bridge_round_trip(vq_pair):
@@ -282,7 +289,12 @@ def test_weight_bridge_round_trip(vq_pair):
     back = lidar_flax_from_state_dict(tmodel.state_dict())
     flat_in = jax.tree_util.tree_leaves_with_path(params)
     flat_out = dict(jax.tree_util.tree_leaves_with_path(back))
-    assert len(flat_in) == len(flat_out)
+    # a serving tree holds no density MLP (flax makes it only when a
+    # forward renders); the port's module keeps its own, which maps back
+    extra = {jax.tree_util.keystr(p) for p in flat_out} \
+        - {jax.tree_util.keystr(p) for p, _ in flat_in}
+    assert extra == {f"['params']['density_mlp_{i}']['{leaf}']"
+                     for i in (1, 2) for leaf in ("kernel", "bias")}
     for path, leaf in flat_in:
         np.testing.assert_array_equal(np.asarray(flat_out[path]),
                                       np.asarray(leaf))

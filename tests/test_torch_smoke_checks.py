@@ -14,7 +14,10 @@ schedule, the bf16 text stage's bar, the stream path's launch census, the
 text encoders' weight scales and the tiny streaming DiT; the UniMLVG
 phases' gates: the rollout's census, the branch types' K7 shapes and
 MaskGWM's K1 shape from the geometry, the tiny paths' bars, the cameras
-must move the output. No kernel runs here.
+must move the output; the LiDAR training phases' gates: the LiDAR DiT's
+and the LiDAR UNet's train census, their shapes from the configs and
+phase 3's lists, the UNet's parameters that may stay. No kernel runs
+here.
 """
 
 import importlib.util
@@ -977,3 +980,140 @@ def test_tiny_unimlvg_paths_reach_their_kernels(smoke):
         joint = s + text.shape[-2]
         assert flash_tail.supported(joint, joint, head)
     assert int(l * 0.75) % (u.MASK_LATENT[0] // 2) == 0
+
+
+# -- LiDAR training and the LiDAR UNet (phases 19-22) ------------------------
+
+def _lidar_dit_train_counts(**over) -> dict:
+    """The census of 2 LiDAR DiT train steps: K1 16 and K2 8 a step at
+    (160, 240, 16, 64), K3/K4 on the runtime-width kernel at the train
+    batch's d-1024 shapes."""
+    k1 = "160,240,16,64"
+    counts = {
+        "flash_tail": 32, "flash_tail_by_shape": {k1: 32},
+        "flash_tail_backward": 16, "flash_tail_backward_by_shape": {k1: 16},
+        "adaln_modulate": 132, "adaln_modulate_fixed": 0,
+        "adaln_modulate_by_shape": {"24,1600,1024": 68, "24,1,1024": 64},
+        "residual_adaln_modulate": 124, "residual_adaln_modulate_fixed": 0,
+        "residual_adaln_modulate_by_shape": {"24,1600,1024": 64,
+                                             "24,1,1024": 60},
+        "flash_attention": 0, "flash_attention_backward": 0}
+    counts.update(over)
+    return counts
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"flash_tail_backward": 15}, False),
+    ({"flash_tail": 8}, False),
+    ({"flash_tail_by_shape": {"160,240,16,64": 31, "80,240,16,64": 1}},
+     False),
+    ({"flash_tail_backward_by_shape": {"160,256,16,64": 16}}, False),
+    ({"adaln_modulate": 131}, False),  # not the same count every step
+    ({"adaln_modulate": 40, "adaln_modulate_by_shape":
+      {"24,1600,1024": 20, "24,1,1024": 20}}, False),  # under a forward's
+    ({"residual_adaln_modulate_fixed": 2}, False),
+    ({"adaln_modulate_by_shape": {"24,1600,1024": 132}}, False),
+    ({"flash_attention_backward": 1}, False),
+])
+def test_lidar_dit_train_census(smoke, over, ok):
+    """The LiDAR DiT train steps: K1 and K2 at (160, 240, 16, 64) only, K2
+    8 a step, K3/K4 at the same count every step, at least a forward's,
+    on the runtime-width kernel at both train shapes; no K7."""
+    assert {"lidar_dit_train", "lidar_unet_train"} <= set(smoke.TRAIN_PATHS)
+    assert {"lidar_dit_train", "lidar_unet_serve", "lidar_unet_train"} <= \
+        set(smoke.MODEL_PATHS)
+    assert "lidar_dit_train" not in smoke.DIT_PATHS
+    if ok:
+        smoke.check_lidar_dit_train_census(_lidar_dit_train_counts(**over), 2)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_lidar_dit_train_census(
+                _lidar_dit_train_counts(**over), 2)
+
+
+def test_lidar_train_shapes_follow_the_configs(smoke):
+    """The train batch's K1/K2 and K3/K4 shapes from the LiDAR DiT config,
+    the LiDAR UNet's K7 from its 80 x 80 latents; phase 3 holds each: K1
+    and K2 at the DiT's train shape and K2 at the UNet's train shapes, K7
+    and its backward at the UNet's train batch, K3/K4 at the train
+    shapes."""
+    import json
+
+    cfg = json.loads(smoke.LIDAR_DIT_CONFIG.read_text())["pipeline"]["model"]
+    gw = cfg["sample_size"] // cfg["patch_size"]
+    b, t = smoke.LIDAR_DIT_TRAIN_BATCH, smoke.LIDAR_DIT_FRAMES
+    width = cfg["attention_head_dim"] * cfg["num_attention_heads"]
+    assert smoke.LIDAR_DIT_TRAIN_K1_SHAPE == (b * gw, t * gw,
+                                              cfg["num_attention_heads"])
+    assert smoke.LIDAR_TRAIN_ADALN_SHAPES == ((b * t, gw * gw, width),
+                                              (b * t, 1, width))
+    assert smoke.LIDAR_DIT_TRAIN_K1_SHAPE in smoke.K1_CHECKED
+    assert smoke.LIDAR_DIT_TRAIN_K1_SHAPE in smoke.K2_CHECKED
+    assert set(smoke.LIDAR_UNET_K1_TRAIN) <= set(smoke.K2_CHECKED)
+    unet = json.loads(smoke.LIDAR_UNET_CONFIG.read_text())["pipeline"]
+    side = unet["autoencoder"]["lidar_encoder"]["img_size"] // \
+        unet["autoencoder"]["lidar_encoder"]["patch_size"]
+    heads = unet["model"]["num_attention_heads"][0]
+    frames = smoke.LIDAR_UNET_FRAMES
+    assert smoke.LIDAR_UNET_K7_SERVE == (2 * frames, side * side,
+                                         side * side, heads)
+    assert smoke.LIDAR_UNET_K7_TRAIN == (smoke.LIDAR_UNET_BATCH * frames,
+                                         side * side, side * side, heads)
+    assert smoke.LIDAR_UNET_K7_TRAIN + (False,) in smoke.K7_SHAPES
+    assert smoke.LIDAR_UNET_K7_TRAIN + (False,) in smoke.K7_BWD_SHAPES
+    # the rowwise temporal branch at level 0: rows x (frames x row)
+    assert smoke.LIDAR_UNET_K1_SERVE[0] == (2 * side, frames * side, heads)
+    assert smoke.LIDAR_UNET_K1_TRAIN[0] == (
+        smoke.LIDAR_UNET_BATCH * side, frames * side, heads)
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"flash_tail_by_shape": {"320,320,5,64": 1}}, False),  # one missing
+    ({"flash_attention_by_shape": {"16,6400,6400,5,64": 5,
+                                   "8,6400,6400,5,64": 1}}, False),
+    ({"flash_tail_backward_by_shape": {}}, False),
+    ({"adaln_modulate": 1}, False),
+])
+def test_lidar_unet_census(smoke, over, ok):
+    """The LiDAR UNet's train census: K1 and K2 at exactly the three
+    train shapes, K7 and its backward at (16, 6400, 6400, 5, 64), no
+    K3/K4; a by-shape count of 0 does not count as launched."""
+    k1 = {",".join(map(str, s + (64,))): 5 for s in smoke.LIDAR_UNET_K1_TRAIN}
+    k7 = {"16,6400,6400,5,64": 5}
+    base = {"flash_tail_by_shape": k1,
+            "flash_tail_backward_by_shape": dict(k1),
+            "flash_attention_by_shape": k7,
+            "flash_attention_backward_by_shape": dict(k7),
+            "adaln_modulate": 0, "residual_adaln_modulate": 0}
+    args = ("lidar unet train", smoke.LIDAR_UNET_K1_TRAIN,
+            smoke.LIDAR_UNET_K7_TRAIN, True)
+    if ok:
+        smoke.check_lidar_unet_census({**base, **over}, *args)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_lidar_unet_census({**base, **over}, *args)
+    zero = dict(base, flash_tail_by_shape={**k1, "8,400,20,64": 0})
+    smoke.check_lidar_unet_census(zero, *args)
+
+
+def test_lidar_unet_may_stay_names_the_parameters_without_gradient(smoke):
+    """``LIDAR_UNET_MAY_STAY`` matches the LiDAR UNet's added-time
+    embedding and each cross-attention's ``norm2`` bias, nothing else."""
+    import json
+    import re
+
+    from opendwm_tpu_torch.config import create_instance_from_config
+
+    cfg = json.loads(smoke.LIDAR_UNET_CONFIG.read_text())["pipeline"]
+    with torch.device("meta"):
+        model = create_instance_from_config(cfg["model"])
+    names = [n for n, _ in model.named_parameters()]
+    stay = [n for n in names
+            if any(re.search(p, n) for p in smoke.LIDAR_UNET_MAY_STAY)]
+    assert {n for n in stay if n.startswith("add_embedding.")} == {
+        n for n in names if n.startswith("add_embedding.")}
+    others = [n for n in stay if not n.startswith("add_embedding.")]
+    assert others and all(n.endswith("norm2.bias") for n in others)
+    assert len(stay) < 0.05 * len(names)

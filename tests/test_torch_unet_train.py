@@ -45,7 +45,6 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -74,6 +73,7 @@ from opendwm_tpu_torch.schedulers import DDPMScheduler
 from torch_port_helpers import (
     jax_training_draws,
     random_flax_params,
+    recording_tx,
     to_torch_tree,
 )
 
@@ -148,16 +148,6 @@ def _rel_to_max(a, b, floor: float = 0.0) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), floor, 1e-12))
 
 
-def _recording(tx):
-    """``tx`` behind a stage that passes the updates through and keeps
-    them (the raw gradients) as its state, so that one compiled
-    ``_train_step_impl`` also returns the gradients of its
-    ``jax.value_and_grad``."""
-    return optax.chain(optax.GradientTransformation(
-        lambda params: jax.tree.map(jnp.zeros_like, params),
-        lambda updates, state, params=None: (updates, updates)), tx)
-
-
 def _draws(key, batch, cfg):
     return jax_training_draws(
         key, batch["latents"].shape, cfg["training_config"],
@@ -171,7 +161,7 @@ def setup():
     jax_cfg = copy.deepcopy(cfg)
     jax_cfg["training_config"]["freezing_pattern"] = QKV_BIAS
     jax_pipe = jax_config.create_instance_from_config(jax_cfg)
-    jax_pipe.tx = _recording(jax_pipe.tx)
+    jax_pipe.tx = recording_tx(jax_pipe.tx)
     port_pipe = config.create_instance_from_config(copy.deepcopy(cfg))
     batch = _batch(np.random.default_rng(0))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}

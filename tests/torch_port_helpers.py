@@ -120,6 +120,18 @@ def jax_training_draws(key, shape, tc, cc, num_train_timesteps=None,
     return draws
 
 
+def recording_tx(tx):
+    """``tx`` behind a stage that passes the updates through and keeps
+    them (the raw gradients) as its state, so that one compiled
+    ``_train_step_impl`` also returns the gradients of its
+    ``jax.value_and_grad`` (in ``opt_state[0]``)."""
+    import optax
+
+    return optax.chain(optax.GradientTransformation(
+        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates)), tx)
+
+
 def layout_rasters(rng, shape) -> np.ndarray:
     """Box/map-like layout rasters: mostly background, a quarter of the
     pixels set to uniform values."""
@@ -171,3 +183,113 @@ def load_lidar(port_module, params):
 
     port_module.load_state_dict(to_torch(lidar_state_dict_from_flax(params)))
     return port_module
+
+
+# -- the LiDAR trainers' bars: gradients and one AdamW update on the flax
+# tree (``lidar_flax_from_state_dict``)
+
+GRAD_TOL = 1e-4
+PARAM_TOL = 1e-5
+UPDATE_TOL = 1e-3
+ADAM_EPS = 1e-8
+
+
+def lidar_grads(port_module) -> dict:
+    """The port's gradients on the flax tree, as ``{path: array}``."""
+    from opendwm_tpu_torch.convert import lidar_flax_from_state_dict
+
+    tree = lidar_flax_from_state_dict(
+        {n: p.grad for n, p in port_module.named_parameters()})
+    return dict(jax.tree_util.tree_leaves_with_path(tree))
+
+
+def lidar_float64_grads(make_loss) -> dict:
+    """The gradients of ``make_loss(dtype)`` (a loss of a port module built
+    in that dtype, returned with the module) in float64, on the flax
+    tree."""
+    loss, module = make_loss(torch.float64)
+    loss.backward()
+    return lidar_grads(module)
+
+
+def check_grad_dicts(got: dict, ref: dict, exact: dict,
+                     tol: float = GRAD_TOL) -> None:
+    """Each gradient of ``got`` within ``tol`` of JAX's (``ref``, same
+    keys). Where JAX's own fp32 gradient is further than ``tol`` / 2 from
+    ``exact`` (the same loss in float64: a sum of many cancelling terms,
+    such as the bias gradients of the density branch's first block), the
+    port is held within twice JAX's distance of JAX's and within ``tol``
+    of ``exact``. Where JAX's is 0 (a shifted window of one token per
+    region: the −100 mask leaves one key, so the position bias gets none)
+    the port's is below 1e-20."""
+    assert set(got) == set(ref)
+    nonzero = 0
+    for key, g in ref.items():
+        g, mine = np.asarray(g), np.asarray(got[key])
+        if float(np.abs(g).max()) == 0:
+            assert float(np.abs(mine).max()) < 1e-20, key
+            continue
+        nonzero += 1
+        jax_error = rel(g, exact[key])
+        if jax_error <= tol / 2:
+            assert rel(mine, g) < tol, (key, rel(mine, g))
+        else:
+            assert rel(mine, g) < 2 * jax_error, (key, rel(mine, g))
+            assert rel(mine, exact[key]) < tol, key
+    assert nonzero > 0.9 * len(ref)
+
+
+def check_lidar_grads(port_module, jax_grads, exact: dict) -> None:
+    """``check_grad_dicts`` on the flax tree of a LiDAR module."""
+    check_grad_dicts(lidar_grads(port_module),
+                     dict(jax.tree_util.tree_leaves_with_path(jax_grads)),
+                     exact)
+
+
+def check_update_dicts(got: dict, old: dict, new: dict, grads: dict,
+                       lr: float, max_norm=None, param_tol: float = PARAM_TOL,
+                       update_tol: float = UPDATE_TOL) -> None:
+    """The port's parameters after one AdamW step (``got``) within
+    ``param_tol`` of JAX's (``new``) and their move from ``old`` within
+    ``update_tol`` of JAX's (plus four ulps of the fp32 parameters: torch's
+    AdamW rounds the decay and the step apart, optax rounds their sum, so
+    an entry may land two ulps away, and a move of weight decay alone is a
+    few ulps), but where JAX's gradient
+    (``grads``), clipped to ``max_norm`` as the step clips it, is below
+    100 x AdamW's eps: its first step moves such an entry by ``lr · g /
+    (|g| + eps)``, which turns the fp32 noise of a gradient near 0 (an
+    attention's key bias, a bias before a normalisation: 0 in exact
+    arithmetic) into a move of up to lr; there both packages move by at
+    most lr."""
+    norm = np.sqrt(sum(float((np.asarray(g, np.float64) ** 2).sum())
+                       for g in grads.values()))
+    scale = min(1.0, max_norm / norm) if max_norm and norm > 0 else 1.0
+    for key, want in new.items():
+        want, before = np.asarray(want), np.asarray(old[key])
+        mine = np.asarray(got[key])
+        noisy = np.abs(np.asarray(grads[key])) * scale < 100 * ADAM_EPS
+        if noisy.any():
+            assert np.abs(mine - before)[noisy].max() <= 1.01 * lr, key
+            assert np.abs(want - before)[noisy].max() <= 1.01 * lr, key
+        ok = ~noisy
+        if not ok.any():
+            continue
+        assert rel(mine[ok], want[ok]) < param_tol, key
+        step = want[ok].astype(np.float64) - before[ok]
+        err = mine[ok].astype(np.float64) - want[ok]
+        assert np.linalg.norm(err) <= update_tol * np.linalg.norm(step) \
+            + 4 * np.linalg.norm(np.spacing(want[ok])), key
+
+
+def check_lidar_update(port_module, old_params, new_params, grads,
+                       lr: float, max_norm=None) -> None:
+    """``check_update_dicts`` on the flax tree of a LiDAR module."""
+    from opendwm_tpu_torch.convert import lidar_flax_from_state_dict
+
+    def leaves(tree):
+        return dict(jax.tree_util.tree_leaves_with_path(tree))
+
+    check_update_dicts(
+        leaves(lidar_flax_from_state_dict(port_module.state_dict())[
+            "params"]), leaves(old_params), leaves(new_params),
+        leaves(grads), lr, max_norm)
