@@ -7,8 +7,9 @@ the UNet and the VAE, LiDAR serving (MaskGIT generation, its rollout and
 the LiDAR DiT), UniMLVG serving and training, the DiT's other cross-view
 and temporal types and MaskGWM, the causal temporal VAE, LiDAR training
 (the VQ and KL tokenizers with the DVGO renderer, MaskGIT, the LiDAR DiT)
-and the LiDAR UNet, the tail-attention tiling experiment and the attention
-shoot-out on one GPU.
+and the LiDAR UNet, LiDAR UNet training from a nuScenes-format archive
+through the host data stack and the train CLI, the tail-attention tiling
+experiment and the attention shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-stream]
@@ -288,12 +289,28 @@ Phases; any failure raises and exits non-zero:
    from 50 to 4 steps (s a generation, peak); 3 train steps at the
    config's batch 4 as phase 6; K7 at (8 | 16, 6400, 6400, 5, 64) and K1
    (and K2) at the shapes phase 3 held, nothing else.
-   Phases 19-22 log their seconds.
+   Phases 19-22 log their seconds;
+23. the host data stack: ``opendwm_tpu_torch/perf/nuscenes_fixture.py``
+   writes a nuScenes-format archive at nuScenes' scale (one train-split
+   scene, 40 keyframes at 2 Hz, LIDAR_TOP sweeps of 34,720 points, ~50
+   boxes a sample; deflated, with its ``.info.json``) and its extracted
+   tree; the native zip scan, inflate, LiDAR decode and voxelizer equal
+   their numpy fallbacks on it; the LiDAR UNet config's reader gives the
+   same items, bit for bit, through ``CombinedZipFileSystem`` from 4
+   threads as through ``DirFileSystem`` over the tree in one (and, with
+   Pillow, one item's BEV rasters through both); the reader's items a
+   second alone and through ``PrefetchLoader`` at 1 and 4 workers; then
+   the port's train CLI (``train.main --device cuda``) trains the LiDAR
+   UNet for 3 steps from the archive through the config's own dataset
+   section (4 loader threads; its final checkpoint not written): a finite
+   loss, s a step, the wait for the loader's batch, peak; K7 and its
+   backward at (16, 6400, 6400, 5, 64) only, K1 and K2 at phase 22's
+   training shapes only.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the eighteen model
+but the shoot-out, every K1 and K7 forward launch of the nineteen model
 paths must have run the Hopper forward, every K2 and K7 backward launch of
-the seven training paths the Hopper backward, every bf16 K5 and K6
+the eight training paths the Hopper backward, every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
 of the ten DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
@@ -350,12 +367,13 @@ BM_OPTIMIZER = {"flat": True, "mu_dtype": "bfloat16"}
 RASTER_MIN_MOVE = 1e-3
 # The paths whose launch counters the body gates read.
 TRAIN_PATHS = ("train", "unet_train", "bm_train", "unimlvg_train",
-               "mask_step", "lidar_dit_train", "lidar_unet_train")
+               "mask_step", "lidar_dit_train", "lidar_unet_train",
+               "lidar_unet_data")
 MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
                "bm_unet_serve", "bm_train", "stream", "int8_serve",
                "int8_unet", "lidar_dit", "unimlvg_serve", "unimlvg_train",
                "branch_types", "mask_step", "lidar_dit_train",
-               "lidar_unet_serve", "lidar_unet_train")
+               "lidar_unet_serve", "lidar_unet_train", "lidar_unet_data")
 DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
              "int8_serve", "unimlvg_serve", "unimlvg_train", "branch_types",
              "mask_step")
@@ -422,6 +440,16 @@ LIDAR_UNET_K7_SERVE, LIDAR_UNET_K7_TRAIN = (8, 6400, 6400, 5), \
 # queries' gradient is 0), whose bias starts at 0 and so stays there.
 LIDAR_UNET_MAY_STAY = (r"^add_embedding\.",
                        r"transformer_blocks\.\d+\.norm2\.bias$")
+# The data phase (23): a nuScenes-format archive at nuScenes' scale (one
+# train-split scene of 40 keyframes at 2 Hz, LIDAR_TOP sweeps of 34,720
+# points, ~50 boxes a sample; perf/nuscenes_fixture.py), read through the
+# LiDAR UNet config's own dataset section by the port's train CLI for
+# DATA_STEPS steps with DATA_WORKERS loader threads. The rasters' keys:
+# the settings the reader takes and the items' keys they make.
+NUSCENES_SAMPLES, NUSCENES_POINTS, NUSCENES_BOXES = 40, 34720, 50
+DATA_WORKERS, DATA_STEPS, DATA_LOADER_BATCHES = 4, 3, 4
+RASTER_SETTINGS = ("_3dbox_bev_settings", "hdmap_bev_settings")
+RASTER_KEYS = ("3dbox_bev_images", "hdmap_bev_images")
 # UniMLVG stage 3 (the best video model the repo publishes, with explicit
 # perspective and view modeling and ``pred`` with 3 visible frames) and the
 # DiT's other options, at phases 5 and 9's geometry; its CFG forwards are
@@ -4193,6 +4221,214 @@ def run_lidar_unet(dev, create_instance_from_config, ops):
     return serve_counts, train_counts, metrics
 
 
+def check_native_parity(parity: dict, tag: str) -> None:
+    """The native library built and agreed with its numpy fallbacks on
+    the archive: the same central directory, every deflated member inflated
+    to the same bytes, every sweep decoded (with and without the range
+    filter) to the same points and mask, the same occupancy grid."""
+    log(f"{tag}: native vs fallback: {json.dumps(parity)}")
+    if not parity["native"]:
+        fail(f"{tag}: the native data plane did not build")
+    if not parity["scan_equal"] or parity["inflate_mismatches"] or \
+            parity["decode_mismatches"] or not parity["inflated"] or \
+            not parity["decoded"] or parity["voxelize_equal"] is False:
+        fail(f"{tag}: the native data plane disagrees with its fallback: "
+             f"{parity}")
+
+
+def check_items_equal(got: list, want: list, what: str) -> None:
+    """``got`` and ``want`` (lists of reader items) equal key for key and
+    bit for bit (``perf/data_plane.item_differences``)."""
+    from opendwm_tpu_torch.perf.data_plane import item_differences
+
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} items against {len(want)}")
+    bad = [d for i, (g, w) in enumerate(zip(got, want))
+           for d in item_differences(g, w, f"item {i}")]
+    if bad:
+        fail(f"{what}: {len(bad)} differences, first {bad[:5]}")
+    log(f"{what}: {len(got)} items equal, bit for bit")
+
+
+def check_cli_events(events: list, steps: int, tag: str) -> None:
+    """The train CLI logged every step, each with a loss (``*loss``), all
+    finite, its seconds and the loader's wait."""
+    if [e["step"] for e in events] != list(range(1, steps + 1)):
+        fail(f"{tag}: logged steps {[e['step'] for e in events]}, want 1-"
+             f"{steps}")
+    for e in events:
+        losses = [v for k, v in e.items() if k.endswith("loss")]
+        if not losses or not all(isinstance(v, float) and math.isfinite(v)
+                                 for v in losses) or \
+                "data_wait_s" not in e or "step_s" not in e:
+            fail(f"{tag}: step {e['step']} logged {e}")
+
+
+def run_data_phase(dev, create_instance_from_config, ops):
+    """Phase 23: the LiDAR UNet trained from a nuScenes-format archive
+    through the config's own dataset section and the port's train CLI.
+    ``perf/nuscenes_fixture.py`` writes the archive (deflated, with its
+    ``.info.json``) and its extracted tree; the native zip scan, inflate,
+    LiDAR decode and voxelizer must equal their fallbacks on it; the
+    reader's items through ``CombinedZipFileSystem`` from ``DATA_WORKERS``
+    threads must equal those through ``DirFileSystem`` over the tree in one
+    thread (the rasters aside), and, with Pillow, one item's BEV rasters
+    through both; the reader's items a second alone and through
+    ``PrefetchLoader`` at 1 and ``DATA_WORKERS`` workers; then
+    ``train.main --device cuda`` for ``DATA_STEPS`` steps of the config
+    (only ``training_dataset.fs.paths`` and ``autoencoder_checkpoint_path``
+    changed: a random VAEPointCloud saved by ``save_model_only``) with
+    ``num_workers`` ``DATA_WORKERS``: a finite loss each step, K7 and its
+    backward at ``LIDAR_UNET_K7_TRAIN`` only, K1 and K2 at
+    ``LIDAR_UNET_K1_TRAIN`` only. The CLI's final checkpoint (the 1.92B
+    UNet's fp32 weights and AdamW moments, ~23 GB) is not written."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    from opendwm_tpu_torch import checkpoint, train
+    from opendwm_tpu_torch.datasets.common import CollateFnIgnoring
+    from opendwm_tpu_torch.perf import data_plane, nuscenes_fixture
+
+    tag = "data"
+    work = REPO / "build" / "data_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    metrics: dict = {"packages": {
+        name: importlib.util.find_spec(name) is not None
+        for name in ("PIL", "fsspec", "pyarrow", "av", "botocore")}}
+    log(f"{tag}: optional packages present: {json.dumps(metrics['packages'])}"
+        " (this phase needs none of them but Pillow, for the rasters)")
+    try:
+        t0 = time.perf_counter()
+        info = nuscenes_fixture.write_archive(
+            work, NUSCENES_SAMPLES, NUSCENES_POINTS, NUSCENES_BOXES, SEED)
+        tree = nuscenes_fixture.extract(info["archive"], work / "tree")
+        archive = Path(info["archive"])
+        metrics["write_s"] = time.perf_counter() - t0
+        mib = archive.stat().st_size / 2**20
+        log(f"{tag}: wrote {archive.name} ({mib:.1f} MiB deflated: "
+            f"{info['samples']} samples of {info['points']} "
+            f"points, {info['boxes']} boxes a sample) and its tree in "
+            f"{metrics['write_s']:.2f} s")
+
+        config = json.loads(LIDAR_UNET_CONFIG.read_text())
+        vox = create_instance_from_config(
+            config["pipeline"]["autoencoder"]["voxelizer"])
+        pc_range = (vox.x_min, vox.y_min, vox.z_min, vox.x_max, vox.y_max,
+                    vox.z_max)
+        check_native_parity(data_plane.native_parity(
+            archive.read_bytes(), pc_range,
+            (vox.x_min, vox.y_min, vox.z_min, vox.step, vox.z_step,
+             *vox.grid_shape)), tag)
+
+        ds_cfg = copy.deepcopy(config["training_dataset"])
+        ds_cfg["fs"]["paths"] = [str(archive)]
+        plain = {k: v for k, v in ds_cfg.items() if k not in RASTER_SETTINGS}
+        on_tree = {"_class_name": "dwm.fs.dirfs.DirFileSystem", "path": tree}
+        zip_ds = create_instance_from_config(plain)
+        dir_ds = create_instance_from_config(dict(plain, fs=on_tree))
+        index = list(range(len(zip_ds)))
+        t0 = time.perf_counter()
+        got = data_plane.read_items(zip_ds, index * 2, DATA_WORKERS)
+        metrics["threaded_read_s"] = time.perf_counter() - t0
+        want = data_plane.read_items(dir_ds, index, 1)
+        check_items_equal(got, want * 2, f"{tag}: the reader through "
+                          f"CombinedZipFileSystem from {DATA_WORKERS} threads "
+                          "vs DirFileSystem in one")
+        del got, want
+        if metrics["packages"]["PIL"]:
+            rasters = [create_instance_from_config(
+                {**{k: ds_cfg[k] for k in RASTER_SETTINGS}, **plain,
+                 "fs": fs})[0] for fs in (ds_cfg["fs"], on_tree)]
+            check_items_equal(
+                [{k: rasters[0][k] for k in RASTER_KEYS}],
+                [{k: rasters[1][k] for k in RASTER_KEYS}],
+                f"{tag}: one item's BEV rasters through both filesystems")
+            lit = [int(np.asarray(im).any(-1).sum())
+                   for im in rasters[0]["3dbox_bev_images"]]
+            if not all(lit):
+                fail(f"{tag}: a BEV box raster is empty: {lit} pixels lit")
+            log(f"{tag}: box rasters light {lit} pixels a frame")
+        else:
+            log(f"{tag}: Pillow is missing: the BEV raster check is skipped, "
+                "and the training run reads without the raster settings "
+                "(the train CLI drops the rasters in any case)")
+            ds_cfg = plain
+        reader = create_instance_from_config(ds_cfg)
+        collate = CollateFnIgnoring()
+        batch_size = config.get("batch_size", 1)
+        data_plane.items_per_s(reader, index[:2])  # warm
+        metrics["items_per_s"] = data_plane.items_per_s(reader, index)
+        for w in (1, DATA_WORKERS):
+            metrics[f"loader_items_per_s_{w}"] = \
+                data_plane.loader_items_per_s(reader, batch_size, collate, w,
+                                              DATA_LOADER_BATCHES, SEED)
+        frames = config["training_dataset"]["sequence_length"]
+        log(f"{tag}: the reader {metrics['items_per_s']:.1f} items/s alone, "
+            f"{metrics['loader_items_per_s_1']:.1f} through PrefetchLoader "
+            f"at 1 worker, {metrics[f'loader_items_per_s_{DATA_WORKERS}']:.1f}"
+            f" at {DATA_WORKERS} ({DATA_LOADER_BATCHES} batches of "
+            f"{batch_size} items of {frames} frames)")
+        del reader, zip_ds, dir_ds
+
+        with torch.device("meta"):
+            vae = create_instance_from_config(
+                config["pipeline"]["autoencoder"])
+        vae.to_empty(device=dev)
+        random_init_(vae, torch.Generator(dev).manual_seed(SEED))
+        vae_path = work / "lidar_vae.pt"
+        checkpoint.save_model_only(str(vae_path), vae)
+        del vae
+        run_cfg = copy.deepcopy(config)
+        run_cfg["training_dataset"] = ds_cfg
+        run_cfg["autoencoder_checkpoint_path"] = str(vae_path)
+        run_cfg["training_dataloader"] = {"num_workers": DATA_WORKERS}
+        cfg_path = work / "config.json"
+        cfg_path.write_text(json.dumps(run_cfg))
+        out = work / "out"
+        args = train.create_parser().parse_args(
+            ["-c", str(cfg_path), "-o", str(out), "--device", "cuda",
+             "--max-steps", str(DATA_STEPS), "--log-steps", "1"])
+        skipped = []
+        save = train.ckpt_lib.save_checkpoint
+        train.ckpt_lib.save_checkpoint = lambda *a, **k: skipped.append(a[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            state = train.main(args)
+        finally:
+            train.ckpt_lib.save_checkpoint = save
+        counts = ops.launch_counts()
+        metrics["cli_s"] = time.perf_counter() - t0
+        metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        events = [json.loads(line) for line in
+                  (out / "log" / "events.jsonl").read_text().splitlines()]
+        check_cli_events(events, DATA_STEPS, tag)
+        if state.step != DATA_STEPS:
+            fail(f"{tag}: the CLI stopped at step {state.step}")
+        del state
+        for key in ("step_s", "data_wait_s", "sd_loss"):
+            metrics[key] = [e[key] for e in events]
+        log(f"{tag} train (the CLI, {DATA_STEPS} steps of {batch_size} x "
+            f"{frames} frames): "
+            f"{metrics['cli_s']:.1f} s in all; a step "
+            f"{', '.join(f'{x:.3f}' for x in metrics['step_s'])} s, the wait "
+            f"for the loader's batch "
+            f"{', '.join(f'{x:.4f}' for x in metrics['data_wait_s'])} s; peak "
+            f"{metrics['peak_gib']:.2f} GiB; sd_loss "
+            f"{', '.join(f'{x:.4f}' for x in metrics['sd_loss'])}; the final "
+            f"checkpoint of step {skipped} not written")
+        check_lidar_unet_census(counts, f"{tag} train", LIDAR_UNET_K1_TRAIN,
+                                LIDAR_UNET_K7_TRAIN, True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts, metrics
+
+
 def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
@@ -4489,7 +4725,16 @@ def main() -> None:
                 lidar_train["lidar_unet_train"] = counts
         else:
             lidar_train[name] = counts[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the data phase")
+    t0 = time.perf_counter()
+    lidar_train["lidar_unet_data"], data_metrics = run_data_phase(
+        dev, create_instance_from_config, ops)
+    data_metrics["phase_s"] = time.perf_counter() - t0
+    log(f"data: {data_metrics['phase_s']:.1f} s")
     log_clocks("at the end")
+    log(f"the data phase ({card}): " + json.dumps(data_metrics))
     log(f"LiDAR training and the LiDAR UNet ({card}): "
         + json.dumps(lidar_train_metrics))
     log(f"UniMLVG and the DiT's other options ({card}): " + json.dumps({

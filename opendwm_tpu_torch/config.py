@@ -61,8 +61,35 @@ _LAZY_MODULES: dict[str, str] = {
     "ExponentialLR": "opendwm_tpu_torch.pipelines.optim",
     "LinearLR": "opendwm_tpu_torch.pipelines.optim",
     "SyntheticCTSDDataset": "opendwm_tpu_torch.datasets.synthetic",
+    # the host data stack: filesystems, readers, the bucket sampler
+    "dwm.fs": "opendwm_tpu_torch.fs",
+    "fsspec.implementations.local": "opendwm_tpu_torch.fs",
+    "LocalFileSystem": "opendwm_tpu_torch.fs",
+    "DirFileSystem": "opendwm_tpu_torch.fs",
+    "CombinedZipFileSystem": "opendwm_tpu_torch.fs",
+    "CombinedTarFileSystem": "opendwm_tpu_torch.fs",
+    "ForkableS3FileSystem": "opendwm_tpu_torch.fs",
     "dwm.datasets.common": "opendwm_tpu_torch.datasets.common",
     "CollateFnIgnoring": "opendwm_tpu_torch.datasets.common",
+    "DatasetAdapter": "opendwm_tpu_torch.datasets.common",
+    "ConcatMotionDataset": "opendwm_tpu_torch.datasets.common",
+    "dwm.datasets.nuscenes": "opendwm_tpu_torch.datasets.nuscenes",
+    "NuScenesDataset": "opendwm_tpu_torch.datasets.nuscenes",
+    "dwm.datasets.waymo": "opendwm_tpu_torch.datasets.waymo",
+    "WaymoDataset": "opendwm_tpu_torch.datasets.waymo",
+    "dwm.datasets.argoverse": "opendwm_tpu_torch.datasets.argoverse",
+    "ArgoverseDataset": "opendwm_tpu_torch.datasets.argoverse",
+    "dwm.datasets.kitti360": "opendwm_tpu_torch.datasets.kitti360",
+    "Kitti360Dataset": "opendwm_tpu_torch.datasets.kitti360",
+    "dwm.datasets.opendv": "opendwm_tpu_torch.datasets.opendv",
+    "OpenDVDataset": "opendwm_tpu_torch.datasets.opendv",
+    "dwm.datasets.carla_streaming":
+        "opendwm_tpu_torch.datasets.carla_streaming",
+    "StreamingDataAdapter": "opendwm_tpu_torch.datasets.carla_streaming",
+    "dwm.datasets.preview": "opendwm_tpu_torch.datasets.preview",
+    "PreviewDataset": "opendwm_tpu_torch.datasets.preview",
+    "dwm.utils.sampler": "opendwm_tpu_torch.utils.sampler",
+    "VariableVideoBatchSampler": "opendwm_tpu_torch.utils.sampler",
     "transformers.CLIPTextModel": "opendwm_tpu_torch.models.text_encoders",
     "transformers.CLIPTextModelWithProjection":
         "opendwm_tpu_torch.models.text_encoders",
@@ -129,9 +156,8 @@ def get_class(class_name: str):
         "the CTSD-3.5 MMDiT and CTSD-2.1 UNet serving and training paths, "
         "with the layout ImageAdapter and the image VAE, streaming serving, "
         "the CLIP/T5 text stage, LiDAR serving and training (the VQ and KL "
-        "tokenizers, MaskGIT, the LiDAR DiT and UNet), UniMLVG, MaskGWM "
-        "and the temporal VAE; see "
-        "ROADMAP.md Queue 1)."
+        "tokenizers, MaskGIT, the LiDAR DiT and UNet), UniMLVG, MaskGWM, "
+        "the temporal VAE and the host data stack; see ROADMAP.md Queue 1)."
     )
 
 

@@ -7,6 +7,15 @@ calls ``train_step``, logs and checkpoints at the configured intervals:
         [--device cuda|cpu] [--max-steps N] [--log-steps N] \\
         [--checkpointing-steps N] [--resume-from STEP]
 
+The loader is built as the JAX CLI builds it: ``training_sampler`` (the
+bucket sampler, given the dataset) orders the batches when the config has
+one; ``training_dataloader.num_workers > 0`` fetches each batch's items on
+that many threads of a ``PrefetchLoader`` that keeps ``prefetch_factor``
+batches ready, else the loop loads them itself (``batch_iterator``). A
+batch's arrays go to the device; its other fields (the readers' PIL
+rasters among them, as in the JAX CLI) are dropped, and the first step
+says which.
+
 ``--device`` defaults to ``cuda``, which raises without a card and never
 falls back to the CPU. The model keeps fp32 master weights
 (``param_dtype``) and computes in the config's ``dtype``, as the JAX
@@ -19,7 +28,10 @@ device. As the JAX CLI, this loop never revives a LiDAR codebook.
 Randomness comes from one ``torch.Generator`` on the device, seeded from
 ``generator_seed`` and saved in each checkpoint; the data
 order is a function of the seed and the step, so a resumed run takes the
-steps an uninterrupted one takes. Logs go to stdout and
+steps an uninterrupted one takes. Each logged step carries ``step_s``
+(its train step alone), ``s_per_step`` (their mean over the last 20
+steps) and ``data_wait_s`` (its wait for the loader's batch). Logs go to
+stdout and
 ``{output}/log/events.jsonl``, and to TensorBoard / Weights & Biases when
 those are installed (optional, as in the JAX package).
 """
@@ -37,6 +49,7 @@ import torch
 
 from opendwm_tpu_torch import checkpoint as ckpt_lib
 from opendwm_tpu_torch.config import create_instance_from_config, global_state
+from opendwm_tpu_torch.datasets.loader import PrefetchLoader, index_batches
 
 # Config keys that only steer JAX; the port reads none of them.
 _JAX_ONLY_KEYS = ("jax_platform", "num_virtual_cpu_devices")
@@ -114,23 +127,37 @@ class JsonlLogger:
             self.tb.close()
 
 
-def batch_iterator(dataset, batch_size: int, collate_fn, seed: int = 0,
-                   skip: int = 0) -> Iterable[dict]:
-    """Shuffled batches, each epoch a permutation drawn from ``seed``; the
-    first ``skip`` batches are passed over without being loaded."""
-    rng = np.random.default_rng(seed)
-    per_epoch = len(dataset) // batch_size
-    if per_epoch == 0:
-        raise ValueError(f"dataset of {len(dataset)} items is smaller than "
-                         f"one batch of {batch_size}")
-    while True:
-        order = rng.permutation(len(dataset))
-        for i in range(per_epoch):
-            if skip:
-                skip -= 1
-                continue
-            items = order[i * batch_size:(i + 1) * batch_size]
-            yield collate_fn([dataset[int(j)] for j in items])
+def batch_iterator(dataset, batch_size: int, collate_fn, sampler=None,
+                   seed: int = 0, skip: int = 0) -> Iterable[dict]:
+    """Batches in the loop's own thread: the sampler's micro-batches, else
+    each epoch a permutation drawn from ``seed``; the first ``skip``
+    batches are passed over without being loaded."""
+    for indices in index_batches(len(dataset), batch_size, sampler, seed,
+                                 skip):
+        yield collate_fn([dataset[i] for i in indices])
+
+
+def build_loader(config: dict, dataset, collate_fn, seed: int = 0,
+                 skip: int = 0):
+    """The training batches of ``config`` (``opendwm_tpu/train.py``'s
+    loader): the bucket sampler when the config names one, and a
+    ``PrefetchLoader`` when ``training_dataloader.num_workers > 0``.
+    Returns the iterator and the loader to close (or None)."""
+    dl_cfg = dict(config.get("training_dataloader", {}))
+    sampler = None
+    if "training_sampler" in config:
+        sampler = create_instance_from_config(config["training_sampler"],
+                                              dataset=dataset)
+    batch_size = dl_cfg.get("batch_size", config.get("batch_size", 1))
+    num_workers = dl_cfg.get("num_workers", 0)
+    if num_workers > 0:
+        loader = PrefetchLoader(
+            dataset, batch_size, collate_fn, sampler, seed,
+            num_workers=num_workers,
+            prefetch_batches=dl_cfg.get("prefetch_factor", 2), skip=skip)
+        return iter(loader), loader
+    return batch_iterator(dataset, batch_size, collate_fn, sampler, seed,
+                          skip), None
 
 
 def to_device_batch(batch: dict, device: torch.device) -> dict:
@@ -144,6 +171,12 @@ def to_device_batch(batch: dict, device: torch.device) -> dict:
                 t = t.float()
             out[k] = t.to(device)
     return out
+
+
+def dropped_fields(batch: dict) -> list:
+    """The fields of a host batch that ``to_device_batch`` drops."""
+    return sorted(k for k, v in batch.items()
+                  if not (isinstance(v, np.ndarray) and v.dtype != object))
 
 
 def _device(name: str) -> torch.device:
@@ -161,12 +194,10 @@ def _refuse_unported(args, config: dict) -> None:
         if value:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP Queue 1, {item})")
-    for key, item in (("vae_checkpoint_path", "item 4"),
-                      ("training_sampler", "item 8")):
-        if config.get(key):
-            raise NotImplementedError(
-                f"config key {key!r} is not ported yet (ROADMAP Queue 1, "
-                f"{item})")
+    if config.get("vae_checkpoint_path"):
+        raise NotImplementedError(
+            "config key 'vae_checkpoint_path' is not ported yet (ROADMAP "
+            "Queue 1, item 4)")
 
 
 def load_frozen_stages(pipeline, config: dict) -> None:
@@ -217,9 +248,6 @@ def main(args=None):
                              config.get("training_collate_fn", {}))
     collate = create_instance_from_config(collate_cfg) or \
         (lambda items: items[0])
-    if dl_cfg.get("num_workers", 0) > 0:
-        print("loading in-process: num_workers is not used", flush=True)
-    batch_size = dl_cfg.get("batch_size", config.get("batch_size", 1))
 
     state = pipeline.init_state()
     generator = torch.Generator(device).manual_seed(seed)
@@ -227,15 +255,23 @@ def main(args=None):
         ckpt_lib.load_checkpoint(args.output_path, args.resume_from, state,
                                  generator)
         print(f"resumed from step {args.resume_from}", flush=True)
-    loader = batch_iterator(dataset, batch_size, collate, seed,
-                            skip=state.step)
+    loader, prefetch = build_loader(config, dataset, collate, seed,
+                                    skip=state.step)
 
     logger = JsonlLogger(args.output_path, wandb_project=args.wandb)
     max_steps = args.max_steps or config.get("train_steps", 1000)
     durations: list[float] = []
+    waits: list[float] = []
     try:
         while state.step < max_steps:
-            batch = to_device_batch(next(loader), device)
+            t0 = time.perf_counter()
+            host_batch = next(loader)
+            waits.append(time.perf_counter() - t0)
+            if len(waits) == 1 and dropped_fields(host_batch):
+                print("dropped fields that are not arrays (the JAX CLI drops "
+                      f"them too): {', '.join(dropped_fields(host_batch))}",
+                      flush=True)
+            batch = to_device_batch(host_batch, device)
             t0 = time.perf_counter()
             state, metrics = pipeline.train_step(state, batch, generator)
             if state.step % args.log_steps == 0:
@@ -243,7 +279,8 @@ def main(args=None):
                 durations.append(time.perf_counter() - t0)
                 logger.log(state.step, dict(
                     metrics, lr=state.lr_scheduler.get_last_lr()[0],
-                    s_per_step=float(np.mean(durations[-20:]))))
+                    s_per_step=float(np.mean(durations[-20:])),
+                    step_s=durations[-1], data_wait_s=waits[-1]))
             else:
                 durations.append(time.perf_counter() - t0)
             if args.checkpointing_steps and \
@@ -252,6 +289,8 @@ def main(args=None):
                                          generator)
     finally:
         logger.close()
+        if prefetch is not None:
+            prefetch.close()
     ckpt_lib.save_checkpoint(args.output_path, state.step, state, generator)
     print(f"done at step {state.step}", flush=True)
     return state

@@ -10,9 +10,10 @@
   ``vq_checkpoint_path``, the blank codes through ``blank_code_path``;
   2 steps train the transformer only.
 - ``--device`` defaults to ``cuda`` and raises without a card.
-- Every LiDAR config resolves through the port's registry but for the
-  data stack's classes (ROADMAP Queue 1, item 18); the new classes resolve
-  by name and by the JAX package's aliases; ``SyntheticLidarDataset``
+- Every LiDAR config resolves through the port's registry, its data
+  stack's classes (filesystems and readers) to the port's copies; the new
+  classes resolve by name and by the JAX package's aliases;
+  ``SyntheticLidarDataset``
   gives the JAX package's arrays for the same seed and index.
 """
 
@@ -151,11 +152,11 @@ def _class_names(node, out):
 def test_lidar_configs_resolve(path):
     names = _class_names(json.loads(path.read_text()), set())
     for name in sorted(names - {"get_class"}):
+        cls = get_class(name)
         if name.startswith(DATA_STACK):
-            with pytest.raises(KeyError, match="no PyTorch port"):
-                get_class(name)
-        else:
-            get_class(name)
+            assert cls.__module__.startswith(("opendwm_tpu_torch.fs.",
+                                              "opendwm_tpu_torch.datasets.")), \
+                (name, cls.__module__)
 
 
 @pytest.mark.parametrize("name,alias", [

@@ -254,8 +254,8 @@ def test_config_get_state_and_dtype_names():
 
 
 def test_unported_names_and_options_raise():
-    with pytest.raises(KeyError, match="dwm.datasets.nuscenes"):
-        get_class("dwm.datasets.nuscenes.MotionDataset")  # item 18
+    with pytest.raises(KeyError, match="FrechetPairedMetric"):
+        get_class("FrechetPairedMetric")  # item 12
     cfg = _synthetic_model_config()
     cfg["sequence_parallel_axis"] = "sp"
     with pytest.raises(NotImplementedError, match="ROADMAP"):

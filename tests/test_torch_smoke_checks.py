@@ -16,8 +16,10 @@ phases' gates: the rollout's census, the branch types' K7 shapes and
 MaskGWM's K1 shape from the geometry, the tiny paths' bars, the cameras
 must move the output; the LiDAR training phases' gates: the LiDAR DiT's
 and the LiDAR UNet's train census, their shapes from the configs and
-phase 3's lists, the UNet's parameters that may stay. No kernel runs
-here.
+phase 3's lists, the UNet's parameters that may stay; the data phase's
+gates: its launch census, the native data plane against its fallbacks,
+the items through the two filesystems bit for bit, the train CLI's logged
+steps. No kernel runs here.
 """
 
 import importlib.util
@@ -1117,3 +1119,180 @@ def test_lidar_unet_may_stay_names_the_parameters_without_gradient(smoke):
     others = [n for n in stay if not n.startswith("add_embedding.")]
     assert others and all(n.endswith("norm2.bias") for n in others)
     assert len(stay) < 0.05 * len(names)
+
+
+# -- the data phase (23) ------------------------------------------------------
+
+def test_data_phase_trains_at_the_lidar_unet_train_shapes(smoke):
+    """The data path is a training path whose batches (the config's
+    batch of its reader's sequence length) give the LiDAR UNet's train
+    shapes, which phases 3 and 22 hold: its launch gate is phase 22's."""
+    import json
+
+    cfg = json.loads(smoke.LIDAR_UNET_CONFIG.read_text())
+    assert "lidar_unet_data" in smoke.TRAIN_PATHS
+    assert "lidar_unet_data" in smoke.MODEL_PATHS
+    assert cfg["batch_size"] == smoke.LIDAR_UNET_BATCH
+    assert cfg["training_dataset"]["sequence_length"] == \
+        smoke.LIDAR_UNET_FRAMES
+    assert cfg["training_dataset"]["sensor_channels"] == ["LIDAR_TOP"]
+    assert set(smoke.RASTER_SETTINGS) <= set(cfg["training_dataset"])
+    assert smoke.DATA_STEPS >= 3 and smoke.DATA_WORKERS == 4
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"flash_attention_by_shape": {"16,6400,6400,5,64": 15,
+                                   "4,6400,6400,5,64": 1}}, False),
+    ({"flash_attention_backward_by_shape": {}}, False),
+    ({"flash_tail_backward_by_shape": {"320,320,5,64": 3}}, False),
+    ({"flash_tail_by_shape": {"320,320,5,64": 9, "160,160,10,64": 9,
+                              "16,400,20,64": 9, "8,400,20,64": 1}}, False),
+    ({"residual_adaln_modulate": 2}, False),
+])
+def test_data_phase_launch_gate(smoke, over, ok):
+    """K7 and its backward at (16, 6400, 6400, 5, 64) only, K1 and K2 at
+    the three train shapes only, no K3/K4: a launch at any other shape,
+    or a kernel that never launched, fails the phase."""
+    k1 = {",".join(map(str, s + (64,))): 9 for s in smoke.LIDAR_UNET_K1_TRAIN}
+    k7 = {"16,6400,6400,5,64": 15}
+    counts = {"flash_tail_by_shape": k1,
+              "flash_tail_backward_by_shape": dict(k1),
+              "flash_attention_by_shape": k7,
+              "flash_attention_backward_by_shape": dict(k7),
+              "adaln_modulate": 0, "residual_adaln_modulate": 0, **over}
+    args = ("data train", smoke.LIDAR_UNET_K1_TRAIN,
+            smoke.LIDAR_UNET_K7_TRAIN, True)
+    if ok:
+        smoke.check_lidar_unet_census(counts, *args)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_lidar_unet_census(counts, *args)
+
+
+GOOD_PARITY = {"native": True, "scan_equal": True, "inflated": 51,
+               "inflate_mismatches": 0, "decoded": 80, "decode_mismatches": 0,
+               "voxelize_equal": True, "entries": 51, "voxels": 18532}
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"voxelize_equal": None}, True),  # no grid asked for
+    ({"native": False}, False),
+    ({"scan_equal": False}, False),
+    ({"inflate_mismatches": 1}, False),
+    ({"decode_mismatches": 2}, False),
+    ({"decoded": 0}, False),
+    ({"inflated": 0}, False),
+    ({"voxelize_equal": False}, False),
+])
+def test_native_parity_gate(smoke, over, ok):
+    if ok:
+        smoke.check_native_parity({**GOOD_PARITY, **over}, "data")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_native_parity({**GOOD_PARITY, **over}, "data")
+
+
+def test_native_parity_sees_a_wrong_library(smoke, tmp_path, monkeypatch):
+    """``perf/data_plane.native_parity`` on an archive, with the native
+    decode made to drop a point: the gate fails."""
+    import numpy as np
+
+    from opendwm_tpu_torch import native
+    from opendwm_tpu_torch.perf import data_plane, nuscenes_fixture
+
+    info = nuscenes_fixture.write_archive(tmp_path, samples=2, points=300,
+                                          boxes=2)
+    data = open(info["archive"], "rb").read()
+    smoke.check_native_parity(data_plane.native_parity(
+        data, (-50, -50, -3, 50, 50, 2.6)), "data")
+    decode = native.decode_lidar_bin
+
+    def wrong(raw, stride=5, max_points=32768, pc_range=None,
+              use_native=None):
+        pts, mask = decode(raw, stride, max_points, pc_range, use_native)
+        if use_native:
+            mask = mask.copy()
+            mask[np.flatnonzero(mask)[-1]] = False
+        return pts, mask
+
+    monkeypatch.setattr(native, "decode_lidar_bin", wrong)
+    with pytest.raises(SystemExit):
+        smoke.check_native_parity(data_plane.native_parity(
+            data, (-50, -50, -3, 50, 50, 2.6)), "data")
+
+
+def _items():
+    import numpy as np
+    from PIL import Image
+
+    return [{"fps": np.float32(2), "pts": np.arange(4, dtype=np.float32),
+             "lidar_points": np.ones((2, 5, 3), np.float32),
+             "3dbox_bev_images": [Image.new("RGB", (4, 4), (0, 0, 255))],
+             "scene": "scene-0001"} for _ in range(2)]
+
+
+def _changed(what):
+    import numpy as np
+    from PIL import Image
+
+    items = _items()
+    if what == "value":
+        items[1]["lidar_points"][1, 2, 0] = np.nextafter(np.float32(1), 2)
+    elif what == "dtype":
+        items[0]["pts"] = items[0]["pts"].astype(np.float64)
+    elif what == "order":
+        items[1] = dict(reversed(list(items[1].items())))
+    elif what == "pixel":
+        img = Image.new("RGB", (4, 4), (0, 0, 255))
+        img.putpixel((3, 3), (0, 0, 254))
+        items[1]["3dbox_bev_images"] = [img]
+    elif what == "scalar":
+        items[0]["fps"] = np.float64(2)
+    elif what == "string":
+        items[0]["scene"] = "scene-0002"
+    elif what == "count":
+        items = items[:1]
+    return items
+
+
+@pytest.mark.parametrize("what,ok", [
+    (None, True), ("value", False), ("dtype", False), ("order", False),
+    ("pixel", False), ("scalar", False), ("string", False),
+    ("count", False),
+])
+def test_items_equal_gate(smoke, what, ok):
+    """Items through the two filesystems must agree key for key, in order,
+    and bit for bit: one ulp of one point, a dtype, one pixel fail."""
+    if ok:
+        smoke.check_items_equal(_changed(what), _items(), "data")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_items_equal(_changed(what), _items(), "data")
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"sd_loss": float("nan")}, False),
+    ({"sd_loss": float("inf")}, False),
+    ({"data_wait_s": None}, False),
+    ({"step_s": None}, False),
+    ({"sd_loss": None}, False),  # no loss logged
+])
+def test_cli_events_gate(smoke, over, ok):
+    def event(step):
+        e = {"step": step, "sd_loss": 0.5, "grad_norm": 2.0, "lr": 1e-4,
+             "s_per_step": 1.2, "step_s": 1.2, "data_wait_s": 1e-4}
+        if step == 2:
+            e.update(over)
+        return {k: v for k, v in e.items() if v is not None}
+
+    events = [event(s) for s in (1, 2, 3)]
+    if ok:
+        smoke.check_cli_events(events, 3, "data")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_cli_events(events, 3, "data")
+    with pytest.raises(SystemExit):  # a step missing
+        smoke.check_cli_events(events[:2], 3, "data")

@@ -293,3 +293,34 @@ def check_lidar_update(port_module, old_params, new_params, grads,
         leaves(lidar_flax_from_state_dict(port_module.state_dict())[
             "params"]), leaves(old_params), leaves(new_params),
         leaves(grads), lr, max_norm)
+
+
+def assert_same_item(got, want, path: str = "item") -> None:
+    """``got`` (a port reader's item) is ``want`` (the JAX reader's) key
+    for key, in the same order, and bit for bit: arrays by dtype, shape
+    and values, numpy scalars by type and value, PIL images by mode, size
+    and pixels, lists, tuples and dicts element by element."""
+    from PIL import Image
+
+    if isinstance(want, dict):
+        assert isinstance(got, dict), path
+        assert list(got) == list(want), (path, list(got), list(want))
+        for k in want:
+            assert_same_item(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same_item(g, w, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray), path
+        assert (got.dtype, got.shape) == (want.dtype, want.shape), path
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    elif isinstance(want, Image.Image):
+        assert isinstance(got, Image.Image), path
+        assert (got.mode, got.size) == (want.mode, want.size), path
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
+                                      err_msg=path)
+    else:
+        assert type(got) is type(want), (path, type(got), type(want))
+        assert got == want or (got != got and want != want), \
+            (path, got, want)
