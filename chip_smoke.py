@@ -8,8 +8,11 @@ the LiDAR DiT), UniMLVG serving and training, the DiT's other cross-view
 and temporal types and MaskGWM, the causal temporal VAE, LiDAR training
 (the VQ and KL tokenizers with the DVGO renderer, MaskGIT, the LiDAR DiT)
 and the LiDAR UNet, LiDAR UNet training from a nuScenes-format archive
-through the host data stack and the train CLI, the tail-attention tiling
-experiment and the attention shoot-out on one GPU.
+through the host data stack and the train CLI, the landing of reference
+checkpoints and the evaluation path (the evaluate and preview CLIs, the
+FID / FVD nets, the metrics, the train CLI's evaluation, preview and
+profile), the tail-attention tiling experiment and the attention shoot-out
+on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-stream]
@@ -305,14 +308,40 @@ Phases; any failure raises and exits non-zero:
    section (4 loader threads; its final checkpoint not written): a finite
    loss, s a step, the wait for the loader's batch, peak; K7 and its
    backward at (16, 6400, 6400, 5, 64) only, K1 and K2 at phase 22's
-   training shapes only.
+   training shapes only;
+24. weight landing and evaluation (``run_land_eval_phase``). Sources in
+   the released checkpoints' names are drawn on the card from ``SEED``:
+   phase 5's DiT and phase 7's UNet (in memory; the UNet's SD2.1 skeleton,
+   without its cross-view and temporal branches, in SD2.1-era keys, so
+   that ``sd21_to_svd_keys`` runs), the SD3.5 VAE, CLIP-L (HF names), the
+   FID Inception and I3D, the last four written in the released layout as
+   one ``.pth`` and one ``.safetensors`` each (``run_all.discover`` must
+   find the ``.pth`` tree). Each lands through ``run_all.import_entry``
+   (every source key read, ``strict=True``, ``verified``), and a twin of
+   its architecture holding the imported weights gives the source's golden
+   forward bit for bit; each file load's seconds and GB/s are logged. Then
+   ``evaluate.main --device cuda`` on a config at phase 5's geometry (its
+   DiT without the implicit perspective embedding: the synthetic data has
+   no cameras; 4 steps, CFG 3.0; the landed VAE as
+   ``vae_checkpoint_path``; ``fid_proxy`` over the decoded frames): a
+   finite result, K1 at (72, 602 | 448, 24, 64) and (192, 168, 24, 64)
+   only, K3 62 and K4 47 a CFG forward at (72, 448 | 154, 1536) only
+   (the ``land_eval`` path); FID (Inception at 299²) over every decoded
+   frame and FVD (I3D at 224²) over every view's clip, random nets with
+   shrinkage, each above 0. The preview CLI writes its batch's file; MaskGIT's
+   ``evaluate_pipeline`` (voxel IoU, diff, Chamfer: finite) and
+   ``save_results`` (the BEV PNG) at phase 12's geometry; and the train CLI
+   runs 2 steps of ``TINY_CONFIG`` with ``--evaluation-steps 1
+   --preview-steps 1 --profile-steps 1:1`` and a tiny VAE landed by
+   ``convert_cli``: the metric logged at both steps, both previews and
+   the trace written.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the nineteen model
+but the shoot-out, every K1 and K7 forward launch of the twenty model
 paths must have run the Hopper forward, every K2 and K7 backward launch of
 the eight training paths the Hopper backward, every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
-of the ten DiT paths the d-1536 kernel (their launch counters).
+of the eleven DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
 
@@ -373,10 +402,11 @@ MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
                "bm_unet_serve", "bm_train", "stream", "int8_serve",
                "int8_unet", "lidar_dit", "unimlvg_serve", "unimlvg_train",
                "branch_types", "mask_step", "lidar_dit_train",
-               "lidar_unet_serve", "lidar_unet_train", "lidar_unet_data")
+               "lidar_unet_serve", "lidar_unet_train", "lidar_unet_data",
+               "land_eval")
 DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
              "int8_serve", "unimlvg_serve", "unimlvg_train", "branch_types",
-             "mask_step")
+             "mask_step", "land_eval")
 # LiDAR serving (bench.py:228-394's geometry): MaskGIT generation on the
 # layout config (bf16 compute, as bench.py:247-252 sets it), the temporal
 # vq80k config's autoregressive rollout, and the temporal LiDAR DiT (its
@@ -4429,6 +4459,409 @@ def run_data_phase(dev, create_instance_from_config, ops):
     return counts, metrics
 
 
+# Phase 24's files in the released layout: (folder, stem) of each source
+# (an HF model's folder, or a file of the weights directory's root).
+LAND_LAYOUT = {"vae": ("base/vae", "diffusion_pytorch_model"),
+               "clip_l": ("base/text_encoder", "model"),
+               "fid_inception": ("", "pt_inception-2015-12-05"),
+               "i3d": ("", "i3d_pretrained_400")}
+
+
+def land_sources(dev) -> dict:
+    """Phase 24's sources, drawn on the card from ``SEED``: {name: (kind,
+    model factory, the source model, model kwargs or None)}; the DiT and
+    UNets in bf16 as their configs compute, the file kinds in fp32."""
+    from opendwm_tpu_torch import run_all
+    from opendwm_tpu_torch.models.autoencoders import sd35_vae
+    from opendwm_tpu_torch.models.i3d import InceptionI3d
+    from opendwm_tpu_torch.models.inception import FIDInceptionV3
+    from opendwm_tpu_torch.models.mmdit import DiTCrossviewTemporal
+    from opendwm_tpu_torch.models.text_encoders import CLIPTextEncoder
+    from opendwm_tpu_torch.models.unet import UNetCrossviewTemporal
+
+    dit_kw = run_all.load_model_kwargs(str(CONFIG))
+    unet_kw = run_all.load_model_kwargs(str(UNET_CONFIG))
+    sd21_kw = dict(unet_kw, enable_crossview=False, enable_temporal=False)
+    specs = {
+        "ctsd_dit": ("ctsd_dit", lambda: DiTCrossviewTemporal(**dit_kw),
+                     dit_kw),
+        "ctsd_unet": ("ctsd_unet", lambda: UNetCrossviewTemporal(**unet_kw),
+                      unet_kw),
+        "ctsd_unet_sd21": ("ctsd_unet",
+                           lambda: UNetCrossviewTemporal(**sd21_kw), sd21_kw),
+        "vae": ("vae", sd35_vae, None),
+        "clip_l": ("clip", lambda: CLIPTextEncoder(**TEXT_ENCODERS["clip_l"]),
+                   None),
+        "fid_inception": ("fid_inception", FIDInceptionV3, None),
+        "i3d": ("i3d", InceptionI3d, None),
+    }
+    gen = torch.Generator(dev).manual_seed(SEED)
+    out = {}
+    for i, (name, (kind, factory, kw)) in enumerate(specs.items()):
+        with torch.device("meta"):
+            model = factory()
+        model.to_empty(device=dev)
+        if kind == "clip":
+            text_init_(model, gen)
+        elif kind in ("i3d", "fid_inception"):
+            run_all.lecun_normal_(model, SEED + i)
+        else:
+            random_init_(model, gen)
+        out[name] = (kind, factory, model.eval(), kw)
+    return out
+
+
+def check_landed(name: str, entry: dict, twin_out, source_out) -> None:
+    """A landed entry: ``verified`` (run_all's golden forward finite) and
+    the imported weights' forward equal to the source's bit for bit."""
+    if entry["status"] != "verified":
+        fail(f"land {name}: {entry['status']}: {entry.get('error')}")
+    if twin_out.shape != source_out.shape or \
+            not torch.equal(twin_out, source_out):
+        fail(f"land {name}: the imported model's golden forward differs from "
+             f"the source's by {max_err(twin_out, source_out):.3e}")
+
+
+def land_one(name: str, spec: tuple, source, dev, output=None) -> dict:
+    """``run_all.import_entry`` of ``source`` (a file, an HF directory or a
+    dict) for ``spec`` (``land_sources``): the entry, checked against the
+    source model's golden forward by a twin of its architecture holding
+    the imported weights (strict)."""
+    from opendwm_tpu_torch import run_all
+
+    kind, factory, model, kw = spec
+    entry, state, checked = run_all.import_entry(
+        name, kind, source, kw, dev, output=output)
+    if checked is None:
+        fail(f"land {name}: {entry['status']}: {entry.get('error')}")
+    inputs = checked[1]
+    del checked
+    with torch.device("meta"):
+        twin = factory()
+    twin.to_empty(device=dev)
+    twin.load_state_dict(state, strict=True)
+    twin_out = run_all.golden_forward(kind, twin.eval(), inputs)
+    source_out = run_all.golden_forward(kind, model, inputs)
+    check_landed(name, entry, twin_out, source_out)
+    if "load_s" in entry:
+        entry["load_gb_per_s"] = entry["load_bytes"] / entry["load_s"] / 1e9
+    log(f"land {name} ({kind}): {entry['status']}, {entry['n_params'] / 1e6:.2f}"
+        f"M params, {entry['seconds']} s"
+        + (f"; file load {entry['load_s']:.3f} s, "
+           f"{entry['load_bytes'] / 1e9:.3f} GB, "
+           f"{entry['load_gb_per_s']:.3f} GB/s" if "load_s" in entry else "")
+        + "; forward equal to the source's bit for bit")
+    return entry
+
+
+def land_weights(dev, work: Path) -> tuple:
+    """Part 1 of phase 24: the DiT and the UNets from in-memory reference
+    dicts, the SD3.5 VAE, CLIP-L, the Inception and I3D through one
+    ``.pth`` and one ``.safetensors`` file each in the reference layout
+    (``run_all.discover`` must find the ``.pth`` tree with its kinds).
+    Returns run_all's report and the landed VAE's file."""
+    from opendwm_tpu_torch import run_all
+    from opendwm_tpu_torch.perf.land_eval import (
+        reference_state_dict,
+        sd21_state_dict,
+    )
+    from opendwm_tpu_torch.torch_import import write_safetensors
+
+    report = {"weights_dir": str(work / "sources"), "entries": []}
+    sources = land_sources(dev)
+    for name in ("ctsd_dit", "ctsd_unet", "ctsd_unet_sd21"):
+        spec = sources.pop(name)
+        sd = reference_state_dict(spec[0], spec[2])
+        if name == "ctsd_unet_sd21":
+            sd = sd21_state_dict(sd)
+        report["entries"].append(land_one(name, spec, sd, dev))
+        del spec, sd
+        gc.collect()
+        torch.cuda.empty_cache()
+    for ext in (".pth", ".safetensors"):
+        root = work / "sources" / ext[1:]
+        want = {}
+        for name, spec in sources.items():
+            folder, stem = LAND_LAYOUT[name]
+            # the TATS I3D file is a .pt
+            path = root / folder / (stem + (".pt" if name == "i3d" and
+                                            ext == ".pth" else ext))
+            path.parent.mkdir(parents=True, exist_ok=True)
+            sd = {k: v.detach().cpu() for k, v in
+                  reference_state_dict(spec[0], spec[2]).items()}
+            if ext == ".pth":
+                torch.save(sd, path)
+            else:
+                write_safetensors(str(path), sd)
+            rel = folder or path.name  # an HF model's entry is its folder
+            want[rel] = spec[0]
+            report["entries"].append(land_one(
+                f"{name}{ext}", spec, str(root / rel), dev,
+                output=str(work / "landed" / ext[1:])))
+        if ext == ".pth":
+            found = {rel: kind for rel, kind, _ in run_all.discover(str(root))}
+            if found != want:
+                fail(f"land: run_all.discover found {found}, want {want}")
+    bad = [e for e in report["entries"] if e["status"] != "verified"]
+    if bad:
+        fail(f"land: entries not verified: {bad}")
+    vae_file = next(e["out_path"] for e in report["entries"]
+                    if e["file"] == "vae.pth")
+    del sources
+    return report, Path(vae_file)
+
+
+def land_eval_config(vae_file: Path) -> dict:
+    """The evaluate and preview CLIs' config at full width: phase 5's DiT
+    (``CONFIG``; the implicit perspective embedding and its camera ids
+    left out: ``SyntheticCTSDDataset`` carries no cameras) with
+    ``STEPS`` flow-match steps and CFG 3.0, one synthetic batch of
+    ``FRAMES`` x ``VIEWS`` latents of ``LAT_H`` x ``LAT_W`` with
+    ``TEXT_TOKENS`` text tokens, the SD3.5 VAE in bf16 from ``vae_file``
+    (a frozen stage) and the synthetic config's ``fid_proxy`` metric over
+    the decoded RGB frames."""
+    from opendwm_tpu_torch.perf import land_eval
+
+    pipe = json.loads(CONFIG.read_text())["pipeline"]
+    pipe["model"] = {k: v for k, v in pipe["model"].items()
+                     if k not in ("perspective_modeling_type",
+                                  "projection_class_embeddings_input_dim")}
+    pipe["common_config"] = {
+        k: v for k, v in pipe["common_config"].items()
+        if k not in ("added_time_ids", "camera_intrinsic_embedding_indices",
+                     "camera_intrinsic_denom_embedding_indices",
+                     "camera_transform_embedding_indices")}
+    pipe["inference_config"] = {"inference_steps": STEPS,
+                                "guidance_scale": 3.0}
+    data = {"_class_name": "SyntheticCTSDDataset", "size": 1,
+            "sequence_length": FRAMES, "view_count": VIEWS,
+            "latent_height": LAT_H, "latent_width": LAT_W,
+            "latent_channels": 16, "text_length": TEXT_TOKENS,
+            "text_dim": pipe["model"]["joint_attention_dim"],
+            "pooled_dim": pipe["model"]["pooled_projection_dim"],
+            "with_layout": False, "seed": SEED}
+    collate = {"_class_name": "CollateFnIgnoring"}
+    config = {"generator_seed": SEED, "batch_size": 1, "pipeline": pipe,
+              "validation_dataset": data, "validation_collate_fn": collate,
+              "preview_dataset": data, "preview_collate_fn": collate}
+    vae = {"_class_name": "AutoencoderKL", "latent_channels": 16,
+           "use_quant_conv": False, "scaling_factor": 1.5305,
+           "shift_factor": 0.0609,
+           "dtype": {"_class_name": "get_class",
+                     "class_name": "torch.bfloat16"}}
+    return land_eval.with_vae(config, vae, vae_file)
+
+
+def run_eval_cli(dev, ops, config_path: Path, out: Path) -> tuple:
+    """Part 2 of phase 24: ``evaluate.main --device cuda`` on the
+    full-width config, the metric's decoded frames tapped; then the FID /
+    FVD drill on those frames. Returns the evaluation's launch counts and
+    its numbers."""
+    from opendwm_tpu_torch import evaluate
+    from opendwm_tpu_torch.metrics.frechet import FrechetPairedMetric
+    from opendwm_tpu_torch.perf import land_eval
+    from opendwm_tpu_torch.pipelines.ctsd import CTSDPipeline
+
+    tapped, timed = [], {}
+    update, evaluate_pipeline = (FrechetPairedMetric.update,
+                                 CTSDPipeline.evaluate_pipeline)
+
+    def tap(self, real, fake):
+        tapped.append((real, fake))
+        return update(self, real, fake)
+
+    def timed_evaluate(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate_pipeline(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        timed["evaluate_pipeline_s"] = time.perf_counter() - t0
+        return out
+
+    FrechetPairedMetric.update = tap
+    CTSDPipeline.evaluate_pipeline = timed_evaluate
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        results = evaluate.main(evaluate.create_parser().parse_args(
+            ["-c", str(config_path), "-o", str(out), "--device", dev.type,
+             "--max-batches", "1"]))
+    finally:
+        FrechetPairedMetric.update = update
+        CTSDPipeline.evaluate_pipeline = evaluate_pipeline
+    counts = ops.launch_counts()
+    metrics = {"cli_s": time.perf_counter() - t0, **timed,
+               "results": results,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if set(results) != {"evaluation/fid_proxy"} or \
+            not all(math.isfinite(v) for v in results.values()):
+        fail(f"land eval: the evaluation JSON {results}")
+    if len(tapped) != 1:
+        fail(f"land eval: the metric saw {len(tapped)} batches, not 1")
+    real, fake = tapped[0]
+    want = (1, FRAMES, VIEWS, 8 * LAT_H, 8 * LAT_W, 3)
+    for what, x in (("real", real), ("fake", fake)):
+        if tuple(x.shape) != want or not bool(torch.isfinite(x).all()):
+            fail(f"land eval: the decoded {what} frames "
+                 f"{tuple(x.shape)} are not finite / {want}")
+    log(f"land eval: evaluate CLI {metrics['cli_s']:.1f} s in all, "
+        f"evaluate_pipeline {metrics['evaluate_pipeline_s']:.3f} s for its "
+        f"batch ({STEPS} CFG steps at {FRAMES} x {VIEWS} x {LAT_H} x "
+        f"{LAT_W}, the decode of real and generated frames, the metric); "
+        f"peak {metrics['peak_gib']:.2f} GiB; {json.dumps(results)}")
+    log(f"land eval: launches {json.dumps(counts)}")
+    forwards = STEPS
+    k3, k4 = counts["adaln_modulate"], counts["residual_adaln_modulate"]
+    if k3 != K3_PER_FORWARD * forwards or k4 != K4_PER_FORWARD * forwards:
+        fail(f"land eval: K3/K4 launched {k3}/{k4} times in {forwards} CFG "
+             f"forwards, not {K3_PER_FORWARD}/{K4_PER_FORWARD} a forward")
+    check_launch_shapes(counts, {
+        "flash_tail_by_shape": [(b, s, 24, 64) for b, s in ATTN_SHAPES],
+        "adaln_modulate_by_shape": ADALN_SHAPES[:2],
+        "residual_adaln_modulate_by_shape": ADALN_SHAPES[:2]},
+        "land eval")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    drill = land_eval.frames_drill(real, fake, dev)
+    drill["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    metrics["drill"] = drill
+    log(f"land eval: the drill on the decoded frames: FID "
+        f"{drill['fid']:.6e} over {drill['fid_images']} frames a side at "
+        f"{land_eval.FID_SIZE}², FVD {drill['fvd']:.6e} over "
+        f"{drill['fvd_clips']} view clips a side at {land_eval.FVD_SIZE}² "
+        f"(random-weight nets, shrinkage); {drill['seconds']:.2f} s, peak "
+        f"{drill['peak_gib']:.2f} GiB")
+    return counts, metrics
+
+
+def run_maskgit_eval(dev, create_instance_from_config, work: Path) -> dict:
+    """Part 3b of phase 24: MaskGIT's ``evaluate_pipeline`` (voxel IoU,
+    voxel diff, Chamfer) and ``save_results`` for one generation at phase
+    12's geometry."""
+    pipe, gen = build_lidar(
+        create_instance_from_config, LIDAR_MASKGIT_CONFIG, dev,
+        ("vq", "model"), bf16=(("vq_point_cloud", "lidar_encoder"),
+                               ("vq_point_cloud", "lidar_decoder"),
+                               ("bi_directional_transformer",)))
+    pipe.blank_code = LIDAR_BLANK_CODE
+    pipe.inference_config["sample_steps"] = MASKGIT_STEPS
+    batch = lidar_batch(dev, gen, 1)
+    results, eval_s = sync_s(lambda: pipe.evaluate_pipeline(
+        pipe.model, [batch], gen))
+    if set(results) != {"evaluation/voxel_iou", "evaluation/voxel_diff",
+                        "evaluation/chamfer"} or \
+            not all(math.isfinite(v) for v in results.values()):
+        fail(f"land maskgit: evaluation {results}")
+    out, _ = sync_s(lambda: pipe.inference_pipeline(batch, generator=gen))
+    paths = pipe.save_results(out, batch, str(work / "maskgit"), "0")
+    if len(paths) != 1 or not Path(paths[0]).is_file() or \
+            Path(paths[0]).stat().st_size == 0:
+        fail(f"land maskgit: save_results wrote {paths}")
+    occupied = float(out["pred_voxels"].float().mean())
+    log(f"land maskgit: evaluate_pipeline {eval_s:.3f} s (one generation "
+        f"of {MASKGIT_STEPS} steps, the Chamfer over the occupied voxels' "
+        f"centres: {occupied:.4f} of the grid predicted), "
+        f"{json.dumps(results)}; save_results wrote {paths}")
+    return {"evaluate_s": eval_s, "results": results,
+            "pred_occupied": occupied, "bev": paths[0]}
+
+
+def run_train_flags(dev, work: Path) -> dict:
+    """Part 4 of phase 24: the train CLI on the card with
+    ``--evaluation-steps 1 --preview-steps 1 --profile-steps 1:1`` for 2
+    steps of ``TINY_CONFIG`` with a tiny VAE landed by ``convert_cli`` as
+    its ``vae_checkpoint_path``: the metric logged at both steps, both
+    previews and the trace written."""
+    from opendwm_tpu_torch import train
+    from opendwm_tpu_torch.perf import land_eval
+
+    config = land_eval.with_vae(json.loads(TINY_CONFIG.read_text()),
+                                land_eval.TINY_VAE,
+                                land_eval.land_tiny_vae(work / "tiny_vae"))
+    cfg = land_eval.write_config(config, work / "tiny.json")
+    out = work / "tiny_out"
+    t0 = time.perf_counter()
+    train.main(train.create_parser().parse_args(
+        ["-c", str(cfg), "-o", str(out), "--device", dev.type,
+         "--max-steps", "2", "--log-steps", "1", "--evaluation-steps", "1",
+         "--preview-steps", "1", "--profile-steps", "1:1"]))
+    cli_s = time.perf_counter() - t0
+    events = [json.loads(line) for line in
+              (out / "log" / "events.jsonl").read_text().splitlines()]
+    evals = {e["step"]: e["evaluation/fid_proxy"] for e in events
+             if "evaluation/fid_proxy" in e}
+    if sorted(evals) != [1, 2] or \
+            not all(math.isfinite(v) for v in evals.values()):
+        fail(f"land train CLI: evaluations {evals}")
+    if [e["step"] for e in events if "profile_written" in e] != [2]:
+        fail("land train CLI: the profile was not logged at step 2")
+    previews = sorted(p.name for p in (out / "preview").iterdir())
+    traces = [p for p in (out / "profile").glob("*.json")
+              if p.stat().st_size > 0]
+    if previews != ["1.gif", "2.gif"] or len(traces) != 1:
+        fail(f"land train CLI: previews {previews}, traces {traces}")
+    log(f"land train CLI: 2 steps with evaluation, preview and a profile "
+        f"of step 2 in {cli_s:.1f} s: fid_proxy {json.dumps(evals)}, "
+        f"previews {previews}, trace {traces[0].name} "
+        f"({traces[0].stat().st_size / 2**20:.1f} MiB)")
+    return {"cli_s": cli_s, "fid_proxy": evals,
+            "trace_mib": traces[0].stat().st_size / 2**20}
+
+
+def run_land_eval_phase(dev, create_instance_from_config, ops) -> tuple:
+    """Phase 24: weight landing and evaluation (``land_weights``,
+    ``run_eval_cli``, the preview CLI, ``run_maskgit_eval``,
+    ``run_train_flags``). Returns the evaluate CLI's launch counts (the
+    ``land_eval`` path) and the phase's numbers."""
+    import shutil
+
+    from opendwm_tpu_torch import preview
+    from opendwm_tpu_torch.perf import land_eval
+
+    work = REPO / "build" / "land_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    metrics: dict = {}
+    try:
+        t0 = time.perf_counter()
+        report, vae_file = land_weights(dev, work)
+        metrics["land_s"] = time.perf_counter() - t0
+        metrics["report"] = report
+        log(f"land: {len(report['entries'])} entries verified, each forward "
+            f"equal to its source's, in {metrics['land_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg = land_eval.write_config(land_eval_config(vae_file),
+                                     work / "eval.json")
+        counts, metrics["evaluate"] = run_eval_cli(dev, ops, cfg,
+                                                   work / "eval_out")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        paths = preview.main(preview.create_parser().parse_args(
+            ["-c", str(cfg), "-o", str(work / "eval_out"), "--device",
+             dev.type, "--max-batches", "1"]))
+        metrics["preview_cli_s"] = time.perf_counter() - t0
+        if len(paths) != 1 or not Path(paths[0]).is_file():
+            fail(f"land preview: the CLI wrote {paths}")
+        log(f"land preview: the CLI wrote {Path(paths[0]).name} "
+            f"({Path(paths[0]).stat().st_size / 2**20:.2f} MiB) in "
+            f"{metrics['preview_cli_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        metrics["maskgit"] = run_maskgit_eval(
+            dev, create_instance_from_config, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        metrics["train_cli"] = run_train_flags(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts, metrics
+
+
 def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
@@ -4733,7 +5166,18 @@ def main() -> None:
         dev, create_instance_from_config, ops)
     data_metrics["phase_s"] = time.perf_counter() - t0
     log(f"data: {data_metrics['phase_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the weight-landing and evaluation phase")
+    t0 = time.perf_counter()
+    land_counts, land_metrics = run_land_eval_phase(
+        dev, create_instance_from_config, ops)
+    land_metrics["phase_s"] = time.perf_counter() - t0
+    log(f"land and evaluate: {land_metrics['phase_s']:.1f} s")
     log_clocks("at the end")
+    log(f"weight landing and evaluation ({card}): " + json.dumps(
+        {k: v for k, v in land_metrics.items() if k != "report"}))
+    log(f"run_all's report ({card}): " + json.dumps(land_metrics["report"]))
     log(f"the data phase ({card}): " + json.dumps(data_metrics))
     log(f"LiDAR training and the LiDAR UNet ({card}): "
         + json.dumps(lidar_train_metrics))
@@ -4757,7 +5201,8 @@ def main() -> None:
              **{k: c for k, (c, _) in lidar.items()},
              "unimlvg_serve": unimlvg_serve, "branch_types": branch_types,
              "mask_step": mask_step, "unimlvg_train": unimlvg_train,
-             "temporal_vae": temporal_vae, **lidar_train}
+             "temporal_vae": temporal_vae, **lidar_train,
+             "land_eval": land_counts}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
               if p != "attn602" and c["flash_attention_segment"]}
     if strays:

@@ -131,6 +131,17 @@ _LAZY_MODULES: dict[str, str] = {
     "dwm.pipelines.lidar_vae": "opendwm_tpu_torch.pipelines.lidar_vae",
     "LidarVAE": "opendwm_tpu_torch.pipelines.lidar_vae",
     "SyntheticLidarDataset": "opendwm_tpu_torch.datasets.synthetic",
+    "dwm.metrics": "opendwm_tpu_torch.metrics",
+    "FrechetDistance": "opendwm_tpu_torch.metrics",
+    "FrechetPairedMetric": "opendwm_tpu_torch.metrics",
+    "CustomMeanMetric": "opendwm_tpu_torch.metrics",
+    "VoxelIoU": "opendwm_tpu_torch.metrics",
+    "VoxelDiff": "opendwm_tpu_torch.metrics",
+    "PointCloudChamfer": "opendwm_tpu_torch.metrics",
+    "PointCloudMMD": "opendwm_tpu_torch.metrics",
+    "PointCloudJSD": "opendwm_tpu_torch.metrics",
+    "FIDInceptionV3": "opendwm_tpu_torch.models.inception",
+    "InceptionI3d": "opendwm_tpu_torch.models.i3d",
 }
 
 
@@ -157,7 +168,8 @@ def get_class(class_name: str):
         "with the layout ImageAdapter and the image VAE, streaming serving, "
         "the CLIP/T5 text stage, LiDAR serving and training (the VQ and KL "
         "tokenizers, MaskGIT, the LiDAR DiT and UNet), UniMLVG, MaskGWM, "
-        "the temporal VAE and the host data stack; see ROADMAP.md Queue 1)."
+        "the temporal VAE, the host data stack, the metrics and the FID/FVD "
+        "feature nets; see ROADMAP.md Queue 1)."
     )
 
 

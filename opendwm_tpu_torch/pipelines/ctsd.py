@@ -10,8 +10,10 @@ decode; and the training step of both objectives, flow matching
 reference-frame and diffusion-forcing input construction, condition
 dropout, the loss, AdamW with clipping, freezing and accumulation; a
 training batch may carry pixel-space ``vae_images`` in place of
-``latents``, encoded by the attached VAE. The JAX ``lax.scan`` over steps
-is a Python loop here.
+``latents``, encoded by the attached VAE; the preview (the composited
+ground truth, layout and generation, written as a video) and the
+evaluation over validation batches with the configured metrics. The JAX
+``lax.scan`` over steps is a Python loop here.
 
 Randomness comes from an explicit ``torch.Generator``, and every draw can
 be handed in instead: initial noise (``noise``) for sampling, and the
@@ -22,12 +24,17 @@ whole set of training draws (``draw_training_randoms`` →
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Optional, Sequence
 
 import torch
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.pipelines import optim
+from opendwm_tpu_torch.utils.preview import (
+    make_ctsd_preview_tensor,
+    save_tensor_to_video,
+)
 from opendwm_tpu_torch.schedulers import (
     DDPMScheduler,
     FlowMatchEulerScheduler,
@@ -468,6 +475,7 @@ class CTSDPipeline:
         self.sharding_policy = sharding_policy
         self.sharding_min_size = sharding_min_size
         self.vae = None
+        self.metrics: dict = {}
         count = added_time_ids_count(self.common_config)
         if count is not None and \
                 getattr(model, "perspective_modeling_type", "") == "implicit":
@@ -529,7 +537,7 @@ class CTSDPipeline:
         target of the train scheduler for ``"unet"``;
         (loss, {"sd_loss": loss})."""
         if "depth_frustum_range" in self.common_config:
-            raise _not_ported("the depth loss", "items 4 and 9")
+            raise _not_ported("the depth loss", "item 9")
         latents = self.ensure_latents(batch, draws.get("vae"))["latents"]
         tc = self.training_config
         sched = self.train_scheduler
@@ -719,6 +727,75 @@ class CTSDPipeline:
             latents = torch.where(ref_mask[..., None, None, None],
                                   image_latents, latents)
         return latents
+
+    # -- preview and evaluation (reference ctsd.py:1835-2007) -------------
+
+    def _generator(self, seed: int) -> torch.Generator:
+        device = next(self.model.parameters()).device
+        return torch.Generator(device).manual_seed(int(seed))
+
+    def preview_pipeline(self, state, batch: dict, output_path: str,
+                         step: int, noise: Optional[torch.Tensor] = None):
+        """Generate from the batch's conditions (noise drawn from a
+        generator seeded with ``state.step``, unless given) and write the
+        composited preview, one row each of ground truth, the box rasters
+        when the batch has them, and the generation, to
+        ``{output_path}/preview/{step}.mp4`` (a GIF without PyAV); returns
+        the path written."""
+        batch = self.ensure_latents(batch)
+        latents = batch["latents"]
+        gen = self.inference_pipeline(
+            batch, tuple(latents.shape),
+            generator=self._generator(state.step), noise=noise)
+        gt = self.decode_latents(latents)
+        fake = self.decode_latents(gen)
+
+        def to01(x):
+            x = x.float().cpu().numpy()
+            lo, hi = x.min(), x.max()
+            return (x - lo) / max(hi - lo, 1e-6)
+
+        rows = [to01(gt[0])[..., :3], to01(fake[0])[..., :3]]
+        if batch.get("3dbox_images") is not None:
+            rows.insert(1, batch["3dbox_images"][0].float().cpu()
+                        .numpy()[..., :3])
+        grid = make_ctsd_preview_tensor(rows)
+        fps = batch.get("fps")
+        fps = float(fps.reshape(-1)[0]) if fps is not None else 2.0
+        return save_tensor_to_video(
+            os.path.join(output_path, "preview", f"{step}.mp4"), fps or 2.0,
+            grid)
+
+    def evaluate_pipeline(self, state, global_step: int, batches=None,
+                          logger=None, metrics: Optional[dict] = None,
+                          noise: Optional[Sequence[torch.Tensor]] = None):
+        """Generate for each validation batch (noise from a generator
+        seeded with ``global_step``, the same for every batch, as the JAX
+        package's one key; or ``noise[i]`` for batch i) and update the
+        metrics (``update(real, fake)``, ``compute()``, ``reset()``) with
+        the decoded frames, or the latents without a VAE; returns and logs
+        ``{"evaluation/{name}": value}``."""
+        metrics = metrics or self.metrics
+        if not metrics or batches is None:
+            return {}
+        for i, batch in enumerate(batches):
+            batch = self.ensure_latents(batch)
+            latents = batch["latents"]
+            gen = self.inference_pipeline(
+                batch, tuple(latents.shape),
+                generator=self._generator(global_step),
+                noise=None if noise is None else noise[i])
+            real = self.decode_latents(latents)
+            fake = self.decode_latents(gen)
+            for m in metrics.values():
+                m.update(real, fake)
+        results = {}
+        for name, m in metrics.items():
+            results[f"evaluation/{name}"] = m.compute()
+            m.reset()
+        if logger is not None:
+            logger.log(global_step, results)
+        return results
 
     def autoregressive_inference_pipeline(
         self,

@@ -34,21 +34,31 @@ package's order (``draw_training_randoms``) or are given
 or the fp32 log-softmax of all logits: ``smoothed_cross_entropy`` works on
 the masked rows, ``CE_CHUNK_ELEMS`` logits at a time, forward and
 backward (a full-width batch has 51,200 tokens x 80,000 codes: 16.4 GB a
-copy in fp32). ``save_results`` and ``evaluate_pipeline`` wait for ROADMAP
-Queue 1 item 12.
+copy in fp32).
+
+``save_results`` writes the BEV previews and point dumps of a generation,
+``evaluate_pipeline`` scores generations with voxel IoU, voxel difference
+and the Chamfer distance (``metrics/``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.metrics import PointCloudChamfer, VoxelDiff, VoxelIoU
 from opendwm_tpu_torch.ops.voxelize import voxels_to_points
 from opendwm_tpu_torch.pipelines.ctsd import build_train_state
 from opendwm_tpu_torch.pipelines.lidar_vqvae import step_optimizer
+from opendwm_tpu_torch.utils.preview import (
+    make_lidar_bev_preview,
+    save_tensor_to_image,
+)
 
 SAMPLE_CHUNK_ELEMS = 2 ** 28  # fp32 logits a chunk of the categorical step
 CE_CHUNK_ELEMS = 2 ** 28  # fp32 logits a chunk of the training loss
@@ -346,11 +356,109 @@ class MaskGITPipeline:
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
-    def save_results(self, *args, **kwargs):
-        raise _not_ported("MaskGIT save_results", "item 12")
+    # -- results and evaluation ------------------------------------------
 
-    def evaluate_pipeline(self, *args, **kwargs):
-        raise _not_ported("MaskGIT evaluate_pipeline", "item 12")
+    def save_results(self, results: dict, batch: dict, output_path: str,
+                     suffix: str = "0") -> list:
+        """Export generation results (``lidar_maskgit.py:544-624``): a BEV
+        preview PNG per sequence (ground truth | prediction, the frames
+        stacked), and with ``save_pred_results`` / ``save_gt_results`` the
+        occupied voxel centres as float32 ``.bin`` files padded to 5
+        columns (nuScenes' LiDAR layout). Names come from
+        ``batch["sample_data"]`` when it has them, else
+        ``{batch:02d}_{frame:03d}``. Returns the paths written."""
+        ic = self.inference_config
+        written = []
+        gt = results["gt_voxels"].float().cpu().numpy()
+        pred = results["pred_voxels"].float().cpu().numpy()
+        b, t = pred.shape[:2]
+
+        def frame_name(bi, ti, ext):
+            sd = batch.get("sample_data")
+            if sd is not None:
+                try:
+                    name = sd[bi][ti]["filename"]
+                    name = os.path.basename(
+                        name[0] if isinstance(name, list) else name)
+                    return os.path.splitext(name)[0] + ext
+                except (KeyError, IndexError, TypeError):
+                    pass
+            return f"{bi:02d}_{ti:03d}{ext}"
+
+        if ic.get("save_preview", True):
+            out_dir = os.path.join(output_path, f"pred_voxel_{suffix}_preview")
+            os.makedirs(out_dir, exist_ok=True)
+            for bi in range(b):
+                frames = make_lidar_bev_preview([gt[bi], pred[bi]])
+                grid = frames.reshape(-1, *frames.shape[2:])
+                path = os.path.join(out_dir, frame_name(bi, 0, ".png"))
+                save_tensor_to_image(path, grid)
+                written.append(path)
+
+        def dump_points(points, mask, dirname):
+            out_dir = os.path.join(output_path, dirname)
+            os.makedirs(out_dir, exist_ok=True)
+            for bi in range(b):
+                for ti in range(t):
+                    p = points[bi, ti][mask[bi, ti]].float().cpu().numpy()
+                    padded = np.concatenate(
+                        [p, np.zeros((p.shape[0], 2), np.float32)], -1)
+                    path = os.path.join(out_dir, frame_name(bi, ti, ".bin"))
+                    with open(path, "wb") as f:
+                        f.write(padded.tobytes())
+                    written.append(path)
+
+        if ic.get("save_pred_results", False):
+            dump_points(results["pred_points"], results["pred_points_mask"],
+                        f"pred_voxel_{suffix}_samples")
+        if ic.get("save_gt_results", False) and "gt_voxels" in results:
+            pts, msk = voxels_to_points(results["gt_voxels"],
+                                        self.vq.voxelizer)
+            dump_points(pts, msk, f"gt_{suffix}_samples")
+        return written
+
+    def evaluate_pipeline(self, params, batches, generator=None,
+                          global_step: int = 0,
+                          metrics: Optional[dict] = None, logger=None,
+                          task_type: str = "generation",
+                          num_reference_frame: int = 3,
+                          draws: Optional[Sequence[dict]] = None) -> dict:
+        """Generate for each validation batch and score voxel IoU and
+        difference and the Chamfer distance of the occupied voxel centres,
+        frame by frame (``lidar_maskgit.py:626-672``); returns and logs
+        ``{"evaluation/{name}": value}``. ``params``: the transformer the
+        JAX signature passes (the train CLI gives its state's model, which
+        is this pipeline's ``model``); ``draws[i]``: batch i's draws for
+        ``inference_pipeline``, else ``generator``'s."""
+        if params is not None and params is not self.model:
+            raise ValueError("MaskGIT evaluates its own model; params must "
+                             "be the pipeline's model (or None)")
+        metrics = metrics or {"voxel_iou": VoxelIoU(),
+                              "voxel_diff": VoxelDiff(),
+                              "chamfer": PointCloudChamfer()}
+        vox = self.vq.voxelizer
+        for i, batch in enumerate(batches):
+            out = self.inference_pipeline(
+                batch, generator, task_type=task_type,
+                num_reference_frame=num_reference_frame,
+                draws=None if draws is None else draws[i])
+            gt, pred = out["gt_voxels"], out["pred_voxels"]
+            for name, m in metrics.items():
+                if name.startswith("voxel"):
+                    m.update(gt > 0.5, pred > 0.5)
+                elif name.startswith("chamfer"):
+                    for bi in range(gt.shape[0]):
+                        for ti in range(gt.shape[1]):
+                            gp, gm = voxels_to_points(gt[bi, ti], vox)
+                            pp, pm = voxels_to_points(pred[bi, ti], vox)
+                            m.update(pp, gp, pm, gm)
+        results = {}
+        for name, m in metrics.items():
+            results[f"evaluation/{name}"] = m.compute()
+            m.reset()
+        if logger is not None:
+            logger.log(global_step, results)
+        return results
 
     # -- inference -------------------------------------------------------
 

@@ -1,1 +1,1 @@
-"""Host utilities of the port (the bucket sampler)."""
+"""Host utilities of the port (the bucket sampler, the preview writers)."""

@@ -1,11 +1,10 @@
 """Every config of ``configs/`` through the port's registry
-(``opendwm_tpu_torch.config.get_class``): 45 of the 47 resolve every
+(``opendwm_tpu_torch.config.get_class``): all 47 resolve every
 ``_class_name`` (``get_class`` itself counted as resolved), the data stack
-to the port's filesystems and readers; the 2 left name only
-``FrechetPairedMetric`` (ROADMAP Queue 1, item 12). And no module of the
-port, nor ``chip_smoke.py``, imports the JAX package, JAX or fsspec (nor
-pyarrow, PyAV or botocore, which the readers import when they need them)
-at import."""
+to the port's filesystems and readers, the metrics to the port's. And no
+module of the port, nor ``chip_smoke.py``, imports the JAX package, JAX or
+fsspec (nor pyarrow, PyAV or botocore, which the readers import when they
+need them, nor transformers or safetensors) at import."""
 
 import json
 import subprocess
@@ -18,7 +17,6 @@ from opendwm_tpu_torch.config import get_class
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(REPO.glob("configs/**/*.json"))
-UNPORTED = {"FrechetPairedMetric"}
 
 
 def class_names(node, out):
@@ -49,17 +47,14 @@ def unresolved(path) -> set:
                               for p in CONFIGS])
 def test_config_resolves(path):
     missing = unresolved(path)
-    assert missing <= UNPORTED, missing
+    assert not missing, missing
 
 
 def test_scan_counts():
     assert len(CONFIGS) == 47
     left = {str(p.relative_to(REPO)): unresolved(p) for p in CONFIGS}
     left = {k: v for k, v in left.items() if v}
-    assert left == {
-        "configs/ctsd/ctsd_35_6views_video_synthetic.json": UNPORTED,
-        "configs/experimental/ctsd_35_sp_tp_synthetic.json": UNPORTED,
-    }
+    assert left == {}
     assert sum("get_class" in class_names(json.loads(p.read_text()), set())
                for p in CONFIGS) == 26
 
@@ -79,7 +74,7 @@ def test_data_stack_resolves_to_the_port():
 
 
 FORBIDDEN = ("jax", "flax", "optax", "opendwm_tpu", "fsspec", "pyarrow", "av",
-             "botocore")
+             "botocore", "transformers", "safetensors")
 
 
 def test_port_and_smoke_import_no_jax_nor_fsspec():
@@ -90,6 +85,7 @@ def test_port_and_smoke_import_no_jax_nor_fsspec():
         "'opendwm_tpu_torch.')]\n"
         "assert 'opendwm_tpu_torch.fs.czip' in names\n"
         "assert 'opendwm_tpu_torch.datasets.argoverse' in names\n"
+        "assert 'opendwm_tpu_torch.run_all' in names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"

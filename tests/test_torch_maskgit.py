@@ -15,7 +15,8 @@ package's (``opendwm_tpu/models/maskgit.py``,
   the same key splits (``lidar_maskgit.py:307``, ``:442``, ``:517``):
   the same code indices and voxels.
 - The weight bridge: flax → port → flax bit for bit; the perturbation
-  draws act only where the model enables it; item 12's parts raise.
+  draws act only where the model enables it; the evaluation's
+  signature.
 """
 
 import json
@@ -263,15 +264,19 @@ def test_generator_draws_run(pipes):
 
 def test_training_parts_raise(pipes):
     """Training is ported (held against JAX in test_torch_maskgit_train.py):
-    ``random_mask`` masks ``l − floor(l (1 − ratio))`` tokens a row; item
-    12's parts still raise."""
+    ``random_mask`` masks ``l − floor(l (1 − ratio))`` tokens a row. The
+    evaluation is ported too (held against JAX in
+    test_torch_eval_pipelines.py); it takes the JAX signature, the model
+    first, and refuses a model that is not the pipeline's."""
     tp = pipes[2]
     noise = torch.rand(3, 10, generator=torch.Generator().manual_seed(0))
     mask = tpipe.random_mask(noise, torch.tensor(0.35))
     assert mask.sum(1).tolist() == [4, 4, 4]
-    for fn in (tp.save_results, tp.evaluate_pipeline):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+    with pytest.raises(ValueError, match="its own model"):
+        tp.evaluate_pipeline(torch.nn.Linear(1, 1), [])
+    with np.errstate(invalid="ignore"):
+        assert set(tp.evaluate_pipeline(tp.model, [], metrics={
+            "voxel_iou": tpipe.VoxelIoU()})) == {"evaluation/voxel_iou"}
 
 
 @pytest.mark.parametrize("name", ["lidar_maskgit_layout_ns",

@@ -254,8 +254,8 @@ def test_config_get_state_and_dtype_names():
 
 
 def test_unported_names_and_options_raise():
-    with pytest.raises(KeyError, match="FrechetPairedMetric"):
-        get_class("FrechetPairedMetric")  # item 12
+    with pytest.raises(KeyError, match="BEVWorldVAE"):
+        get_class("BEVWorldVAE")  # item 11c
     cfg = _synthetic_model_config()
     cfg["sequence_parallel_axis"] = "sp"
     with pytest.raises(NotImplementedError, match="ROADMAP"):

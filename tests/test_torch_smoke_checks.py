@@ -214,6 +214,7 @@ def _counts(**over):
     ("branch_types", {"flash_attention_sm90": 4}, False),
     ("mask_step", {"flash_tail_backward_sm90": 3}, False),
     ("mask_step", {}, True),
+    ("land_eval", {"flash_tail_sm90": 9}, False),
 ])
 def test_model_paths_run_the_hopper_bodies(smoke, path, over, ok):
     """Every K1/K7 forward launch of the fifteen model paths and every
@@ -272,14 +273,15 @@ def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
     ("unimlvg_serve", {"k3_fixed": 61}, False),
     ("branch_types", {"k4_fixed": 46}, False),
     ("mask_step", {"k3": 0, "k3_fixed": 0}, False),
+    ("land_eval", {"k4_fixed": 187}, False),
 ])
 def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
-    """Every K3/K4 launch of the ten DiT paths must have run the d-1536
+    """Every K3/K4 launch of the eleven DiT paths must have run the d-1536
     kernel of ``csrc/adaln.cu``, and each path must have launched both."""
     assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train",
                                     "stream", "int8_serve", "unimlvg_serve",
                                     "unimlvg_train", "branch_types",
-                                    "mask_step"}
+                                    "mask_step", "land_eval"}
     paths = {p: _adaln_counts() for p in smoke.DIT_PATHS}
     paths[path] = _adaln_counts(**over)
     if ok:

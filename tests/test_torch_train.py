@@ -576,15 +576,39 @@ def test_train_cli_runs_checkpoints_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--evaluation-steps", "1"], NotImplementedError),
-    (["--preview-steps", "1"], NotImplementedError),
-    (["--profile-steps", "0:1"], NotImplementedError),
+    (["--evaluation-steps", "1"], None),
+    (["--preview-steps", "1"], ValueError),
+    (["--profile-steps", "0:1"], None),
 ])
 def test_train_cli_refuses_unported_flags(tmp_path, extra, error):
-    argv = ["-c", str(_cli_config(tmp_path)), "-o", str(tmp_path / "o"),
-            "--device", "cpu"] + extra
-    with pytest.raises(error, match="ROADMAP"):
-        train.main(train.create_parser().parse_args(argv))
+    """The three flags are ported (with ``vae_checkpoint_path`` in
+    test_torch_eval_cli.py): a step's evaluation logs the config's metric
+    and a profiled step writes its trace. The preview refuses the
+    synthetic config as the JAX CLI does: without a VAE its 8 x 8 latents
+    cannot stand in one grid beside its 64 x 64 box rasters
+    (``np.concatenate`` raises in both packages)."""
+    out = tmp_path / "o"
+    cfg = _cli_config(tmp_path)
+    cfg.write_text(json.dumps(dict(json.loads(cfg.read_text()),
+                                   evaluation_batches=1)))
+    argv = ["-c", str(cfg), "-o", str(out),
+            "--device", "cpu", "--max-steps", "1", "--log-steps", "1"] + extra
+    if error is not None:
+        with pytest.raises(error, match="concatenat"):
+            train.main(train.create_parser().parse_args(argv))
+        return
+    train.main(train.create_parser().parse_args(argv))
+    events = [json.loads(line) for line in
+              (out / "log" / "events.jsonl").read_text().splitlines()]
+    if extra[0] == "--evaluation-steps":
+        assert [e["step"] for e in events if "evaluation/fid_proxy" in e] \
+            == [1]
+        assert all(np.isfinite(e.get("evaluation/fid_proxy", 0.0))
+                   for e in events)
+    else:
+        assert [e["step"] for e in events if "profile_written" in e] == [1]
+        traces = list((out / "profile").glob("*.json"))
+        assert len(traces) == 1 and traces[0].stat().st_size > 0
 
 
 def test_train_cli_cuda_without_a_card_raises(tmp_path):

@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 
@@ -324,3 +325,15 @@ def assert_same_item(got, want, path: str = "item") -> None:
         assert type(got) is type(want), (path, type(got), type(want))
         assert got == want or (got != got and want != want), \
             (path, got, want)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the test (autouse where a test module
+    imports it). Those modules run many small ops; the suite runs six
+    workers on the host's cores, where OpenMP's barriers over a full team
+    each stall while other workers hold the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
