@@ -11,8 +11,9 @@ and the LiDAR UNet, LiDAR UNet training from a nuScenes-format archive
 through the host data stack and the train CLI, the landing of reference
 checkpoints and the evaluation path (the evaluate and preview CLIs, the
 FID / FVD nets, the metrics, the train CLI's evaluation, preview and
-profile), the tail-attention tiling experiment and the attention shoot-out
-on one GPU.
+profile), the CTSD-2.1 UNet's depth branch in training, the BEV world VAE,
+the blank-code tool and the LiDAR visualizer, the tail-attention tiling
+experiment and the attention shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-stream]
@@ -336,10 +337,34 @@ Phases; any failure raises and exits non-zero:
    ``convert_cli``: the metric logged at both steps, both previews and
    the trace written.
 
+25. the depth branch (``run_unet_depth_train``): first the projection of
+   the depth loss at this phase's geometry on the card and on the host
+   (bins, pixel indices, validity equal bit for bit, points half-way
+   between bins rounded half to even; the loss of the same logits within
+   1e-5) and one AdamW step of a tiny depth UNet against the CPU (the
+   depth loss within 1e-5, the sd loss and the gradient norm within 1e-3,
+   the update within 1e-2 lr where the gradient's sign is certain; each
+   gradient's gap logged beside the host's spread under a 1e-5 nudge of
+   its latents); then phase 7's UNet with
+   ``DEPTH_NET`` and ``DEPTH_FRUSTUM`` (112 bins) written into the loaded
+   config, fp32 masters, on phase 7's batch with ``LIDAR_POINTS`` points a
+   frame and a ring of outward cameras: 3 steps as phase 6, the depth loss, s a step,
+   peak, the branch's share of a profiled step's device time; K7 and its
+   backward at (36, 1792, 1792, 5, 64) and K1 and K2 at phase 7's training
+   shapes only (the ``unet_depth_train`` path);
+26. ``BEVWorldVAE`` (``run_bev_world_vae``): the tiny model card vs host
+   in fp32, then the nwak VQ tokenizer's voxelizer and encoder (6400
+   pillars of 1024 channels), a decoder of ``codebook_dim`` 32, 6 views of
+   256 x 448 in bf16 compute: a forward and the gradient of the KL plus
+   the sums of its outputs, s and peak;
+27. the tools (``run_tools_phase``): ``tools.make_blank_code``'s CLI on
+   the card over phase 19's synthetic tokenizer and data, its ranking
+   equal to the host's; the BEV and perspective renderers on one frame.
+
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the twenty model
+but the shoot-out, every K1 and K7 forward launch of the twenty-one model
 paths must have run the Hopper forward, every K2 and K7 backward launch of
-the eight training paths the Hopper backward, every bf16 K5 and K6
+the nine training paths the Hopper backward, every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
 of the eleven DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
@@ -397,13 +422,13 @@ RASTER_MIN_MOVE = 1e-3
 # The paths whose launch counters the body gates read.
 TRAIN_PATHS = ("train", "unet_train", "bm_train", "unimlvg_train",
                "mask_step", "lidar_dit_train", "lidar_unet_train",
-               "lidar_unet_data")
+               "lidar_unet_data", "unet_depth_train")
 MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
                "bm_unet_serve", "bm_train", "stream", "int8_serve",
                "int8_unet", "lidar_dit", "unimlvg_serve", "unimlvg_train",
                "branch_types", "mask_step", "lidar_dit_train",
                "lidar_unet_serve", "lidar_unet_train", "lidar_unet_data",
-               "land_eval")
+               "land_eval", "unet_depth_train")
 DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
              "int8_serve", "unimlvg_serve", "unimlvg_train", "branch_types",
              "mask_step", "land_eval")
@@ -441,6 +466,15 @@ LIDAR_TINY_TOL = 1e-3
 # LIDAR_UNET_STEPS steps, and a train step at the config's batch 4).
 LIDAR_VQVAE_CONFIG = REPO / "configs/lidar/lidar_vqvae_nwa.json"
 LIDAR_VAE_CONFIG = REPO / "configs/lidar/lidar_vae_nwak.json"
+# Phases 25-27: the depth branch on phase 7's UNet (BEVDepth's depth bins,
+# written into the loaded config: no config of the repo sets them), the BEV
+# world VAE at the nwak VQ tokenizer's geometry, the tools.
+DEPTH_NET = {"mid_channels": 256, "depth_channels": 112}
+DEPTH_FRUSTUM = (2.0, 58.0, 0.5)  # 112 bins
+DEPTH_SOURCE = ("BEVDepth's nuScenes d_bound [2.0, 58.0, 0.5]; the JAX "
+                "DepthNet's default of 256 mid channels")
+DEPTH_TINY_POINTS = 2048
+BEV_TOKENIZER_CONFIG = REPO / "configs/lidar/lidar_vqvae_nwak.json"
 LIDAR_VQVAE_SYNTHETIC = REPO / "configs/lidar/lidar_vqvae_synthetic.json"
 LIDAR_MASKGIT_TRAIN_CONFIG = \
     REPO / "configs/lidar/lidar_maskgit_vq80k_layout_ns.json"
@@ -2452,11 +2486,15 @@ def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False,
     names, params = zip(*pipe.model.named_parameters())
     heads_before = [p.detach().reshape(-1)[:256].clone() for p in params]
 
+    extras = []  # the train step's other metrics (the depth loss)
+
     def step():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, metrics = pipe.train_step(state, batch, generator)
         out = (metrics["sd_loss"].item(), metrics["grad_norm"].item())
+        extras.append({k: v.item() for k, v in metrics.items()
+                       if k not in ("sd_loss", "grad_norm")})
         torch.cuda.synchronize()
         return (time.perf_counter() - t0,) + out
 
@@ -2487,15 +2525,17 @@ def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False,
     changed = sum(moved)
     unchanged = [n for n, m in zip(names, moved) if not m]
     s_per_step = sum(r[0] for r in records[1:]) / (len(records) - 1)
-    for i, (dt, loss_v, gn) in enumerate(records, 1):
-        log(f"{tag} step {i}: {dt:.3f} s, sd_loss {loss_v:.6f}, grad_norm "
-            f"{gn:.4f}{' (warm-up)' if i == 1 else ''}")
+    for i, ((dt, loss_v, gn), more) in enumerate(zip(records, extras), 1):
+        more = "".join(f", {k} {v:.6f}" for k, v in more.items())
+        log(f"{tag} step {i}: {dt:.3f} s, sd_loss {loss_v:.6f}{more}, "
+            f"grad_norm {gn:.4f}{' (warm-up)' if i == 1 else ''}")
     log(f"{tag}: {s_per_step:.3f} s per step (steps 2-{TRAIN_STEPS}), "
         f"{frames_per_step / s_per_step:.2f} {unit}/s; peak memory "
         f"{peak_gib:.2f} GiB; parameters changed: {changed} of "
         f"{len(params)} tensors (unchanged: {unchanged[:5]})")
     log(f"launches during the timed {tag} steps: {json.dumps(counts)}")
-    if not all(torch.isfinite(torch.tensor(r[1:])).all() for r in records):
+    if not all(torch.isfinite(torch.tensor(r[1:] + tuple(e.values()))).all()
+               for r, e in zip(records, extras)):
         fail(f"a {tag} loss or gradient norm is not finite")
     # A parameter without a gradient and at zero (a bias whose output is
     # dropped) cannot move; all else must.
@@ -2536,7 +2576,8 @@ def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False,
         log(_kernel_time_table(prof, sum(walls), f"{tag} step", len(walls)))
     return counts, {"s_per_step": s_per_step, "peak_gib": peak_gib,
                     "update_s": min(update_s),
-                    "moments": moment_census(state.optimizer)}
+                    "moments": moment_census(state.optimizer),
+                    "last_metrics": extras[-1]}
 
 
 def run_unet_train_slice(dev, create_instance_from_config, ops,
@@ -4862,6 +4903,436 @@ def run_land_eval_phase(dev, create_instance_from_config, ops) -> tuple:
     return counts, metrics
 
 
+# -- the depth branch, the BEV world VAE and the tools (phases 25-27) --------
+
+def depth_rig(t: int, v: int, w_img: int, h_img: int) -> dict:
+    """A ring of ``v`` cameras 1.5 m out from the ego at 1.6 m height, each
+    looking out horizontally (camera x right, y down, z forward; camera 0
+    along ego +x, exactly), with ``make_batch``'s intrinsics; the ego
+    poses (the LiDAR's, then each camera's) identity. On the host, (1, t,
+    ...)."""
+    yaw = torch.arange(v) * (2 * torch.pi / v)
+    c, s = yaw.cos(), yaw.sin()
+    c[0], s[0] = 1.0, 0.0
+    rz = torch.zeros(v, 3, 3)
+    rz[:, 0, 0], rz[:, 0, 1], rz[:, 1, 0], rz[:, 1, 1] = c, -s, s, c
+    rz[:, 2, 2] = 1.0
+    look = torch.tensor([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    cam = torch.eye(4).repeat(1, t, v, 1, 1)
+    cam[..., :3, :3] = rz @ look
+    cam[..., 0, 3], cam[..., 1, 3], cam[..., 2, 3] = 1.5 * c, 1.5 * s, 1.6
+    intr = torch.zeros(1, t, v, 3, 3)
+    intr[..., 0, 0] = intr[..., 1, 1] = 0.79 * w_img
+    intr[..., 0, 2], intr[..., 1, 2], intr[..., 2, 2] = w_img / 2, \
+        h_img / 2, 1
+    return {"camera_intrinsics": intr, "camera_transforms": cam,
+            "ego_transforms": torch.eye(4).repeat(1, t, v + 1, 1, 1),
+            "image_size": torch.tensor([float(w_img), float(h_img)])
+            .expand(1, t, v, 2).clone()}
+
+
+def depth_points(gen, t: int, n: int, half_bins: int = 0) -> dict:
+    """``n`` LiDAR points a frame on the host, uniform over a ring 2-58 m
+    out (``DEPTH_FRUSTUM``'s range) between 1.5 m below and above the
+    LiDAR; the first ``half_bins`` of them straight ahead of camera 0,
+    each half-way between two depth bins (exact in fp32)."""
+    r = 2.0 + 56.0 * torch.rand(1, t, n, generator=gen)
+    th = 2 * torch.pi * torch.rand(1, t, n, generator=gen)
+    pts = torch.stack([r * th.cos(), r * th.sin(),
+                       3.0 * torch.rand(1, t, n, generator=gen) - 1.5], -1)
+    lo, _, step = DEPTH_FRUSTUM
+    k = torch.arange(half_bins, dtype=torch.float32)
+    pts[:, :, :half_bins, 0] = 1.5 + lo + (k % 100 + 0.5) * step
+    pts[:, :, :half_bins, 1] = 0.25
+    pts[:, :, :half_bins, 2] = 1.0
+    return {"lidar_points": pts,
+            "lidar_points_mask": torch.ones(1, t, n, dtype=torch.bool)}
+
+
+def check_tiny_depth(dev, create_instance_from_config,
+                     draw_training_randoms) -> dict:
+    """The depth loss's projection at phase 25's geometry on the card and
+    on the host: bins, pixel indices and validity equal bit for bit,
+    points half-way between bins included (rounded half to even); the
+    depth loss of the same logits within 1e-5; then one AdamW step of a
+    tiny depth UNet with the depth loss, the kernel path on the card
+    against the plain path on the CPU in fp32: the depth loss within 1e-5,
+    the sd loss, the gradient norm and the update as ``check_step_errors``
+    holds them; each gradient's gap is logged beside the host's own spread
+    under a 1e-5 nudge of the latents (this step is ill-conditioned: the
+    spread reaches 1e-3 to 2e-2 of a tensor's bar)."""
+    from opendwm_tpu_torch.pipelines import depth_loss
+
+    g = torch.Generator().manual_seed(SEED)
+    w_img, h_img = 8 * LAT_W, 8 * LAT_H
+    batch = {**depth_rig(FRAMES, VIEWS, w_img, h_img),
+             **depth_points(g, FRAMES, DEPTH_TINY_POINTS, 200)}
+    shape = (1, FRAMES, VIEWS, LAT_H, LAT_W, DEPTH_NET["depth_channels"])
+    ref = depth_loss.frustum_indices(shape, batch, DEPTH_FRUSTUM)
+    out = depth_loss.frustum_indices(shape, _to(batch, dev), DEPTH_FRUSTUM)
+    equal = [torch.equal(a.cpu(), b) for a, b in zip(out, ref)]
+    fd, _, valid = ref
+    half = fd[0, :, 0, :200]
+    want = torch.round((torch.arange(200) % 100 + 0.5)).long()
+    logits = torch.randn(shape, generator=g)
+    loss_ref = depth_loss.make_depth_loss(logits, batch, DEPTH_FRUSTUM)
+    loss = depth_loss.make_depth_loss(logits.to(dev), _to(batch, dev),
+                                      DEPTH_FRUSTUM).item()
+    gap = abs(loss - loss_ref.item()) / loss_ref.item()
+    log(f"depth projection, card vs host: bins / pixels / validity equal "
+        f"{equal}; {int(valid.sum())} of {valid.numel()} (point, camera) "
+        f"pairs supervise; half-bin points rounded half to even "
+        f"{torch.equal(half, want.expand_as(half))}; depth loss "
+        f"{loss:.6f}, rel gap {gap:.2e} (tol 1e-5)")
+    if not all(equal) or not torch.equal(half, want.expand_as(half)) \
+            or gap > 1e-5 or valid.sum() < valid.numel() // 8:
+        fail("the depth projection or loss differs between card and host")
+
+    cfg = json.loads(UNET_CONFIG.read_text())["pipeline"]
+    cfg["model"] = dict(
+        _class_name=cfg["model"]["_class_name"], in_channels=4,
+        out_channels=4, block_out_channels=[8, 16, 16], layers_per_block=1,
+        num_attention_heads=[2, 2, 2], cross_attention_dim=12,
+        addition_time_embed_dim=8, merge_factor=2.0,
+        enable_rowwise_crossview=True, enable_rowwise_temporal=True,
+        gradient_checkpointing=True, param_dtype=torch.float32,
+        depth_net_config={"mid_channels": 16, "depth_channels": 16},
+        depth_frustum_range=[2.0, 10.0, 0.5])
+    cfg["common_config"].pop("added_time_ids")
+    cfg["common_config"].update(enable_depth_branch=True,
+                                depth_frustum_range=[2.0, 10.0, 0.5])
+    cfg["training_config"]["reference_latent_count"] = 1
+    torch.manual_seed(SEED)
+    ref_pipe = create_instance_from_config(cfg)
+    pipe = copy.deepcopy(ref_pipe)
+    pipe.model.to(dev)
+    nudged_pipe = copy.deepcopy(ref_pipe)
+    tiny = {"latents": torch.randn(1, 2, 6, 16, 24, 4, generator=g),
+            "encoder_hidden_states": torch.randn(1, 2, 6, 5, 12,
+                                                 generator=g),
+            **depth_rig(2, 6, 8 * 24, 8 * 16),
+            **depth_points(g, 2, 512)}
+    tiny["lidar_points"] *= 0.15  # inside the tiny frustum's 2-10 m
+    draws = draw_training_randoms(tiny["latents"].shape,
+                                  ref_pipe.training_config,
+                                  ref_pipe.common_config, g,
+                                  scheduler=ref_pipe.train_scheduler)
+    ref_step = _one_step(ref_pipe, tiny, draws)
+    step = _one_step(pipe, _to(tiny, dev), _to(draws, dev))
+    # This tiny step's gradients are ill-conditioned at fp32 noise: the
+    # host's own step with the latents nudged by 1e-5 relative (the fp32
+    # kernels' error is 1e-4 in relative norm) moves single tensors by
+    # 1e-3 to 2e-2 of their bar, by host, so the tensors' gap is logged
+    # beside that spread and the gate holds the losses, the gradient norm
+    # and the update where the gradient's sign is certain
+    nudge = 1 + 1e-5 * torch.randn(tiny["latents"].shape, generator=g)
+    spread = step_errors(_one_step(nudged_pipe, dict(
+        tiny, latents=tiny["latents"] * nudge), draws), ref_step)["grad"]
+    errs = step_errors(step, ref_step)
+    top = max(g.abs().max().item() for g in ref_step["grads"])
+    worst = sorted(
+        ((gc - gr).abs().max().item()
+         / max(gr.abs().max().item(), 1e-2 * top), n)
+        for n, gc, gr in zip([n for n, _ in pipe.model.named_parameters()],
+                             step["grads"], ref_step["grads"]))[-4:]
+    log(f"tiny depth UNet step: the largest gradient gaps {worst}")
+    errs["depth_loss"] = abs(step["metrics"]["depth_loss"]
+                             - ref_step["metrics"]["depth_loss"]) \
+        / ref_step["metrics"]["depth_loss"]
+    errs["host_spread"] = spread
+    log(f"tiny depth UNet step, the kernel path on the card vs plain on the "
+        f"CPU (fp32): depth loss {ref_step['metrics']['depth_loss']:.6f} "
+        f"(host), rel gap {errs['depth_loss']:.2e}; sd loss "
+        f"{errs['loss']:.2e}, grad norm {errs['grad_norm']:.2e} (tol "
+        f"{TINY_TOL}); largest gradient gap {errs['grad']:.2e} (the host's "
+        f"own under a 1e-5 nudge of the latents: {spread:.2e}); update gap {errs['update']:.2e} lr where the sign is certain "
+        f"({100 * errs['certain']:.1f}% of entries; tol 1e-2), "
+        f"{errs['update_any']:.2e} lr anywhere (tol 2.02)")
+    if not (errs["depth_loss"] <= 1e-5 and errs["loss"] <= TINY_TOL
+            and errs["grad_norm"] <= TINY_TOL
+            and errs["update"] <= 1e-2 and errs["update_any"] <= 2.02
+            and errs["certain"] >= 0.5):
+        fail(f"tiny depth UNet step disagrees: {errs}")
+    return {"projection_equal": all(equal), "loss_rel_gap": gap,
+            "tiny_step": errs}
+
+
+def run_unet_depth_train(dev, create_instance_from_config, ops,
+                         draw_training_randoms, plain: dict):
+    """Phase 25: the CTSD-2.1 UNet's ``train_step`` with the depth branch
+    at full width: phase 7's UNet with ``DEPTH_NET`` and ``DEPTH_FRUSTUM``
+    written into the loaded config, fp32 masters, on phase 7's batch with
+    ``LIDAR_POINTS`` points a frame and an outward camera ring; the tiny
+    gate first (``check_tiny_depth``). K7 and its backward, K1 and K2 at the
+    UNet's training shapes only; the depth branch's share of a step: its
+    forward's profiler range, the depth net's forward and backward alone,
+    and the step's excess over ``plain`` (phase 7's step)."""
+    tag = "unet depth train"
+    tiny = check_tiny_depth(dev, create_instance_from_config,
+                            draw_training_randoms)
+    cfg = json.loads(UNET_CONFIG.read_text())["pipeline"]
+    cfg["model"].update(param_dtype=torch.float32,
+                        depth_net_config=dict(DEPTH_NET),
+                        depth_frustum_range=list(DEPTH_FRUSTUM))
+    cfg["common_config"].update(enable_depth_branch=True,
+                                depth_frustum_range=list(DEPTH_FRUSTUM))
+    log(f"{tag}: {UNET_CONFIG.relative_to(REPO)} with depth_net_config "
+        f"{DEPTH_NET}, enable_depth_branch, depth_frustum_range "
+        f"{DEPTH_FRUSTUM} ({DEPTH_SOURCE}); depth_loss_coef "
+        f"{cfg['training_config'].get('depth_loss_coef', 1.0)}")
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+    model = pipe.model
+    gen = torch.Generator(dev).manual_seed(SEED)
+    model.to_empty(device=dev)
+    random_init_(model, gen)
+    n_depth = sum(p.numel() for p in model.depth_net.parameters())
+    log(f"{tag}: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+        f"params, the depth net {n_depth / 1e6:.2f}M (in "
+        f"{model.depth_net.reduce_conv.in_channels} channels)")
+    batch = make_batch(dev, gen, UNET_TEXT_TOKENS, UNET_TEXT_DIM, None)
+    batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W,
+                                   UNET_LAT_C, generator=gen, device=dev)
+    host = torch.Generator().manual_seed(SEED + 4)
+    batch.update(_to({**depth_rig(FRAMES, VIEWS, 8 * LAT_W, 8 * LAT_H),
+                      **depth_points(host, FRAMES, LIDAR_POINTS)}, dev))
+    counts, metrics = drive_train(dev, pipe, batch, ops, tag)
+    steps = TRAIN_STEPS - 1
+    k7 = (FRAMES * VIEWS, LAT_H * LAT_W, LAT_H * LAT_W, 5, 64)
+    check_launch_shapes(counts, {
+        "flash_attention_by_shape": (k7,),
+        "flash_attention_backward_by_shape": (k7,),
+        "flash_tail_by_shape": tuple(s + (64,) for s in UNET_K2_SHAPES),
+        "flash_tail_backward_by_shape": tuple(s + (64,)
+                                              for s in UNET_K2_SHAPES)}, tag)
+    for what, want in (("flash_attention", 2 * UNET_K7_PER_FORWARD * steps),
+                       ("flash_attention_backward",
+                        UNET_K7_PER_FORWARD * steps)):
+        if counts[what] != want:
+            fail(f"{tag}: {what} launched {counts[what]} times, not {want}")
+
+    # the depth branch's share of a step
+    seen = {}
+
+    def keep_inputs(module, args, out):
+        seen.setdefault("args", tuple(a.detach() for a in args))
+
+    hook = model.depth_net.register_forward_hook(keep_inputs)
+    generator = torch.Generator(dev).manual_seed(SEED + 5)
+    state = pipe.init_state()
+    prof = profiled(lambda: pipe.train_step(state, batch, generator),
+                    f"{tag} step", ranges=((model, "_depth",
+                                            "depth branch forward"),))
+    hook.remove()
+    feats, cams = seen["args"]
+    feats.requires_grad_(True)
+
+    def depth_alone():
+        out = model.depth_net(feats, cams)
+        out.float().square().mean().backward()
+
+    alone_ms = profile_ms(depth_alone)
+    for p in model.parameters():
+        p.grad = None
+    step_ms = prof["device_ms"]
+    fwd = prof["ranges"]["depth branch forward"]
+    metrics.update(
+        tiny=tiny, depth_loss=metrics["last_metrics"]["depth_loss"],
+        step_device_ms=step_ms, depth_forward_ms=fwd["ms"],
+        depth_net_fwd_bwd_ms=alone_ms,
+        depth_net_share=alone_ms / step_ms,
+        plain_s_per_step=plain["s_per_step"],
+        excess_over_plain=metrics["s_per_step"] / plain["s_per_step"] - 1)
+    log(f"{tag}: {metrics['s_per_step']:.3f} s a step (phase 7's plain UNet "
+        f"{plain['s_per_step']:.3f}: +{100 * metrics['excess_over_plain']:.1f}"
+        f"%), peak {metrics['peak_gib']:.2f} GiB, depth loss "
+        f"{metrics['depth_loss']:.4f}; the depth net's forward and backward "
+        f"alone {alone_ms:.2f} device ms, {100 * alone_ms / step_ms:.2f}% of "
+        f"a profiled step's {step_ms:.1f}; the branch's forward (resize, "
+        f"concatenation, depth net) {fwd['ms']:.2f} ms")
+    return counts, metrics
+
+
+BEV_TINY = dict(
+    voxelizer=dict(x_min=-8, x_max=8, y_min=-8, y_max=8, step=1.0, z_min=-1,
+                   z_max=1, z_step=0.25),
+    lidar_encoder=dict(img_size=16, patch_size=8, in_chans=8, embed_dim=8,
+                       num_heads=2, depth=6, codebook_dim=16, window_size=2),
+    lidar_decoder=dict(img_size=16, patch_size=8, in_chans=8, embed_dim=8,
+                       num_heads=2, depth=4, codebook_dim=8, window_size=2,
+                       density_feats=4),
+    model=dict(latent_dim=8, img_feature_dim=16, num_sample_per_pillar=3,
+               image_size=(32, 32), num_views=2))
+
+
+def build_bev(parts: dict, dtype=torch.float32):
+    from opendwm_tpu_torch.models.bev_world_vae import BEVWorldVAE
+    from opendwm_tpu_torch.models.vq_point_cloud import VQDecoder, VQEncoder
+    from opendwm_tpu_torch.ops.voxelize import Voxelizer
+
+    return BEVWorldVAE(
+        voxelizer=Voxelizer(**parts["voxelizer"]),
+        lidar_encoder=VQEncoder(**parts["lidar_encoder"], dtype=dtype),
+        lidar_decoder=VQDecoder(**parts["lidar_decoder"], dtype=dtype),
+        dtype=dtype, **parts["model"])
+
+
+def bev_inputs(gen, dev, views: int, h: int, w: int, n: int,
+               extent: float) -> dict:
+    """Points uniform in ±``extent`` m (± 1 m in height), ``views`` images
+    in [-1, 1] and ``depth_rig``'s cameras at ``h`` x ``w``."""
+    rig = depth_rig(1, views, w, h)
+    pts = (torch.rand(1, 1, n, 3, generator=gen) * 2 - 1) * torch.tensor(
+        [extent, extent, 1.0])
+    return _to({"points": pts,
+                "points_mask": torch.ones(1, 1, n, dtype=torch.bool),
+                "images": torch.rand(1, views, h, w, 3, generator=gen) * 2
+                - 1,
+                "camera_transforms": rig["camera_transforms"][:, 0],
+                "camera_intrinsics": rig["camera_intrinsics"][:, 0],
+                "ego_transforms": rig["ego_transforms"][:, 0]}, dev)
+
+
+def run_bev_world_vae(dev) -> dict:
+    """Phase 26: ``BEVWorldVAE`` at the nwak LiDAR tokenizer's geometry
+    (``BEV_TOKENIZER_CONFIG``'s voxelizer and encoder, a decoder of
+    ``codebook_dim`` = ``latent_dim`` 32), 6 views of 256 x 448 through
+    ``SmallImageEncoder``, in bf16 compute: a forward and the gradient of
+    the KL plus the sums of its outputs, timed, with the peak; first the
+    tiny model (``tests/test_bev_world_vae.py``'s sizes) on the card
+    against the host in fp32."""
+    tag = "bev world vae"
+    torch.manual_seed(SEED)
+    ref_model = build_bev(BEV_TINY)
+    model = copy.deepcopy(ref_model).to(dev)
+    g = torch.Generator().manual_seed(SEED)
+    inputs = bev_inputs(g, torch.device("cpu"), 2, 32, 32, 64, 6.0)
+    noise = torch.randn(1, 4, 8, generator=g)
+    with torch.no_grad():
+        ref = ref_model(**inputs, noise=noise)
+        out = model(**_to(inputs, dev), noise=noise.to(dev))
+    gaps = {k: rel_err(out[k].float().cpu(), ref[k].float())
+            for k in ("mean", "logvar", "voxel_logits", "density",
+                      "recon_images", "kl_loss")}
+    log(f"{tag}, tiny, card vs host (fp32): rel err {json.dumps(gaps)} "
+        f"(tol {FP32_TOL}); voxels equal "
+        f"{torch.equal(out['voxels'].cpu(), ref['voxels'])}")
+    if max(gaps.values()) > FP32_TOL or \
+            not torch.equal(out["voxels"].cpu(), ref["voxels"]):
+        fail(f"{tag}: the tiny model differs between card and host")
+
+    cfg = json.loads(BEV_TOKENIZER_CONFIG.read_text())["pipeline"][
+        "vq_point_cloud"]
+    enc = {k: v for k, v in cfg["lidar_encoder"].items() if k[0] != "_"}
+    dec = {k: v for k, v in cfg["lidar_decoder"].items() if k[0] != "_"}
+    dec["codebook_dim"] = 32
+    full = dict(
+        voxelizer={k: v for k, v in cfg["voxelizer"].items() if k[0] != "_"},
+        lidar_encoder=enc, lidar_decoder=dec,
+        model=dict(latent_dim=32, img_feature_dim=64,
+                   num_sample_per_pillar=4, image_size=(8 * LAT_H, 8 * LAT_W),
+                   num_views=VIEWS))
+    with torch.device("meta"):
+        model = build_bev(full, torch.bfloat16)
+    model.to_empty(device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    random_init_(model, gen)
+    n = sum(p.numel() for p in model.parameters())
+    v = model.voxelizer
+    inputs = bev_inputs(torch.Generator().manual_seed(SEED), dev, VIEWS,
+                        8 * LAT_H, 8 * LAT_W, LIDAR_POINTS, v.x_max)
+    pillars = (v.height // enc["patch_size"]) * (v.width // enc["patch_size"])
+    log(f"{tag}: {BEV_TOKENIZER_CONFIG.relative_to(REPO)}'s voxelizer "
+        f"{v.grid_shape} and encoder (codebook_dim {enc['codebook_dim']}), "
+        f"{pillars} pillars, decoder codebook_dim 32, {VIEWS} views of "
+        f"{8 * LAT_H} x {8 * LAT_W}; {n / 1e6:.1f}M params, bf16 compute")
+
+    def fwd_bwd():
+        out = model(**inputs, generator=torch.Generator(dev).manual_seed(1))
+        loss = out["kl_loss"] + sum(out[k].float().sum() for k in (
+            "voxel_logits", "density", "recon_images", "mean", "logvar"))
+        loss.backward()
+        return out, loss
+
+    fwd_bwd()  # warm-up
+    model.zero_grad()
+    torch.cuda.reset_peak_memory_stats()
+    (out, loss), s = sync_s(fwd_bwd)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    finite = bool(torch.isfinite(loss)) and all(
+        torch.isfinite(g).all() for g in grads)
+    metrics = {"s_fwd_bwd": s, "peak_gib": peak, "tiny_rel_err": gaps,
+               "kl": out["kl_loss"].item(), "pillars": pillars,
+               "grads": len(grads)}
+    log(f"{tag}: forward + backward {s:.3f} s, peak {peak:.2f} GiB, KL "
+        f"{metrics['kl']:.4f}, images {tuple(out['recon_images'].shape)}, "
+        f"{len(grads)} gradients finite {finite}")
+    if not finite or len(grads) < 0.9 * len(list(model.parameters())):
+        fail(f"{tag}: a non-finite loss or gradient, or too few gradients")
+    return metrics
+
+
+def run_tools_phase(dev) -> dict:
+    """Phase 27: ``tools.make_blank_code`` on the card (its CLI, ``--device
+    cuda``) over phase 19's synthetic tokenizer and data
+    (``LIDAR_VQVAE_SYNTHETIC``), its ranking equal to the host's on the same
+    weights; then the BEV and perspective renderers on one frame."""
+    from opendwm_tpu_torch.config import create_instance_from_config
+    from opendwm_tpu_torch.tools import make_blank_code
+    from opendwm_tpu_torch.train import to_device_batch
+    from opendwm_tpu_torch.utils.lidar_visualizer import render_sequence
+
+    import numpy as np
+
+    work = REPO / "build" / "tools_phase"
+    work.mkdir(parents=True, exist_ok=True)
+    synthetic = json.loads(LIDAR_VQVAE_SYNTHETIC.read_text())
+    cfg = {"vq_point_cloud": synthetic["pipeline"]["vq_point_cloud"],
+           "validation_dataset": synthetic["training_dataset"],
+           "validation_collate_fn": synthetic["training_collate_fn"],
+           "batch_size": synthetic["batch_size"], "generator_seed": SEED}
+    (work / "blank.json").write_text(json.dumps(cfg))
+    args = make_blank_code.create_parser().parse_args(
+        ["-c", str(work / "blank.json"), "-o", str(work / "codes.json"),
+         "--max-batches", "8"])
+    blank, s = sync_s(lambda: make_blank_code.main(args))
+    torch.manual_seed(SEED)
+    host = create_instance_from_config(copy.deepcopy(cfg["vq_point_cloud"]))
+    dataset = create_instance_from_config(cfg["validation_dataset"])
+    collate = create_instance_from_config(cfg["validation_collate_fn"])
+    bs = cfg["batch_size"]
+    cpu = torch.device("cpu")
+    batches = [to_device_batch(collate([dataset[i * bs + j]
+                                        for j in range(bs)]), cpu)
+               for i in range(8)]
+    counts = make_blank_code.code_counts(host.eval(), batches)
+    want = make_blank_code.rank_codes(counts, args.top_k)
+    model = copy.deepcopy(host).to(dev)
+    card_counts = make_blank_code.code_counts(
+        model, [_to(b, dev) for b in batches])
+    log(f"make_blank_code: card {blank}, host {want} ({s:.2f} s for the "
+        f"CLI); code counts equal {torch.equal(card_counts.cpu(), counts)}")
+    if blank != want:
+        fail("make_blank_code ranks other codes on the card than on the host")
+
+    frame = dataset[0]["lidar_points"][0][:, :3]
+    images = render_sequence([frame], image_size=256) + render_sequence(
+        [frame], perspective=True, width=320, height=180)
+    drawn = []
+    for name, img in zip(("bev", "perspective"), images):
+        img.save(work / f"{name}.png")
+        arr = torch.from_numpy(np.asarray(img).copy())
+        drawn.append(int((arr != arr[0, 0]).any(-1).sum()))
+    log(f"visualizer: one frame of {frame.shape[0]} points, pixels drawn "
+        f"{drawn} (BEV, perspective) in {work.relative_to(REPO)}")
+    if min(drawn) == 0:
+        fail("the visualizer drew nothing")
+    return {"blank_code": blank, "cli_s": s,
+            "counts_equal": torch.equal(card_counts.cpu(), counts),
+            "pixels_drawn": drawn}
+
+
 def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
@@ -5065,7 +5536,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log_clocks("before the UNet train slice")
-    unet_train, _ = run_unet_train_slice(
+    unet_train, unet_train_metrics = run_unet_train_slice(
         dev, create_instance_from_config, ops,
         profile="--profile-unet-train" in sys.argv[1:])
     gc.collect()
@@ -5174,7 +5645,30 @@ def main() -> None:
         dev, create_instance_from_config, ops)
     land_metrics["phase_s"] = time.perf_counter() - t0
     log(f"land and evaluate: {land_metrics['phase_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the depth-branch phase")
+    t0 = time.perf_counter()
+    depth_counts, depth_metrics = run_unet_depth_train(
+        dev, create_instance_from_config, ops, draw_training_randoms,
+        unet_train_metrics)
+    depth_metrics["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the BEV world VAE phase")
+    t0 = time.perf_counter()
+    bev_metrics = run_bev_world_vae(dev)
+    bev_metrics["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tools_metrics = run_tools_phase(dev)
+    tools_metrics["phase_s"] = time.perf_counter() - t0
     log_clocks("at the end")
+    log(f"the depth branch, the BEV world VAE and the tools ({card}): "
+        + json.dumps({"unet_depth_train": {
+            k: v for k, v in depth_metrics.items() if k != "moments"},
+            "bev_world_vae": bev_metrics, "tools": tools_metrics}))
     log(f"weight landing and evaluation ({card}): " + json.dumps(
         {k: v for k, v in land_metrics.items() if k != "report"}))
     log(f"run_all's report ({card}): " + json.dumps(land_metrics["report"]))
@@ -5202,7 +5696,7 @@ def main() -> None:
              "unimlvg_serve": unimlvg_serve, "branch_types": branch_types,
              "mask_step": mask_step, "unimlvg_train": unimlvg_train,
              "temporal_vae": temporal_vae, **lidar_train,
-             "land_eval": land_counts}
+             "land_eval": land_counts, "unet_depth_train": depth_counts}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
               if p != "attn602" and c["flash_attention_segment"]}
     if strays:

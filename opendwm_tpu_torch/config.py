@@ -140,6 +140,10 @@ _LAZY_MODULES: dict[str, str] = {
     "PointCloudChamfer": "opendwm_tpu_torch.metrics",
     "PointCloudMMD": "opendwm_tpu_torch.metrics",
     "PointCloudJSD": "opendwm_tpu_torch.metrics",
+    "dwm.models.depth_net": "opendwm_tpu_torch.models.depth_net",
+    "DepthNet": "opendwm_tpu_torch.models.depth_net",
+    "dwm.models.bevw_vae_mm_model": "opendwm_tpu_torch.models.bev_world_vae",
+    "BEVWorldVAE": "opendwm_tpu_torch.models.bev_world_vae",
     "FIDInceptionV3": "opendwm_tpu_torch.models.inception",
     "InceptionI3d": "opendwm_tpu_torch.models.i3d",
 }
@@ -168,8 +172,9 @@ def get_class(class_name: str):
         "with the layout ImageAdapter and the image VAE, streaming serving, "
         "the CLIP/T5 text stage, LiDAR serving and training (the VQ and KL "
         "tokenizers, MaskGIT, the LiDAR DiT and UNet), UniMLVG, MaskGWM, "
-        "the temporal VAE, the host data stack, the metrics and the FID/FVD "
-        "feature nets; see ROADMAP.md Queue 1)."
+        "the temporal VAE, the depth branch, the BEV world VAE, the host "
+        "data stack, the metrics and the FID/FVD feature nets; see "
+        "ROADMAP.md Queue 1)."
     )
 
 

@@ -29,7 +29,10 @@ map them both ways (the tokenizer's ``ConvTranspose`` kernel is flipped
 in space; see ``_transposed_conv_weight``), the DVGO density MLP
 included; ``vae_point_cloud_state_dict_from_flax`` and
 ``vae_point_cloud_flax_from_state_dict`` name the same walk for the KL
-tokenizer.
+tokenizer; ``bev_world_vae_state_dict_from_flax`` maps the BEV world VAE
+with that walk and, for its SD-VAE image branch, the VAE's bridge. The
+UNet's depth net (``depth_net``) keeps the flax names, so the UNet's
+bridge carries it both ways.
 
 The way back, for the DiT and the UNet: ``flax_param_name`` names a port
 parameter as the JAX package's trees name it (its ``freezing_pattern``
@@ -646,6 +649,20 @@ def vae_point_cloud_flax_from_state_dict(state_dict: Mapping) -> dict:
     """The port's ``VAEPointCloud`` state dict → the flax ``{"params":
     tree}``, inverting ``vae_point_cloud_state_dict_from_flax``."""
     return lidar_flax_from_state_dict(state_dict)
+
+
+def bev_world_vae_state_dict_from_flax(params: Mapping) -> dict:
+    """Flax ``BEVWorldVAE`` params → the port's state dict (numpy): the
+    LiDAR encoder and decoder and the image branch by the LiDAR walk (the
+    port's modules carry the flax names), an SD-VAE image branch
+    (``img_vae``) by ``vae_state_dict_from_flax``."""
+    tree = dict(_tree(params))
+    img_vae = tree.pop("img_vae", None)
+    sd = lidar_state_dict_from_flax(tree)
+    if img_vae is not None:
+        sd.update({f"img_vae.{k}": v
+                   for k, v in vae_state_dict_from_flax(img_vae).items()})
+    return sd
 
 
 def to_torch(state_dict: Mapping[str, np.ndarray]) -> dict:

@@ -227,6 +227,20 @@ def checkpointed(module: nn.Module, *args, saved_ops=None, **kwargs):
     return checkpoint(module, *args, use_reentrant=False, **extra, **kwargs)
 
 
+def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Channel-last ``(n, h, w, c)`` → ``(n, *size, c)`` by nearest
+    neighbour at half-pixel centres, ``jax.image.resize(..., "nearest")``:
+    output ``i`` of ``out`` reads input ``floor((i + 0.5) · in / out)``,
+    computed in integers, ``((2i + 1) · in) // (2 · out)``, so that a
+    product that is a whole number (4 → 14: output 3 reads input 1) does
+    not hang on how a float scale rounds."""
+    for dim, (m, n) in enumerate(zip(x.shape[1:3], size), 1):
+        if m != n:
+            idx = (2 * torch.arange(n, device=x.device) + 1) * m // (2 * n)
+            x = x.index_select(dim, idx)
+    return x
+
+
 def timestep_embedding(
     timesteps: torch.Tensor,
     dim: int,

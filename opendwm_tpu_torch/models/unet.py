@@ -36,8 +36,15 @@ model. int8 W8A8 serving (``quantization="int8"``) runs the 2-D convs
 ``QConv2d`` and the transformer models' ``proj_in``/``proj_out`` and
 their blocks' attention and GEGLU as ``QLinear``; the ``(3, 1, 1)``
 temporal convs, the time projections, embeddings and the adapter stay
-float, as in the JAX model. The depth net raises
-``NotImplementedError`` naming its ROADMAP item.
+float, as in the JAX model.
+
+The depth branch (``depth_net_config``): ``conv_in``'s output and each
+down block's, before the adapter's residual, are resized to the sample's
+h x w (nearest at half-pixel centres, ``layers.resize_nearest``) and
+concatenated; ``DepthNet`` reads them with the camera parameters
+(intrinsics ‖ transform, 25 a view). The forward then returns ``(out,
+depth_features)``, when it is given both camera tensors, as the JAX model
+does (``unet.py:641-713``).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import torch.nn.functional as F
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.models.adapters import ImageAdapter
+from opendwm_tpu_torch.models.depth_net import DepthNet
 from opendwm_tpu_torch.models.layers import (
     AlphaBlender,
     Attention,
@@ -63,6 +71,7 @@ from opendwm_tpu_torch.models.layers import (
     checkpointed,
     conv_factory,
     dense_factory,
+    resize_nearest,
     set_compute_dtype,
     timestep_embedding,
 )
@@ -81,11 +90,6 @@ def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
 def _call(remat: bool, module: nn.Module, *args):
     """``module(*args)``, rematerialised in the backward if ``remat``."""
     return checkpointed(module, *args) if remat else module(*args)
-
-
-def _not_ported(option: str, item: str):
-    return NotImplementedError(
-        f"{option} is not ported to PyTorch yet (ROADMAP Queue 1, {item})")
 
 
 class SpatialResnetBlock(nn.Module):
@@ -447,7 +451,7 @@ class UNetCrossviewTemporal(nn.Module):
     is read as remat of the blocks' resnets and transformer models; the JAX
     UNet declares it and never reads it (``opendwm_tpu/models/unet.py:519``),
     which gives the same values. ``depth_frustum_range`` is accepted and not
-    read (no depth net here), as in the JAX model. With an image adapter,
+    read (the pipeline reads it), as in the JAX model. With an image adapter,
     its residual 0 is added after ``conv_in`` and residual i after down
     block i - 1, the sum replacing that block's last skip state; without
     one, a ``condition_image_tensor`` is ignored.
@@ -479,8 +483,6 @@ class UNetCrossviewTemporal(nn.Module):
         quantization: Optional[str] = None,
     ):
         super().__init__()
-        if depth_net_config is not None:
-            raise _not_ported("depth_net_config (DepthNet)", "item 9")
         if quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {quantization!r}")
         quantized = quantization == "int8"
@@ -541,6 +543,10 @@ class UNetCrossviewTemporal(nn.Module):
         self.condition_image_adapter = ImageAdapter(
             **condition_image_adapter_config) \
             if condition_image_adapter_config is not None else None
+        self.depth_net = DepthNet(
+            **depth_net_config, in_channels=ch0 + sum(chans),
+            camera_dim=9 + 16, dtype=dtype) \
+            if depth_net_config is not None else None
         self.to(param_dtype or dtype)
         self._dtype = dtype
         set_compute_dtype(self, dtype)
@@ -574,8 +580,10 @@ class UNetCrossviewTemporal(nn.Module):
         disable_crossview: Optional[torch.Tensor] = None,
         disable_temporal: Optional[torch.Tensor] = None,
         crossview_attention_mask: Optional[torch.Tensor] = None,
+        camera_intrinsics: Optional[torch.Tensor] = None,
+        camera_transforms: Optional[torch.Tensor] = None,
         **_unused,
-    ) -> torch.Tensor:
+    ):
         squeeze_view = sample.ndim == 5
         if squeeze_view:  # single-view input (b, t, h, w, c)
             sample, timestep = sample[:, :, None], timestep[:, :, None]
@@ -610,6 +618,7 @@ class UNetCrossviewTemporal(nn.Module):
                 condition_image_tensor.to(dt))
 
         x = _per_image(lambda s: _conv(self.conv_in, s), sample.to(dt))
+        depth_inputs = [x]
         if residuals:
             x = x + residuals[0]
         ctx = encoder_hidden_states.to(dt)
@@ -618,13 +627,33 @@ class UNetCrossviewTemporal(nn.Module):
         states = [x]
         for i, block in enumerate(self.down_blocks, 1):
             x, block_states = block(x, emb, *cond)
+            depth_inputs.append(x)
             if i < len(residuals):  # JAX ``unet.py:634-636``
                 x = x + residuals[i]
                 block_states[-1] = x
             states += block_states
+        depth_features = None
+        if self.depth_net is not None and camera_intrinsics is not None \
+                and camera_transforms is not None:
+            depth_features = self._depth(depth_inputs, camera_intrinsics,
+                                         camera_transforms)
         x = self.mid_block(x, emb, *cond)
         for block in self.up_blocks:
             x = block(x, states, emb, *cond)
         out = _per_image(
             lambda h: _conv(self.conv_out, F.silu(self.conv_norm_out(h))), x)
-        return out[:, :, 0] if squeeze_view else out
+        if squeeze_view:
+            out = out[:, :, 0]
+        return out if depth_features is None else (out, depth_features)
+
+    def _depth(self, depth_inputs: list, camera_intrinsics: torch.Tensor,
+               camera_transforms: torch.Tensor) -> torch.Tensor:
+        """The depth net over the levels resized to level 0's h x w and
+        concatenated (``unet.py:641-669``): ``(b, t, v, h, w, bins)``."""
+        b, t, v, h, w = depth_inputs[0].shape[:5]
+        feats = torch.cat([
+            resize_nearest(f.reshape(-1, *f.shape[3:]), (h, w))
+            for f in depth_inputs], -1).reshape(b, t, v, h, w, -1)
+        cams = torch.cat([camera_intrinsics.reshape(b, t, v, -1),
+                          camera_transforms.reshape(b, t, v, -1)], -1)
+        return self.depth_net(feats, cams)

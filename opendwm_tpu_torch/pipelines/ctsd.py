@@ -8,9 +8,10 @@ for the MMDiT, ``ctsd`` and ``diffusion_forcing`` styles; DDIM for the UNet,
 decode; and the training step of both objectives, flow matching
 (``sd3``) and DDPM (``unet``, epsilon / v / sample targets):
 reference-frame and diffusion-forcing input construction, condition
-dropout, the loss, AdamW with clipping, freezing and accumulation; a
-training batch may carry pixel-space ``vae_images`` in place of
-``latents``, encoded by the attached VAE; the preview (the composited
+dropout, the loss (with the UNet's depth branch, the depth loss too),
+AdamW with clipping, freezing and accumulation; a training batch may
+carry pixel-space ``vae_images`` in place of ``latents``, encoded by the
+attached VAE; the preview (the composited
 ground truth, layout and generation, written as a video) and the
 evaluation over validation batches with the configured metrics. The JAX
 ``lax.scan`` over steps is a Python loop here.
@@ -31,6 +32,7 @@ import torch
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.pipelines import optim
+from opendwm_tpu_torch.pipelines.depth_loss import make_depth_loss
 from opendwm_tpu_torch.utils.preview import (
     make_ctsd_preview_tensor,
     save_tensor_to_video,
@@ -146,9 +148,6 @@ def get_conditions(
     rasters (``3dbox_images``, ``hdmap_images``). With CFG the
     unconditional half leads.
     """
-    if common_config.get("enable_depth_branch", False):
-        raise NotImplementedError(
-            "the depth branch is not ported yet (ROADMAP Queue 1, item 9)")
     conds: dict[str, Any] = {}
     cfg = do_classifier_free_guidance
     uncond_color = common_config.get("uncondition_image_color", 0.0)
@@ -211,6 +210,13 @@ def get_conditions(
 
     if common_config.get("explicit_view_modeling", False):
         conds.update(get_explicit_view_conditions(batch, cfg))
+
+    # the depth branch's camera parameters (JAX ``ctsd.py:230-245``)
+    if common_config.get("enable_depth_branch", False) and \
+            "camera_intrinsics" in batch and "camera_transforms" in batch:
+        for key in ("camera_intrinsics", "camera_transforms"):
+            conds[key] = torch.cat([batch[key], batch[key]]) if cfg \
+                else batch[key]
 
     for key in ("latents", "vae_images", "encoder_hidden_states",
                 "pooled_projections", "camera_transforms", "fps"):
@@ -535,9 +541,10 @@ class CTSDPipeline:
         """The loss of ``ctsd.py:541-642`` on given draws
         (``draw_training_randoms``): flow matching for ``"sd3"``, the DDPM
         target of the train scheduler for ``"unet"``;
-        (loss, {"sd_loss": loss})."""
-        if "depth_frustum_range" in self.common_config:
-            raise _not_ported("the depth loss", "item 9")
+        (loss, {"sd_loss": loss}); with the depth branch, the depth loss
+        (``depth_loss.make_depth_loss``, ``training_config``'s
+        ``depth_loss_coef``) is added, and the metrics hold both and their
+        sum as ``loss`` (``ctsd.py:612-640``)."""
         latents = self.ensure_latents(batch, draws.get("vae"))["latents"]
         tc = self.training_config
         sched = self.train_scheduler
@@ -576,6 +583,9 @@ class CTSDPipeline:
         conds.update(extra)
 
         pred = self.model(sample=noisy, timestep=timesteps, **conds)
+        depth_features = None
+        if isinstance(pred, tuple):
+            pred, depth_features = pred
         pred_latent = pred * (-sigmas) + noisy if self.model_type == "sd3" \
             else pred
         if tc.get("disable_reference_frame_loss", False):
@@ -583,7 +593,17 @@ class CTSDPipeline:
             pred_latent = pred_latent * keep
             target = target * keep
         loss = ((pred_latent.float() - target.float()) ** 2).mean()
-        return loss, {"sd_loss": loss}
+        metrics = {"sd_loss": loss}
+        if depth_features is not None and \
+                "depth_frustum_range" in self.common_config:
+            depth_loss = make_depth_loss(
+                depth_features, batch,
+                tuple(self.common_config["depth_frustum_range"]),
+                tc.get("depth_loss_coef", 1.0))
+            metrics["depth_loss"] = depth_loss
+            loss = loss + depth_loss
+            metrics["loss"] = loss
+        return loss, metrics
 
     def train_step(self, state: TrainState, batch: dict, generator=None,
                    draws: Optional[dict] = None):
@@ -707,6 +727,12 @@ class CTSDPipeline:
                 ts_input = torch.cat([timesteps, timesteps])
 
             pred = self.model(sample=model_input, timestep=ts_input, **conds)
+            if isinstance(pred, tuple):
+                raise TypeError(
+                    "the depth branch's model returns (prediction, depth "
+                    "features), which sampling does not unpack: drop the "
+                    "camera tensors from the batch or enable_depth_branch "
+                    "from the config (the JAX pipeline raises here too)")
             if do_cfg:
                 uncond, cond = pred.chunk(2)
                 pred = uncond + guidance_scale * (cond - uncond)

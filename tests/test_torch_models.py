@@ -254,8 +254,17 @@ def test_config_get_state_and_dtype_names():
 
 
 def test_unported_names_and_options_raise():
-    with pytest.raises(KeyError, match="BEVWorldVAE"):
-        get_class("BEVWorldVAE")  # item 11c
+    from opendwm_tpu_torch.models.bev_world_vae import BEVWorldVAE
+    from opendwm_tpu_torch.models.depth_net import DepthNet
+
+    # ported now: the registry resolves them to the port's classes
+    assert get_class("BEVWorldVAE") is BEVWorldVAE
+    assert get_class("dwm.models.bevw_vae_mm_model.VAEBevMultiModality") \
+        is BEVWorldVAE
+    assert get_class("DepthNet") is DepthNet
+    assert get_class("dwm.models.depth_net.DepthNet") is DepthNet
+    with pytest.raises(KeyError, match="NoSuchModel"):
+        get_class("NoSuchModel")
     cfg = _synthetic_model_config()
     cfg["sequence_parallel_axis"] = "sp"
     with pytest.raises(NotImplementedError, match="ROADMAP"):

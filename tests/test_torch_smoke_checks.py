@@ -215,6 +215,8 @@ def _counts(**over):
     ("mask_step", {"flash_tail_backward_sm90": 3}, False),
     ("mask_step", {}, True),
     ("land_eval", {"flash_tail_sm90": 9}, False),
+    ("unet_depth_train", {"flash_attention_backward_sm90": 1}, False),
+    ("unet_depth_train", {}, True),
 ])
 def test_model_paths_run_the_hopper_bodies(smoke, path, over, ok):
     """Every K1/K7 forward launch of the fifteen model paths and every
@@ -225,6 +227,7 @@ def test_model_paths_run_the_hopper_bodies(smoke, path, over, ok):
             "int8_unet", "unimlvg_serve", "unimlvg_train", "branch_types",
             "mask_step"} < set(smoke.MODEL_PATHS)
     assert {"unimlvg_train", "mask_step"} < set(smoke.TRAIN_PATHS)
+    assert "unet_depth_train" in smoke.TRAIN_PATHS
     paths = {p: _counts() for p in smoke.MODEL_PATHS}
     paths[path] = _counts(**over)
     if ok:
@@ -1298,3 +1301,24 @@ def test_cli_events_gate(smoke, over, ok):
             smoke.check_cli_events(events, 3, "data")
     with pytest.raises(SystemExit):  # a step missing
         smoke.check_cli_events(events[:2], 3, "data")
+
+
+# -- the depth branch, the BEV world VAE and the tools (25-27) ----------------
+
+def test_depth_phase_geometry(smoke):
+    """Phase 25's bins are BEVDepth's 112; its camera 0 looks along ego +x
+    exactly, so the half-bin points sit half-way between bins in fp32 and
+    round half to even; the random points fill the depth range."""
+    import torch
+
+    lo, hi, step = smoke.DEPTH_FRUSTUM
+    assert round((hi - lo) / step) == smoke.DEPTH_NET["depth_channels"]
+    rig = smoke.depth_rig(2, 6, 448, 256)
+    assert torch.equal(rig["camera_transforms"][0, 0, 0, :3, :3],
+                       torch.tensor([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0],
+                                     [0.0, -1.0, 0.0]]))
+    pts = smoke.depth_points(torch.Generator().manual_seed(0), 2, 500, 200)
+    z = pts["lidar_points"][0, :, :200, 0] - 1.5  # camera 0's depth
+    assert torch.equal((z - lo) / step % 1, torch.full_like(z, 0.5))
+    r = pts["lidar_points"][0, :, 200:, :2].norm(dim=-1)
+    assert lo <= r.min() and r.max() <= hi

@@ -316,10 +316,12 @@ def test_unet_weight_bridge_round_trip():
 
 
 def test_unported_unet_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        unet.UNetCrossviewTemporal(**TINY, depth_net_config={})
     with pytest.raises(ValueError, match="quantization"):
         unet.UNetCrossviewTemporal(**TINY, quantization="int4")
+    # the depth branch is ported (tests/test_torch_depth.py): the depth
+    # net reads conv_in's and the three levels' channels
+    model = unet.UNetCrossviewTemporal(**TINY, depth_net_config={})
+    assert model.depth_net.reduce_conv.in_channels == 8 + 8 + 16 + 16
 
 
 def test_ctsd21_config_resolves_to_port_classes():
