@@ -12,8 +12,10 @@ through the host data stack and the train CLI, the landing of reference
 checkpoints and the evaluation path (the evaluate and preview CLIs, the
 FID / FVD nets, the metrics, the train CLI's evaluation, preview and
 profile), the CTSD-2.1 UNet's depth branch in training, the BEV world VAE,
-the blank-code tool and the LiDAR visualizer, the tail-attention tiling
-experiment and the attention shoot-out on one GPU.
+the blank-code tool and the LiDAR visualizer, the multi-device stack (FSDP
+training, ring attention, the GPipe schedule and the stage-sliced flagship
+DiT, the train CLI under torchrun) on an NCCL group of one, the
+tail-attention tiling experiment and the attention shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-stream]
@@ -25,7 +27,7 @@ Phases; any failure raises and exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``opendwm_tpu_torch/csrc`` (one nvcc per
    source, all at once: ``flash_tail.cu``, ``flash_attention.cu``,
-   ``adaln.cu``); ptxas's registers and spills (its report is kept beside
+   ``flash_segment.cu`` (K7-seg's backward), ``adaln.cu``); ptxas's registers and spills (its report is kept beside
    each library, so a library built by an earlier run is held too) of every
    kernel of ``adaln.cu`` (K3/K4), failing on a spill, and a SASS census (``cuobjdump -sass``:
    ``HGMMA``, ``UTMALDG``, ``HMMA``) of each instance of the Hopper forward
@@ -34,7 +36,7 @@ Phases; any failure raises and exits non-zero:
    (``csrc/tail_tiling_sm90.cuh``, the body of every bf16 head-dim-64
    launch of K5 and K6) and of the Hopper backward
    (``csrc/flash_bwd_sm90.cuh``, the body of every bf16 head-dim-64
-   launch of K2 and the K7 backward), failing on a body without an
+   launch of K2, the K7 backward and K7-seg's), failing on a body without an
    instance, an instance that ptxas did not report, a spill, or an
    instance without wgmma or TMA loads or with ``mma.sync``;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
@@ -62,7 +64,13 @@ Phases; any failure raises and exits non-zero:
    segment ids: the shoot-out's flashpad call at (36, 640, 24, 64) with
    the pads of S 602 in segment 1, and random ids in 1-4 segments per row
    at (8, 1792, 24, 64), non-causal and causal, in bf16 and fp32; rows
-   that see no key of their segment against the mean of V), K7 at K1's
+   that see no key of their segment against the mean of V), K7-seg's
+   backward (``check_segment_backward``: the flashpad ids, packed ids
+   non-causal and causal, and packed ids with every fifth query of an id
+   no key has, bf16, each gradient within 0.6% in relative norm of the
+   plain backward, with SDPA's masked backward as the library time; then
+   the ``segment_grad`` path, a gradient through K7-seg at the flashpad
+   ids, whose launches the kernels line reports), K7 at K1's
    serving shapes (equal to K1 bit for bit: one body) and its backward at
    K2's training shapes (equal to K2 bit for bit in dK and dV, within
    2^-7 in relative norm in dQ, whose fp32 sums arrive in no fixed order:
@@ -360,13 +368,40 @@ Phases; any failure raises and exits non-zero:
 27. the tools (``run_tools_phase``): ``tools.make_blank_code``'s CLI on
    the card over phase 19's synthetic tokenizer and data, its ranking
    equal to the host's; the BEV and perspective renderers on one frame.
+28. multi-device (``run_multidevice_phase``). One card gives NCCL a
+   process group of world size 1 only (it refuses two ranks on one
+   device), so no collective at a larger world size runs here. Under an
+   NCCL group of one over a FileStore: (a) phase 6's DiT, 3 steps under
+   its config's ``fsdp`` policy (FSDP2, one unit a block) against 3
+   unsharded steps on the same draws: step 1's loss within
+   ``MD_LOSS_REL`` (the reference's sharded-step record), the later ones
+   and every parameter within ``MD_PARAM_REL`` in relative norm (by
+   tensor, the tensors zero at init aside), and every tensor's difference
+   within ``MD_UPDATE_REL`` of its own update's norm (a tensor the sharded
+   steps left alone is off by 1), s a step and peak beside phase 6's; a
+   sharded checkpoint of a ``MD_CKPT_LAYERS``-layer twin saved and
+   resumed, every parameter and moment equal; (b)
+   ``sequence_parallel_axis="tp"`` on phase 5's DiT (a ring of one rank:
+   K1 with the log-sum-exp) against its CFG forward
+   without it; (d) that DiT converted to 4 flagship stages
+   (``parallel/dit_pipeline.py``): the sequential chain against the DiT,
+   then ``pipeline_apply`` on the group's pp axis with one stage and 2
+   microbatches against the stage on each microbatch, both within the
+   bf16 bar (bit-equal: the same shapes), and the DiT through it; (c) the ring's per-rank steps of 2 and 7 ranks run in
+   one process (not a collective) at the joint attention's (36, 602, 24,
+   64) against K1 and K2 over the whole sequence, within 0.6% per
+   gradient. Then (e) the train CLI under ``torchrun --standalone
+   --nproc-per-node 1`` (a loopback rendezvous): 2 steps of
+   ``TINY_CONFIG``, its state placed by the config's fsdp policy and its
+   checkpoint sharded.
 
 Each slice is freed before the next. K7-seg must have launched on no path
-but the shoot-out, every K1 and K7 forward launch of the twenty-one model
-paths must have run the Hopper forward, every K2 and K7 backward launch of
-the nine training paths the Hopper backward, every bf16 K5 and K6
+but the shoot-out and ``segment_grad``, every K1 and K7 forward launch of
+the twenty-six model paths must have run the Hopper forward, every K2 and
+K7 backward launch of the eleven training paths the Hopper backward,
+every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
-of the eleven DiT paths the d-1536 kernel (their launch counters).
+of the fourteen DiT paths the d-1536 kernel (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
 
@@ -422,16 +457,18 @@ RASTER_MIN_MOVE = 1e-3
 # The paths whose launch counters the body gates read.
 TRAIN_PATHS = ("train", "unet_train", "bm_train", "unimlvg_train",
                "mask_step", "lidar_dit_train", "lidar_unet_train",
-               "lidar_unet_data", "unet_depth_train")
+               "lidar_unet_data", "unet_depth_train", "fsdp_train",
+               "ring_steps")
 MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
                "bm_unet_serve", "bm_train", "stream", "int8_serve",
                "int8_unet", "lidar_dit", "unimlvg_serve", "unimlvg_train",
                "branch_types", "mask_step", "lidar_dit_train",
                "lidar_unet_serve", "lidar_unet_train", "lidar_unet_data",
-               "land_eval", "unet_depth_train")
+               "land_eval", "unet_depth_train", "fsdp_train", "sp_serve",
+               "pp_serve", "ring_steps", "segment_grad")
 DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
              "int8_serve", "unimlvg_serve", "unimlvg_train", "branch_types",
-             "mask_step", "land_eval")
+             "mask_step", "land_eval", "fsdp_train", "sp_serve", "pp_serve")
 # LiDAR serving (bench.py:228-394's geometry): MaskGIT generation on the
 # layout config (bf16 compute, as bench.py:247-252 sets it), the temporal
 # vq80k config's autoregressive rollout, and the temporal LiDAR DiT (its
@@ -564,7 +601,8 @@ INT8_TIMED, INT8_DECODE_CHUNK = 5, 6
 TRAIN_STEPS = 3  # steps 2 and 3 are timed
 PROFILE_STEPS = 3  # with --profile-train/-unet-train: 3 more, then 3 profiled
 # The CUDA sources, built together (one nvcc each, all at once).
-SOURCES = ("flash_tail.cu", "flash_attention.cu", "adaln.cu")
+SOURCES = ("flash_tail.cu", "flash_attention.cu", "flash_segment.cu",
+           "adaln.cu")
 # K3/K4 (batch x view-frames, tokens, width): the DiT's latent (448) and
 # text (154) tokens at the CFG batch of serving and at training's batch 1.
 ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536), (36, 448, 1536),
@@ -610,6 +648,21 @@ K7_BWD_FP32 = (2, 384, 256, 5, True)
 # (batch, seq) with random ids in 1-4 contiguous segments per row.
 K7_SEG_FLASHPAD = (36, 602, 640)
 K7_SEG_RANDOM = (8, 1792)
+# Phase 28 (multi-device on one card): the sharded step's loss bar (the
+# reference's sharded-step record, MULTICHIP_r05.json) and every updated
+# parameter's relative norm; each tensor's difference over the norm of its
+# own 3-step update (zero-init biases included: 1 where the sharded steps
+# skip a tensor); the depth of the checkpoint's twin (the full
+# depth's train state is ~45 GB); the ring's shape (the joint attention's
+# (batch x views x frames, seq, heads) at batch 1) and ring sizes (602 =
+# 2 x 7 x 43: JAX's ring needs seq % n == 0); the torchrun CLI's steps.
+MD_LOSS_REL = 6.1e-5
+MD_PARAM_REL = 1e-3
+MD_UPDATE_REL = 0.25
+MD_CKPT_LAYERS = 2
+MD_RING = (36, 602, 24)
+MD_RING_N = (2, 7)
+MD_CLI_STEPS = 2
 # The UNet's level-0 self-attention (K7) in each forward: 2 down and 3 up
 # transformer models; a train step runs them forward, again in the remat
 # recompute, and backward.
@@ -5333,6 +5386,600 @@ def run_tools_phase(dev) -> dict:
             "pixels_drawn": drawn}
 
 
+# ---------------------------------------------------------------------------
+# Multi-device (phase 28) and K7-seg's backward
+# ---------------------------------------------------------------------------
+
+
+def sdpa_mask_backward_ms(q, k, v, scale, mask, do):
+    """ms of the backward of ``scaled_dot_product_attention`` with the
+    boolean mask of the visible pairs (its autograd backward, from its own
+    forward), the library call that computes K7-seg's backward; None, with
+    the reason logged, if refused. Timed as a yardstick only."""
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             scale=scale)
+        dot = do.transpose(1, 2)
+        return time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+    except RuntimeError as err:
+        log(f"  library call not measured: {str(err).splitlines()[0][:200]}")
+        return None
+
+
+def check_segment_backward(dev, flash_attention, ops):
+    """K7-seg's backward against its plain version, each from its own
+    forward's output and log-sum-exp, at the flashpad ids
+    (``K7_SEG_FLASHPAD``), packed ids (``K7_SEG_RANDOM``) non-causal and
+    causal, and packed ids with every fifth query of an id no key has, in
+    bf16 (every launch on the Hopper backward): dq, dk, dv within
+    ``K2_REL_TOL`` in relative norm, both times, the bound over the pairs
+    the ids leave and SDPA's backward with the boolean mask (none where a
+    row is hidden: SDPA gives it NaN). Then the ``segment_grad`` path: a
+    gradient through ``flash_attention`` with the flashpad ids, its
+    launches counted. Returns (rows, the path's launches)."""
+    SegmentIds = flash_attention.SegmentIds
+    g = torch.Generator(dev).manual_seed(SEED + 9)
+    scale = 64 ** -0.5
+    b, seq, padded = K7_SEG_FLASHPAD
+    pad_ids = torch.zeros(b, padded, dtype=torch.int32, device=dev)
+    pad_ids[:, seq:] = 1
+    rb, rs = K7_SEG_RANDOM
+    packed = packed_segment_ids(rb, rs, SEED + 9, dev)
+    hidden_q = packed.clone()
+    hidden_q[:, ::5] = 99
+    cases = [("flashpad", pad_ids, pad_ids, False),
+             ("packed", packed, packed, False),
+             ("packed", packed, packed, True),
+             ("hidden rows", hidden_q, packed, False)]
+    rows = []
+    for what, q_ids, kv_ids, causal in cases:
+        bq, sq = q_ids.shape
+        q, k, v, do = (torch.randn(bq, sq, 24, 64, generator=g, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        ids = SegmentIds(q_ids, kv_ids)
+        out, lse = flash_attention.flash_attention_forward(q, k, v, scale,
+                                                           causal, ids)
+        chunk = K7_BWD_PLAIN_BATCH
+        plain_fwd = [flash_attention.flash_attention_forward_plain(
+            q[i:i + chunk], k[i:i + chunk], v[i:i + chunk], scale, causal,
+            SegmentIds(q_ids[i:i + chunk], kv_ids[i:i + chunk]))
+            for i in range(0, bq, chunk)]
+
+        def kernel():
+            return flash_attention.flash_attention_backward(
+                q, k, v, out, do, lse, scale, causal, ids)
+
+        def plain():
+            parts = []
+            for n, i in enumerate(range(0, bq, chunk)):
+                j = slice(i, i + chunk)
+                ref_out, ref_lse = plain_fwd[n]
+                parts.append(flash_attention.flash_attention_backward_plain(
+                    q[j], k[j], v[j], ref_out, ref_lse, do[j], scale, causal,
+                    SegmentIds(q_ids[j], kv_ids[j])))
+            return tuple(torch.cat(x) for x in zip(*parts))
+
+        before = flash_attention.segment_sm90_backward_launches
+        grads, ref = kernel(), plain()
+        on_sm90 = flash_attention.segment_sm90_backward_launches - before
+        rels = [rel_err(a, r) for a, r in zip(grads, ref)]
+        errs = [max_err(a, r) for a, r in zip(grads, ref)]
+        tag = f"{what} ({bq},{sq},{sq},24,64){' causal' if causal else ''}"
+        if on_sm90 != 1:
+            fail(f"K7-seg backward {tag} ran the wrong body ({on_sm90} "
+                 "launches on the Hopper backward)")
+        visible = q_ids[:, :, None] == kv_ids[:, None, :]
+        if causal:
+            visible &= torch.ones(sq, sq, dtype=torch.bool,
+                                  device=dev).tril()
+        hidden = int((~visible.any(-1)).sum())
+        del grads, ref
+        torch.cuda.empty_cache()
+        lib_ms = sdpa_mask_backward_ms(q, k, v, scale, visible[:, None], do) \
+            if hidden == 0 else None
+        ms, plain_ms = time_pair(kernel, plain)
+        bnd = segment_attention_bound(q_ids, kv_ids, 24, 64, causal,
+                                      torch.bfloat16, backward=True)
+        log(f"K7-seg backward bf16 {tag}: rel err dq/dk/dv "
+            f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} (tol {K2_REL_TOL}), "
+            f"{hidden} rows with no key of their segment, max_abs_err "
+            f"{max(errs):.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bnd[0]:.3f} ms ({bnd[1]}), sdpa backward with the mask "
+            f"{fmt_ms(lib_ms)}")
+        if not max(rels) <= K2_REL_TOL:
+            fail(f"K7-seg backward disagrees at {tag}: {rels}")
+        rows.append({"case": what, "shape": [bq, sq, sq, 24, 64],
+                     "causal": causal, "dtype": "bf16", "hidden_rows": hidden,
+                     "max_abs_err": max(errs), "rel_err": rels,
+                     **yardsticks(ms, plain_ms, lib_ms, bnd)})
+        del q, k, v, do, out, lse, plain_fwd, visible
+        torch.cuda.empty_cache()
+
+    # the path: a gradient through flash attention with the flashpad ids
+    q, k, v = (torch.randn(b, padded, 24, 64, generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    ops.reset_launch_counts()
+    out = flash_attention.flash_attention(q, k, v, scale,
+                                          segment_ids=SegmentIds(pad_ids,
+                                                                 pad_ids))
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"segment_grad path launches: {json.dumps(counts)}")
+    if counts["flash_attention_segment_backward"] != 1 or \
+            counts["flash_attention_segment_backward_sm90"] != 1 or \
+            counts["flash_attention_segment"] != 1 or \
+            counts["flash_attention_segment_with_lse"] != 1:
+        fail("a gradient through K7-seg did not run K7-seg with the "
+             "log-sum-exp and its Hopper backward once each")
+    return rows, counts
+
+
+def _dist_setup(dev, work: Path):
+    """An NCCL process group of world size 1 on ``dev`` over a FileStore in
+    ``work`` (nothing listens on a port)."""
+    import torch.distributed as dist
+
+    store = dist.FileStore(str(work / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=dev)
+    log(f"multi-device: NCCL process group of world size "
+        f"{dist.get_world_size()} (backend {dist.get_backend()}), "
+        f"FileStore under {work.relative_to(REPO)}")
+
+
+def _md_pipeline(cfg, create_instance_from_config, dev, mesh):
+    """Phase 6's pipeline on ``mesh``, its weights drawn from ``SEED``."""
+    with torch.device("meta"):
+        pipe = create_instance_from_config(copy.deepcopy(cfg))
+    pipe.mesh = mesh
+    pipe.model.to_empty(device=dev)
+    random_init_(pipe.model, torch.Generator(dev).manual_seed(SEED))
+    return pipe
+
+
+def _md_steps(dev, pipe, batch, steps: int):
+    """``steps`` train steps from one generator: (state, losses, seconds,
+    peak GiB)."""
+    state = pipe.init_state()
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    losses, secs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = pipe.train_step(state, batch, gen)
+        losses.append(metrics["sd_loss"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return state, losses, secs, torch.cuda.max_memory_allocated() / 2**30
+
+
+def md_fsdp_train(dev, create_instance_from_config, ops, train_metrics):
+    """(a) Phase 6's DiT trained under its config's policy on the NCCL
+    group of one, against the unsharded step on the same draws, then a
+    sharded checkpoint of a depth-cut twin saved and resumed."""
+    from opendwm_tpu_torch import checkpoint
+    from opendwm_tpu_torch.parallel.mesh import SingleDeviceMesh, make_mesh
+
+    cfg = json.loads(CONFIG.read_text())["pipeline"]
+    cfg["model"]["param_dtype"] = torch.float32
+    policy = cfg.get("sharding_policy") or \
+        cfg["common_config"].get("distribution_framework", "fsdp")
+    gen = torch.Generator(dev).manual_seed(SEED)
+    batch = make_batch(dev, gen)
+    batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W, 16,
+                                   generator=gen, device=dev)
+
+    ref_pipe = _md_pipeline(cfg, create_instance_from_config, dev,
+                            SingleDeviceMesh())
+    ref_state, ref_losses, ref_s, ref_peak = _md_steps(dev, ref_pipe, batch,
+                                                       TRAIN_STEPS)
+    names = [n for n, _ in ref_pipe.model.named_parameters()]
+    ref = [p.detach().to("cpu", copy=True)
+           for p in ref_pipe.model.parameters()]
+    random_init_(ref_pipe.model, torch.Generator(dev).manual_seed(SEED))
+    update = [float((r.to(dev) - p.detach()).float().norm())
+              for r, p in zip(ref, ref_pipe.model.parameters())]
+    zero_init = [not p.detach().any() for p in ref_pipe.model.parameters()]
+    lr = cfg["optimizer_config"]["lr"]
+    del ref_pipe, ref_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pipe = _md_pipeline(cfg, create_instance_from_config, dev, make_mesh())
+    ops.reset_launch_counts()
+    state, losses, secs, peak = _md_steps(dev, pipe, batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    first = next(pipe.model.parameters())
+    moment = state.optimizer.state[first]["exp_avg"]
+    log(f"fsdp: policy {policy!r}, parameters {type(first).__name__} "
+        f"{getattr(first, 'placements', None)}, moments "
+        f"{type(moment).__name__} {getattr(moment, 'placements', None)}, "
+        f"mesh {pipe.mesh}")
+    if not hasattr(first, "placements") or \
+            not hasattr(moment, "placements"):
+        fail("the fsdp state's parameters or moments are not DTensors")
+    loss_rels = [abs(a - b) / max(abs(b), 1e-30)
+                 for a, b in zip(losses, ref_losses)]
+    rels, upd_rels, zero_rels = [], [], []
+    diff2 = ref2 = 0.0
+    for name, r, u, z, p in zip(names, ref, update, zero_init,
+                                pipe.model.parameters()):
+        full = p.full_tensor().detach().float()
+        r = r.to(dev).float()
+        delta = full - r
+        diff = float(delta.norm())
+        diff2, ref2 = diff2 + diff ** 2, ref2 + float(r.norm()) ** 2
+        upd_rels.append((diff / max(u, 1e-30), name))
+        if z:  # zero at init: the tensor is its update
+            zero_rels.append(upd_rels[-1])
+        else:
+            rels.append((diff / float(r.norm()), name))
+    global_rel = (diff2 / ref2) ** 0.5
+    log(f"fsdp vs unsharded, {TRAIN_STEPS} steps on the same draws: losses "
+        f"{losses} vs {ref_losses} (rel {', '.join(f'{x:.2e}' for x in loss_rels)};"
+        f" tol {MD_LOSS_REL} on step 1, the same parameters, and "
+        f"{MD_PARAM_REL} on the later ones); every parameter: rel norm "
+        f"{global_rel:.2e}; by tensor max {max(rels)[0]:.2e} ({max(rels)[1]};"
+        f" tol {MD_PARAM_REL}, the {len(zero_rels)} tensors zero at init "
+        f"aside); the difference over the tensor's own update's norm: max "
+        f"{max(upd_rels)[0]:.2e} ({max(upd_rels)[1]}), over the tensors "
+        f"zero at init {max(zero_rels)[0]:.2e} ({max(zero_rels)[1]}) (tol "
+        f"{MD_UPDATE_REL}; lr {lr:g})")
+    if not (loss_rels[0] <= MD_LOSS_REL and max(loss_rels) <= MD_PARAM_REL
+            and global_rel <= MD_PARAM_REL and max(rels)[0] <= MD_PARAM_REL
+            and max(upd_rels)[0] <= MD_UPDATE_REL):
+        fail(f"the fsdp steps disagree with the unsharded ones: losses "
+             f"{loss_rels}, parameters {global_rel} (by tensor "
+             f"{max(rels)}, over the update {max(upd_rels)})")
+    metrics = {
+        "policy": policy, "steps": TRAIN_STEPS,
+        "s_per_step": sum(secs[1:]) / (len(secs) - 1),
+        "peak_gib": peak,
+        "unsharded_s_per_step": sum(ref_s[1:]) / (len(ref_s) - 1),
+        "unsharded_peak_gib": ref_peak,
+        "phase6_s_per_step": train_metrics["s_per_step"],
+        "phase6_peak_gib": train_metrics["peak_gib"],
+        "loss_rel": loss_rels, "param_rel": global_rel,
+        "param_rel_max": max(rels)[0],
+        "zero_init_update_rel_max": max(zero_rels)[0],
+        "update_rel_max": max(upd_rels)[0]}
+    log(f"fsdp train step: {metrics['s_per_step']:.3f} s a step (steps "
+        f"2-{TRAIN_STEPS}), peak {peak:.2f} GiB; unsharded here "
+        f"{metrics['unsharded_s_per_step']:.3f} s, {ref_peak:.2f} GiB; "
+        f"phase 6 {train_metrics['s_per_step']:.3f} s, "
+        f"{train_metrics['peak_gib']:.2f} GiB")
+    del state, pipe, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the checkpoint: a depth-cut twin (the full depth's state is ~45 GB)
+    cut = copy.deepcopy(cfg)
+    m = cut["model"]
+    m["num_layers"] = MD_CKPT_LAYERS
+    for key in ("dual_attention_layers", "crossview_block_layers",
+                "temporal_block_layers", "remat_block_layers"):
+        if key in m:
+            m[key] = [i for i in m[key] if i < MD_CKPT_LAYERS]
+    work = REPO / "build" / "multidevice" / "ckpt"
+    a = _md_pipeline(cut, create_instance_from_config, dev, make_mesh())
+    state_a, _, _, _ = _md_steps(dev, a, batch, 1)
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(str(work), 1, state_a)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in work.rglob("*") if f.is_file())
+    b = _md_pipeline(cut, create_instance_from_config, dev, make_mesh())
+    state_b = b.init_state()
+    t0 = time.perf_counter()
+    checkpoint.load_checkpoint(str(work), 1, state_b)
+    load_s = time.perf_counter() - t0
+    same = all(torch.equal(p.full_tensor(), q.full_tensor())
+               for p, q in zip(a.model.parameters(), b.model.parameters()))
+    moments_same = all(
+        torch.equal(state_a.optimizer.state[p][k].full_tensor(),
+                    state_b.optimizer.state[q][k].full_tensor())
+        for p, q in zip(a.model.parameters(), b.model.parameters())
+        for k in ("exp_avg", "exp_avg_sq"))
+    log(f"sharded checkpoint of the {MD_CKPT_LAYERS}-layer twin: "
+        f"{nbytes / 1e9:.2f} GB saved in {save_s:.2f} s, loaded in "
+        f"{load_s:.2f} s (step {state_b.step}); parameters equal "
+        f"{same}, moments equal {moments_same}")
+    if not (same and moments_same and state_b.step == 1):
+        fail("the resumed sharded checkpoint differs from the saved state")
+    metrics.update(ckpt_gb=nbytes / 1e9, ckpt_save_s=save_s,
+                   ckpt_load_s=load_s, ckpt_layers=MD_CKPT_LAYERS)
+    del a, b, state_a, state_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, metrics
+
+
+def md_sequence_parallel(dev, create_instance_from_config, ops,
+                         get_conditions, dit_pipeline):
+    """(b) ``sequence_parallel_axis="tp"`` on phase 5's DiT (the tp axis of
+    the group of one: each joint attention a ring of one rank, its block
+    step K1 with the log-sum-exp) against its forward without it; (d) the
+    same DiT converted to 4 flagship stages: the sequential chain against
+    the DiT's CFG forward, then ``pipeline_apply`` on the group's pp axis
+    (one stage) with 2 microbatches."""
+    from opendwm_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    cfg = json.loads(CONFIG.read_text())["pipeline"]
+    cfg["model"]["sequence_parallel_axis"] = "tp"
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+    model = pipe.model
+    model.to_empty(device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    random_init_(model, gen)
+    model.eval()
+    batch = make_batch(dev, gen)
+    conds = get_conditions(batch, pipe.common_config,
+                           do_classifier_free_guidance=True)
+    sample = torch.randn(2, FRAMES, VIEWS, LAT_H, LAT_W, 16, generator=gen,
+                         device=dev)
+    timestep = torch.full((2, FRAMES, VIEWS), 500.0, device=dev)
+    kwargs = dict(sample=sample, timestep=timestep, **conds)
+    blocks = model.transformer_blocks
+    out = {}
+    counts = {}
+    with torch.inference_mode():
+        for b in blocks:
+            b.attn.sp_axis = None
+        ops.reset_launch_counts()
+        out["plain"] = model(**kwargs)
+        for b in blocks:
+            b.attn.sp_axis = "tp"
+        mesh = make_mesh(MeshSpec(dp=1, fsdp=1, tp=-1))
+        pipe.mesh = mesh  # binds each ring to the mesh's tp group
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["sp"] = model(**kwargs)
+        torch.cuda.synchronize()
+        sp_s = time.perf_counter() - t0
+        counts["sp_serve"] = ops.launch_counts()
+        for b in blocks:
+            b.attn.sp_axis = None
+        sp_rel = rel_err(out["sp"], out["plain"])
+        sp_equal = torch.equal(out["sp"], out["plain"])
+        log(f"sequence_parallel_axis 'tp' on {mesh}: CFG forward "
+            f"{sp_s:.3f} s, rel norm to the forward without it {sp_rel:.3e}"
+            f" (tol {ATTN_REL_TOL}), bit for bit {sp_equal}; K1 with the "
+            f"log-sum-exp {counts['sp_serve']['flash_tail_with_lse']} of "
+            f"{counts['sp_serve']['flash_tail']} K1 launches")
+        if not sp_rel <= ATTN_REL_TOL or \
+                counts["sp_serve"]["flash_tail_with_lse"] == 0:
+            fail(f"the sequence-parallel forward disagrees ({sp_rel}) or "
+                 "ran no ring block step")
+
+        # (d) the stage-sliced flagship: the chain of stages against the
+        # DiT's batch-2 forward, and GPipe's schedule against the stage on
+        # each microbatch, each at the shapes of what it is held to (so
+        # the same bits), at the bf16 bar, where a wrong conversion or
+        # schedule is off by O(1). The DiT through GPipe is logged beside
+        # the DiT over the 2 microbatches: bf16 rounds with the GEMMs' row
+        # counts, and 24 layers carry either to the same floor.
+        halves = torch.cat([model(**{
+            k: v[i:i + 1] if torch.is_tensor(v) and v.shape[0] == 2 else v
+            for k, v in kwargs.items()}) for i in range(2)])
+        noise = rel_err(halves, out["plain"])
+        args = (sample, timestep, conds["encoder_hidden_states"],
+                conds["pooled_projections"], conds.get("added_time_ids"))
+        t0 = time.perf_counter()
+        stacked = dit_pipeline.convert_dit_params_to_stages(model,
+                                                            n_stages=4)
+        convert_s = time.perf_counter() - t0
+        n_stage = sum(t.numel() for t in stacked["params"].values())
+        seq = dit_pipeline.pipelined_dit_forward(model, *args, n_stages=4,
+                                                 stacked=stacked)
+        seq_rel = rel_err(seq, out["plain"])
+        del seq, stacked, halves
+        torch.cuda.empty_cache()
+        pp_mesh = make_mesh(MeshSpec(dp=1, fsdp=1, tp=1, pp=-1))
+        stacked = dit_pipeline.convert_dit_params_to_stages(model,
+                                                            n_stages=1)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        piped = dit_pipeline.pipelined_dit_forward(
+            model, *args, n_stages=1, mesh=pp_mesh, microbatches=2,
+            stacked=stacked)
+        torch.cuda.synchronize()
+        pp_s = time.perf_counter() - t0
+        counts["pp_serve"] = ops.launch_counts()
+        pp_rel = rel_err(piped, out["plain"])
+        # the schedule alone: GPipe's 2 microbatches through the stage
+        # against the stage on each microbatch, the same shapes, so the
+        # same bits (the DiT's stream at its width: image and text tokens)
+        n = sample.shape[0] * FRAMES * VIEWS
+        ctx_len = conds["encoder_hidden_states"].shape[3]
+        tokens = (LAT_H // model.patch_size) * (LAT_W // model.patch_size)
+        stage = dit_pipeline.make_flagship_stage(
+            model, n_stages=1, t=FRAMES, v=VIEWS,
+            gh=LAT_H // model.patch_size, gw=LAT_W // model.patch_size,
+            ctx_len=ctx_len)
+        h, temb, cam = (torch.randn(*shape, generator=gen, device=dev,
+                                    dtype=model.dtype)
+                        for shape in ((n, tokens + ctx_len, model.inner_dim),
+                                      (n, model.inner_dim),
+                                      (n, model.inner_dim)))
+        gpipe = dit_pipeline.flagship_pipeline_apply(
+            stage, stacked, h, temb, pp_mesh, microbatches=2, cam_emb=cam)
+        each = torch.cat([dit_pipeline.flagship_sequential_apply(
+            stage, stacked, *(t.chunk(2)[i] for t in (h, temb, cam)))
+            for i in range(2)])
+        sched_rel = rel_err(gpipe, each)
+        sched_equal = torch.equal(gpipe, each)
+        del stacked, h, temb, cam, gpipe, each
+        log(f"flagship stages: 4 stages of {model.num_layers // 4} layers, "
+            f"{n_stage / 1e9:.3f}B stage params (the maximal structure; "
+            f"the DiT's blocks "
+            f"{sum(p.numel() for p in blocks.parameters()) / 1e9:.3f}B), "
+            f"converted in {convert_s:.2f} s; the sequential chain's rel "
+            f"norm to the DiT's CFG forward {seq_rel:.3e} (tol "
+            f"{ATTN_REL_TOL}); pipeline_apply on {pp_mesh} (P = 1, M = 2) "
+            f"against the stage on each microbatch: rel norm "
+            f"{sched_rel:.3e}, bit for bit {sched_equal} (tol "
+            f"{ATTN_REL_TOL}); the DiT through it, {pp_s:.3f} s, rel norm "
+            f"{pp_rel:.3e} to the batch-2 forward, the DiT over the 2 "
+            f"microbatches {noise:.3e} to it (bf16 rounds with the GEMMs' "
+            f"row counts, and 24 layers carry it to this floor)")
+        if not (seq_rel <= ATTN_REL_TOL and sched_rel <= ATTN_REL_TOL):
+            fail(f"the stage-sliced DiT disagrees with the DiT: sequential "
+                 f"{seq_rel}, the GPipe schedule {sched_rel}")
+        if not all(torch.isfinite(t).all() for t in (piped, out["sp"])):
+            fail("a multi-device forward is not finite")
+    del model, pipe, piped, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"sp_rel": sp_rel, "sp_bit_equal": sp_equal,
+                    "sp_forward_s": sp_s, "stages_rel": seq_rel,
+                    "microbatch_noise_rel": noise,
+                    "pipeline_rel": pp_rel, "schedule_rel": sched_rel,
+                    "schedule_bit_equal": sched_equal,
+                    "pipeline_forward_s": pp_s,
+                    "stage_params_b": n_stage / 1e9}
+
+
+def md_ring_steps(dev, ring_attention, flash_tail, ops):
+    """(c) The ring's per-rank steps of n = 2 and n = 7 ranks run in one
+    process (a ring in one process, no collective) at the joint
+    attention's training shape, against K1 and K2 over the whole sequence:
+    the output and dq, dk, dv within ``K2_REL_TOL`` in relative norm."""
+    b, s, h = MD_RING
+    g = torch.Generator(dev).manual_seed(SEED + 10)
+    q, k, v, do = (torch.randn(b, s, h, 64, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = 64 ** -0.5
+    out, lse = flash_tail.tail_masked_attention_forward(q, k, v, scale)
+    ref = flash_tail.tail_masked_attention_backward(q, k, v, out, do, lse,
+                                                    scale)
+    rows, counts = [], {}
+    for n in MD_RING_N:
+        qs, ks, vs, dos = (list(t.chunk(n, 1)) for t in (q, k, v, do))
+        walls = []
+        for _ in range(2):  # the second run timed (host clock)
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ring_attention.ring_steps(qs, ks, vs, scale)
+            outs, lses = [o for o, _ in res], [x for _, x in res]
+            grads = ring_attention.ring_steps_backward(qs, ks, vs, outs,
+                                                       dos, lses, scale)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        wall_ms = walls[-1]
+        counts[n] = ops.launch_counts()
+        ring_out = torch.cat(outs, 1)
+        rels = [rel_err(ring_out, out)] + [
+            rel_err(torch.cat(gr, 1), r) for gr, r in zip(grads, ref)]
+        log(f"ring in one process, n = {n} ({s // n}-token slices; not a "
+            f"collective): out/dq/dk/dv rel norm "
+            f"{'/'.join(f'{r:.2e}' for r in rels)} (tol {K2_REL_TOL}) to "
+            f"K1/K2 over {s} tokens; {wall_ms:.1f} ms for the {n} ranks' "
+            f"steps; K1 {counts[n]['flash_tail']} launches by shape "
+            f"{json.dumps(counts[n]['flash_tail_by_shape'])}, K2 "
+            f"{counts[n]['flash_tail_backward']}")
+        if not max(rels) <= K2_REL_TOL:
+            fail(f"the ring of {n} disagrees with K1/K2: {rels}")
+        want = n * n
+        if counts[n]["flash_tail_with_lse"] != want or \
+                counts[n]["flash_tail_backward"] != want:
+            fail(f"the ring of {n} ran {counts[n]['flash_tail_with_lse']} "
+                 f"block forwards and {counts[n]['flash_tail_backward']} "
+                 f"block backwards, not {want}")
+        rows.append({"n": n, "slice": s // n, "rel_err": rels,
+                     "ms": wall_ms})
+    return counts, rows
+
+
+def md_train_cli(dev) -> dict:
+    """(e) The train CLI under ``torchrun --standalone --nproc-per-node 1``
+    (a rendezvous on the loopback): ``MD_CLI_STEPS`` steps of
+    ``TINY_CONFIG`` on the card, its state placed by the config's fsdp
+    policy on the NCCL group of one and its final checkpoint sharded."""
+    work = REPO / "build" / "multidevice" / "cli"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "opendwm_tpu_torch.train",
+           "-c", str(TINY_CONFIG), "-o", str(work), "--device", "cuda",
+           "--max-steps", str(MD_CLI_STEPS), "--log-steps", "1"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=REPO)
+    cli_s = time.perf_counter() - t0
+    tail = (run.stdout + run.stderr).strip().splitlines()[-12:]
+    log(f"train CLI under torchrun: rc {run.returncode}, {cli_s:.1f} s; "
+        f"its last lines: " + " | ".join(t.strip()[:160] for t in tail))
+    if run.returncode != 0:
+        fail("the train CLI failed under torchrun")
+    events = [json.loads(line) for line in
+              (work / "log" / "events.jsonl").read_text().splitlines()]
+    losses = [e["sd_loss"] for e in events if "sd_loss" in e]
+    ckpt = work / "checkpoints" / str(MD_CLI_STEPS)
+    sharded = (ckpt / "dcp").is_dir() and (ckpt / "meta.pt").exists()
+    log(f"train CLI under torchrun: losses {losses}, sharded checkpoint "
+        f"{sharded}")
+    if len(losses) != MD_CLI_STEPS or not all(math.isfinite(x)
+                                              for x in losses):
+        fail(f"the torchrun train CLI logged {losses}")
+    if not sharded:
+        fail("the torchrun train CLI wrote no sharded checkpoint")
+    return {"cli_s": cli_s, "losses": losses}
+
+
+def run_multidevice_phase(dev, create_instance_from_config, ops,
+                          get_conditions, train_metrics):
+    """Phase 28: the multi-device stack on the card. One card gives NCCL a
+    process group of world size 1 only, so (a)-(d) run under that group
+    and (e) under torchrun with one process: no collective at world size
+    above 1 runs here."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from opendwm_tpu_torch.ops import flash_tail, ring_attention
+    from opendwm_tpu_torch.parallel import dit_pipeline
+
+    work = REPO / "build" / "multidevice"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    _dist_setup(dev, work)
+    seconds = {}
+    try:
+        t0 = time.perf_counter()
+        fsdp_counts, fsdp = md_fsdp_train(dev, create_instance_from_config,
+                                          ops, train_metrics)
+        seconds["fsdp_train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model_counts, model_metrics = md_sequence_parallel(
+            dev, create_instance_from_config, ops, get_conditions,
+            dit_pipeline)
+        seconds["sp_and_pp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ring_counts, ring_rows = md_ring_steps(dev, ring_attention,
+                                               flash_tail, ops)
+        seconds["ring"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    cli = md_train_cli(dev)
+    seconds["cli"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    paths = {"fsdp_train": fsdp_counts, **model_counts,
+             "ring_steps": merge_counts(ring_counts[MD_RING_N[0]],
+                                        ring_counts[MD_RING_N[1]])}
+    return paths, {"fsdp_train": fsdp, **model_metrics, "ring": ring_rows,
+                   "train_cli": cli, "seconds": seconds}
+
+
 def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
@@ -5481,7 +6128,8 @@ def main() -> None:
     sm90_census = census_sm90(_build, sources, "flash_fwd_sm90")
     tiling_census = census_sm90(_build, ("flash_tail.cu",),
                                 "tail_tiling_sm90")
-    bwd90_census = census_sm90(_build, sources, "flash_bwd_sm90")
+    bwd90_census = census_sm90(_build, sources + ("flash_segment.cu",),
+                               "flash_bwd_sm90")
     adaln_ptxas = check_adaln_ptxas(_build)
 
     log_clocks("before the kernel checks")
@@ -5492,6 +6140,8 @@ def main() -> None:
     k7_bwd_rows, k7_lse_timing = check_flash_attention_backward(
         dev, flash_attention)
     k7_seg_rows = check_flash_attention_segment(dev, flash_attention)
+    seg_bwd_rows, segment_grad = check_segment_backward(dev, flash_attention,
+                                                        ops)
     dit_k7_rows = check_dit_k7(dev, flash_attention)
     k7_at_k1, k7_bwd_at_k2 = check_k7_at_tail_shapes(dev, flash_tail,
                                                      flash_attention)
@@ -5664,6 +6314,15 @@ def main() -> None:
     t0 = time.perf_counter()
     tools_metrics = run_tools_phase(dev)
     tools_metrics["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the multi-device phase")
+    t0 = time.perf_counter()
+    md_paths, md_metrics = run_multidevice_phase(
+        dev, create_instance_from_config, ops, get_conditions,
+        train_metrics)
+    md_metrics["phase_s"] = time.perf_counter() - t0
+    log(f"multi-device on one card ({card}): " + json.dumps(md_metrics))
     log_clocks("at the end")
     log(f"the depth branch, the BEV world VAE and the tools ({card}): "
         + json.dumps({"unet_depth_train": {
@@ -5696,9 +6355,11 @@ def main() -> None:
              "unimlvg_serve": unimlvg_serve, "branch_types": branch_types,
              "mask_step": mask_step, "unimlvg_train": unimlvg_train,
              "temporal_vae": temporal_vae, **lidar_train,
-             "land_eval": land_counts, "unet_depth_train": depth_counts}
+             "land_eval": land_counts, "unet_depth_train": depth_counts,
+             "segment_grad": segment_grad, **md_paths}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
-              if p != "attn602" and c["flash_attention_segment"]}
+              if p not in ("attn602", "segment_grad")
+              and c["flash_attention_segment"]}
     if strays:
         fail(f"flash_attention_segment launched outside the shoot-out: "
              f"{strays}")
@@ -5774,6 +6435,10 @@ def main() -> None:
               "perf/exp_attn602.py:88", "flash_attention_segment",
               k7_seg_rows, replaces_also=f"{STOCK_FLASH}:140",
               body=sm90_src),
+        entry("flash_attention_segment_backward", "cuda", k7_src,
+              f"{STOCK_FLASH}:941", "flash_attention_segment_backward",
+              seg_bwd_rows, replaces_also=f"{STOCK_FLASH}:1287",
+              masks=f"{STOCK_FLASH}:866-872", body=bwd90_src),
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -61,6 +61,9 @@ _LAZY_MODULES: dict[str, str] = {
     "ExponentialLR": "opendwm_tpu_torch.pipelines.optim",
     "LinearLR": "opendwm_tpu_torch.pipelines.optim",
     "SyntheticCTSDDataset": "opendwm_tpu_torch.datasets.synthetic",
+    # device meshes (the reference's torch.distributed mesh call)
+    "MeshSpec": "opendwm_tpu_torch.parallel.mesh",
+    "torch.distributed.device_mesh": "opendwm_tpu_torch.parallel.mesh",
     # the host data stack: filesystems, readers, the bucket sampler
     "dwm.fs": "opendwm_tpu_torch.fs",
     "fsspec.implementations.local": "opendwm_tpu_torch.fs",
@@ -173,8 +176,8 @@ def get_class(class_name: str):
         "the CLIP/T5 text stage, LiDAR serving and training (the VQ and KL "
         "tokenizers, MaskGIT, the LiDAR DiT and UNet), UniMLVG, MaskGWM, "
         "the temporal VAE, the depth branch, the BEV world VAE, the host "
-        "data stack, the metrics and the FID/FVD feature nets; see "
-        "ROADMAP.md Queue 1)."
+        "data stack, the metrics, the FID/FVD feature nets and device "
+        "meshes)."
     )
 
 

@@ -243,6 +243,32 @@ def dit_state_dict_from_flax(params: Mapping, num_layers: int) -> dict:
     return sd
 
 
+def flagship_stage_state_dict_from_flax(params: Mapping,
+                                        layers_per_stage: int) -> dict:
+    """Flax ``FlagshipStage`` params (``opendwm_tpu/parallel/
+    dit_pipeline.py``; one stage's tree) → the port's ``FlagshipStage``
+    state dict (numpy)."""
+    tree = _tree(params)
+    sd: dict = {}
+    for k in range(layers_per_stage):
+        src, dst = f"joint_{k}", f"joint_{k}"
+        for mod in ("norm1", "norm1_context"):
+            _weights(tree, sd, f"{src}/{mod}/linear", f"{dst}.{mod}.linear")
+        for attn in ("attn", "attn2"):
+            _attention(tree, sd, f"{src}/{attn}", f"{dst}.{attn}")
+        for ff in ("ff", "ff_context"):
+            _feed_forward(tree, sd, f"{src}/{ff}", f"{dst}.{ff}")
+        for kind in ("time", "view"):
+            for lin in ("linear_1", "linear_2"):
+                _weights(tree, sd, f"{kind}_pos_embed_{k}/{lin}",
+                         f"{kind}_pos_embed_{k}.{lin}")
+            sd[f"{kind}_mixer_{k}.mix_factor"] = np.asarray(
+                tree[f"{kind}_mixer_{k}"]["mix_factor"])
+        for kind in ("temporal", "crossview"):
+            _vt_block(tree, sd, f"{kind}_{k}", f"{kind}_{k}")
+    return sd
+
+
 # Port module-path pieces → flax ones (the reverse of the rules of the DiT
 # and UNet bridges).
 _FLAX_PIECES = (

@@ -67,8 +67,10 @@
 // query ids into shared memory once and each tile's 64 key ids with the
 // tile. The ids are a template flag of the same tile loop (the kernels
 // without them are thin wrappers of the same body, so they compile as
-// before); no instance writes the log-sum-exp with ids, since nothing
-// differentiates the shoot-out.
+// before). A forward with ids that a gradient needs also writes the
+// log-sum-exp (flash_attention_forward_segment_lse), and the backward with
+// ids (flash_segment.cu, flash_bwd.cuh's backward_segment) replaces the
+// stock kernel's backward given segment_ids.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -311,20 +313,21 @@ __global__ void __launch_bounds__(kThreads)
                                         nullptr);
 }
 
-template <int DP, bool kCausal>
+template <int DP, bool kCausal, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_segment_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                         const __nv_bfloat16* __restrict__ k,
                                         const __nv_bfloat16* __restrict__ v,
                                         __nv_bfloat16* __restrict__ o,
+                                        float* __restrict__ lse,
                                         const int* __restrict__ q_ids,
                                         const int* __restrict__ kv_ids,
                                         int q_seq, int kv_seq, int heads,
                                         int head_dim, float scale_log2,
                                         bool vec) {
-  attend_bf16<DP, kCausal, false, true>(q, k, v, o, nullptr, q_seq, kv_seq,
-                                        heads, head_dim, scale_log2, vec,
-                                        q_ids, kv_ids);
+  attend_bf16<DP, kCausal, kLse, true>(q, k, v, o, lse, q_seq, kv_seq, heads,
+                                       head_dim, scale_log2, vec, q_ids,
+                                       kv_ids);
 }
 
 // ---------------------------------------------------------------------------
@@ -468,20 +471,21 @@ __global__ void __launch_bounds__(kThreads)
                                            nullptr, nullptr);
 }
 
-template <int DP, int BK, bool kCausal>
+template <int DP, int BK, bool kCausal, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_segment_f32_kernel(const float* __restrict__ q,
                                        const float* __restrict__ k,
                                        const float* __restrict__ v,
                                        float* __restrict__ o,
+                                       float* __restrict__ lse,
                                        const int* __restrict__ q_ids,
                                        const int* __restrict__ kv_ids,
                                        int q_seq, int kv_seq, int heads,
                                        int head_dim, float scale_log2,
                                        bool vec) {
-  attend_f32<DP, BK, kCausal, false, true>(q, k, v, o, nullptr, q_seq,
-                                           kv_seq, heads, head_dim,
-                                           scale_log2, vec, q_ids, kv_ids);
+  attend_f32<DP, BK, kCausal, kLse, true>(q, k, v, o, lse, q_seq, kv_seq,
+                                          heads, head_dim, scale_log2, vec,
+                                          q_ids, kv_ids);
 }
 
 // ---------------------------------------------------------------------------
@@ -489,7 +493,7 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 
 // The forward: with the log-sum-exp if lse is given, with segment ids if
-// q_ids is given (never both).
+// q_ids is given.
 template <int DP, bool kCausal>
 int launch_dp(const void* q, const void* k, const void* v, void* o,
               float* lse, const int* q_ids, const int* kv_ids, int batch,
@@ -503,14 +507,16 @@ int launch_dp(const void* q, const void* k, const void* v, void* o,
     using T = __nv_bfloat16;
     const bool vec = head_dim % 8 == 0 && aligned;
     if (q_ids) {
-      auto kernel = flash_attention_segment_bf16_kernel<DP, kCausal>;
+      auto kernel = lse ? flash_attention_segment_bf16_kernel<DP, kCausal, true>
+                        : flash_attention_segment_bf16_kernel<DP, kCausal,
+                                                              false>;
       const size_t smem = MmaLayout<DP>::kBytes + kIdBytes;
       if ((err = set_smem(kernel, smem)) != cudaSuccess)
         return static_cast<int>(err);
       kernel<<<grid, kThreads, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o), q_ids, kv_ids, q_seq,
-          kv_seq, heads, head_dim, scale_log2, vec);
+          static_cast<const T*>(v), static_cast<T*>(o), lse, q_ids, kv_ids,
+          q_seq, kv_seq, heads, head_dim, scale_log2, vec);
       return static_cast<int>(cudaGetLastError());
     }
     auto kernel = lse ? flash_attention_bf16_kernel<DP, kCausal, true>
@@ -526,13 +532,15 @@ int launch_dp(const void* q, const void* k, const void* v, void* o,
     constexpr int BK = DP > 128 ? 32 : 64;
     const bool vec = head_dim % 4 == 0 && aligned;
     if (q_ids) {
-      auto kernel = flash_attention_segment_f32_kernel<DP, BK, kCausal>;
+      auto kernel =
+          lse ? flash_attention_segment_f32_kernel<DP, BK, kCausal, true>
+              : flash_attention_segment_f32_kernel<DP, BK, kCausal, false>;
       const size_t smem = F32Layout<DP, BK>::kBytes + kIdBytes;
       if ((err = set_smem(kernel, smem)) != cudaSuccess)
         return static_cast<int>(err);
       kernel<<<grid, kThreads, smem, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<float*>(o), q_ids,
+          static_cast<const float*>(v), static_cast<float*>(o), lse, q_ids,
           kv_ids, q_seq, kv_seq, heads, head_dim, scale_log2, vec);
       return static_cast<int>(cudaGetLastError());
     }
@@ -585,6 +593,9 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
     if (!fwd90::make_params(&p, q, k, v, o, l, qi, ki, batch, q_seq, kv_seq,
                             heads, scale))
       return static_cast<int>(cudaErrorInvalidValue);
+    if (qi && l)
+      return causal ? fwd90::launch<true, true, true>(p, batch, st)
+                    : fwd90::launch<false, true, true>(p, batch, st);
     if (qi)
       return causal ? fwd90::launch<true, false, true>(p, batch, st)
                     : fwd90::launch<false, false, true>(p, batch, st);
@@ -653,6 +664,19 @@ extern "C" int flash_attention_forward_segment(
     return static_cast<int>(cudaErrorInvalidValue);
   return forward(q, k, v, o, nullptr, q_ids, kv_ids, batch, q_seq, kv_seq,
                  heads, head_dim, scale, causal, is_bf16, stream);
+}
+
+// The forward with segment ids that also writes the log-sum-exp, for the
+// backward with segment ids below.
+extern "C" int flash_attention_forward_segment_lse(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_ids, const void* kv_ids, int batch, int q_seq, int kv_seq,
+    int heads, int head_dim, float scale, int causal, int is_bf16,
+    void* stream) {
+  if (lse == nullptr || q_ids == nullptr || kv_ids == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return forward(q, k, v, o, lse, q_ids, kv_ids, batch, q_seq, kv_seq, heads,
+                 head_dim, scale, causal, is_bf16, stream);
 }
 
 // dq, dk, dv of the forward above (flash_bwd::backward, flash_bwd.cuh):

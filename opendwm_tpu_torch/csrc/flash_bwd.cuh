@@ -46,6 +46,14 @@
 // plain FMA path of the same split. What bounds them: 7 products of
 // S x S x D per head against the 5 the math needs, and the scalar
 // shared-memory gathers of the transposed B fragments.
+//
+// Segment ids (K7-seg's backward, backward_segment()): a kSegment instance
+// of each body takes the int32 ids of the queries and keys; each thread
+// reads the ids of the rows it owns once and the block copies the ids of
+// each tile of the other side into shared memory beside its lse and delta.
+// The probability of a visible pair is bwd90::segment_prob's
+// (flash_bwd_sm90.cuh: the forward's kSegmentMask where the ids differ,
+// 1 / n on a row that sees no key of its segment), as in the Hopper kernel.
 
 #pragma once
 
@@ -67,7 +75,8 @@ struct BwdLayout {
   static constexpr size_t kV = 3 * kTile;
   static constexpr size_t kLse = 4 * kTile;
   static constexpr size_t kDelta = kLse + 256;
-  static constexpr size_t kBytes = kDelta + 256;
+  static constexpr size_t kIds = kDelta + 256;  // a tile's segment ids
+  static constexpr size_t kBytes = kIds + 256;
 };
 
 // B fragment whose column n is row (row0 + n) of a shared tile (B = X^T).
@@ -99,7 +108,7 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
   a[3] = pack_pair(hi[2], hi[3]);
 }
 
-template <int DP, bool kCausal>
+template <int DP, bool kCausal, bool kSegment>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_bwd_dkdv_bf16_kernel(
         const __nv_bfloat16* __restrict__ q,
@@ -108,6 +117,7 @@ __global__ void __launch_bounds__(kThreads)
         const __nv_bfloat16* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+        const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
         int q_seq, int kv_seq, int heads, int head_dim, float scale,
         float scale_log2, bool vec) {
   using L = BwdLayout<DP>;
@@ -120,6 +130,7 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::kV);
   float* sLse = reinterpret_cast<float*>(smem + L::kLse);
   float* sDelta = reinterpret_cast<float*>(smem + L::kDelta);
+  int* sQid = reinterpret_cast<int*>(smem + L::kIds);
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
@@ -145,6 +156,13 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* wk = sK + warp * 16 * kLd;
   const __nv_bfloat16* wv = sV + warp * 16 * kLd;
   const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  int kid[2] = {0, 0};
+  if constexpr (kSegment) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (keys[r] < kv_seq)
+        kid[r] = kv_ids[static_cast<size_t>(b) * kv_seq + keys[r]];
+  }
   // Causal: no query before the tile's first key sees any of its keys.
   const int q_begin = kCausal ? k0 : 0;
 
@@ -168,6 +186,9 @@ __global__ void __launch_bounds__(kThreads)
         const int r = q0 + tid;
         sLse[tid] = r < q_seq ? lse_bh[r] : 0.0f;
         sDelta[tid] = r < q_seq ? delta_bh[r] : 0.0f;
+        if constexpr (kSegment)
+          sQid[tid] =
+              r < q_seq ? q_ids[static_cast<size_t>(b) * q_seq + r] : 0;
       }
       __syncthreads();
 
@@ -201,8 +222,14 @@ __global__ void __launch_bounds__(kThreads)
           const int qc = n * 8 + 2 * t + (i & 1);
           float p = 0.0f;
           if (q0 + qc < q_seq &&
-              visible<kCausal>(q0 + qc, keys[i >> 1], kv_seq))
-            p = exp2f(s[n][i] * scale_log2 - sLse[qc]);
+              visible<kCausal>(q0 + qc, keys[i >> 1], kv_seq)) {
+            if constexpr (kSegment)
+              p = bwd90::segment_prob<false>(
+                  s[n][i] * scale_log2, sLse[qc], sQid[qc] == kid[i >> 1],
+                  q0 + qc, kv_seq, kCausal);
+            else
+              p = exp2f(s[n][i] * scale_log2 - sLse[qc]);
+          }
           s[n][i] = p;
           dp[n][i] = p * (dp[n][i] - sDelta[qc]) * scale;
         }
@@ -246,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DP, bool kCausal>
+template <int DP, bool kCausal, bool kSegment>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_bwd_dq_bf16_kernel(
         const __nv_bfloat16* __restrict__ q,
@@ -254,7 +281,8 @@ __global__ void __launch_bounds__(kThreads)
         const __nv_bfloat16* __restrict__ v,
         const __nv_bfloat16* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        __nv_bfloat16* __restrict__ dq, int q_seq, int kv_seq, int heads,
+        __nv_bfloat16* __restrict__ dq, const int* __restrict__ q_ids,
+        const int* __restrict__ kv_ids, int q_seq, int kv_seq, int heads,
         int head_dim, float scale, float scale_log2, bool vec) {
   using L = BwdLayout<DP>;
   constexpr int kLd = L::kLd;
@@ -265,6 +293,7 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* sDo = reinterpret_cast<__nv_bfloat16*>(smem + L::kDo);
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::kK);
   __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::kV);
+  int* sKid = reinterpret_cast<int*>(smem + L::kIds);
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
@@ -299,12 +328,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   float row_lse[2], row_delta[2];
+  int qid[2] = {0, 0};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool ok = rows[r] < q_seq;
     const size_t stat = static_cast<size_t>(bh) * q_seq + rows[r];
     row_lse[r] = ok ? lse[stat] : 0.0f;
     row_delta[r] = ok ? delta[stat] : 0.0f;
+    if (kSegment && ok)
+      qid[r] = q_ids[static_cast<size_t>(b) * q_seq + rows[r]];
   }
   const int kv_end = kCausal ? min(kv_seq, q0 + kBlockQ) : kv_seq;
 
@@ -324,6 +356,10 @@ __global__ void __launch_bounds__(kThreads)
       load_tile<__nv_bfloat16, DP, kLd, kBlockK>(sV, v, kv_base, row_stride,
                                                  kv0, kv_seq, head_dim, vec,
                                                  tid);
+      if (kSegment && tid < kBlockK)
+        sKid[tid] = kv0 + tid < kv_seq
+                        ? kv_ids[static_cast<size_t>(b) * kv_seq + kv0 + tid]
+                        : 0;
       __syncthreads();
 
       // S = Q K^T and dP = dO V^T: 16 queries x 64 keys per warp.
@@ -364,8 +400,14 @@ __global__ void __launch_bounds__(kThreads)
           const int row = rows[i >> 1];
           const int col = kv0 + n * 8 + 2 * t + (i & 1);
           float p = 0.0f;
-          if (row < q_seq && visible<kCausal>(row, col, kv_seq))
-            p = exp2f(s[n][i] * scale_log2 - row_lse[i >> 1]);
+          if (row < q_seq && visible<kCausal>(row, col, kv_seq)) {
+            if constexpr (kSegment)
+              p = bwd90::segment_prob<false>(
+                  s[n][i] * scale_log2, row_lse[i >> 1],
+                  qid[i >> 1] == sKid[col - kv0], row, kv_seq, kCausal);
+            else
+              p = exp2f(s[n][i] * scale_log2 - row_lse[i >> 1]);
+          }
           s[n][i] = p * (dp[n][i] - row_delta[i >> 1]) * scale;
         }
       }
@@ -418,18 +460,20 @@ struct F32BwdLayout {
   static constexpr size_t kDs = kP + align128(4 * kF32Rows * kLdS);
   static constexpr size_t kLse = kDs + align128(4 * kF32Rows * kLdS);
   static constexpr size_t kDelta = kLse + 256;
-  static constexpr size_t kBytes = kDelta + 256;
+  static constexpr size_t kIds = kDelta + 256;  // a tile's segment ids
+  static constexpr size_t kBytes = kIds + 256;
 };
 
-template <int DP, bool kCausal>
+template <int DP, bool kCausal, bool kSegment>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_bwd_dkdv_f32_kernel(
         const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        float* __restrict__ dk, float* __restrict__ dv, int q_seq,
-        int kv_seq, int heads, int head_dim, float scale, float scale_log2,
-        bool vec) {
+        float* __restrict__ dk, float* __restrict__ dv,
+        const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
+        int q_seq, int kv_seq, int heads, int head_dim, float scale,
+        float scale_log2, bool vec) {
   using L = F32BwdLayout<DP>;
   constexpr int kLdT = L::kLdT, kLdS = L::kLdS;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -441,6 +485,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sDs = reinterpret_cast<float*>(smem + L::kDs);
   float* sLse = reinterpret_cast<float*>(smem + L::kLse);
   float* sDelta = reinterpret_cast<float*>(smem + L::kDelta);
+  int* sQid = reinterpret_cast<int*>(smem + L::kIds);
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
@@ -463,6 +508,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < DP / 4; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
   const int key = k0 + r;
+  const int kid = kSegment && key < kv_seq
+                      ? kv_ids[static_cast<size_t>(b) * kv_seq + key]
+                      : 0;
   const int q_begin = kCausal ? k0 / 64 * 64 : 0;
 
   for (int q0 = q_begin; q0 < q_seq; q0 += 64) {
@@ -476,6 +524,9 @@ __global__ void __launch_bounds__(kThreads)
       const size_t stat = static_cast<size_t>(bh) * q_seq + row;
       sLse[tid] = row < q_seq ? lse[stat] : 0.0f;
       sDelta[tid] = row < q_seq ? delta[stat] : 0.0f;
+      if constexpr (kSegment)
+        sQid[tid] =
+            row < q_seq ? q_ids[static_cast<size_t>(b) * q_seq + row] : 0;
     }
     __syncthreads();
     for (int jj = 0; jj < 16; ++jj) {
@@ -486,8 +537,14 @@ __global__ void __launch_bounds__(kThreads)
         dpv += sV[r * kLdT + d] * sDo[j * kLdT + d];
       }
       float p = 0.0f;
-      if (q0 + j < q_seq && visible<kCausal>(q0 + j, key, kv_seq))
-        p = exp2f(sv * scale_log2 - sLse[j]);
+      if (q0 + j < q_seq && visible<kCausal>(q0 + j, key, kv_seq)) {
+        if constexpr (kSegment)
+          p = bwd90::segment_prob<false>(sv * scale_log2, sLse[j],
+                                         sQid[j] == kid, q0 + j, kv_seq,
+                                         kCausal);
+        else
+          p = exp2f(sv * scale_log2 - sLse[j]);
+      }
       sP[r * kLdS + j] = p;
       sDs[r * kLdS + j] = p * (dpv - sDelta[j]) * scale;
     }
@@ -518,13 +575,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DP, bool kCausal>
+template <int DP, bool kCausal, bool kSegment>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_bwd_dq_f32_kernel(
         const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        float* __restrict__ dq, int q_seq, int kv_seq, int heads,
+        float* __restrict__ dq, const int* __restrict__ q_ids,
+        const int* __restrict__ kv_ids, int q_seq, int kv_seq, int heads,
         int head_dim, float scale, float scale_log2, bool vec) {
   using L = F32BwdLayout<DP>;
   constexpr int kLdT = L::kLdT, kLdS = L::kLdS;
@@ -534,6 +592,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sK = reinterpret_cast<float*>(smem + L::kLoop0);
   float* sV = reinterpret_cast<float*>(smem + L::kLoop1);
   float* sDs = reinterpret_cast<float*>(smem + L::kDs);
+  int* sKid = reinterpret_cast<int*>(smem + L::kIds);
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
@@ -557,6 +616,9 @@ __global__ void __launch_bounds__(kThreads)
   const size_t stat = static_cast<size_t>(bh) * q_seq + row;
   const float row_lse = row_ok ? lse[stat] : 0.0f;
   const float row_delta = row_ok ? delta[stat] : 0.0f;
+  const int qid = kSegment && row_ok
+                      ? q_ids[static_cast<size_t>(b) * q_seq + row]
+                      : 0;
   float dq_acc[DP / 4];
 #pragma unroll
   for (int i = 0; i < DP / 4; ++i) dq_acc[i] = 0.0f;
@@ -568,6 +630,10 @@ __global__ void __launch_bounds__(kThreads)
                                    head_dim, vec, tid);
     load_tile<float, DP, kLdT, 64>(sV, v, kv_base, row_stride, kv0, kv_seq,
                                    head_dim, vec, tid);
+    if (kSegment && tid < 64)
+      sKid[tid] = kv0 + tid < kv_seq
+                      ? kv_ids[static_cast<size_t>(b) * kv_seq + kv0 + tid]
+                      : 0;
     __syncthreads();
     for (int jj = 0; jj < 16; ++jj) {
       const int j = c0 + 4 * jj;
@@ -577,8 +643,14 @@ __global__ void __launch_bounds__(kThreads)
         dpv += sDo[r * kLdT + d] * sV[j * kLdT + d];
       }
       float p = 0.0f;
-      if (row_ok && visible<kCausal>(row, kv0 + j, kv_seq))
-        p = exp2f(sv * scale_log2 - row_lse);
+      if (row_ok && visible<kCausal>(row, kv0 + j, kv_seq)) {
+        if constexpr (kSegment)
+          p = bwd90::segment_prob<false>(sv * scale_log2, row_lse,
+                                         qid == sKid[j], row, kv_seq,
+                                         kCausal);
+        else
+          p = exp2f(sv * scale_log2 - row_lse);
+      }
       sDs[r * kLdS + j] = p * (dpv - row_delta) * scale;
     }
     __syncthreads();
@@ -601,12 +673,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DP, bool kCausal>
+template <int DP, bool kCausal, bool kSegment>
 int launch_bwd_dp(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* lse, float* delta, void* dq,
-                  void* dk, void* dv, int batch, int q_seq, int kv_seq,
-                  int heads, int head_dim, float scale, int is_bf16,
-                  cudaStream_t stream) {
+                  void* dk, void* dv, const int* q_ids, const int* kv_ids,
+                  int batch, int q_seq, int kv_seq, int heads, int head_dim,
+                  float scale, int is_bf16, cudaStream_t stream) {
   const bool aligned = aligned16({q, k, v, dout});
   const float scale_log2 = scale * kLog2e;
   cudaError_t err;
@@ -623,18 +695,19 @@ int launch_bwd_dp(const void* q, const void* k, const void* v, const void* o,
     const dim3 grid_kv(batch * heads, (kv_seq + kBlockK - 1) / kBlockK);
     const dim3 grid_q(batch * heads, (q_seq + kBlockQ - 1) / kBlockQ);
     const size_t smem = BwdLayout<DP>::kBytes;
-    auto dkdv = flash_attention_bwd_dkdv_bf16_kernel<DP, kCausal>;
-    auto dqk = flash_attention_bwd_dq_bf16_kernel<DP, kCausal>;
+    auto dkdv = flash_attention_bwd_dkdv_bf16_kernel<DP, kCausal, kSegment>;
+    auto dqk = flash_attention_bwd_dq_bf16_kernel<DP, kCausal, kSegment>;
     if ((err = set_smem(dkdv, smem)) != cudaSuccess ||
         (err = set_smem(dqk, smem)) != cudaSuccess)
       return static_cast<int>(err);
     dkdv<<<grid_kv, kThreads, smem, stream>>>(
         tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        q_seq, kv_seq, heads, head_dim, scale, scale_log2, vec);
+        q_ids, kv_ids, q_seq, kv_seq, heads, head_dim, scale, scale_log2,
+        vec);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     dqk<<<grid_q, kThreads, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), q_seq, kv_seq,
-        heads, head_dim, scale, scale_log2, vec);
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), q_ids, kv_ids,
+        q_seq, kv_seq, heads, head_dim, scale, scale_log2, vec);
   } else {
     const float* tq = static_cast<const float*>(q);
     const float* tk = static_cast<const float*>(k);
@@ -648,40 +721,68 @@ int launch_bwd_dp(const void* q, const void* k, const void* v, const void* o,
     const dim3 grid_kv(batch * heads, (kv_seq + kF32Rows - 1) / kF32Rows);
     const dim3 grid_q(batch * heads, (q_seq + kF32Rows - 1) / kF32Rows);
     const size_t smem = F32BwdLayout<DP>::kBytes;
-    auto dkdv = flash_attention_bwd_dkdv_f32_kernel<DP, kCausal>;
-    auto dqk = flash_attention_bwd_dq_f32_kernel<DP, kCausal>;
+    auto dkdv = flash_attention_bwd_dkdv_f32_kernel<DP, kCausal, kSegment>;
+    auto dqk = flash_attention_bwd_dq_f32_kernel<DP, kCausal, kSegment>;
     if ((err = set_smem(dkdv, smem)) != cudaSuccess ||
         (err = set_smem(dqk, smem)) != cudaSuccess)
       return static_cast<int>(err);
     dkdv<<<grid_kv, kThreads, smem, stream>>>(
         tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), q_seq, kv_seq, heads, head_dim, scale,
-        scale_log2, vec);
+        static_cast<float*>(dv), q_ids, kv_ids, q_seq, kv_seq, heads,
+        head_dim, scale, scale_log2, vec);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     dqk<<<grid_q, kThreads, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), q_seq, kv_seq,
-        heads, head_dim, scale, scale_log2, vec);
+        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), q_ids, kv_ids,
+        q_seq, kv_seq, heads, head_dim, scale, scale_log2, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kCausal>
+template <bool kCausal, bool kSegment>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int batch, int q_seq, int kv_seq,
-               int heads, int head_dim, float scale, int is_bf16,
-               cudaStream_t stream) {
+               void* dk, void* dv, const int* q_ids, const int* kv_ids,
+               int batch, int q_seq, int kv_seq, int heads, int head_dim,
+               float scale, int is_bf16, cudaStream_t stream) {
   if (head_dim <= 64)
-    return launch_bwd_dp<64, kCausal>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, batch, q_seq, kv_seq, heads,
-                                      head_dim, scale, is_bf16, stream);
+    return launch_bwd_dp<64, kCausal, kSegment>(
+        q, k, v, o, dout, lse, delta, dq, dk, dv, q_ids, kv_ids, batch, q_seq,
+        kv_seq, heads, head_dim, scale, is_bf16, stream);
   if (head_dim <= 128)
-    return launch_bwd_dp<128, kCausal>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, batch, q_seq, kv_seq, heads,
-                                       head_dim, scale, is_bf16, stream);
-  return launch_bwd_dp<256, kCausal>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, batch, q_seq, kv_seq, heads,
-                                     head_dim, scale, is_bf16, stream);
+    return launch_bwd_dp<128, kCausal, kSegment>(
+        q, k, v, o, dout, lse, delta, dq, dk, dv, q_ids, kv_ids, batch, q_seq,
+        kv_seq, heads, head_dim, scale, is_bf16, stream);
+  return launch_bwd_dp<256, kCausal, kSegment>(
+      q, k, v, o, dout, lse, delta, dq, dk, dv, q_ids, kv_ids, batch, q_seq,
+      kv_seq, heads, head_dim, scale, is_bf16, stream);
+}
+
+// The checks and the dispatch of backward() and backward_segment().
+template <bool kCausal, bool kSegment>
+int backward_impl(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const float* lse, float* delta,
+                  float* dq_ws, void* dq, void* dk, void* dv,
+                  const int* q_ids, const int* kv_ids, int batch, int q_seq,
+                  int kv_seq, int heads, int head_dim, float scale,
+                  int is_bf16, cudaStream_t stream) {
+  if (batch <= 0 || q_seq <= 0 || kv_seq <= 0 || heads <= 0 ||
+      head_dim <= 0 || head_dim > 256 ||
+      (q_seq + kF32Rows - 1) / kF32Rows > 65535 ||
+      (kv_seq + kF32Rows - 1) / kF32Rows > 65535 ||
+      static_cast<long long>(batch) * q_seq * heads > (1LL << 31) - 1 ||
+      (kSegment && (q_ids == nullptr || kv_ids == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bwd90::Sm90BwdTakes(is_bf16, head_dim, q, k, v, dout, dk, dv)) {
+    if (dq_ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return bwd90::launch<kCausal, kSegment>(q, k, v, o, dout, lse, delta,
+                                            dq_ws, dq, dk, dv, q_ids, kv_ids,
+                                            batch, q_seq, kv_seq, heads,
+                                            scale, stream);
+  }
+  return launch_bwd<kCausal, kSegment>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, q_ids, kv_ids, batch, q_seq,
+                                       kv_seq, heads, head_dim, scale,
+                                       is_bf16, stream);
 }
 
 // dq, dk, dv of the forward's (o, lse): q, o, dout and dq (batch, q_seq,
@@ -698,21 +799,26 @@ int backward(const void* q, const void* k, const void* v, const void* o,
              void* dq, void* dk, void* dv, int batch, int q_seq, int kv_seq,
              int heads, int head_dim, float scale, int is_bf16,
              cudaStream_t stream) {
-  if (batch <= 0 || q_seq <= 0 || kv_seq <= 0 || heads <= 0 ||
-      head_dim <= 0 || head_dim > 256 ||
-      (q_seq + kF32Rows - 1) / kF32Rows > 65535 ||
-      (kv_seq + kF32Rows - 1) / kF32Rows > 65535 ||
-      static_cast<long long>(batch) * q_seq * heads > (1LL << 31) - 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bwd90::Sm90BwdTakes(is_bf16, head_dim, q, k, v, dout, dk, dv)) {
-    if (dq_ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return bwd90::launch<kCausal>(q, k, v, o, dout, lse, delta, dq_ws, dq, dk,
-                                  dv, batch, q_seq, kv_seq, heads, scale,
-                                  stream);
-  }
-  return launch_bwd<kCausal>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,
-                             q_seq, kv_seq, heads, head_dim, scale, is_bf16,
-                             stream);
+  return backward_impl<kCausal, false>(q, k, v, o, dout, lse, delta, dq_ws,
+                                       dq, dk, dv, nullptr, nullptr, batch,
+                                       q_seq, kv_seq, heads, head_dim, scale,
+                                       is_bf16, stream);
+}
+
+// backward() of a forward with segment ids (K7-seg): q_ids / kv_ids the
+// int32 (batch, q_seq) / (batch, kv_seq) ids that forward took. Only the
+// source that launches it (flash_segment.cu) instantiates its bodies.
+template <bool kCausal>
+int backward_segment(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* delta, float* dq_ws, void* dq, void* dk, void* dv,
+                     const int* q_ids, const int* kv_ids, int batch,
+                     int q_seq, int kv_seq, int heads, int head_dim,
+                     float scale, int is_bf16, cudaStream_t stream) {
+  return backward_impl<kCausal, true>(q, k, v, o, dout, lse, delta, dq_ws, dq,
+                                      dk, dv, q_ids, kv_ids, batch, q_seq,
+                                      kv_seq, heads, head_dim, scale, is_bf16,
+                                      stream);
 }
 
 }  // namespace flash_bwd

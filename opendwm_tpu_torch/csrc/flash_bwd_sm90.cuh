@@ -81,6 +81,25 @@
 //     whose registers or shared memory do not fit the launch fails at the
 //     launch with an error.
 //
+// Segment ids (K7-seg's backward, the stock backward given segment_ids:
+// _flash_attention_bwd_dkv and _flash_attention_bwd_dq, jax 0.9.0
+// flash_attention.py:941, :1287, masks :866-872). A kSegment instance also
+// takes the int32 ids of the queries and keys: the producer warp copies a
+// tile's 64 query ids into the stage beside its lse and delta, and each
+// consumer thread reads the ids of its two keys once. A pair whose ids
+// differ gets the forward's finite kSegmentMask added to its log2-domain
+// score, as the stock kernel adds DEFAULT_MASK_VALUE, so its probability is
+// 0 beside any pair of the row's own segment. A row that shares no visible
+// key's id has every score equal to kSegmentMask (the scores vanish beside
+// it), so the forward's running max is kSegmentMask, its sum the count n of
+// visible keys and its lse kSegmentMask + log2(n) = kSegmentMask in fp32:
+// exp2(score - lse) is 1 for each visible key. The stock kernel keeps the
+// max and the sum apart and gets 1 / n; here a row whose lse is below
+// kHiddenLse takes its count back, P = 1 / n (n = kv_seq, or under the
+// causal mask min(query + 1, kv_seq)), so the uniform probabilities hold in
+// the gradient too: the producer warp writes each row's factor (1 / n or
+// 1) beside its id, and the consumers multiply by it.
+//
 // The launches it takes are Sm90BwdTakes's (bf16, head dim 64, the tensors
 // that TMA reads or writes 16-byte aligned); the others keep the mma.sync
 // and FMA bodies of flash_bwd.cuh. Both take the delta kernel below.
@@ -104,6 +123,11 @@ constexpr int kBlockKeys = kConsumers * kTileRows;  // 128
 constexpr int kThreads = kConsumers * 128 + 32;
 constexpr int kStages = 3;  // Q/dO tiles in flight
 constexpr int kWsTile = kTileRows * kD;  // fp32 dQ entries of a query tile
+// The stock kernel's DEFAULT_MASK_VALUE, added to the log2-domain score of a
+// pair whose segment ids differ (as the forward adds it); an lse below
+// kHiddenLse is that of a row that sees no key of its segment.
+constexpr float kSegmentMask = -0.7f * 3.402823466e38f;
+constexpr float kHiddenLse = 0.5f * kSegmentMask;
 
 // Shared memory (bytes from a 1024-byte-aligned base).
 struct Smem {
@@ -114,9 +138,11 @@ struct Smem {
   static constexpr uint32_t kDo = kQ + kStages * kTileBytes;
   // two dS^T buffers a consumer
   static constexpr uint32_t kDs = kDo + kStages * kTileBytes;
-  // per stage: the 64 rows' lse, then their delta (fp32)
+  // per stage: the 64 rows' lse, then their delta (fp32); with kSegment
+  // also their ids (int32) and the factor of their probabilities (1, or
+  // 1 / n on a row that sees no key of its segment)
   static constexpr uint32_t kStats = kDs + 2 * kConsumers * kTileBytes;
-  static constexpr uint32_t kBar = kStats + kStages * 2 * kTileRows * 4;
+  static constexpr uint32_t kBar = kStats + kStages * 4 * kTileRows * 4;
   // kv, full[kStages], empty[kStages]
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
   static constexpr size_t kDynamic = kBytes + 1024;  // base alignment
@@ -127,6 +153,8 @@ struct Params {
   const float* lse;    // (batch * heads, q_seq), log2 domain
   const float* delta;  // (batch * heads, q_seq)
   float* dq_ws;        // (batch * heads, q_tiles * kWsTile), zeroed
+  const int* q_ids;    // (batch, q_seq) segment ids, kSegment only
+  const int* kv_ids;   // (batch, kv_seq)
   int q_seq, kv_seq, heads, q_tiles, kv_blocks;
   float scale, scale_log2;
 };
@@ -181,12 +209,32 @@ int launch_delta(const void* o, const void* dout, float* delta, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// P of one visible pair under segment ids from its log2-domain score x:
+// kSegmentMask added where the ids differ; a row that sees no key of its
+// segment (lse below kHiddenLse) gets 1 / n over its n visible keys. kEx2:
+// ex2.approx, else exp2f (the mma.sync and FMA bodies'; the Hopper
+// kernel's probs inlines the same steps with ex2).
+template <bool kEx2>
+__device__ __forceinline__ float segment_prob(float x, float lse, bool same,
+                                              int query, int kv_seq,
+                                              bool causal) {
+  if (!same) x += kSegmentMask;
+  float p = kEx2 ? ex2(x - lse) : exp2f(x - lse);
+  if (lse < kHiddenLse)  // the correctly rounded 1 / n (exp2 gave 1 here)
+    p *= __frcp_rn(static_cast<float>(causal ? min(query + 1, kv_seq)
+                                             : kv_seq));
+  return p;
+}
+
 // s: the warp's scores S^T of a tile in the C layout (s[4n + i]: key
 // key0 + 8 * (i >> 1), query q0 + 8n + 2t + (i & 1)), turned into P^T from
 // the tile's lse; with kMask, 0 where the key is past kv_seq, the query
-// past q_seq or (kCausal) the key after the query.
-template <bool kMask, bool kCausal>
+// past q_seq or (kCausal) the key after the query; with kSegment, q_id the
+// tile's query ids (their probability factors after them) and k_id the ids
+// of the thread's two keys.
+template <bool kMask, bool kCausal, bool kSegment>
 __device__ __forceinline__ void probs(float (&s)[32], const float* lse,
+                                      const int* q_id, const int (&k_id)[2],
                                       int key0, int q0, int kv_seq,
                                       int q_seq, float scale_log2, int t) {
 #pragma unroll
@@ -194,7 +242,21 @@ __device__ __forceinline__ void probs(float (&s)[32], const float* lse,
     const float2 l = *reinterpret_cast<const float2*>(lse + 8 * n + 2 * t);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float p = ex2(s[4 * n + i] * scale_log2 - ((i & 1) ? l.y : l.x));
+      const float row_lse = (i & 1) ? l.y : l.x;
+      float p;
+      if constexpr (kSegment) {
+        // the row's id, and its factor (1, or 1 / n on a hidden row) that
+        // the producer put after the ids
+        const int2 qi =
+            *reinterpret_cast<const int2*>(q_id + 8 * n + 2 * t);
+        const float2 f = *reinterpret_cast<const float2*>(
+            q_id + kTileRows + 8 * n + 2 * t);
+        float x = s[4 * n + i] * scale_log2;
+        if (((i & 1) ? qi.y : qi.x) != k_id[i >> 1]) x += kSegmentMask;
+        p = ex2(x - row_lse) * ((i & 1) ? f.y : f.x);
+      } else {
+        p = ex2(s[4 * n + i] * scale_log2 - row_lse);
+      }
       if constexpr (kMask) {
         const int key = key0 + 8 * (i >> 1);
         const int query = q0 + 8 * n + 2 * t + (i & 1);
@@ -222,7 +284,7 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
 // The kernel
 // ---------------------------------------------------------------------------
 
-template <bool kCausal>
+template <bool kCausal, bool kSegment>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ Params p) {
   using L = Smem;
@@ -292,11 +354,24 @@ __global__ void __launch_bounds__(kThreads, 1)
                  h, q0, b);
       }
       float* stats =
-          reinterpret_cast<float*>(smem + L::kStats) + s * 2 * kTileRows;
+          reinterpret_cast<float*>(smem + L::kStats) + s * 4 * kTileRows;
       for (int j = lane; j < kTileRows; j += 32) {
-        const bool in = q0 + j < p.q_seq;
-        stats[j] = in ? lse[q0 + j] : 0.0f;
-        stats[kTileRows + j] = in ? delta[q0 + j] : 0.0f;
+        const int query = q0 + j;
+        const bool in = query < p.q_seq;
+        const float row_lse = in ? lse[query] : 0.0f;
+        stats[j] = row_lse;
+        stats[kTileRows + j] = in ? delta[query] : 0.0f;
+        if constexpr (kSegment) {
+          reinterpret_cast<int*>(stats)[2 * kTileRows + j] =
+              in ? p.q_ids[static_cast<size_t>(b) * p.q_seq + query] : 0;
+          // the row's visible keys: kv_seq, or under the causal mask the
+          // keys up to the query (exp2 gives each exactly 1 on such a row)
+          stats[3 * kTileRows + j] =
+              row_lse < kHiddenLse
+                  ? __frcp_rn(static_cast<float>(
+                        kCausal ? min(query + 1, p.kv_seq) : p.kv_seq))
+                  : 1.0f;
+        }
       }
       mbar_arrive(bar_full + 8 * s);
     }
@@ -323,6 +398,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t sK = base + L::kK + role * kTileBytes;
   const uint32_t sV = base + L::kV + role * kTileBytes;
   const bool key_edge = kw0 + kTileRows > p.kv_seq;
+  int k_id[2] = {0, 0};  // the segment ids of this thread's two keys
+  if constexpr (kSegment) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (key0 + 8 * r < p.kv_seq)
+        k_id[r] = p.kv_ids[static_cast<size_t>(b) * p.kv_seq + key0 + 8 * r];
+  }
 
   float dk[32], dv[32];
 #pragma unroll
@@ -338,7 +420,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t sQ = base + L::kQ + s * kTileBytes;
     const uint32_t sDo = base + L::kDo + s * kTileBytes;
     const float* stats =
-        reinterpret_cast<const float*>(smem + L::kStats) + s * 2 * kTileRows;
+        reinterpret_cast<const float*>(smem + L::kStats) + s * 4 * kTileRows;
+    const int* q_id = reinterpret_cast<const int*>(stats) + 2 * kTileRows;
     mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
 
     // S^T = K Q^T, then dP^T = V dO^T: 64 keys x 64 queries.
@@ -359,11 +442,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     pin(sc);
     if (key_edge || q0 + kTileRows > p.q_seq ||
         (kCausal && q0 < kw0 + kTileRows))
-      probs<true, kCausal>(sc, stats, key0, q0, p.kv_seq, p.q_seq,
-                           p.scale_log2, t);
+      probs<true, kCausal, kSegment>(sc, stats, q_id, k_id, key0, q0,
+                                     p.kv_seq, p.q_seq, p.scale_log2, t);
     else
-      probs<false, kCausal>(sc, stats, key0, q0, p.kv_seq, p.q_seq,
-                            p.scale_log2, t);
+      probs<false, kCausal, kSegment>(sc, stats, q_id, k_id, key0, q0,
+                                      p.kv_seq, p.q_seq, p.scale_log2, t);
     pack_a(pa, sc);
     wgmma_fence();
 #pragma unroll
@@ -480,15 +563,17 @@ inline long long workspace_entries(int batch, int q_seq, int heads) {
 // One backward on this body (Sm90BwdTakes holds): q, dout, o (batch, q_seq,
 // heads, 64), k, v (batch, kv_seq, heads, 64), bf16; lse (batch * heads,
 // q_seq) from the forward; delta fp32 scratch like lse; dq_ws fp32 scratch
-// of workspace_entries; dq, dk, dv the outputs. The delta kernel (which
-// zeroes the workspace), the kernel, then the dQ conversion. Returns a
-// cudaError_t.
-template <bool kCausal>
+// of workspace_entries; dq, dk, dv the outputs; with kSegment, q_ids and
+// kv_ids the int32 (batch, q_seq) and (batch, kv_seq) segment ids. The
+// delta kernel (which zeroes the workspace), the kernel, then the dQ
+// conversion. Returns a cudaError_t.
+template <bool kCausal, bool kSegment>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, float* dq_ws,
-           void* dq, void* dk, void* dv, int batch, int q_seq, int kv_seq,
-           int heads, float scale, cudaStream_t stream) {
-  auto kernel = flash_bwd_sm90_kernel<kCausal>;
+           void* dq, void* dk, void* dv, const int* q_ids, const int* kv_ids,
+           int batch, int q_seq, int kv_seq, int heads, float scale,
+           cudaStream_t stream) {
+  auto kernel = flash_bwd_sm90_kernel<kCausal, kSegment>;
   static const cudaError_t ready = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Smem::kDynamic));
@@ -504,6 +589,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   p.lse = lse;
   p.delta = delta;
   p.dq_ws = dq_ws;
+  p.q_ids = q_ids;
+  p.kv_ids = kv_ids;
   p.q_seq = q_seq;
   p.kv_seq = kv_seq;
   p.heads = heads;

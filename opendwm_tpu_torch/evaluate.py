@@ -30,6 +30,8 @@ from opendwm_tpu_torch.config import create_instance_from_config
 from opendwm_tpu_torch.train import (
     JsonlLogger,
     build_pipeline,
+    NullLogger,
+    launch,
     read_config,
     to_device_batch,
 )
@@ -47,8 +49,13 @@ def create_parser():
 
 
 def main(args=None) -> dict:
+    """Under ``torchrun`` every rank joins the process group and the
+    pipeline's mesh (its train state placed by the policy), and runs every
+    batch whole: the metrics' running states are not reduced across ranks,
+    so each rank scores the same batches and rank 0 logs and writes."""
     args = args or create_parser().parse_args()
     config, device = read_config(args)
+    rank = launch(device)
     torch.manual_seed(config.get("generator_seed", 0))
     pipeline = build_pipeline(config, device)
     dataset = create_instance_from_config(config["validation_dataset"])
@@ -67,14 +74,16 @@ def main(args=None) -> dict:
     state = pipeline.init_state()
     if args.checkpoint is not None:
         ckpt_lib.load_checkpoint(args.output_path, args.checkpoint, state)
-    logger = JsonlLogger(args.output_path)
+    logger = JsonlLogger(args.output_path) if rank == 0 else NullLogger()
     try:
         results = pipeline.evaluate_pipeline(
             state, args.checkpoint or 0, batches=batches, logger=logger,
             metrics=metrics)
     finally:
         logger.close()
-    print(json.dumps({k: float(v) for k, v in results.items()}), flush=True)
+    if rank == 0:
+        print(json.dumps({k: float(v) for k, v in results.items()}),
+              flush=True)
     return results
 
 

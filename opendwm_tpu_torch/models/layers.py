@@ -395,14 +395,21 @@ class Attention(nn.Module):
     concatenated tokens (sample first) and split. ``context_pre_only``
     drops the context output projection. ``qkv_bias=False`` gives the
     reference UNet's bias-free q/k/v projections; ``quantized`` makes
-    every projection a ``QLinear``."""
+    every projection a ``QLinear``. ``sp_axis`` names a mesh axis over
+    which the attention runs as a ring
+    (``ops.ring_attention.ring_attention_replicated``) on tokens replicated
+    over it, where no mask is given (JAX ``layers.py:326``); the ring's
+    process group is ``sp_group``, which the owner of the mesh sets
+    (``parallel.mesh.bind_sequence_parallel``): None rings over one rank."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
                  qk_norm: Optional[str] = None, out_dim: Optional[int] = None,
                  joint: bool = False, context_pre_only: bool = False,
                  context_dim: Optional[int] = None, qkv_bias: bool = True,
-                 quantized: bool = False):
+                 quantized: bool = False, sp_axis: Optional[str] = None):
         super().__init__()
+        self.sp_axis = sp_axis
+        self.sp_group = None  # parallel.mesh.bind_sequence_parallel
         if qk_norm not in (None, "rms_norm"):
             raise ValueError(f"Unsupported qk_norm {qk_norm!r}")
         inner = heads * head_dim
@@ -450,7 +457,14 @@ class Attention(nn.Module):
                 getattr(self, "norm_added_k", None),
             )
             q, k, v = (torch.cat(p, dim=1) for p in ((q, cq), (k, ck), (v, cv)))
-        out = dot_product_attention(q, k, v, bias=mask)
+        if self.sp_axis is not None and mask is None:
+            from opendwm_tpu_torch.ops.ring_attention import (
+                ring_attention_replicated,
+            )
+
+            out = ring_attention_replicated(q, k, v, self.sp_group)
+        else:
+            out = dot_product_attention(q, k, v, bias=mask)
         out = out.reshape(out.shape[0], out.shape[1], -1)
         if not self.joint:
             return self.to_out[0](out)

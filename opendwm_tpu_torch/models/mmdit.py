@@ -28,8 +28,10 @@ does there (``torch.utils.checkpoint``, non-reentrant), with the
 ``"dots"``/``"dots_no_batch"`` policies as selective checkpointing that
 saves the matrix products. Remat changes memory, never values.
 
-Options outside the slice raise ``NotImplementedError`` naming their
-ROADMAP item.
+``sequence_parallel_axis`` runs each joint attention as a ring over that
+mesh axis (``models.layers.Attention``'s ``sp_axis``), as JAX's does; the
+pipeline that holds the model binds the axis to its mesh's group
+(``parallel.mesh.bind_sequence_parallel``).
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ class JointTransformerBlock(nn.Module):
                  qk_norm: Optional[str] = "rms_norm",
                  dual_attention: bool = False,
                  context_pre_only: bool = False,
-                 quantized: bool = False):
+                 quantized: bool = False, sp_axis: Optional[str] = None):
         super().__init__()
         dim = heads * head_dim
         q8 = dict(quantized=quantized)
@@ -98,7 +100,7 @@ class JointTransformerBlock(nn.Module):
         self.norm1_context = Modulation(dim, 2 if context_pre_only else 6)
         self.attn = Attention(dim, heads, head_dim, qk_norm=qk_norm,
                               joint=True, context_pre_only=context_pre_only,
-                              **q8)
+                              sp_axis=sp_axis, **q8)
         if dual_attention:
             self.attn2 = Attention(dim, heads, head_dim, qk_norm=qk_norm,
                                    **q8)
@@ -195,12 +197,6 @@ CROSSVIEW_TYPES = ("rowwise", "full", "fuse", "adj_fuse")
 TEMPORAL_TYPES = ("pointwise", "rowwise", "full")
 
 
-def _not_ported(option: str, item: str):
-    return NotImplementedError(
-        f"{option} is not ported to PyTorch yet (ROADMAP Queue 1, {item})"
-    )
-
-
 @register(
     "DiTCrossviewTemporal",
     aliases=(
@@ -286,8 +282,6 @@ class DiTCrossviewTemporal(nn.Module):
                              f"{perspective_modeling_type!r}")
         if quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {quantization!r}")
-        if sequence_parallel_axis is not None:
-            raise _not_ported("sequence_parallel_axis", "item 13")
         if attention_backend is not None:
             raise ValueError("attention_backend is a JAX dispatch hint; the "
                              "port dispatches by shape and device")
@@ -342,6 +336,7 @@ class DiTCrossviewTemporal(nn.Module):
                 num_attention_heads, attention_head_dim, qk_norm=qk_norm,
                 dual_attention=i in dual_attention_layers,
                 context_pre_only=i == num_layers - 1, quantized=quantized,
+                sp_axis=sequence_parallel_axis,
             )
             for i in range(num_layers)
         ])
@@ -399,6 +394,15 @@ class DiTCrossviewTemporal(nn.Module):
     def dtype(self) -> torch.dtype:
         """The compute dtype."""
         return self._dtype
+
+    def fsdp_units(self) -> list:
+        """The blocks FSDP shards as units of their own
+        (``parallel.sharding.shard_model``): the joint and branch blocks."""
+        units = list(self.transformer_blocks)
+        for name in ("crossview_transformer_blocks",
+                     "temporal_transformer_blocks"):
+            units += list(getattr(self, name, []))
+        return units
 
     def _remat(self, module: nn.Module, flag: bool):
         """``module``, or a call of it rematerialised in the backward."""

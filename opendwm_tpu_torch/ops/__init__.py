@@ -36,9 +36,19 @@ def launch_counts() -> dict:
             ",".join(map(str, k)): n
             for k, n in flash_attention.backward_launches_by_shape.items()},
         "flash_attention_segment": flash_attention.segment_launches,
+        "flash_attention_segment_with_lse":
+            flash_attention.segment_lse_launches,
         "flash_attention_segment_by_shape": {
             ",".join(map(str, k)): n
             for k, n in flash_attention.segment_launches_by_shape.items()},
+        "flash_attention_segment_backward":
+            flash_attention.segment_backward_launches,
+        "flash_attention_segment_backward_sm90":
+            flash_attention.segment_sm90_backward_launches,
+        "flash_attention_segment_backward_by_shape": {
+            ",".join(map(str, k)): n
+            for k, n in
+            flash_attention.segment_backward_launches_by_shape.items()},
         "flash_tail": flash_tail.launches,
         "flash_tail_by_seq": dict(flash_tail.launches_by_seq),
         "flash_tail_by_shape": {

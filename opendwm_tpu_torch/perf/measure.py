@@ -174,13 +174,17 @@ def segment_pairs(q_ids, kv_ids, causal=False) -> int:
 
 
 def segment_attention_bound(q_ids, kv_ids, h, d, causal=False,
-                            dtype=torch.bfloat16):
-    """The forward of ``attention_bound`` over the pairs that the segment
-    ids leave (``segment_pairs``), whose bytes also count the int32 ids."""
+                            dtype=torch.bfloat16, backward=False):
+    """``attention_bound`` over the pairs that the segment ids leave
+    (``segment_pairs``), whose bytes also count the int32 ids: the forward
+    (2 products; q, k, v read, o written) or the backward (5 products; q, k,
+    v, o, dO and the fp32 lse read, dq, dk, dv written)."""
     (b, sq), sk = q_ids.shape, kv_ids.shape[1]
-    flops = 2 * 2 * h * segment_pairs(q_ids, kv_ids, causal) * d
-    nbytes = dtype.itemsize * 2 * (b * sq + b * sk) * h * d + \
-        4 * (b * sq + b * sk)
+    products = 5 if backward else 2
+    flops = 2 * products * h * segment_pairs(q_ids, kv_ids, causal) * d
+    tensors = 4 if backward else 2
+    nbytes = dtype.itemsize * tensors * (b * sq + b * sk) * h * d + \
+        4 * (b * sq + b * sk) + (4 * b * h * sq if backward else 0)
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
     return bound(flops, nbytes, peak)
 

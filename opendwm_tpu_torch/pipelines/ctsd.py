@@ -31,6 +31,7 @@ from typing import Any, Optional, Sequence
 import torch
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.parallel.train_state import MeshPlacement
 from opendwm_tpu_torch.pipelines import optim
 from opendwm_tpu_torch.pipelines.depth_loss import make_depth_loss
 from opendwm_tpu_torch.utils.preview import (
@@ -437,18 +438,21 @@ def build_train_state(model: torch.nn.Module, training_config: dict,
                if accum and accum > 1 else None, **extra)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, {item})")
-
-
 @register("CTSDPipeline", aliases=("dwm.pipelines.ctsd.CrossviewTemporalSD",))
-class CTSDPipeline:
+class CTSDPipeline(MeshPlacement):
     """Training and inference of the crossview-temporal denoisers on
     canonical latent-space batches. ``model_type`` ``"sd3"``: the MMDiT,
     flow-matching training and sampling; ``"unet"``: the UNet, DDPM
     training (the train scheduler's prediction type sets the target) and
-    DDIM sampling."""
+    DDIM sampling.
+
+    ``mesh`` (a ``MeshSpec``, its dict or a mesh; default ``make_mesh()``)
+    and the policy (``sharding_policy``, else ``common_config``'s
+    ``distribution_framework``, else ``"fsdp"``) place the train state over
+    a process group (``parallel.train_state.MeshPlacement``); each rank
+    then trains on its slice of the batch (``parallel.sharding.shard_batch``)
+    and the gradients are averaged over the data ranks, which gives the
+    gradient of the global batch's mean loss, as JAX's sharded step."""
 
     def __init__(
         self,
@@ -467,8 +471,6 @@ class CTSDPipeline:
     ):
         if model_type not in ("sd3", "unet"):
             raise ValueError(f"unknown model_type {model_type!r}")
-        if mesh is not None:
-            raise _not_ported("device meshes", "item 13")
         self.model = model
         self.train_scheduler = train_scheduler
         self.test_scheduler = test_scheduler
@@ -478,8 +480,8 @@ class CTSDPipeline:
         self.optimizer_config = optimizer_config
         self.lr_scheduler_config = lr_scheduler_config
         self.model_type = model_type
-        self.sharding_policy = sharding_policy
-        self.sharding_min_size = sharding_min_size
+        self._set_mesh(mesh, sharding_policy or self.common_config.get(
+            "distribution_framework", "fsdp"), sharding_min_size)
         self.vae = None
         self.metrics: dict = {}
         count = added_time_ids_count(self.common_config)
@@ -495,16 +497,10 @@ class CTSDPipeline:
     def init_state(self) -> TrainState:
         """A ``TrainState`` around ``self.model``, which must hold fp32
         master weights (``param_dtype=torch.float32``); the compute dtype
-        is the model's ``dtype``."""
-        return build_train_state(self.model, self.training_config,
-                                 self.optimizer_config,
-                                 self.lr_scheduler_config)
-
-    def shard_state(self, state: TrainState):
-        raise _not_ported("sharding the train state", "item 13")
-
-    def state_shardings(self, state: TrainState):
-        raise _not_ported("train-state shardings", "item 13")
+        is the model's ``dtype``; placed on the mesh (``shard_state``)."""
+        return self.shard_state(build_train_state(
+            self.model, self.training_config, self.optimizer_config,
+            self.lr_scheduler_config))
 
     def loss_fn(self, batch: dict, generator=None):
         """(loss, metrics) of one batch; draws from ``generator``."""
@@ -513,11 +509,17 @@ class CTSDPipeline:
         else:
             images = self._vae_images(batch)
             shape, device = self.vae.latent_shape(images.shape), images.device
-        draws = draw_training_randoms(shape, self.training_config,
-                                      self.common_config, generator,
-                                      device, self.train_scheduler,
-                                      vae="latents" not in batch)
-        return self.loss_from_draws(batch, draws)
+        return self.loss_from_draws(batch, self.draw_randoms(
+            shape, generator, device, vae="latents" not in batch))
+
+    def draw_randoms(self, shape, generator=None, device=None,
+                     vae: bool = False) -> dict:
+        """``draw_training_randoms`` for this rank's latents of ``shape``:
+        drawn over the global batch, this data rank's rows kept
+        (``rank_draws``)."""
+        return self.rank_draws(lambda b: draw_training_randoms(
+            (b, *shape[1:]), self.training_config, self.common_config,
+            generator, device, self.train_scheduler, vae=vae), shape[0])
 
     def _vae_images(self, batch: dict) -> torch.Tensor:
         if self.vae is None or "vae_images" not in batch:
@@ -621,7 +623,8 @@ class CTSDPipeline:
             loss, metrics = self.loss_from_draws(batch, draws)
         loss.backward()
         params = list(model.parameters())
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = self.reduce_metrics(
+            {k: v.detach() for k, v in metrics.items()})
         metrics["grad_norm"] = optim.global_norm(
             [p.grad for p in params if p.grad is not None])
 

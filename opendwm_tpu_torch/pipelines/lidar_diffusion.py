@@ -23,11 +23,7 @@ import torch
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.models.vae_point_cloud import VAEPointCloud
 from opendwm_tpu_torch.models.vq_point_cloud import VQPointCloud
-from opendwm_tpu_torch.pipelines.ctsd import (
-    CTSDPipeline,
-    TrainState,
-    draw_training_randoms,
-)
+from opendwm_tpu_torch.pipelines.ctsd import CTSDPipeline, TrainState
 from opendwm_tpu_torch.pipelines.lidar_maskgit import (
     get_maskgit_conditions,
     gumbel_sigmoid,
@@ -150,10 +146,8 @@ class LidarDiffusionPipeline(CTSDPipeline):
     def loss_fn(self, batch: dict, generator=None):
         prepared = self.prepare_batch(batch)
         latents = prepared["latents"]
-        draws = draw_training_randoms(
-            latents.shape, self.training_config, self.common_config,
-            generator, latents.device, self.train_scheduler)
-        return super().loss_from_draws(prepared, draws)
+        return super().loss_from_draws(prepared, self.draw_randoms(
+            latents.shape, generator, latents.device))
 
     # -- inference ---------------------------------------------------------
 

@@ -53,6 +53,7 @@ import torch
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.metrics import PointCloudChamfer, VoxelDiff, VoxelIoU
 from opendwm_tpu_torch.ops.voxelize import voxels_to_points
+from opendwm_tpu_torch.parallel.train_state import MeshPlacement
 from opendwm_tpu_torch.pipelines.ctsd import build_train_state
 from opendwm_tpu_torch.pipelines.lidar_vqvae import step_optimizer
 from opendwm_tpu_torch.utils.preview import (
@@ -78,11 +79,6 @@ def gamma_fn(mode: str = "cosine"):
     if mode == "cubic":
         return lambda r: 1 - r ** 3
     raise NotImplementedError(mode)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 def random_mask(noise: torch.Tensor, mask_ratio) -> torch.Tensor:
@@ -244,7 +240,7 @@ def sample_tokens(logits: torch.Tensor, gumbel, *, guidance=None,
 @register(
     "MaskGITPipeline", aliases=("dwm.pipelines.lidar_maskgit.MaskGITPipeline",)
 )
-class MaskGITPipeline:
+class MaskGITPipeline(MeshPlacement):
     """MaskGIT serving on a frozen VQ tokenizer (``vq_point_cloud``, its
     weights given by ``load_vq_params``) and a bidirectional transformer
     (``bi_directional_transformer``); both stay on the device they were
@@ -259,8 +255,6 @@ class MaskGITPipeline:
                  sharding_policy: Optional[str] = None,
                  sharding_min_size: Optional[int] = None,
                  blank_code: Optional[Sequence[int]] = None):
-        if mesh is not None:
-            raise _not_ported("device meshes", "item 13")
         self.vq = vq_point_cloud
         self.model = bi_directional_transformer
         self.common_config = common_config or {}
@@ -270,6 +264,8 @@ class MaskGITPipeline:
         self.lr_scheduler_config = lr_scheduler_config
         self.blank_code = tuple(blank_code) if blank_code else ()
         self.gamma = gamma_fn(self.common_config.get("gamma_mode", "cosine"))
+        self._set_mesh(mesh, sharding_policy or self.common_config.get(
+            "distribution_framework", "ddp"), sharding_min_size)
 
     # -- setup -----------------------------------------------------------
 
@@ -285,32 +281,38 @@ class MaskGITPipeline:
         """A train state around the bidirectional transformer (fp32
         masters); the tokenizer stays frozen."""
         self.vq.requires_grad_(False)
-        return build_train_state(self.model, self.training_config,
-                                 self.optimizer_config,
-                                 self.lr_scheduler_config)
+        return self.shard_state(build_train_state(
+            self.model, self.training_config, self.optimizer_config,
+            self.lr_scheduler_config))
 
     def draw_training_randoms(self, batch: dict, generator=None) -> dict:
         """Everything ``loss_fn`` draws, in the JAX package's order
         (``lidar_maskgit.py:197``): the task and ratio uniforms, the mask
         noise (n, l), the reference-frame counts (b,) in [1, max_ref], the
-        box and map dropout uniforms (b,) and the perturbation's draws."""
+        box and map dropout uniforms (b,) and the perturbation's draws; this
+        data rank's rows of the global batch's (``rank_draws``)."""
         points = batch["lidar_points"]
-        b, t = points.shape[:2]
+        t = points.shape[1]
         dev = points.device
         h, w = self.model.img_size
-        n, l = b * t, h * w
+        l = h * w
         max_ref = min(t, self.training_config.get("max_reference_frame", 3))
 
         def uniform(*shape):
             return torch.rand(shape, generator=generator, device=dev)
 
-        return {
-            "task": uniform(), "ratio": uniform(), "mask": uniform(n, l),
-            "ref": torch.randint(1, max_ref + 1, (b,), generator=generator,
-                                 device=dev),
-            "box": uniform(b), "map": uniform(b),
-            "perturb": self.model.draw_perturbation((n, l), generator, dev),
-        }
+        def draw(b):
+            n = b * t
+            return {
+                "task": uniform(), "ratio": uniform(), "mask": uniform(n, l),
+                "ref": torch.randint(1, max_ref + 1, (b,),
+                                     generator=generator, device=dev),
+                "box": uniform(b), "map": uniform(b),
+                "perturb": self.model.draw_perturbation((n, l), generator,
+                                                        dev),
+            }
+
+        return self.rank_draws(draw, points.shape[0])
 
     def loss_from_draws(self, batch: dict, draws: dict):
         """(loss, {"ce_loss", "acc_0"}) of ``lidar_maskgit.py:192-251`` on
@@ -354,7 +356,8 @@ class MaskGITPipeline:
         loss, metrics = self.loss_from_draws(batch, draws)
         step_optimizer(state, loss, self.training_config)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, self.reduce_metrics(
+            {k: v.detach() for k, v in metrics.items()})
 
     # -- results and evaluation ------------------------------------------
 

@@ -17,9 +17,9 @@ import torch
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.pipelines.ctsd import (
     TrainState,
-    _not_ported,
     build_train_state,
 )
+from opendwm_tpu_torch.parallel.train_state import MeshPlacement
 from opendwm_tpu_torch.pipelines.lidar_vqvae import (
     stable_bce_with_logits,
     step_optimizer,
@@ -27,7 +27,10 @@ from opendwm_tpu_torch.pipelines.lidar_vqvae import (
 
 
 @register("LidarVAE", aliases=("dwm.pipelines.lidar_vae.LidarVAE",))
-class LidarVAE:
+class LidarVAE(MeshPlacement):
+    """The LiDAR VAE's trainer; ``mesh`` and ``sharding_policy`` (default
+    ``"ddp"``, as JAX's) place its train state over a process group."""
+
     def __init__(self, vae_point_cloud=None, lidar_vae=None,
                  common_config: Optional[dict] = None,
                  training_config: Optional[dict] = None,
@@ -35,8 +38,6 @@ class LidarVAE:
                  lr_scheduler_config: Optional[dict] = None, mesh=None,
                  sharding_policy: Optional[str] = None,
                  sharding_min_size: Optional[int] = None):
-        if mesh is not None:
-            raise _not_ported("device meshes", "item 13")
         self.model = vae_point_cloud if vae_point_cloud is not None \
             else lidar_vae
         if self.model is None:
@@ -45,20 +46,23 @@ class LidarVAE:
         self.training_config = training_config or {}
         self.optimizer_config = optimizer_config
         self.lr_scheduler_config = lr_scheduler_config
+        self._set_mesh(mesh, sharding_policy or "ddp", sharding_min_size)
 
     def init_state(self) -> TrainState:
-        return build_train_state(self.model, self.training_config,
-                                 self.optimizer_config,
-                                 self.lr_scheduler_config)
+        return self.shard_state(build_train_state(
+            self.model, self.training_config, self.optimizer_config,
+            self.lr_scheduler_config))
 
     def draw_noise(self, batch: dict, generator=None) -> torch.Tensor:
-        """The posterior's standard normal noise (b·t, L, latent)."""
+        """The posterior's standard normal noise (b·t, L, latent), this data
+        rank's rows of the global batch's (``rank_draws``)."""
         points = batch["lidar_points"]
         b, t = points.shape[:2]
         enc = self.model.lidar_encoder
         tokens = (enc.img_size // enc.patch_size) ** 2
-        return torch.randn(b * t, tokens, self.model.latent_dim,
-                           generator=generator, device=points.device)
+        return self.rank_draws(lambda rows: torch.randn(
+            rows * t, tokens, self.model.latent_dim, generator=generator,
+            device=points.device), b)
 
     def loss_from_draws(self, batch: dict, noise: torch.Tensor):
         """(loss, metrics) with the posterior sampled on ``noise``."""
@@ -91,4 +95,5 @@ class LidarVAE:
         loss, metrics = self.loss_from_draws(batch, noise)
         step_optimizer(state, loss, self.training_config, finite_only=True)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, self.reduce_metrics(
+            {k: v.detach() for k, v in metrics.items()})

@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from opendwm_tpu_torch.parallel.collectives import gather_batch
+from opendwm_tpu_torch.parallel.train_state import MeshPlacement
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.models.vq_point_cloud import (
     kmeans_revive,
@@ -33,7 +35,6 @@ from opendwm_tpu_torch.models.vq_point_cloud import (
 from opendwm_tpu_torch.pipelines import optim
 from opendwm_tpu_torch.pipelines.ctsd import (
     TrainState,
-    _not_ported,
     build_train_state,
 )
 
@@ -87,32 +88,37 @@ def step_optimizer(state: TrainState, loss: torch.Tensor,
 @register(
     "LidarCodebook", aliases=("dwm.pipelines.lidar_vqvae.LidarCodebook",)
 )
-class LidarCodebook:
+class LidarCodebook(MeshPlacement):
+    """The VQ tokenizer's trainer. ``mesh`` and ``sharding_policy``
+    (default ``"ddp"``, as JAX's) place the train state over a process
+    group (``parallel.train_state.MeshPlacement``); the codebook's health
+    is then updated from every rank's codes (all-gathered), so it is the
+    same on every rank and equals the global batch's."""
+
     def __init__(self, vq_point_cloud, common_config: Optional[dict] = None,
                  training_config: Optional[dict] = None,
                  optimizer_config: Optional[dict] = None,
                  lr_scheduler_config: Optional[dict] = None, mesh=None,
                  sharding_policy: Optional[str] = None,
                  sharding_min_size: Optional[int] = None):
-        if mesh is not None:
-            raise _not_ported("device meshes", "item 13")
         self.model = vq_point_cloud
         self.common_config = common_config or {}
         self.training_config = training_config or {}
         self.optimizer_config = optimizer_config
         self.lr_scheduler_config = lr_scheduler_config
+        self._set_mesh(mesh, sharding_policy or "ddp", sharding_min_size)
 
     def init_state(self) -> VQTrainState:
         """The train state on the model's device: code ages at 10000,
         zero usage, an empty reservoir of ``n_e · 10`` rows."""
         vq = self.model.vector_quantizer
         dev = vq.embedding.device
-        return build_train_state(
+        return self.shard_state(build_train_state(
             self.model, self.training_config, self.optimizer_config,
             self.lr_scheduler_config, VQTrainState,
             code_age=torch.full((vq.n_e,), 10000.0, device=dev),
             code_usage=torch.zeros(vq.n_e, device=dev),
-            reservoir=torch.zeros(vq.n_e * 10, vq.e_dim, device=dev))
+            reservoir=torch.zeros(vq.n_e * 10, vq.e_dim, device=dev)))
 
     def loss_from_draws(self, batch: dict, draws: Optional[dict] = None):
         """(loss, (metrics, z_q without gradient, indices)); the loss
@@ -174,11 +180,14 @@ class LidarCodebook:
         Updates ``state`` in place and returns ``(state, metrics)``."""
         loss, (metrics, feats, idx) = self.loss_from_draws(batch)
         step_optimizer(state, loss, self.training_config)
+        if self.distributed:
+            feats, idx = gather_batch(feats), gather_batch(idx)
         if draws is None:
             draws = self.draw_reservoir(idx.numel(), generator, idx.device)
         self.update_codebook_health(state, feats, idx, draws)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, self.reduce_metrics(
+            {k: v.detach() for k, v in metrics.items()})
 
     @torch.no_grad()
     def maybe_revive_codebook(self, state: VQTrainState, seed: int = 0):

@@ -30,9 +30,11 @@ import re
 from typing import Callable, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.convert import flax_param_name
+from opendwm_tpu_torch.parallel.sharding import local
 
 
 # The reference names its schedules by torch class; as in the JAX package
@@ -128,7 +130,9 @@ class FlatAdamW(torch.optim.Optimizer):
     ``mu_dtype``. A parameter without a gradient takes a zero one, as the
     flat buffer does. The update runs on chunks of at most ``CHUNK``
     elements with ``torch._foreach_*`` ops, so the fp32 copies of the
-    moments never exist for all parameters at once."""
+    moments never exist for all parameters at once. Under FSDP the
+    parameters, gradients and moments are DTensors: the update, elementwise,
+    runs on each rank's local shards."""
 
     CHUNK = 1 << 26  # 64 Mi elements: ~2 GB of fp32 temporaries a chunk
 
@@ -172,13 +176,14 @@ class FlatAdamW(torch.optim.Optimizer):
                 c = torch.tensor(float(states[0]["step"]))
                 bc1 = float(1.0 - torch.tensor(b1) ** c)
                 bc2 = float(1.0 - torch.tensor(b2) ** c)
-                g = [torch.zeros_like(p, dtype=torch.float32)
-                     if p.grad is None else p.grad.float() for p in params]
+                g = [torch.zeros_like(local(p), dtype=torch.float32)
+                     if p.grad is None else local(p.grad).float()
+                     for p in params]
                 mu = torch._foreach_mul(
-                    [s["exp_avg"].float() for s in states], b1)
+                    [local(s["exp_avg"]).float() for s in states], b1)
                 torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
                 nu = torch._foreach_mul(
-                    [s["exp_avg_sq"].float() for s in states], b2)
+                    [local(s["exp_avg_sq"]).float() for s in states], b2)
                 g2 = torch._foreach_mul(g, 1.0 - b2)
                 torch._foreach_mul_(g2, g)
                 torch._foreach_add_(nu, g2)
@@ -189,14 +194,15 @@ class FlatAdamW(torch.optim.Optimizer):
                 step = torch._foreach_div(mu, bc1)
                 torch._foreach_div_(step, denom)
                 del denom
-                decay = torch._foreach_mul([p.float() for p in params], wd)
+                decay = torch._foreach_mul([local(p).float() for p in params],
+                                           wd)
                 torch._foreach_add_(step, decay)
                 del decay
                 torch._foreach_mul_(step, -lr)
                 for p, s, m, n, u in zip(params, states, mu, nu, step):
-                    p.add_(u.to(p.dtype))
-                    s["exp_avg"].copy_(m)
-                    s["exp_avg_sq"].copy_(n)
+                    local(p).add_(u.to(p.dtype))
+                    local(s["exp_avg"]).copy_(m)
+                    local(s["exp_avg_sq"]).copy_(n)
         return None
 
     def load_state_dict(self, state_dict: dict) -> None:
@@ -243,7 +249,12 @@ def build_optimizer(params: Sequence[torch.nn.Parameter],
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """L2 norm over all the tensors (``optax.global_norm``), fp32."""
+    """L2 norm over all the tensors (``optax.global_norm``), fp32; over
+    every shard where they are DTensors (FSDP's sharded gradients)."""
+    tensors = list(tensors)
+    if any(isinstance(t, DTensor) for t in tensors):
+        norm = torch.nn.utils.get_total_norm(tensors, 2.0)
+        return norm.full_tensor() if isinstance(norm, DTensor) else norm
     norms = [torch.linalg.vector_norm(t.float()) for t in tensors]
     if not norms:
         return torch.zeros(())
@@ -256,7 +267,11 @@ def apply_gradients(optimizer, lr_scheduler,
     """The update of the JAX package's optimizer chain from the ``.grad``
     of the optimizer's (trainable) parameters: accumulate (with an
     accumulator, every k-th call goes on), clip to ``max_norm``, AdamW
-    step, schedule step. Returns whether the parameters were updated."""
+    step, schedule step. Returns whether the parameters were updated.
+    Under FSDP the gradients are DTensors: the clip's norm is the global
+    norm over every shard (``optax.clip_by_global_norm``), and the
+    accumulator's running mean is taken shard by shard on gradients FSDP
+    has already averaged once."""
     trainable = [p for group in optimizer.param_groups
                  for p in group["params"]]
     if accumulator is not None and not accumulator.add(trainable):

@@ -14,12 +14,13 @@ loads the train CLI's checkpoint of that step under ``output/``.
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
 from opendwm_tpu_torch import checkpoint as ckpt_lib
 from opendwm_tpu_torch.config import create_instance_from_config
-from opendwm_tpu_torch.train import build_pipeline, read_config, \
+from opendwm_tpu_torch.train import build_pipeline, launch, read_config, \
     to_device_batch
 
 
@@ -68,6 +69,7 @@ def create_parser():
 def main(args=None) -> list:
     args = args or create_parser().parse_args()
     config, device = read_config(args)
+    rank = launch(device)  # under torchrun: every rank, rank 0 writes
     torch.manual_seed(config.get("generator_seed", 0))
     pipeline = build_pipeline(config, device)
     dataset = create_instance_from_config(config["preview_dataset"])
@@ -85,8 +87,10 @@ def main(args=None) -> list:
         if prompt_settings:
             host = rewrite_prompts(host, prompt_settings)
         path = pipeline.preview_pipeline(
-            state, to_device_batch(host, device), args.output_path, i)
-        print(f"wrote {path}", flush=True)
+            state, to_device_batch(host, device), args.output_path if
+            rank == 0 else os.path.join(args.output_path, f".rank{rank}"), i)
+        if rank == 0:
+            print(f"wrote {path}", flush=True)
         paths.append(path)
     return paths
 

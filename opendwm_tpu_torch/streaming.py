@@ -23,7 +23,12 @@ import numpy as np
 import torch
 
 from opendwm_tpu_torch.config import create_instance_from_config, global_state
-from opendwm_tpu_torch.train import _JAX_ONLY_KEYS, _device, to_device_batch
+from opendwm_tpu_torch.train import (
+    _JAX_ONLY_KEYS,
+    _device,
+    launch,
+    to_device_batch,
+)
 
 
 def merge_multiview_images(frame: np.ndarray) -> np.ndarray:
@@ -186,6 +191,7 @@ def main(args=None):
     with open(args.config_path) as f:
         config = json.load(f)
     device = _device(args.device)
+    rank = launch(device)  # under torchrun: every rank serves, rank 0 writes
     for key in _JAX_ONLY_KEYS:
         if key in config:
             print(f"ignoring JAX-only config key {key}={config[key]!r}",
@@ -228,12 +234,14 @@ def main(args=None):
             if not ready:
                 continue
             image8 = frame_to_image(pipeline.decode_latents(latent)[0])
+            frame_idx += 1
+            if rank != 0:
+                continue
             if writer is None:
                 writer = make_writer(
                     args.streaming_path, args.output_path, args.fps,
                     image8.shape[1], image8.shape[0])
             writer.write(image8)
-            frame_idx += 1
             print(f"frame {frame_idx}", flush=True)
     finally:
         if writer is not None:

@@ -50,6 +50,17 @@ steps) and ``data_wait_s`` (its wait for the loader's batch). Logs go to
 stdout and
 ``{output}/log/events.jsonl``, and to TensorBoard / Weights & Biases when
 those are installed (optional, as in the JAX package).
+
+Multi-device: under ``torchrun`` (RANK and WORLD_SIZE set) the CLI
+initialises the process group (NCCL on the card, each rank on its
+LOCAL_RANK device; gloo with ``--device cpu``), the pipeline's mesh spans
+every rank and its policy places the train state; each rank takes its
+slice of every batch (``parallel.sharding.shard_batch``; the batch must
+divide by the data ranks) and its rows of the randoms drawn for the whole
+batch from the generator every rank seeds alike, so that the step is the
+one-process step on the same batch; rank 0 alone logs and writes (a
+checkpoint is written by every rank, sharded). Without ``torchrun`` the
+single-process path is unchanged.
 """
 
 from __future__ import annotations
@@ -65,6 +76,11 @@ import numpy as np
 import torch
 
 from opendwm_tpu_torch import checkpoint as ckpt_lib
+from opendwm_tpu_torch.parallel import mesh as mesh_lib
+from opendwm_tpu_torch.parallel.sharding import (
+    data_parallel_size,
+    shard_batch,
+)
 from opendwm_tpu_torch.config import create_instance_from_config, global_state
 from opendwm_tpu_torch.datasets.loader import PrefetchLoader, index_batches
 
@@ -252,10 +268,53 @@ def build_pipeline(config: dict, device: torch.device):
     return pipeline
 
 
-def validation_batches(config: dict, collate_fn, device) -> list:
+class NullLogger:
+    """The logger of a rank other than 0: logs nothing."""
+
+    def log(self, step: int, values: dict) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _largest_shape(tree) -> Optional[tuple]:
+    """The shape of the array leaf of ``tree`` with the most elements (None
+    without one)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        shapes = [x for x in map(_largest_shape, tree) if x is not None]
+        return max(shapes, key=np.prod, default=None)
+    shape = tuple(getattr(tree, "shape", ()))
+    if not shape or getattr(tree, "dtype", None) == object:
+        return None
+    return shape
+
+
+def rank_batch(batch: dict, pipeline) -> dict:
+    """This data rank's slice of a host batch (the whole batch on one
+    device). The batch's leading axis (its largest array's) must divide by
+    the data ranks: each rank keeps its rows of the randoms drawn for the
+    whole batch (``MeshPlacement.rank_draws``)."""
+    mesh = getattr(pipeline, "mesh", None)
+    n = 1 if mesh is None else data_parallel_size(mesh)
+    if n == 1:
+        return batch
+    shape = _largest_shape(batch)
+    if shape is None or shape[0] % n:
+        raise ValueError(
+            f"a batch of {shape and shape[0]} does not split over {n} data "
+            "ranks: make the batch size a multiple")
+    return shard_batch(batch, mesh)
+
+
+def validation_batches(config: dict, collate_fn, device,
+                       pipeline=None) -> list:
     """Up to ``evaluation_batches`` (4) device batches of the config's
     ``validation_dataset``, truncated to whole batches
-    (``opendwm_tpu/train.py:224-250``)."""
+    (``opendwm_tpu/train.py:224-250``); this data rank's slices of them
+    under a process group."""
     dataset = create_instance_from_config(config["validation_dataset"])
     dl_cfg = dict(config.get("validation_dataloader", {}))
     if "collate_fn" in dl_cfg:
@@ -265,9 +324,9 @@ def validation_batches(config: dict, collate_fn, device) -> list:
     bs = dl_cfg.get("batch_size", train_bs)
     n = (len(dataset) // bs) * bs
     limit = config.get("evaluation_batches", 4) * bs
-    return [to_device_batch(collate_fn([dataset[j] for j in
-                                        range(i, i + bs)]), device)
-            for i in range(0, min(n, limit), bs)]
+    return [to_device_batch(rank_batch(
+        collate_fn([dataset[j] for j in range(i, i + bs)]), pipeline),
+        device) for i in range(0, min(n, limit), bs)]
 
 
 def parse_profile_steps(spec: Optional[str]) -> tuple:
@@ -336,9 +395,32 @@ def evaluate(pipeline, state, batches, seed: int, device, logger) -> dict:
                                       logger=logger)
 
 
+def launch(device: torch.device) -> int:
+    """Under ``torchrun``: join the process group (``mesh.init_from_env``:
+    NCCL on the card, gloo on the CPU), destroyed at exit; returns the
+    rank (0 without ``torchrun``)."""
+    if not mesh_lib.is_launched():
+        return 0
+    import atexit
+
+    import torch.distributed as dist
+
+    rank = mesh_lib.init_from_env(device)
+    atexit.register(lambda: dist.is_initialized() and
+                    dist.destroy_process_group())
+    return rank
+
+
 def main(args=None):
     args = args or create_parser().parse_args()
     config, device = read_config(args)
+    rank = launch(device)
+    if mesh_lib.is_launched() and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _train(args, config, device, rank)
+
+
+def _train(args, config: dict, device: torch.device, rank: int):
     seed = config.get("generator_seed", 0)
     torch.manual_seed(seed)
     pipeline = build_pipeline(config, device)
@@ -351,7 +433,7 @@ def main(args=None):
         (lambda items: items[0])
     val_batches = None
     if args.evaluation_steps and "validation_dataset" in config:
-        val_batches = validation_batches(config, collate, device)
+        val_batches = validation_batches(config, collate, device, pipeline)
     if hasattr(pipeline, "metrics") and "metrics" in config:
         pipeline.metrics = {name: create_instance_from_config(cfg)
                             for name, cfg in config["metrics"].items()}
@@ -361,11 +443,13 @@ def main(args=None):
     if args.resume_from is not None:
         ckpt_lib.load_checkpoint(args.output_path, args.resume_from, state,
                                  generator)
-        print(f"resumed from step {args.resume_from}", flush=True)
+        if rank == 0:
+            print(f"resumed from step {args.resume_from}", flush=True)
     loader, prefetch = build_loader(config, dataset, collate, seed,
                                     skip=state.step)
 
-    logger = JsonlLogger(args.output_path, wandb_project=args.wandb)
+    logger = JsonlLogger(args.output_path, wandb_project=args.wandb) \
+        if rank == 0 else NullLogger()
     max_steps = args.max_steps or config.get("train_steps", 1000)
     durations: list[float] = []
     waits: list[float] = []
@@ -378,11 +462,11 @@ def main(args=None):
             t0 = time.perf_counter()
             host_batch = next(loader)
             waits.append(time.perf_counter() - t0)
-            if len(waits) == 1 and dropped_fields(host_batch):
+            if len(waits) == 1 and dropped_fields(host_batch) and rank == 0:
                 print("dropped fields that are not arrays (the JAX CLI drops "
                       f"them too): {', '.join(dropped_fields(host_batch))}",
                       flush=True)
-            batch = to_device_batch(host_batch, device)
+            batch = to_device_batch(rank_batch(host_batch, pipeline), device)
             t0 = time.perf_counter()
             state, metrics = pipeline.train_step(state, batch, generator)
             if profiler.active and \
@@ -408,8 +492,11 @@ def main(args=None):
             if args.preview_steps and \
                     state.step % args.preview_steps == 0 and \
                     hasattr(pipeline, "preview_pipeline"):
-                pipeline.preview_pipeline(state, batch, args.output_path,
-                                          state.step)
+                # every rank runs the (collective) forward; rank 0 writes
+                pipeline.preview_pipeline(
+                    state, batch, args.output_path if rank == 0 else
+                    os.path.join(args.output_path, f".rank{rank}"),
+                    state.step)
     finally:
         if profiler.active:  # the loop ended inside the traced steps
             logger.log(state.step, profiler.stop(state.step))
@@ -417,7 +504,8 @@ def main(args=None):
         if prefetch is not None:
             prefetch.close()
     ckpt_lib.save_checkpoint(args.output_path, state.step, state, generator)
-    print(f"done at step {state.step}", flush=True)
+    if rank == 0:
+        print(f"done at step {state.step}", flush=True)
     return state
 
 

@@ -691,8 +691,8 @@ def test_flash_attention_segment_kernel_matches_plain(cuda, dtype, case):
 
 def test_flash_attention_segment_counts_apart(cuda):
     """K7-seg counts under its own counters, not K7's; with every id equal
-    it is K7 bit for bit; it refuses a gradient and ids that are not int32
-    of the q and kv lengths."""
+    it is K7 bit for bit, and its backward K7's gradient; it refuses ids
+    that are not int32 of the q and kv lengths."""
     ops.reset_launch_counts()
     g = torch.Generator(cuda).manual_seed(6)
     q, k, v = (torch.randn(1, 256, 2, 64, generator=g, device=cuda,
@@ -709,9 +709,24 @@ def test_flash_attention_segment_counts_apart(cuda):
     counts = ops.launch_counts()
     assert counts["flash_attention_segment"] == 1
     assert counts["flash_attention"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        flash_attention.flash_attention(q.clone().requires_grad_(), k, v,
-                                        0.125, segment_ids=same)
+    # a gradient through the ids runs K7-seg with the log-sum-exp and its
+    # backward, counted apart from K7's; with every id equal it is K7's
+    # gradient (dQ's atomics vary its last bits)
+    qg = q.clone().requires_grad_()
+    flash_attention.flash_attention(qg, k, v, 0.125,
+                                    segment_ids=same).float().sum().backward()
+    qk = q.clone().requires_grad_()
+    flash_attention.flash_attention(qk, k, v, 0.125).float().sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention.segment_backward_launches_by_shape == \
+        {(1, 256, 256, 2, 64): 1}
+    assert flash_attention.backward_launches == 1
+    assert flash_attention.segment_lse_launches == 1
+    assert flash_attention.lse_launches == 1
+    assert (qg.grad.float() - qk.grad.float()).norm() <= \
+        2 ** -7 * qk.grad.float().norm()
+    flash_attention.reset_launches()
+    flash_attention.flash_attention(q, k, v, 0.125, segment_ids=same)
     with pytest.raises(ValueError, match="segment ids"):
         flash_attention.flash_attention(
             q, k, v, 0.125, segment_ids=flash_attention.SegmentIds(

@@ -265,7 +265,10 @@ def test_unported_names_and_options_raise():
     assert get_class("dwm.models.depth_net.DepthNet") is DepthNet
     with pytest.raises(KeyError, match="NoSuchModel"):
         get_class("NoSuchModel")
+    # sequence_parallel_axis is ported now: the joint attentions ring over
+    # that axis (one device without a process group: the block step alone)
     cfg = _synthetic_model_config()
     cfg["sequence_parallel_axis"] = "sp"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiTCrossviewTemporal(**cfg)
+    model = DiTCrossviewTemporal(**cfg)
+    assert all(b.attn.sp_axis == "sp" and b.attn.sp_group is None
+               for b in model.transformer_blocks)

@@ -555,14 +555,22 @@ def test_flash_attention_segment_plain_matches_pallas(interpret_pallas, case,
 
 
 def test_flash_attention_segment_refuses_grad_and_bad_ids():
-    """K7-seg has no backward; ids must be int32 of the q and kv lengths."""
+    """K7-seg's gradient runs its plain backward on the CPU (it no longer
+    refuses one); ids must be int32 of the q and kv lengths."""
     q = torch.zeros(1, 128, 2, 16)
     ids = torch.zeros(1, 128, dtype=torch.int32)
     good = flash_attention.SegmentIds(ids, ids)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        flash_attention.flash_attention(q.requires_grad_(), q, q, 0.25,
-                                        segment_ids=good)
-    q = q.detach()
+    qg = torch.randn(1, 128, 2, 16, generator=torch.Generator().manual_seed(0))
+    qg.requires_grad_()
+    out = flash_attention.flash_attention(qg, qg, qg, 0.25, segment_ids=good)
+    (dq,) = torch.autograd.grad(out.sum(), qg)
+    fwd, lse = flash_attention.flash_attention_forward_plain(
+        qg.detach(), qg.detach(), qg.detach(), 0.25, segment_ids=good)
+    parts = flash_attention.flash_attention_backward_plain(
+        qg.detach(), qg.detach(), qg.detach(), fwd, lse, torch.ones_like(fwd),
+        0.25, segment_ids=good)
+    assert torch.equal(out.detach(), fwd)
+    assert torch.allclose(dq, sum(parts), atol=1e-6)
     for bad in (flash_attention.SegmentIds(ids.long(), ids),
                 flash_attention.SegmentIds(ids, ids[:, :64]),
                 flash_attention.SegmentIds(ids[None], ids)):

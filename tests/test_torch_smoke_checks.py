@@ -277,14 +277,18 @@ def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
     ("branch_types", {"k4_fixed": 46}, False),
     ("mask_step", {"k3": 0, "k3_fixed": 0}, False),
     ("land_eval", {"k4_fixed": 187}, False),
+    ("fsdp_train", {"k3_fixed": 245}, False),
+    ("sp_serve", {}, True),
+    ("pp_serve", {"k4": 0, "k4_fixed": 0}, False),
 ])
 def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
-    """Every K3/K4 launch of the eleven DiT paths must have run the d-1536
+    """Every K3/K4 launch of the fourteen DiT paths must have run the d-1536
     kernel of ``csrc/adaln.cu``, and each path must have launched both."""
     assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train",
                                     "stream", "int8_serve", "unimlvg_serve",
                                     "unimlvg_train", "branch_types",
-                                    "mask_step", "land_eval"}
+                                    "mask_step", "land_eval", "fsdp_train",
+                                    "sp_serve", "pp_serve"}
     paths = {p: _adaln_counts() for p in smoke.DIT_PATHS}
     paths[path] = _adaln_counts(**over)
     if ok:
@@ -1322,3 +1326,17 @@ def test_depth_phase_geometry(smoke):
     assert torch.equal((z - lo) / step % 1, torch.full_like(z, 0.5))
     r = pts["lidar_points"][0, :, 200:, :2].norm(dim=-1)
     assert lo <= r.min() and r.max() <= hi
+
+
+def test_multidevice_and_segment_grad_paths_are_gated(smoke):
+    """Phase 28's paths and the segment-gradient path are read by the body
+    gates: the fsdp steps and the one-process rings as training paths, the
+    sequence-parallel and pipelined forwards as DiT paths, the K7-seg
+    gradient as a model path (its backward gated in its own check)."""
+    assert {"fsdp_train", "ring_steps"} <= set(smoke.TRAIN_PATHS)
+    assert {"fsdp_train", "sp_serve", "pp_serve"} <= set(smoke.DIT_PATHS)
+    assert {"sp_serve", "pp_serve", "segment_grad"} <= \
+        set(smoke.MODEL_PATHS)
+    assert "segment_grad" not in smoke.TRAIN_PATHS
+    assert smoke.MD_RING[1] % smoke.MD_RING_N[0] == 0
+    assert smoke.MD_RING[1] % smoke.MD_RING_N[1] == 0

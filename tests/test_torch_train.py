@@ -529,8 +529,14 @@ def test_init_state_needs_fp32_masters():
     pipe = config.create_instance_from_config(cfg)
     with pytest.raises(ValueError, match="param_dtype"):
         pipe.init_state()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pipe.shard_state(None)
+    # shard_state is ported now: without a process group the mesh is the one
+    # device and the state stays as it is
+    cfg["model"]["dtype"] = torch.float32
+    pipe = config.create_instance_from_config(cfg)
+    state = pipe.init_state()
+    assert pipe.shard_state(state) is state
+    assert pipe.state_shardings(state)["params"] == \
+        {name: None for name, _ in state.model.named_parameters()}
 
 
 # -- the train CLI -----------------------------------------------------------------
