@@ -27,10 +27,16 @@ Phases; any failure raises and exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``opendwm_tpu_torch/csrc`` (one nvcc per
    source, all at once: ``flash_tail.cu``, ``flash_attention.cu``,
-   ``flash_segment.cu`` (K7-seg's backward), ``adaln.cu``); ptxas's registers and spills (its report is kept beside
-   each library, so a library built by an earlier run is held too) of every
-   kernel of ``adaln.cu`` (K3/K4), failing on a spill, and a SASS census (``cuobjdump -sass``:
-   ``HGMMA``, ``UTMALDG``, ``HMMA``) of each instance of the Hopper forward
+   ``flash_segment.cu`` (K7-seg's backward), ``adaln.cu``); ptxas's
+   registers and spills (its report is kept beside each library, so a
+   library built by an earlier run is held too) of every kernel of
+   ``adaln.cu`` (K3/K4: the ring at each of its compiled widths and the
+   runtime-width kernel, in fp32, bf16 and fp16), failing on a missing
+   kernel or a spill; a SASS census of each ring instance
+   (``adaln_stream_kernel``), failing on one that ptxas did not report or
+   one without the bulk copy (``UBLKCP``); and a SASS census
+   (``cuobjdump -sass``: ``HGMMA``, ``UTMALDG``, ``HMMA``) of each
+   instance of the Hopper forward
    (``csrc/flash_fwd_sm90.cuh``, the body of every bf16 head-dim-64 launch
    of K1, K7 and K7-seg), of the Hopper tilings
    (``csrc/tail_tiling_sm90.cuh``, the body of every bf16 head-dim-64
@@ -45,11 +51,11 @@ Phases; any failure raises and exits non-zero:
    its variant that writes the log-sum-exp for the backward) at the DiT's,
    the UNet's and the LiDAR DiT's shapes and the masked step's (36, 490 |
    336, 24, 64), K2 (the attention backward) at the DiT's, the UNet's and
-   the masked step's training shapes, K3 and K4 (at the DiT's serving,
-   training and masked shapes in bf16 on the d-1536 kernel, at the first
-   also in fp16 and fp32, at the masked step's fp32 stream (36, 448,
-   1536) in fp32, and at the LiDAR DiT's d-1024 shapes on the
-   runtime-width kernel; x' equal to the
+   the masked step's training shapes, K3 and K4 (on the ring at its
+   compiled widths: at the DiT's serving, training and masked shapes in
+   bf16, at the first also in fp16 and fp32, at the masked step's fp32
+   stream (36, 448, 1536) in fp32, and at the LiDAR DiT's d-1024 serving
+   and training shapes in bf16; x' equal to the
    plain version's bit for bit, bf16 and fp16 also within 2^-8 in relative
    norm; each timed eager, as device time replayed from a CUDA graph,
    as device time with inputs from device memory rather than L2, and as
@@ -228,8 +234,8 @@ Phases; any failure raises and exits non-zero:
    first; CFG forwards timed, the rasters gate, one forward profiled with
    the plain joint attention at s 1601 as a range of its own; the census:
    K1 8 a CFG forward, all at (80, 240, 16, 64) on the Hopper forward, K3
-   33 and K4 31 a forward, all on the runtime-width kernel
-   (``adaln_any_kernel``) at (12, 1600, 1024) and (12, 1, 1024);
+   33 and K4 31 a forward, all on the ring at d 1024 (none on
+   ``adaln_any_kernel``) at (12, 1600, 1024) and (12, 1, 1024);
 15. UniMLVG serving: ``configs/unimlvg/ctsd_unimlvg_stage3_tirda_bm_nwa.json``
    (24 layers, the 6 x 1536 adapter, explicit perspective and view
    modeling, ``pred`` with 3 visible frames, bf16; the one cut: 40 -> 4
@@ -292,8 +298,7 @@ Phases; any failure raises and exits non-zero:
    16 blocks at d 1024, bf16 compute over fp32 masters, remat as the config
    sets it) at batch 4 of 6 frames: the tiny step against the CPU first (K1
    and K2), then 3 steps as phase 6; K1 and K2 at (160, 240, 16, 64) only,
-   K3/K4 on the runtime-width kernel at (24, 1600 | 1, 1024), counted per
-   step;
+   K3/K4 on the ring at (24, 1600 | 1, 1024), counted per step;
 22. the LiDAR UNet (``configs/lidar/lidar_diffusion_unet_temporal_ns.json``:
    a VAEPointCloud of 64 latent channels and the UNet 320-1280 in bf16 over
    fp32 masters) on 80 x 80 latents x 4 frames x 1 view: the tiny pipeline
@@ -401,7 +406,8 @@ the twenty-six model paths must have run the Hopper forward, every K2 and
 K7 backward launch of the eleven training paths the Hopper backward,
 every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
-of the fourteen DiT paths the d-1536 kernel (their launch counters).
+of the fourteen DiT paths and of the LiDAR DiT's serving and training the
+ring (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
 
@@ -428,6 +434,7 @@ from opendwm_tpu_torch.perf.measure import (  # noqa: E402
     adaln_bound,
     attention_bound,
     card_line,
+    clock_line,
     cold_copies,
     host_us,
     max_err,
@@ -441,6 +448,7 @@ from opendwm_tpu_torch.perf.measure import (  # noqa: E402
     time_pair,
 )
 
+STARTED = time.perf_counter()  # the run's seconds so far, in log_clocks
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json"
 UNET_CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_21_tirda_nwao.json"
@@ -472,7 +480,8 @@ DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
 # LiDAR serving (bench.py:228-394's geometry): MaskGIT generation on the
 # layout config (bf16 compute, as bench.py:247-252 sets it), the temporal
 # vq80k config's autoregressive rollout, and the temporal LiDAR DiT (its
-# d-1024 K3/K4 run the runtime-width kernel, so it is no DIT_PATHS path).
+# d-1024 K3/K4 census is its own, check_lidar_dit_census, so it is no
+# DIT_PATHS path).
 LIDAR_MASKGIT_CONFIG = REPO / "configs/lidar/lidar_maskgit_layout_ns.json"
 LIDAR_ROLLOUT_CONFIG = \
     REPO / "configs/lidar/lidar_maskgit_temporal_vq80k_layout_ns.json"
@@ -608,7 +617,7 @@ SOURCES = ("flash_tail.cu", "flash_attention.cu", "flash_segment.cu",
 ADALN_SHAPES = ((72, 448, 1536), (72, 154, 1536), (36, 448, 1536),
                 (36, 154, 1536), MASK_ADALN_SHAPE)
 # ... and the LiDAR DiT's at d 1024 (CFG batch 2 x 6 frames: 1600 latent
-# tokens, 1 text token), which run the runtime-width kernel.
+# tokens, 1 text token), which run the ring at its other width.
 LIDAR_ADALN_SHAPES = ((12, 1600, 1024), (12, 1, 1024))
 # K3 and K4 launches a DiT CFG forward (models/mmdit.py): K3 at :92 (24
 # blocks), :96/:100 (24), :105 (13 dual-attention blocks) and :439 (1); K4
@@ -811,13 +820,10 @@ def yardsticks(ms, plain_ms, library_ms, bound_pair) -> dict:
 def log_clocks(when: str) -> None:
     """The card's SM clock and its maximum, temperature, power draw and
     active clock-event reasons (a bit mask; 0x0 for none), as nvidia-smi
-    reads them: times from one run are comparable only at one clock."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
-         "power.draw,clocks_event_reasons.active", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    log(f"clocks {when}: "
-        f"{out.stdout.strip() or 'unread: ' + out.stderr.strip()[:200]}")
+    reads them: times from one run are comparable only at one clock. Also
+    the run's seconds so far: the phases' share of the time limit."""
+    log(f"clocks {when} ({time.perf_counter() - STARTED:.1f} s in): "
+        f"{clock_line()}")
 
 
 def check_attention(dev, flash_tail):
@@ -1443,7 +1449,7 @@ def check_adaln_errors(name: str, shape, e: dict) -> None:
 
 
 def adaln_census(fused_adaln, residual: bool) -> tuple:
-    """(launches, launches on the d-1536 kernel) of K4 or K3 so far."""
+    """(launches, launches on the ring) of K4 or K3 so far."""
     if residual:
         return fused_adaln.res_launches, fused_adaln.res_fixed_launches
     return fused_adaln.launches, fused_adaln.fixed_launches
@@ -1451,9 +1457,11 @@ def adaln_census(fused_adaln, residual: bool) -> tuple:
 
 def check_adaln(dev, fused_adaln):
     """K3 and K4 against their plain versions at the serving and training
-    shapes in bf16, and at the first in fp16 and fp32; each launch on the
-    d-1536 kernel; then at the LiDAR DiT's d-1024 shapes in bf16, each
-    launch on the runtime-width kernel. Each bf16 row is timed four ways:
+    shapes in bf16, and at the first in fp16 and fp32, then at the LiDAR
+    DiT's d-1024 shapes in bf16, and at the first in fp16 and fp32, so
+    that every type of the ring runs at every width; each launch on the
+    ring (every width is one of ``fused_adaln.RING_WIDTHS``). Each bf16
+    row is timed four ways:
     eager (``ms``, CUDA
     events around 10 queued calls, as the attention kernels), device
     (``device_ms``: the 10 calls replayed from a CUDA graph), cold device
@@ -1467,7 +1475,9 @@ def check_adaln(dev, fused_adaln):
         [(ADALN_SHAPES[0], torch.float16), (ADALN_SHAPES[0], torch.float32),
          (MASK_ADALN_FP32_SHAPE, torch.float32)] \
         + [(s, torch.bfloat16)
-           for s in LIDAR_ADALN_SHAPES + LIDAR_TRAIN_ADALN_SHAPES]
+           for s in LIDAR_ADALN_SHAPES + LIDAR_TRAIN_ADALN_SHAPES] \
+        + [(LIDAR_ADALN_SHAPES[0], torch.float16),
+           (LIDAR_ADALN_SHAPES[0], torch.float32)]
     for (n, l, d), dtype in cases:
         inputs = adaln_inputs(n, l, d, dtype, dev, g)
         for name in rows:
@@ -1478,10 +1488,9 @@ def check_adaln(dev, fused_adaln):
             torch.cuda.synchronize()
             launched, fixed = (a - b for a, b in zip(
                 adaln_census(fused_adaln, residual), before))
-            want = 1 if d == fused_adaln.FIXED_D else 0
-            if launched != 1 or fixed != want:
-                fail(f"{name} at {(n, l, d)} {dtype} did not run the "
-                     f"{'d-1536' if want else 'runtime-width'} kernel")
+            if launched != 1 or fixed != 1 or \
+                    d not in fused_adaln.RING_WIDTHS:
+                fail(f"{name} at {(n, l, d)} {dtype} did not run the ring")
             if not residual:
                 outs, refs = (outs,), (refs,)
             e = adaln_errors(outs, refs, dtype)
@@ -2387,14 +2396,17 @@ def _device_kernels(prof) -> list:
 
 def adaln_profile_ms(prof) -> dict:
     """Device ms and launches of K3 and K4 in a profile: the kernels whose
-    names hold ``adaln`` (CUDA: ``adaln_{stream,any}_kernel<T, residual>``),
-    K4 those with the residual flag set (or Triton's ``_res_adaln_kernel``)."""
+    names hold ``adaln`` (CUDA: ``adaln_stream_kernel<T, residual, d>`` and
+    ``adaln_any_kernel<T, residual>``; before the ring took a width,
+    ``adaln_stream_kernel<T, residual>``), K4 those with the residual flag
+    set (or Triton's ``_res_adaln_kernel``)."""
     out = {"K3_ms": 0.0, "K3_launches": 0, "K4_ms": 0.0, "K4_launches": 0}
     for t, n, key in _device_kernels(prof):
         name = key.lower()
         if "adaln" not in name:
             continue
-        k = "K4" if ("true>" in name or "_res_" in name) else "K3"
+        residual = re.search(r"adaln_\w+_kernel<[^,>]*,\s*true\b", name)
+        k = "K4" if (residual or "_res_" in name) else "K3"
         out[f"{k}_ms"] += t / 1e3
         out[f"{k}_launches"] += n
     return out
@@ -3407,8 +3419,8 @@ def check_lidar_dit_census(c: dict, forwards: int) -> None:
     """The LiDAR DiT path's launches over ``forwards`` CFG forwards: K1
     ``LIDAR_K1_PER_FORWARD`` a forward, all at ``LIDAR_K1_SHAPE`` and on
     the Hopper forward; K3 and K4 ``LIDAR_K3/K4_PER_FORWARD`` a forward,
-    all on the runtime-width kernel (``adaln_any_kernel``) at exactly the
-    ``LIDAR_ADALN_SHAPES``; no K7."""
+    all on the ring at d 1024 (none on ``adaln_any_kernel``) at exactly
+    the ``LIDAR_ADALN_SHAPES``; no K7."""
     shape = ",".join(map(str, LIDAR_K1_SHAPE + (64,)))
     k1 = LIDAR_K1_PER_FORWARD * forwards
     log(f"lidar_dit: K1 {c['flash_tail']} launches by shape "
@@ -3422,11 +3434,11 @@ def check_lidar_dit_census(c: dict, forwards: int) -> None:
     for key, per in (("adaln_modulate", LIDAR_K3_PER_FORWARD),
                      ("residual_adaln_modulate", LIDAR_K4_PER_FORWARD)):
         log(f"lidar_dit: {key} {c[key]} launches, {c[f'{key}_fixed']} on "
-            f"the d-1536 kernel, by shape {json.dumps(c[f'{key}_by_shape'])}")
-        if c[key] != per * forwards or c[f"{key}_fixed"] != 0 or \
+            f"the ring, by shape {json.dumps(c[f'{key}_by_shape'])}")
+        if c[key] != per * forwards or c[f"{key}_fixed"] != c[key] or \
                 set(c[f"{key}_by_shape"]) != allowed:
             fail(f"lidar_dit: {key} should have launched {per * forwards} "
-                 f"times, all on the runtime-width kernel at {allowed}")
+                 f"times, all on the ring at {allowed}")
     if c["flash_attention"] or c["flash_attention_segment"]:
         fail("lidar_dit: K7 launched on the LiDAR DiT path")
 
@@ -4212,9 +4224,9 @@ def run_lidar_maskgit_train(dev, create_instance_from_config, ops):
 def check_lidar_dit_train_census(c: dict, steps: int) -> None:
     """The LiDAR DiT train steps' launches: K1 and K2 at
     ``LIDAR_DIT_TRAIN_K1_SHAPE`` only, K2 8 a step (the 8 temporal
-    branches' backward); K3 and K4 on the runtime-width kernel at exactly
-    ``LIDAR_TRAIN_ADALN_SHAPES``, the same count every step and at least
-    a forward's; no K7."""
+    branches' backward); K3 and K4 on the ring at exactly
+    ``LIDAR_TRAIN_ADALN_SHAPES`` (none on ``adaln_any_kernel``), the same
+    count every step and at least a forward's; no K7."""
     tag = "lidar dit train"
     shape = (LIDAR_DIT_TRAIN_K1_SHAPE + (64,),)
     check_launch_shapes(c, {"flash_tail_by_shape": shape,
@@ -4226,10 +4238,11 @@ def check_lidar_dit_train_census(c: dict, steps: int) -> None:
     for key, per in (("adaln_modulate", LIDAR_K3_PER_FORWARD),
                      ("residual_adaln_modulate", LIDAR_K4_PER_FORWARD)):
         log(f"{tag}: {key} {c[key]} launches ({c[key] / steps:g} a step), "
-            f"{c[f'{key}_fixed']} on the d-1536 kernel")
-        if c[key] % steps or c[key] < per * steps or c[f"{key}_fixed"]:
+            f"{c[f'{key}_fixed']} on the ring")
+        if c[key] % steps or c[key] < per * steps or \
+                c[f"{key}_fixed"] != c[key]:
             fail(f"{tag}: {key} launched {c[key]} times in {steps} steps, "
-                 f"{c[f'{key}_fixed']} on the d-1536 kernel")
+                 f"{c[f'{key}_fixed']} on the ring")
     check_launch_shapes(c, {"adaln_modulate_by_shape":
                             LIDAR_TRAIN_ADALN_SHAPES,
                             "residual_adaln_modulate_by_shape":
@@ -6011,34 +6024,73 @@ def census_sm90(_build, sources, body: str) -> dict:
     return census
 
 
+def adaln_instances() -> tuple[int, int]:
+    """The kernels of ``csrc/adaln.cu``: (ring instances, all). K3 and K4
+    in fp32, bf16 and fp16 are 6 instances of the ring at each width of
+    ``fused_adaln.RING_WIDTHS`` and 6 of the runtime-width kernel."""
+    from opendwm_tpu_torch.ops import fused_adaln
+    ring = 6 * len(fused_adaln.RING_WIDTHS)
+    return ring, ring + 6
+
+
 def check_adaln_ptxas(_build) -> dict:
     """ptxas's registers and spills for every kernel of ``csrc/adaln.cu``
-    (the d-1536 and runtime-width kernels of K3 and K4 in fp32, bf16 and
-    fp16: 12), from the report kept beside the library. Fails on a missing
-    instance, one ptxas did not report, or a spill."""
+    (``adaln_instances``: the ring at each compiled width and the
+    runtime-width kernel, for K3 and K4 in fp32, bf16 and fp16), from the
+    report kept beside the library. Fails on a missing instance, one
+    ptxas did not report, or a spill."""
     report = _build.ptxas_report(_build.library_path("adaln.cu"), "adaln_")
     for fn, entry in report.items():
         log(f"  adaln.cu {fn}: {json.dumps(entry)}")
         if "spill_bytes" not in entry or "registers" not in entry or \
                 entry["spill_bytes"]:
             fail(f"adaln.cu {fn} spills or was not reported: {entry}")
-    if len(report) != 12:
-        fail(f"adaln.cu has {len(report)} kernels in ptxas's report, not 12")
+    want = adaln_instances()[1]
+    if len(report) != want:
+        fail(f"adaln.cu has {len(report)} kernels in ptxas's report, not "
+             f"{want}")
     return report
+
+
+def census_adaln_ring(_build) -> dict:
+    """A SASS census (``cuobjdump -sass``) of each instance of the ring
+    (``adaln_stream_kernel`` in ``csrc/adaln.cu``), beside ptxas's
+    registers and spills. Fails on a count of instances other than
+    ``adaln_instances()[0]``, an instance that ptxas did not report, and
+    one without the 1-D bulk copy (``UBLKCP``)."""
+    lib = _build.library_path("adaln.cu")
+    ptxas = _build.ptxas_report(lib, "adaln_stream_kernel")
+    sass = _build.sass_census(lib, "adaln_stream_kernel")
+    census = {}
+    for name, ops in sass.items():
+        flags = name.split("adaln_stream_kernel")[-1].split("EEEv")[0]
+        entry = {**ptxas.get(name, {}), **ops}
+        census[flags] = entry
+        log(f"  adaln_stream_kernel {flags}: {json.dumps(entry)}")
+        if "spill_bytes" not in entry or "registers" not in entry:
+            fail(f"ptxas reported no registers or spills for "
+                 f"adaln_stream_kernel {flags}")
+        if not ops["UBLKCP"]:
+            fail(f"adaln_stream_kernel {flags} has no bulk copy (UBLKCP): "
+                 f"{entry}")
+    want = adaln_instances()[0]
+    if len(census) != want:
+        fail(f"adaln.cu has {len(census)} ring instances in its SASS, not "
+             f"{want}")
+    return census
 
 
 def check_adaln_on_paths(paths: dict) -> None:
     """Every K3 and K4 launch of the DiT paths (``DIT_PATHS``) ran the
-    d-1536 kernel, and each path launched both."""
+    ring, and each path launched both."""
     for path in DIT_PATHS:
         c = paths[path]
         for key in ("adaln_modulate", "residual_adaln_modulate"):
             log(f"{path}: {key} {c[key]} launches, {c[f'{key}_fixed']} on "
-                f"the d-1536 kernel, by shape "
-                f"{json.dumps(c[f'{key}_by_shape'])}")
+                f"the ring, by shape {json.dumps(c[f'{key}_by_shape'])}")
             if c[key] == 0 or c[f"{key}_fixed"] != c[key]:
                 fail(f"{path}: {key} launched {c[key]} times, "
-                     f"{c[f'{key}_fixed']} of them on the d-1536 kernel")
+                     f"{c[f'{key}_fixed']} of them on the ring")
 
 
 def check_new_body_on_paths(paths: dict) -> None:
@@ -6131,6 +6183,7 @@ def main() -> None:
     bwd90_census = census_sm90(_build, sources + ("flash_segment.cu",),
                                "flash_bwd_sm90")
     adaln_ptxas = check_adaln_ptxas(_build)
+    adaln_ring_census = census_adaln_ring(_build)
 
     log_clocks("before the kernel checks")
     attn_rows = check_attention(dev, flash_tail)
@@ -6390,8 +6443,9 @@ def main() -> None:
 
     csrc = "opendwm_tpu_torch/csrc/flash_tail.cu"
     adaln_src = "opendwm_tpu_torch/csrc/adaln.cu"
-    adaln_body = (f"{adaln_src}:adaln_stream_kernel (d 1536, rows by bulk "
-                  "copy), adaln_any_kernel (other widths)")
+    adaln_body = (f"{adaln_src}:adaln_stream_kernel (the ring: rows by "
+                  "bulk copy, at d 1024 and 1536), adaln_any_kernel (other "
+                  "widths and alignments)")
     k7_src = "opendwm_tpu_torch/csrc/flash_attention.cu"
     sm90_src = "opendwm_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd90_src = "opendwm_tpu_torch/csrc/flash_bwd_sm90.cuh"
@@ -6409,11 +6463,13 @@ def main() -> None:
         entry("adaln_modulate", "cuda", adaln_src,
               "opendwm_tpu/ops/fused_adaln.py:45", "adaln_modulate",
               adaln_rows["adaln_modulate"], body=adaln_body,
-              ptxas=adaln_ptxas, **adaln_times(adaln_rows["adaln_modulate"])),
+              ptxas=adaln_ptxas, sass=adaln_ring_census,
+              **adaln_times(adaln_rows["adaln_modulate"])),
         entry("residual_adaln_modulate", "cuda", adaln_src,
               "opendwm_tpu/ops/fused_adaln.py:133", "residual_adaln_modulate",
               adaln_rows["residual_adaln_modulate"], body=adaln_body,
-              ptxas=adaln_ptxas, **adaln_times(adaln_rows["residual_adaln_modulate"])),
+              ptxas=adaln_ptxas, sass=adaln_ring_census,
+              **adaln_times(adaln_rows["residual_adaln_modulate"])),
         entry("flash_attention_forward", "cuda", k7_src,
               "opendwm_tpu/ops/attention.py:151", "flash_attention",
               k7_rows + dit_k7_rows,

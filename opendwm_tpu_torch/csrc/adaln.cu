@@ -14,34 +14,51 @@
 // What bounds it. About 2 fp32 operations a byte, far under the ~20 a byte
 // at which the card's fp32 units would be the limit: the kernel is bound by
 // device-memory bytes, x (and delta) read once and y (and x') written once.
-// The TPU kernel tiled 128 rows into VMEM; on Hopper the only gain is in
-// moving each byte once with enough bytes in flight, which registers limit
-// when each warp loads its own row.
+// The TPU kernel tiled block_l rows of any width into VMEM; on Hopper the
+// only gain is in moving each byte once with enough bytes in flight, which
+// registers limit when each warp loads its own row.
 //
-// Design (d = 1536, the DiT's width). Rows reach shared memory by 1-D bulk
-// copies (cp.async.bulk with an mbarrier's transaction count), so the bytes
-// in flight cost no registers: persistent blocks, each over a contiguous
-// run of tiles; a tile is one row for each of 8 consumer warps (4 in fp32)
-// of one sample, with that sample's vectors, in a ring of 3 stages at two
-// blocks an SM (K3) or up to 4 at one (K4, whose stages are twice as
-// large).
-// One producer thread issues the loads of a tile (x, delta, the vectors) and,
-// once the consumers have released a stage, the bulk stores of its outputs
-// from the stage. A consumer warp holds its row in registers as fp32 (48
-// values a lane in bf16, read as conflict-free 16-byte pieces), takes mean
-// and variance with __shfl_xor_sync within the warp (no __syncthreads),
-// and writes y over x and x' over delta in the stage. x' is
+// Design: a ring of 1-D bulk copies, compiled for each width of
+// RingWidths (d 1024, the LiDAR DiT's 16 x 64 heads; d 1536, the 24 x 64
+// of CTSD-3.5, UniMLVG and the layout flagship: every DiT config the port
+// builds at full width). Rows reach shared memory by 1-D bulk copies
+// (cp.async.bulk with an mbarrier's transaction count), so the bytes in
+// flight cost no registers: persistent blocks, each over a contiguous run
+// of tiles; a tile is one row for each of 8 consumer warps (4 in fp32) of
+// one sample, with that sample's vectors. One producer thread issues the
+// loads of a tile (x, delta, the vectors) and, once the consumers have
+// released a stage, the bulk stores of its outputs from the stage. A
+// consumer warp holds its row in registers as fp32 (d / 32 values a lane:
+// 32 at d 1024, 48 at d 1536; read as conflict-free 16-byte pieces), takes
+// mean and variance with __shfl_xor_sync within the warp (no
+// __syncthreads), and writes y over x and x' over delta in the stage. x' is
 // __fadd_rn(x, __fmul_rn(gate, delta)), with no FMA contraction, so that it
 // equals the plain PyTorch version (x.float() + gate * delta.float(), then
-// rounded to x's type) bit for bit. Why bulk copies: a warp per row with
-// the row and the next row in registers (loads from global, the vectors in
-// shared memory as fp32) measured slower at 6 of the 8 path shapes; and
-// why each stage copies its vectors: skipping them when a stage's last
-// tile was of the same sample measured the same (PERF.md, section 6).
+// rounded to x's type) bit for bit. The width is a template parameter:
+// the loads a lane makes, the stage layout, the bytes of each copy and the
+// register row follow from it, and so do the blocks an SM and the stages
+// (StreamCfg), by one rule: the most blocks, up to kRingMaxBlocks, whose
+// 3-stage rings fit in the SM's 228 KB (less 1 KB a block that the card
+// keeps); a block alone takes up to 4 stages. A stage is, in bf16 and
+// fp16, 30 KB (K3) and 57 KB (K4) at d 1536, 20 KB and 38 KB at d 1024;
+// in fp32 36 / 66 KB and 24 / 44 KB. So K4 runs one block an SM at every
+// width (3 stages at d 1536, 4 at d 1024), and K3 two at d 1536, where a
+// third does not fit, and three at d 1024 (kRingMaxBlocks): there three
+// measured faster than two at (12, 1600, 1024) and no slower at
+// (24, 1600, 1024), in one run of perf/adaln_ab.py against a copy of this
+// source with two, with 64 registers a thread under the 72 that three
+// blocks leave (PERF.md, section 6). Why bulk copies: a warp per row
+// with the row and the next row in registers (loads from global, the
+// vectors in shared memory as fp32) measured slower at 6 of the 8 d-1536
+// path shapes; and why each stage copies its vectors: skipping them when a
+// stage's last tile was of the same sample measured the same (PERF.md,
+// section 6).
 // Every other width or alignment runs a runtime-width kernel, a warp a row
 // that streams the row three times (sum, centred squares, output; L1 serves
-// the second and third) and reads the vectors from global memory. Which one
-// runs is the caller's choice (fused_adaln.instance) and is checked here.
+// the second and third) and reads the vectors from global memory: the
+// synthetic configs' d 32, the tests' odd widths, rows that are not 16-byte
+// aligned. Which one runs is the caller's choice (fused_adaln.instance) and
+// is checked here.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -52,7 +69,8 @@
 
 namespace {
 
-constexpr int kFixedD = 1536;
+// The most blocks of the ring on an SM (StreamCfg).
+constexpr int kRingMaxBlocks = 3;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerWarp = 2;               // runtime-width kernel
@@ -177,7 +195,7 @@ struct RowRun {
 };
 
 // ---------------------------------------------------------------------------
-// d = 1536: rows arrive in shared memory by 1-D bulk copies
+// The ring: rows arrive in shared memory by 1-D bulk copies
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -196,36 +214,41 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
                : "memory");
 }
 
-// A tile is one row of one sample for each consumer warp; a stage of the
-// ring holds a tile of x (and delta) and the sample's vectors, in T.
-template <typename T, bool kResidual>
+// A tile is one row of width D of one sample for each consumer warp; a
+// stage of the ring holds a tile of x (and delta) and the sample's vectors,
+// in T.
+template <typename T, bool kResidual, int D>
 struct StreamCfg {
   static constexpr int kConsumers = sizeof(T) == 4 ? 4 : 8;
   static constexpr int kThreads = 32 * (kConsumers + 1);  // + a producer warp
-  static constexpr uint32_t kRowBytes = kFixedD * sizeof(T);
+  static constexpr uint32_t kRowBytes = D * sizeof(T);
+  static_assert(kRowBytes % (32 * 16) == 0,
+                "a row is whole 16-byte pieces for each of 32 lanes");
   static constexpr uint32_t kX = 0;
   static constexpr uint32_t kDelta = kConsumers * kRowBytes;
   static constexpr uint32_t kVecs =
       kDelta + (kResidual ? kConsumers * kRowBytes : 0);  // scale, shift, gate
   static constexpr uint32_t kStage = kVecs + (kResidual ? 3 : 2) * kRowBytes;
-  // Two blocks an SM where a 3-stage ring of each fits in the SM's 228 KB
-  // (less 1 KB a block that the card keeps), else one with up to 4 stages.
+  // The most blocks an SM, up to kRingMaxBlocks, whose 3-stage rings fit
+  // in the SM's 228 KB (less 1 KB a block that the card keeps); a block
+  // alone takes up to 4 stages.
+  static constexpr int kFit = (228 * 1024) / (128 + 3 * kStage + 1024);
   static constexpr int kBlocks =
-      2 * (128 + 3 * kStage + 1024) <= 228 * 1024 ? 2 : 1;
+      kFit < 1 ? 1 : (kFit < kRingMaxBlocks ? kFit : kRingMaxBlocks);
   static constexpr int kStages =
-      kBlocks == 2 ? 3
+      kBlocks >= 2 ? 3
                    : ((200 * 1024) / kStage < 4 ? (200 * 1024) / kStage : 4);
   static constexpr uint32_t kSmem = 128 + kStages * kStage;
   static_assert(kStages >= 2, "a ring of at least two stages");
 };
 
-template <typename T, bool kResidual>
-__global__ void __launch_bounds__(StreamCfg<T, kResidual>::kThreads,
-                                  StreamCfg<T, kResidual>::kBlocks)
+template <typename T, bool kResidual, int D>
+__global__ void __launch_bounds__(StreamCfg<T, kResidual, D>::kThreads,
+                                  StreamCfg<T, kResidual, D>::kBlocks)
     adaln_stream_kernel(Args a) {
-  using C = StreamCfg<T, kResidual>;
+  using C = StreamCfg<T, kResidual, D>;
   constexpr int kPer = 4 * Word<T>::kN;
-  constexpr int kLoads = kFixedD / (32 * kPer);
+  constexpr int kLoads = D / (32 * kPer);
   constexpr int kVals = kLoads * kPer;
   constexpr int S = C::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -263,7 +286,7 @@ __global__ void __launch_bounds__(StreamCfg<T, kResidual>::kThreads,
       int sample, row0, rows;
       tile(first + i, sample, row0, rows);
       const long long off =
-          (static_cast<long long>(sample) * a.l + row0) * kFixedD;
+          (static_cast<long long>(sample) * a.l + row0) * D;
       const uint32_t st = ring + (i % S) * C::kStage;
       bulk_store(static_cast<T*>(a.out) + off, st + C::kX, rows * C::kRowBytes);
       if constexpr (kResidual)
@@ -281,7 +304,7 @@ __global__ void __launch_bounds__(StreamCfg<T, kResidual>::kThreads,
       int sample, row0, rows;
       tile(first + i, sample, row0, rows);
       const long long off =
-          (static_cast<long long>(sample) * a.l + row0) * kFixedD;
+          (static_cast<long long>(sample) * a.l + row0) * D;
       const uint32_t st = ring + s * C::kStage;
       const uint32_t row_bytes = rows * C::kRowBytes;
       sm90::mbar_expect_tx(full(s), row_bytes * (kResidual ? 2 : 1) +
@@ -343,14 +366,14 @@ __global__ void __launch_bounds__(StreamCfg<T, kResidual>::kThreads,
       float sum = 0.0f;
 #pragma unroll
       for (int k = 0; k < kVals; ++k) sum += v[k];
-      const float mean = warp_sum(sum) / kFixedD;
+      const float mean = warp_sum(sum) / D;
       float sq = 0.0f;
 #pragma unroll
       for (int k = 0; k < kVals; ++k) {
         v[k] -= mean;
         sq += v[k] * v[k];
       }
-      const float rstd = rsqrtf(warp_sum(sq) / kFixedD + a.eps);
+      const float rstd = rsqrtf(warp_sum(sq) / D + a.eps);
 #pragma unroll
       for (int j = 0; j < kLoads; ++j) {
         float s1[kPer], b[kPer];
@@ -417,44 +440,65 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <typename T, bool kResidual>
-int launch_typed(const Args& a, bool fixed, cudaStream_t stream) {
-  if (fixed) {
-    using C = StreamCfg<T, kResidual>;
-    static bool configured = false;  // the ring needs > 48 KB of shared memory
-    if (!configured) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          adaln_stream_kernel<T, kResidual>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      configured = true;
-    }
-    int device = 0, sms = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    const long long tiles =
-        static_cast<long long>(a.n) * ((a.l + C::kConsumers - 1) / C::kConsumers);
-    const long long slots = static_cast<long long>(sms) * C::kBlocks;
-    const unsigned grid = static_cast<unsigned>(tiles < slots ? tiles : slots);
-    adaln_stream_kernel<T, kResidual><<<grid, C::kThreads, C::kSmem, stream>>>(a);
-    return static_cast<int>(cudaGetLastError());
+template <typename T, bool kResidual, int D>
+int launch_ring_at(const Args& a, cudaStream_t stream) {
+  using C = StreamCfg<T, kResidual, D>;
+  static bool configured = false;  // the ring needs > 48 KB of shared memory
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        adaln_stream_kernel<T, kResidual, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
   }
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long tiles =
+      static_cast<long long>(a.n) * ((a.l + C::kConsumers - 1) / C::kConsumers);
+  const long long slots = static_cast<long long>(sms) * C::kBlocks;
+  const unsigned grid = static_cast<unsigned>(tiles < slots ? tiles : slots);
+  adaln_stream_kernel<T, kResidual, D><<<grid, C::kThreads, C::kSmem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The widths the ring is compiled for: an instance of each, and the launch
+// of the one of width a.d. The wrapper reads its list from the line of
+// RingWidths (fused_adaln.RING_WIDTHS).
+template <int... Ds>
+struct Widths {
+  static bool has(int d) { return ((d == Ds) || ...); }
+  template <typename T, bool kResidual>
+  static int launch(const Args& a, cudaStream_t stream) {
+    int rc = static_cast<int>(cudaErrorInvalidValue);
+    (void)((a.d == Ds &&
+            (rc = launch_ring_at<T, kResidual, Ds>(a, stream), true)) ||
+           ...);
+    return rc;
+  }
+};
+using RingWidths = Widths<1024, 1536>;
+
+template <typename T, bool kResidual>
+int launch_typed(const Args& a, bool ring, cudaStream_t stream) {
+  if (ring) return RingWidths::launch<T, kResidual>(a, stream);
   const dim3 grid(static_cast<unsigned>(a.n * ((a.l + kRows - 1) / kRows)));
   adaln_any_kernel<T, kResidual><<<grid, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// `fixed` asks for the d = 1536 kernel: x, delta and the outputs 16-byte
-// aligned, the vectors in x's type at 16-byte aligned addresses and
-// strides. Else the runtime-width kernel, for any width and alignment.
+// `ring` asks for the ring: d one of its compiled widths, x, delta and the
+// outputs 16-byte aligned, the vectors in x's type at 16-byte aligned
+// addresses and strides. Else the runtime-width kernel, for any width and
+// alignment.
 template <bool kResidual>
-int launch(const Args& a, int dtype, int fixed, void* stream) {
+int launch(const Args& a, int dtype, int ring, void* stream) {
   if (a.n < 0 || a.l < 0 || a.d <= 0 || dtype < kF32 || dtype > kF16 ||
       a.mod_dtype < kF32 || a.mod_dtype > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   const int size = dtype == kF32 ? 4 : 2;
-  if (fixed &&
-      (a.d != kFixedD || !aligned16(a.x) || !aligned16(a.out) ||
+  if (ring &&
+      (!RingWidths::has(a.d) || !aligned16(a.x) || !aligned16(a.out) ||
        (kResidual && (!aligned16(a.delta) || !aligned16(a.xo))) ||
        a.mod_dtype != dtype || !aligned16(a.scale) || !aligned16(a.shift) ||
        (a.scale_stride * size) % 16 || (a.shift_stride * size) % 16 ||
@@ -464,10 +508,10 @@ int launch(const Args& a, int dtype, int fixed, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n == 0 || a.l == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch_typed<float, kResidual>(a, fixed, st);
+  if (dtype == kF32) return launch_typed<float, kResidual>(a, ring, st);
   if (dtype == kBF16)
-    return launch_typed<__nv_bfloat16, kResidual>(a, fixed, st);
-  return launch_typed<__half, kResidual>(a, fixed, st);
+    return launch_typed<__nv_bfloat16, kResidual>(a, ring, st);
+  return launch_typed<__half, kResidual>(a, ring, st);
 }
 
 }  // namespace
@@ -475,12 +519,12 @@ int launch(const Args& a, int dtype, int fixed, void* stream) {
 // K3: out = LN(x) * (1 + scale) + shift over rows of d; x and out contiguous
 // (n, l, d) of `dtype` (0 fp32, 1 bf16, 2 fp16), scale and shift one
 // d-vector a sample at the given per-sample strides (elements), of
-// `mod_dtype`, contiguous along d. `fixed` asks for the d = 1536 kernel
-// (launch() says what it needs). Returns a cudaError_t.
+// `mod_dtype`, contiguous along d. `ring` asks for the ring at a compiled
+// width (launch() says what it needs). Returns a cudaError_t.
 extern "C" int adaln_forward(const void* x, const void* scale,
                              const void* shift, void* out, int n, int l, int d,
                              long long scale_stride, long long shift_stride,
-                             float eps, int dtype, int mod_dtype, int fixed,
+                             float eps, int dtype, int mod_dtype, int ring,
                              void* stream) {
   Args a{};
   a.x = x;
@@ -494,17 +538,17 @@ extern "C" int adaln_forward(const void* x, const void* scale,
   a.shift_stride = shift_stride;
   a.eps = eps;
   a.mod_dtype = mod_dtype;
-  return launch<false>(a, dtype, fixed, stream);
+  return launch<false>(a, dtype, ring, stream);
 }
 
 // K4: xo = x + gate * delta (fp32, rounded once to `dtype`) and
 // out = LN(x + gate * delta) * (1 + scale) + shift; delta and xo as x, gate
-// as scale. `fixed` as for adaln_forward.
+// as scale. `ring` as for adaln_forward.
 extern "C" int residual_adaln_forward(
     const void* x, const void* delta, const void* gate, const void* scale,
     const void* shift, void* xo, void* out, int n, int l, int d,
     long long gate_stride, long long scale_stride, long long shift_stride,
-    float eps, int dtype, int mod_dtype, int fixed, void* stream) {
+    float eps, int dtype, int mod_dtype, int ring, void* stream) {
   Args a{};
   a.x = x;
   a.delta = delta;
@@ -521,7 +565,7 @@ extern "C" int residual_adaln_forward(
   a.shift_stride = shift_stride;
   a.eps = eps;
   a.mod_dtype = mod_dtype;
-  return launch<true>(a, dtype, fixed, stream);
+  return launch<true>(a, dtype, ring, stream);
 }
 
 extern "C" const char* adaln_error_string(int code) {

@@ -13,6 +13,7 @@ at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -126,18 +127,28 @@ def ptxas_report(lib: Path, name_part: str) -> dict[str, dict]:
     return report
 
 
-SASS_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS", "LDSM", "HMMA")
+# wgmma, TMA tensor loads and stores, cp.async, ldmatrix, mma.sync, and the
+# 1-D bulk copies (cp.async.bulk) of the AdaLN ring.
+SASS_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS", "LDSM", "HMMA",
+                "UBLKCP")
+
+
+@functools.cache
+def sass_listing(lib: Path) -> str:
+    """``cuobjdump -sass`` of the built library ``lib``, once a library (a
+    library's name is the hash of its sources, so its listing never
+    changes)."""
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def sass_census(lib: Path, name_part: str) -> dict[str, dict[str, int]]:
     """Instructions of ``SASS_OPCODES`` in each function of the built
     library ``lib`` whose mangled name holds ``name_part``, counted in
     ``cuobjdump -sass``."""
-    out = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
-                         capture_output=True, text=True, check=True).stdout
     census: dict[str, dict[str, int]] = {}
     current = None
-    for line in out.splitlines():
+    for line in sass_listing(lib).splitlines():
         if m := re.search(r"Function : (\S+)", line):
             current = m[1] if name_part in m[1] else None
             if current is not None:

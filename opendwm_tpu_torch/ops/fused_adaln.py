@@ -14,12 +14,14 @@ calls these kernels at every modulation.
 
 The Hopper kernels are CUDA C++ in ``csrc/adaln.cu`` (design and what
 bounds them are noted there), built with nvcc at first use and called
-through ctypes: at d = 1536 (the DiT's width) rows reach shared memory by
-1-D bulk copies and one warp takes a row in registers; at any other width
-or alignment one warp streams its row (``instance`` picks). No matrix product is involved, so each is bound by device-memory
-bytes: one read of x (and delta) and one write of each output. x' is
-rounded once from the fp32 ``x + gate * delta`` without FMA contraction,
-so it equals the plain version's bit for bit. The wrappers take the plain
+through ctypes: at a width of ``RING_WIDTHS`` (d 1024, the LiDAR DiT's;
+d 1536, the other DiTs') rows reach shared memory by 1-D bulk copies into
+a ring and one warp takes a row in registers; at any other width or
+alignment one warp streams its row (``instance`` picks). No matrix product
+is involved, so each is bound by device-memory bytes: one read of x (and
+delta) and one write of each output. x' is rounded once from the fp32
+``x + gate * delta`` without FMA contraction, so it equals the plain
+version's bit for bit. The wrappers take the plain
 versions only for CPU tensors; for a CUDA tensor they launch the kernel or
 raise. A call that needs a gradient goes through an autograd Function whose
 backward is autograd of the plain version, as in the JAX package.
@@ -34,13 +36,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
+from pathlib import Path
 
 import torch
 
 from opendwm_tpu_torch.ops import _build
 
 # Kernel launches of K3 (adaln_modulate) and K4 (residual_adaln_modulate):
-# in total, those that ran the d-1536 (bulk-copy) kernel, and by (n, L, d).
+# in total, those that ran the ring (the bulk-copy kernel at a width of
+# RING_WIDTHS), and by (n, L, d).
 launches = 0
 res_launches = 0
 fixed_launches = 0
@@ -94,17 +99,33 @@ def residual_adaln_modulate_plain(x, delta, gate, scale, shift,
 # -- the CUDA kernels (csrc/adaln.cu, built at first use) --------------------
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-FIXED_D = 1536  # the width csrc/adaln.cu compiles its d-1536 kernel for
+
+
+def _ring_widths() -> tuple[int, ...]:
+    """The widths ``csrc/adaln.cu`` compiles its ring for, read from its
+    ``RingWidths`` so that this module and the library hold one list:
+    every DiT width the configs build at full width (16 x 64 and 24 x 64
+    heads)."""
+    text = (Path(__file__).resolve().parent.parent / "csrc" /
+            "adaln.cu").read_text()
+    m = re.search(r"using RingWidths = Widths<([\d, ]+)>;", text)
+    if m is None:
+        raise RuntimeError("csrc/adaln.cu declares no RingWidths")
+    return tuple(int(w) for w in m[1].split(","))
+
+
+RING_WIDTHS = _ring_widths()
 
 
 def instance(d: int, dtype, mod_dtype, *addresses: int) -> str:
     """Which kernel of ``csrc/adaln.cu`` a launch runs: ``"fixed"`` (the
-    d-1536 kernel, which bulk-copies rows and vectors into shared memory)
-    when d is 1536, x's type is one the kernels take, the modulation
-    vectors share it, and every address (the row pointers of x, delta and
-    the outputs, the vectors' pointers and their per-sample strides in
-    bytes) is a multiple of 16; else ``"any"`` (runtime width)."""
-    if d == FIXED_D and dtype in _DTYPES and mod_dtype == dtype and \
+    ring, which bulk-copies rows and vectors into shared memory) when d is
+    one of ``RING_WIDTHS``, x's type is one the kernels take, the
+    modulation vectors share it, and every address (the row pointers of x,
+    delta and the outputs, the vectors' pointers and their per-sample
+    strides in bytes) is a multiple of 16; else ``"any"`` (runtime
+    width)."""
+    if d in RING_WIDTHS and dtype in _DTYPES and mod_dtype == dtype and \
             all(a % 16 == 0 for a in addresses):
         return "fixed"
     return "any"
@@ -114,7 +135,7 @@ def instance(d: int, dtype, mod_dtype, *addresses: int) -> str:
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("adaln.cu")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tail = [ctypes.c_float, i32, i32, i32, ptr]  # eps, dtypes, fixed, stream
+    tail = [ctypes.c_float, i32, i32, i32, ptr]  # eps, dtypes, ring, stream
     lib.adaln_forward.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 2 + tail
     lib.residual_adaln_forward.argtypes = [ptr] * 7 + [i32] * 3 + \
         [i64] * 3 + tail
@@ -146,7 +167,7 @@ def _vecs(n: int, d: int, x_dtype, *ts):
     """The modulation vectors as (n, d) views, contiguous along d, of one
     type the kernels read: their own if they share one and x is not fp32,
     else fp32 copies (values the kernels would read as fp32 anyway; an
-    fp32 x with fp32 vectors runs the d-1536 kernel)."""
+    fp32 x with fp32 vectors runs the ring)."""
     out = []
     for t in ts:
         if t.ndim != 2 or t.shape != (n, d):
@@ -163,7 +184,7 @@ def _vecs(n: int, d: int, x_dtype, *ts):
 
 def _addresses(*ts) -> list[int]:
     """Each tensor's address and, for the (n, d) vectors, their per-sample
-    stride in bytes: what the d-1536 kernels need aligned."""
+    stride in bytes: what the ring needs aligned."""
     out = []
     for t in ts:
         out.append(t.data_ptr())
@@ -183,16 +204,16 @@ def _launch_adaln(x, scale, shift, eps):
     n, l, d = x.shape
     scale, shift = _vecs(n, d, x.dtype, scale, shift)
     out = torch.empty_like(x)
-    fixed = instance(d, x.dtype, scale.dtype,
-                     *_addresses(x, out, scale, shift)) == "fixed"
+    ring = instance(d, x.dtype, scale.dtype,
+                    *_addresses(x, out, scale, shift)) == "fixed"
     rc = _library().adaln_forward(
         x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n,
         l, d, scale.stride(0), shift.stride(0), eps, _DTYPES[x.dtype],
-        _DTYPES[scale.dtype], fixed,
+        _DTYPES[scale.dtype], ring,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(rc, "adaln_modulate")
     launches += 1
-    fixed_launches += fixed
+    fixed_launches += ring
     launches_by_shape[n, l, d] = launches_by_shape.get((n, l, d), 0) + 1
     return out
 
@@ -205,17 +226,17 @@ def _launch_res_adaln(x, delta, gate, scale, shift, eps):
         raise ValueError("delta must be contiguous, with x's shape and dtype")
     gate, scale, shift = _vecs(n, d, x.dtype, gate, scale, shift)
     xo, yo = torch.empty_like(x), torch.empty_like(x)
-    fixed = instance(d, x.dtype, gate.dtype, *_addresses(
+    ring = instance(d, x.dtype, gate.dtype, *_addresses(
         x, delta, xo, yo, gate, scale, shift)) == "fixed"
     rc = _library().residual_adaln_forward(
         x.data_ptr(), delta.data_ptr(), gate.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), xo.data_ptr(), yo.data_ptr(), n, l, d,
         gate.stride(0), scale.stride(0), shift.stride(0), eps,
-        _DTYPES[x.dtype], _DTYPES[gate.dtype], fixed,
+        _DTYPES[x.dtype], _DTYPES[gate.dtype], ring,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(rc, "residual_adaln_modulate")
     res_launches += 1
-    res_fixed_launches += fixed
+    res_fixed_launches += ring
     res_launches_by_shape[n, l, d] = \
         res_launches_by_shape.get((n, l, d), 0) + 1
     return xo, yo

@@ -1,32 +1,42 @@
 """K3 and K4 (fused AdaLN) of another checkout beside this one's, on one
-card: kernel against kernel at the DiT's shapes and, with ``--model``, the
-full-width DiT CFG forward and train step with either pair in the model.
+card: kernel against kernel at the DiTs' shapes and, with ``--model``, a
+full-width DiT's CFG forward (and train step) with either pair in the
+model.
 
 Run from the root of a checkout, with a second checkout (for example the
 parent commit's files unpacked with ``git archive``) to compare against:
 
-    python -m opendwm_tpu_torch.perf.adaln_ab --parent DIR --out PATH [--model]
+    python -m opendwm_tpu_torch.perf.adaln_ab --parent DIR --out PATH \
+        [--model [dit|lidar]]
 
 The parent's ``opendwm_tpu_torch/ops/fused_adaln.py`` is loaded from its
 path beside this checkout's (whose kernels are ``csrc/adaln.cu``); both
 modules' public functions are called as the model calls them. At each
-shape of ``SHAPES`` in bf16 both are held to their plain version (this
-checkout's): scaled error 3e-2, relative norm 2^-8; this checkout's x'
-(K4) must equal the plain x' bit for bit (the parent's is reported). They
-are timed in turns, parent, tree, tree, parent (each turn kept), four
-ways: eager ms (CUDA events around 10 queued calls), device ms (the same
-10 calls replayed from a CUDA graph), cold device ms (the graph over
-copies of the inputs that together exceed twice the L2) and host µs a call
-(1000 enqueues), beside the least time the card could take (``bound_ms``,
-device-memory bytes).
+shape of ``SHAPES`` in bf16 (the CTSD-3.5 DiT's at d 1536, the LiDAR DiT's
+at d 1024) both are held to their plain version (this checkout's): scaled
+error 3e-2, relative norm 2^-8; this checkout's x' (K4) must equal the
+plain x' bit for bit (the parent's is reported), and whether the two
+checkouts' outputs are the same bits is reported. They are timed in
+turns, parent, tree, tree, parent (each turn kept), four ways: eager ms
+(CUDA events around 10 queued calls), device ms (the same 10 calls
+replayed from a CUDA graph), cold device ms (the graph over copies of the
+inputs that together exceed twice the L2) and host µs a call (1000
+enqueues), beside the least time the card could take (``bound_ms``,
+device-memory bytes) and a same-bytes ``copy_`` (K3/K4 have no PyTorch
+call of the same function: the per-sample scale defeats ``layer_norm``'s
+affine).
 
-``--model`` swaps each pair into ``models/mmdit.py`` in turn (the model
-and every other kernel are this checkout's) and times, in the same turns,
-3 DiT CFG forwards a turn (CTSD-3.5 config at full width, random weights
-from seed 0, the smoke's 6 x 6 view-frames) with one profiled forward a
-pair (K3/K4 device ms in it), then 2 train steps a turn (fp32 masters,
-bf16 compute, AdamW, the config's remat). The JSON report goes to
-``--out`` only.
+``--model`` (``dit``) swaps each pair into ``models/mmdit.py`` in turn
+(the model and every other kernel are this checkout's) and times, in the
+same turns, 3 DiT CFG forwards a turn (CTSD-3.5 config at full width,
+random weights from seed 0, the smoke's 6 x 6 view-frames) with one
+profiled forward a pair (K3/K4 device ms in it), then 2 train steps a turn
+(fp32 masters, bf16 compute, AdamW, the config's remat). ``--model
+lidar`` does the same for the LiDAR DiT's CFG forward
+(``configs/lidar/lidar_diffusion_dit_temporal_ns.json`` at full width,
+random weights from seed 0, at ``chip_smoke.py`` phase 14's geometry: 6
+frames, CFG batch 2, K3/K4 at (12, 1600 | 1, 1024)), without a train
+step. The JSON report goes to ``--out`` only.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from opendwm_tpu_torch.ops import _build, fused_adaln  # noqa: E402
 from opendwm_tpu_torch.perf.measure import (  # noqa: E402
     adaln_bound,
     card_line,
+    clock_line,
     cold_copies,
     host_us,
     rel_err,
@@ -60,9 +71,12 @@ from opendwm_tpu_torch.perf.measure import (  # noqa: E402
 )
 
 REPO = Path(__file__).resolve().parents[2]
-# (batch x view-frames, tokens, width): the DiT's latent and text tokens at
-# the serving CFG batch and at training's batch 1.
-SHAPES = ((72, 448, 1536), (72, 154, 1536), (36, 448, 1536), (36, 154, 1536))
+# (batch x view-frames, tokens, width): the CTSD-3.5 DiT's latent and text
+# tokens at the serving CFG batch and at training's batch 1; the LiDAR
+# DiT's latent and text tokens at its CFG batch (2 x 6 frames) and at its
+# training batch (4 x 6 frames).
+SHAPES = ((72, 448, 1536), (72, 154, 1536), (36, 448, 1536), (36, 154, 1536),
+          (12, 1600, 1024), (12, 1, 1024), (24, 1600, 1024), (24, 1, 1024))
 KERNELS = ("adaln_modulate", "residual_adaln_modulate")
 TOL, REL_TOL = 3e-2, 2 ** -8
 ORDER = ("parent", "tree", "tree", "parent")
@@ -144,7 +158,7 @@ def host_parts(dev) -> dict:
         "autograd_apply": lambda: fused_adaln._AdaLN.apply(x, scale, shift,
                                                            1e-6),
         "check_rows": lambda: fused_adaln._check_rows(x, scale, shift),
-        "vecs": lambda: fused_adaln._vecs(36, 1536, scale, shift),
+        "vecs": lambda: fused_adaln._vecs(36, 1536, x.dtype, scale, shift),
         "empty_like": lambda: torch.empty_like(x),
         "instance": lambda: fused_adaln.instance(
             1536, x.dtype, scale.dtype,
@@ -169,8 +183,9 @@ def run_kernels(parent_mod, dev) -> list[dict]:
             residual = name.startswith("residual")
             ref = _call(fused_adaln, name, *inputs, plain=True)()
             row = {"kernel": name, "shape": [n, l, d]}
+            got = {}
             for who, mod in mods.items():
-                outs = _call(mod, name, *inputs)()
+                outs = got[who] = _call(mod, name, *inputs)()
                 torch.cuda.synchronize()
                 errs = {"scaled_err": max(scaled_err(a, b)
                                           for a, b in zip(outs, ref)),
@@ -189,7 +204,9 @@ def run_kernels(parent_mod, dev) -> list[dict]:
                 if who == "tree" and residual and not errs["x_bits_equal"]:
                     raise RuntimeError(f"tree x' at {(n, l, d)} differs from "
                                        f"the plain version's: {errs}")
-            del ref, outs
+            row["tree_bits_equal_parent"] = all(
+                torch.equal(a, b) for a, b in zip(got["tree"], got["parent"]))
+            del ref, outs, got
             x, delta = inputs[:2]
             copies = [inputs] + [
                 (torch.randn_like(x), torch.randn_like(delta), *inputs[2:])
@@ -232,30 +249,22 @@ def _launched(module) -> int:
     return module.launches + module.res_launches
 
 
-def run_model(parent_mod, dev) -> dict:
-    """The DiT CFG forward and train step with each pair, in turns."""
-    sys.path.insert(0, str(REPO))
-    import chip_smoke as smoke
-    from opendwm_tpu_torch.config import create_instance_from_config
-    from opendwm_tpu_torch.pipelines.ctsd import get_conditions
+def _smoke():
+    """``chip_smoke.py`` of this checkout, for its phase builders."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    import chip_smoke
 
-    mods = {"parent": parent_mod, "tree": fused_adaln}
-    report: dict = {"forward_s": {w: [] for w in mods},
-                    "step_s": {w: [] for w in mods}}
-    cfg = json.loads(smoke.CONFIG.read_text())["pipeline"]
-    with torch.device("meta"):
-        pipe = create_instance_from_config(cfg)
-    model = pipe.model
-    gen = torch.Generator(dev).manual_seed(SEED)
-    model.to_empty(device=dev)
-    smoke.random_init_(model, gen)
-    model.eval()
-    batch = smoke.make_batch(dev, gen)
-    conds = get_conditions(batch, pipe.common_config,
-                           do_classifier_free_guidance=True)
-    shape = (2, smoke.FRAMES, smoke.VIEWS, smoke.LAT_H, smoke.LAT_W, 16)
-    kwargs = dict(sample=torch.randn(shape, generator=gen, device=dev),
-                  timestep=torch.full(shape[:3], 500.0, device=dev), **conds)
+    return chip_smoke
+
+
+def forward_turns(mods: dict, model, kwargs: dict, what: str) -> dict:
+    """``model``'s CFG forward with each pair of ``mods``: a warm-up of
+    each, then 3 forwards a turn (``ORDER``; host seconds around each,
+    between synchronizes), the relative error of the tree's output to the
+    parent's, and one profiled forward a pair (K3/K4 device ms in it)."""
+    smoke = _smoke()
+    report: dict = {"forward_s": {w: [] for w in mods}}
     outs = {}
     with torch.inference_mode():
         for module in mods.values():  # warm-ups
@@ -277,12 +286,74 @@ def run_model(parent_mod, dev) -> dict:
         for who in mods:
             with use(mods[who]):
                 dt, prof = smoke.profile_forward(
-                    model, kwargs, f"DiT CFG forward ({who} K3/K4)")
+                    model, kwargs, f"{what} ({who} K3/K4)")
             report[f"{who}_profiled"] = {"wall_s": dt,
                                          **smoke.adaln_profile_ms(prof)}
             print(f"{who}: {json.dumps(report[f'{who}_profiled'])}",
                   flush=True)
-    del pipe, model, conds, kwargs, outs, batch
+    return report
+
+
+def _print_times(report: dict, keys) -> None:
+    for key in keys:
+        for who, ts in report[key].items():
+            print(f"{key} {who}: {', '.join(f'{t:.4f}' for t in ts)}; mean "
+                  f"{sum(ts) / len(ts):.4f}", flush=True)
+
+
+def run_lidar_model(parent_mod, dev) -> dict:
+    """The LiDAR DiT's CFG forward with each pair, in turns, at
+    ``chip_smoke.py`` phase 14's geometry."""
+    smoke = _smoke()
+    from opendwm_tpu_torch.config import create_instance_from_config
+    from opendwm_tpu_torch.pipelines.ctsd import get_conditions
+
+    mods = {"parent": parent_mod, "tree": fused_adaln}
+    pipe, gen = smoke.build_lidar(create_instance_from_config,
+                                  smoke.LIDAR_DIT_CONFIG, dev,
+                                  ("model", "autoencoder"))
+    prepared = pipe.prepare_batch(smoke.lidar_batch(dev, gen,
+                                                    smoke.LIDAR_DIT_FRAMES))
+    latents = prepared["latents"]
+    conds = get_conditions(prepared, pipe.common_config,
+                           do_classifier_free_guidance=True)
+    kwargs = dict(sample=torch.randn((2, *latents.shape[1:]), generator=gen,
+                                     device=dev),
+                  timestep=torch.full((2, *latents.shape[1:3]), 500.0,
+                                      device=dev), **conds)
+    del prepared
+    report = forward_turns(mods, pipe.model, kwargs, "LiDAR DiT CFG forward")
+    _print_times(report, ("forward_s",))
+    del pipe, conds, kwargs, latents
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def run_model(parent_mod, dev) -> dict:
+    """The DiT CFG forward and train step with each pair, in turns."""
+    smoke = _smoke()
+    from opendwm_tpu_torch.config import create_instance_from_config
+    from opendwm_tpu_torch.pipelines.ctsd import get_conditions
+
+    mods = {"parent": parent_mod, "tree": fused_adaln}
+    cfg = json.loads(smoke.CONFIG.read_text())["pipeline"]
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+    model = pipe.model
+    gen = torch.Generator(dev).manual_seed(SEED)
+    model.to_empty(device=dev)
+    smoke.random_init_(model, gen)
+    model.eval()
+    batch = smoke.make_batch(dev, gen)
+    conds = get_conditions(batch, pipe.common_config,
+                           do_classifier_free_guidance=True)
+    shape = (2, smoke.FRAMES, smoke.VIEWS, smoke.LAT_H, smoke.LAT_W, 16)
+    kwargs = dict(sample=torch.randn(shape, generator=gen, device=dev),
+                  timestep=torch.full(shape[:3], 500.0, device=dev), **conds)
+    report = forward_turns(mods, model, kwargs, "DiT CFG forward")
+    report["step_s"] = {w: [] for w in mods}
+    del pipe, model, conds, kwargs, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -315,10 +386,7 @@ def run_model(parent_mod, dev) -> dict:
             report["step_s"][who] += [step() for _ in range(2)]
         if _launched(mods[who]) == before:
             raise RuntimeError(f"the {who} K3/K4 never ran in the train step")
-    for key in ("forward_s", "step_s"):
-        for who, ts in report[key].items():
-            print(f"{key} {who}: {', '.join(f'{t:.4f}' for t in ts)}; mean "
-                  f"{sum(ts) / len(ts):.4f}", flush=True)
+    _print_times(report, ("forward_s", "step_s"))
     del pipe, state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -332,9 +400,12 @@ def main(argv=None) -> dict:
     parser.add_argument("--parent", required=True, type=Path,
                         help="root of the checkout to compare against")
     parser.add_argument("--out", required=True, help="JSON report path")
-    parser.add_argument("--model", action="store_true",
-                        help="also time the DiT CFG forward and train step "
-                             "with each pair")
+    parser.add_argument("--model", nargs="?", const="dit",
+                        choices=("dit", "lidar"),
+                        help="also time a full-width model with each pair: "
+                             "the CTSD-3.5 DiT's CFG forward and train step "
+                             "(dit, the default) or the LiDAR DiT's CFG "
+                             "forward (lidar)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the comparison needs an NVIDIA GPU")
@@ -349,12 +420,19 @@ def main(argv=None) -> dict:
                          "card": card_line()},
               "ptxas": _build.ptxas_report(_build.library_path("adaln.cu"),
                                            "adaln_"),
+              "sass": _build.sass_census(_build.library_path("adaln.cu"),
+                                         "adaln_stream_kernel"),
+              "clocks": {"before": clock_line()},
               "rows": run_kernels(parent_mod, dev),
               "host_parts_us": host_parts(dev)}
+    report["clocks"]["after_kernels"] = clock_line()
+    print(f"clocks: {json.dumps(report['clocks'])}", flush=True)
     print(f"host parts (us a call): {json.dumps(report['host_parts_us'])}",
           flush=True)
     if args.model:
-        report["model"] = run_model(parent_mod, dev)
+        run = run_lidar_model if args.model == "lidar" else run_model
+        report["model"] = {"name": args.model, **run(parent_mod, dev)}
+        report["clocks"]["after_model"] = clock_line()
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))

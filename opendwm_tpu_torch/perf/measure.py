@@ -230,3 +230,13 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def clock_line() -> str:
+    """The card's SM clock and its maximum, temperature, power draw and
+    active clock-event reasons, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+         "power.draw,clocks_event_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return out.stdout.strip() or "unread: " + out.stderr.strip()[:200]

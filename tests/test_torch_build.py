@@ -70,3 +70,34 @@ def test_ptxas_report_reads_registers_and_spills(csrc):
         "ptxas info    : Used 40 registers\n")
     assert _build.ptxas_report(lib, "fwd_sm90") == {
         "_Z9fwd_sm90v": {"spill_bytes": 12, "registers": 128}}
+
+
+def test_sass_census_counts_bulk_copies(monkeypatch):
+    """``sass_census`` counts each opcode of ``SASS_OPCODES`` by function in
+    ``cuobjdump -sass``'s listing, the 1-D bulk copy (``UBLKCP``, both
+    directions) of the AdaLN ring too, and skips the other functions; a
+    library is listed once, however many censuses read it."""
+    listing = (
+        "\t\tFunction : _ZN12_GLOBAL__N_119adaln_stream_kernelIfLb0ELi1024EEEv\n"
+        "        /*0a10*/  UBLKCP.S.G [UR8], [UR4], UR6 ;\n"
+        "        /*0b20*/  UBLKCP.G.S [UR10], [UR12], UR14 ;\n"
+        "        /*0c30*/  LDS.128 R4, [R2] ;\n"
+        "\t\tFunction : _ZN12_GLOBAL__N_116adaln_any_kernelIfLb0EEEv\n"
+        "        /*0010*/  LDG.E R4, desc[UR4][R2.64] ;\n")
+
+    class Done:
+        stdout = listing
+
+    calls = []
+    monkeypatch.setattr(_build, "_tool", lambda name: name)
+    monkeypatch.setattr(_build.subprocess, "run",
+                        lambda *a, **k: calls.append(a) or Done())
+    _build.sass_listing.cache_clear()
+    census = _build.sass_census("lib.so", "adaln_stream_kernel")
+    assert _build.sass_census("lib.so", "adaln_any_kernel")
+    assert len(calls) == 1  # one listing a library
+    _build.sass_listing.cache_clear()
+    name = "_ZN12_GLOBAL__N_119adaln_stream_kernelIfLb0ELi1024EEEv"
+    assert list(census) == [name]
+    assert census[name] == {**dict.fromkeys(_build.SASS_OPCODES, 0),
+                            "UBLKCP": 2}

@@ -146,13 +146,14 @@ def test_flash_tail_grad_launches_k2(cuda):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3e-2),
                                        (torch.float16, 3e-2)])
-@pytest.mark.parametrize("d", [1536, 32, 40])
+@pytest.mark.parametrize("d", [1536, 1024, 32, 40])
 @pytest.mark.parametrize("l", [1, 154, 448])
 @pytest.mark.parametrize("mod_ndim", [2, 3])
 def test_fused_adaln_kernels_match_plain(cuda, dtype, tol, d, l, mod_ndim):
-    """K3 and K4 against their plain versions: the d-1536 kernel at d 1536,
-    the runtime-width one at 32 and 40; x' bit for bit, bf16 and fp16 also
-    within 2^-8 in relative norm; one launch each on the counters."""
+    """K3 and K4 against their plain versions: the ring at its compiled
+    widths 1536 and 1024, the runtime-width kernel at 32 and 40; x' bit for
+    bit, bf16 and fp16 also within 2^-8 in relative norm; one launch each
+    on the counters."""
     n = 3
     g = torch.Generator(cuda).manual_seed(d + l)
     x, delta = (torch.randn(n, l, d, generator=g, device=cuda).to(dtype)
@@ -169,7 +170,7 @@ def test_fused_adaln_kernels_match_plain(cuda, dtype, tol, d, l, mod_ndim):
     ref = fused_adaln.adaln_modulate_plain(x, scale, shift)
     rx, ry = fused_adaln.residual_adaln_modulate_plain(
         x, delta, gate, scale, shift)
-    fixed = int(d == 1536)
+    fixed = int(d in (1024, 1536))
     assert (fused_adaln.launches, fused_adaln.res_launches) == (1, 1)
     assert (fused_adaln.fixed_launches,
             fused_adaln.res_fixed_launches) == (fixed, fixed)
@@ -184,8 +185,8 @@ def test_fused_adaln_kernels_match_plain(cuda, dtype, tol, d, l, mod_ndim):
 
 def test_fused_adaln_fp32_x_with_bf16_vectors_runs_the_row_kernel(cuda):
     """An fp32 x with bf16 modulation vectors and a bf16 delta cast to x's
-    dtype (the DiT's stream after MaskGWM's reconstruction) runs the d-1536
-    kernel on fp32 copies of the vectors, within 1e-5 of the plain
+    dtype (the DiT's stream after MaskGWM's reconstruction) runs the ring
+    on fp32 copies of the vectors, within 1e-5 of the plain
     version, x' bit for bit."""
     g = torch.Generator(cuda).manual_seed(6)
     n, l, d = 3, 154, 1536
@@ -208,11 +209,12 @@ def test_fused_adaln_fp32_x_with_bf16_vectors_runs_the_row_kernel(cuda):
     assert _scaled_err(yo, ry) <= 1e-5
 
 
-def test_fused_adaln_unaligned_rows_run_any_width(cuda):
+@pytest.mark.parametrize("d", [1536, 1024])
+def test_fused_adaln_unaligned_rows_run_any_width(cuda, d):
     """Rows that are not 16-byte aligned run the runtime-width kernel at
-    d 1536, with the same results."""
+    the ring's widths, d 1536 and 1024, with the same results."""
     g = torch.Generator(cuda).manual_seed(5)
-    n, l, d = 2, 9, 1536
+    n, l = 2, 9
     buf = torch.randn(2 * n * l * d + 1, generator=g, device=cuda).to(
         torch.bfloat16)
     x = buf[1:n * l * d + 1].view(n, l, d)  # 2 bytes past an aligned start

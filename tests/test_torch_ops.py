@@ -16,6 +16,7 @@ package's ``custom_vjp`` functions, whose backward is the Pallas K2 kernel
 """
 
 import functools
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -341,12 +342,19 @@ BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
     (40, F32, F32, (A16, A16), "any"),
     (3072, BF16, BF16, (A16, A16), "any"),
     (1536, torch.float64, torch.float64, (A16, A16), "any"),
+    (1024, BF16, BF16, (A16, A16, A16, 9 * 2048), "fixed"),
+    (1024, F16, F16, (A16, A16, A16, A16, A16, 9 * 2048), "fixed"),
+    (1024, F32, F32, (A16, A16, A16, 4096), "fixed"),
+    (1024, BF16, F32, (A16, A16, A16, 4096), "any"),    # vectors in fp32
+    (1024, BF16, BF16, (A16 + 2, A16, A16, 2048), "any"),  # a row off 2 B
+    (1024, BF16, BF16, (A16, A16, A16, 2050), "any"),   # its stride off 2 B
 ])
 def test_adaln_instance_rule(d, dtype, mod_dtype, addresses, want):
-    """The rule that picks K3/K4's kernel in ``csrc/adaln.cu``: the d-1536
-    kernel only at d 1536, in a type it is compiled for, with the vectors
-    in that type and every row pointer, vector pointer and per-sample
-    vector stride (bytes) a multiple of 16; else the runtime-width one."""
+    """The rule that picks K3/K4's kernel in ``csrc/adaln.cu``: the ring
+    only at a width it is compiled for (``RING_WIDTHS``: 1024 and 1536), in
+    a type it is compiled for, with the vectors in that type and every row
+    pointer, vector pointer and per-sample vector stride (bytes) a multiple
+    of 16; else the runtime-width one."""
     assert fused_adaln.instance(d, dtype, mod_dtype, *addresses) == want
 
 
@@ -357,6 +365,48 @@ def test_adaln_addresses_hold_vector_strides():
     mods = torch.zeros(2, 9 * 8, dtype=BF16).chunk(9, dim=-1)
     assert fused_adaln._addresses(x, mods[1]) == [
         x.data_ptr(), mods[1].data_ptr(), 9 * 8 * 2]
+
+
+REPO = Path(__file__).resolve().parents[1]
+XS_CONFIGS = ["ctsd_35_xs_df6v3_tirda_bm_nwao.json",
+              "ctsd_35_xs_df6v3_tirda_bm_nwao_streaming.json"]
+
+
+def test_every_dit_config_width_runs_the_adaln_ring():
+    """Every ``DiTCrossviewTemporal`` config under ``configs/`` that the
+    port builds is as wide (heads x head dim) as a width the K3/K4 ring is
+    compiled for (``fused_adaln.RING_WIDTHS``), or narrower than 256 (the
+    synthetic configs' 4 x 8): a config at another full width would run
+    the runtime-width kernel on the card. Each is built on the meta device
+    at one layer (the width does not depend on the depth); the two XS
+    configs (20 x 64 with a 1536-wide adapter) are refused at build."""
+    from opendwm_tpu_torch.config import create_instance_from_config, \
+        get_class
+    from opendwm_tpu_torch.models.mmdit import DiTCrossviewTemporal
+
+    widths, refused = {}, []
+    for path in sorted(REPO.glob("configs/**/*.json")):
+        model = json.loads(path.read_text()).get("pipeline", {})
+        model = model.get("model") if isinstance(model, dict) else None
+        if not isinstance(model, dict) or \
+                get_class(model["_class_name"]) is not DiTCrossviewTemporal:
+            continue
+        with torch.device("meta"):
+            try:
+                built = create_instance_from_config(dict(model, num_layers=1))
+            except ValueError as e:
+                assert "ImageAdapter stage 0 is 1536 wide" in str(e)
+                refused.append(path.name)
+                continue
+        widths[path.relative_to(REPO).as_posix()] = built.inner_dim
+    assert sorted(refused) == XS_CONFIGS
+    assert len(widths) == 17
+    off = {k: w for k, w in widths.items()
+           if w not in fused_adaln.RING_WIDTHS and w >= 256}
+    assert not off, off
+    assert set(widths.values()) == {32, 1024, 1536}
+    assert widths["configs/lidar/lidar_diffusion_dit_temporal_ns.json"] == \
+        widths["configs/lidar/lidar_diffusion_dit_temporal_kt.json"] == 1024
 
 
 def _jax_pallas_flash(q, k, v, causal):

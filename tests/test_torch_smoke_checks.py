@@ -4,8 +4,10 @@ SASS/ptxas census of the forward, tiling and backward instances, the rule
 that every attention launch of a model path ran the Hopper body, and the
 tiling experiment's rules (K5 and K6 equal to K1 bit for bit, every bf16
 launch of them on the Hopper tiling kernel); for K3/K4 (``csrc/adaln.cu``)
-the ptxas spill gate, the bars and the rule that every launch of the DiT
-paths ran the d-1536 kernel, and that the smoke builds every CUDA source.
+the ptxas spill gate, the SASS census of the ring's instances (the bulk
+copy in each), the bars, the profile's K3/K4 split and the rule that every
+launch of the DiT paths ran the ring, and that the smoke builds every CUDA
+source.
 Also the shape of the backward's fp32 dQ workspace; and the layout
 phases' gates: the rasters must move a denoiser's output, ``random_init_``
 draws the ImageAdapter's zero convs and gates non-zero, and the bf16
@@ -282,8 +284,8 @@ def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
     ("pp_serve", {"k4": 0, "k4_fixed": 0}, False),
 ])
 def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
-    """Every K3/K4 launch of the fourteen DiT paths must have run the d-1536
-    kernel of ``csrc/adaln.cu``, and each path must have launched both."""
+    """Every K3/K4 launch of the fourteen DiT paths must have run the ring
+    of ``csrc/adaln.cu``, and each path must have launched both."""
     assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train",
                                     "stream", "int8_serve", "unimlvg_serve",
                                     "unimlvg_train", "branch_types",
@@ -344,7 +346,7 @@ class _FakeAdalnBuild:
         return self.report
 
 
-def _adaln_ptxas(n=12, **over):
+def _adaln_ptxas(n=18, **over):
     report = {f"_ZN12_GLOBAL__N_119adaln_stream_kernelI{i}EEvNS_4ArgsE":
               {"registers": 90, "spill_bytes": 0} for i in range(n)}
     first = next(iter(report))
@@ -355,17 +357,83 @@ def _adaln_ptxas(n=12, **over):
 @pytest.mark.parametrize("report,ok", [
     (_adaln_ptxas(), True),
     (_adaln_ptxas(spill_bytes=8), False),
-    (_adaln_ptxas(n=11), False),
+    (_adaln_ptxas(n=17), False),
+    (_adaln_ptxas(n=12), False),  # the ring at one width only
     ({"f": {"registers": 40}}, False),
 ])
 def test_adaln_ptxas_fails_on_a_spill(smoke, report, ok):
-    """Every kernel of ``csrc/adaln.cu`` (12 instances) must be in ptxas's
-    report with 0 spill bytes."""
+    """Every kernel of ``csrc/adaln.cu`` (18 instances: the ring at d 1024
+    and 1536 and the runtime-width kernel, K3 and K4 in three types) must
+    be in ptxas's report with 0 spill bytes."""
+    assert smoke.adaln_instances() == (12, 18)
     if ok:
         assert smoke.check_adaln_ptxas(_FakeAdalnBuild(report)) == report
     else:
         with pytest.raises(SystemExit):
             smoke.check_adaln_ptxas(_FakeAdalnBuild(report))
+
+
+RING = "_ZN12_GLOBAL__N_119adaln_stream_kernel{}EEEvNS_4ArgsE"
+RING_FLAGS = [f"I{t}Lb{r}ELi{d}" for t in ("f", "13__nv_bfloat16", "6__half")
+              for r in (0, 1) for d in (1024, 1536)]
+
+
+@pytest.mark.parametrize("case", ["ok", "no_bulk_copy", "no_ptxas",
+                                  "one_width"])
+def test_adaln_ring_census(smoke, case):
+    """The SASS census of the ring: 12 instances (K3 and K4 in three types
+    at d 1024 and 1536), each reported by ptxas and each with the 1-D bulk
+    copy (``UBLKCP``); it fails on an instance without it, on one ptxas did
+    not report, and on a ring at one width only."""
+    flags = RING_FLAGS[::2] if case == "one_width" else RING_FLAGS
+    sass = {RING.format(f): {"UBLKCP": 5, "HGMMA": 0} for f in flags}
+    ptxas = {name: {"registers": 80, "spill_bytes": 0} for name in sass}
+    first = RING.format(RING_FLAGS[0])
+    if case == "no_bulk_copy":
+        sass[first]["UBLKCP"] = 0
+    elif case == "no_ptxas":
+        del ptxas[first]
+    build = _FakeBuild(ptxas, sass)
+    if case == "ok":
+        census = smoke.census_adaln_ring(build)
+        assert len(census) == 12
+        assert census["I13__nv_bfloat16Lb1ELi1024"] == {
+            "registers": 80, "spill_bytes": 0, "UBLKCP": 5, "HGMMA": 0}
+    else:
+        with pytest.raises(SystemExit):
+            smoke.census_adaln_ring(build)
+
+
+class _KernelEvent:
+    def __init__(self, key, us, count):
+        from torch.autograd import DeviceType
+        self.key, self.self_device_time_total, self.count = key, us, count
+        self.device_type = DeviceType.CUDA
+
+
+class _KernelProfile:
+    def __init__(self, *events):
+        self.events = events
+
+    def key_averages(self):
+        return self.events
+
+
+def test_adaln_profile_ms_reads_the_residual_flag(smoke):
+    """K3 and K4 in a profile: K4 is the residual instance, whether the
+    ring's name carries its width (``<T, true, 1024>``) or not (the ring
+    before it took one, ``<T, true>``), and the runtime-width kernel."""
+    ns = "void (anonymous namespace)::"
+    prof = _KernelProfile(
+        _KernelEvent(f"{ns}adaln_stream_kernel<__nv_bfloat16, true, 1024>(Args)",
+               300.0, 31),
+        _KernelEvent(f"{ns}adaln_stream_kernel<__nv_bfloat16, false, 1024>(Args)",
+               100.0, 33),
+        _KernelEvent(f"{ns}adaln_stream_kernel<__nv_bfloat16, true>(Args)", 50.0, 2),
+        _KernelEvent(f"{ns}adaln_any_kernel<float, false>(Args)", 20.0, 4),
+        _KernelEvent("flash_fwd_sm90_kernel<true>", 999.0, 8))
+    assert smoke.adaln_profile_ms(prof) == pytest.approx({
+        "K3_ms": 0.12, "K3_launches": 37, "K4_ms": 0.35, "K4_launches": 33})
 
 
 @pytest.mark.parametrize("move,ok", [(0.0, False), (5e-4, False),
@@ -531,9 +599,9 @@ def _lidar_dit_counts(**over) -> dict:
     counts = {
         "flash_tail": 32, "flash_tail_by_shape": {shape: 32},
         "flash_tail_sm90_by_shape": {shape: 32},
-        "adaln_modulate": 132, "adaln_modulate_fixed": 0,
+        "adaln_modulate": 132, "adaln_modulate_fixed": 132,
         "adaln_modulate_by_shape": {"12,1600,1024": 68, "12,1,1024": 64},
-        "residual_adaln_modulate": 124, "residual_adaln_modulate_fixed": 0,
+        "residual_adaln_modulate": 124, "residual_adaln_modulate_fixed": 124,
         "residual_adaln_modulate_by_shape": {"12,1600,1024": 64,
                                              "12,1,1024": 60},
         "flash_attention": 0, "flash_attention_segment": 0}
@@ -548,16 +616,18 @@ def _lidar_dit_counts(**over) -> dict:
     ({"flash_tail_by_shape": {"80,240,16,64": 31, "80,256,16,64": 1}},
      False),
     ({"adaln_modulate_fixed": 1}, False),
-    ({"residual_adaln_modulate_fixed": 124}, False),
+    ({"residual_adaln_modulate_fixed": 123}, False),
+    ({"adaln_modulate_fixed": 0, "residual_adaln_modulate_fixed": 0},
+     False),  # every launch on the runtime-width kernel
     ({"residual_adaln_modulate_by_shape": {"12,1600,1024": 124}}, False),
     ({"residual_adaln_modulate": 120}, False),
     ({"flash_attention": 1}, False),
 ])
 def test_lidar_dit_census(smoke, over, ok):
     """The LiDAR DiT path: K1 8 a CFG forward, all at (80, 240, 16, 64) on
-    the Hopper forward; K3 33 and K4 31 a forward, all on the
-    runtime-width kernel at both d-1024 shapes; no K7. The path is a model
-    path but not a d-1536 one."""
+    the Hopper forward; K3 33 and K4 31 a forward, all on the ring at both
+    d-1024 shapes; no K7. The path is a model path with a K3/K4 census of
+    its own, not one of ``DIT_PATHS``."""
     assert "lidar_dit" in smoke.MODEL_PATHS
     assert "lidar_dit" not in smoke.DIT_PATHS
     assert smoke.LIDAR_K1_SHAPE + (64,) == (80, 240, 16, 64)
@@ -997,15 +1067,15 @@ def test_tiny_unimlvg_paths_reach_their_kernels(smoke):
 
 def _lidar_dit_train_counts(**over) -> dict:
     """The census of 2 LiDAR DiT train steps: K1 16 and K2 8 a step at
-    (160, 240, 16, 64), K3/K4 on the runtime-width kernel at the train
-    batch's d-1024 shapes."""
+    (160, 240, 16, 64), K3/K4 on the ring at the train batch's d-1024
+    shapes."""
     k1 = "160,240,16,64"
     counts = {
         "flash_tail": 32, "flash_tail_by_shape": {k1: 32},
         "flash_tail_backward": 16, "flash_tail_backward_by_shape": {k1: 16},
-        "adaln_modulate": 132, "adaln_modulate_fixed": 0,
+        "adaln_modulate": 132, "adaln_modulate_fixed": 132,
         "adaln_modulate_by_shape": {"24,1600,1024": 68, "24,1,1024": 64},
-        "residual_adaln_modulate": 124, "residual_adaln_modulate_fixed": 0,
+        "residual_adaln_modulate": 124, "residual_adaln_modulate_fixed": 124,
         "residual_adaln_modulate_by_shape": {"24,1600,1024": 64,
                                              "24,1,1024": 60},
         "flash_attention": 0, "flash_attention_backward": 0}
@@ -1024,13 +1094,15 @@ def _lidar_dit_train_counts(**over) -> dict:
     ({"adaln_modulate": 40, "adaln_modulate_by_shape":
       {"24,1600,1024": 20, "24,1,1024": 20}}, False),  # under a forward's
     ({"residual_adaln_modulate_fixed": 2}, False),
+    ({"adaln_modulate_fixed": 0, "residual_adaln_modulate_fixed": 0},
+     False),  # every launch on the runtime-width kernel
     ({"adaln_modulate_by_shape": {"24,1600,1024": 132}}, False),
     ({"flash_attention_backward": 1}, False),
 ])
 def test_lidar_dit_train_census(smoke, over, ok):
     """The LiDAR DiT train steps: K1 and K2 at (160, 240, 16, 64) only, K2
     8 a step, K3/K4 at the same count every step, at least a forward's,
-    on the runtime-width kernel at both train shapes; no K7."""
+    on the ring at both train shapes; no K7."""
     assert {"lidar_dit_train", "lidar_unet_train"} <= set(smoke.TRAIN_PATHS)
     assert {"lidar_dit_train", "lidar_unet_serve", "lidar_unet_train"} <= \
         set(smoke.MODEL_PATHS)
