@@ -14,7 +14,8 @@ FID / FVD nets, the metrics, the train CLI's evaluation, preview and
 profile), the CTSD-2.1 UNet's depth branch in training, the BEV world VAE,
 the blank-code tool and the LiDAR visualizer, the multi-device stack (FSDP
 training, ring attention, the GPipe schedule and the stage-sliced flagship
-DiT, the train CLI under torchrun) on an NCCL group of one, the
+DiT, the train CLI under torchrun, the full-width evaluate CLI with its
+metrics merged over the data ranks) on an NCCL group of one, the
 tail-attention tiling experiment and the attention shoot-out on one GPU.
 
 Run from the root of a checkout:
@@ -26,8 +27,9 @@ Phases; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``opendwm_tpu_torch/csrc`` (one nvcc per
-   source, all at once: ``flash_tail.cu``, ``flash_attention.cu``,
-   ``flash_segment.cu`` (K7-seg's backward), ``adaln.cu``); ptxas's
+   source, all at once, each with ``--split-compile=0``: ``flash_tail.cu``,
+   ``flash_attention.cu``, ``flash_segment.cu`` (K7-seg's backward),
+   ``adaln.cu``; then ``cuobjdump -sass`` of the four at once); ptxas's
    registers and spills (its report is kept beside each library, so a
    library built by an earlier run is held too) of every kernel of
    ``adaln.cu`` (K3/K4: the ring at each of its compiled widths and the
@@ -90,9 +92,12 @@ Phases; any failure raises and exits non-zero:
    plain attention and K7-seg over S padded to a multiple of 128 at (36,
    602 | 448, 24, 64) bf16; its launches are the ``attn602`` path's, and
    K7-seg must have launched at (36, 640) and (36, 512) there). Beside
-   each kernel's time: its plain version's, the least time the card could
-   take for the same work (``bound_ms``), and the time of one PyTorch call
-   that computes the same function (``library_ms``:
+   each kernel's time: its plain version's (timed over as many calls as
+   fit in ``measure.PLAIN_BUDGET_MS``, at least 2: a reduction for the
+   smoke's time, 8 calls instead of 24 for its slowest rows), the least
+   time the card could take for the same work (``bound_ms``), and the
+   time of one PyTorch call that computes the same function
+   (``library_ms``:
    ``scaled_dot_product_attention`` or its backward for the attention
    kernels, with the boolean same-id mask for K7-seg, and
    ``aten._scaled_dot_product_flash_attention``, which also returns the
@@ -348,7 +353,9 @@ Phases; any failure raises and exits non-zero:
    runs 2 steps of ``TINY_CONFIG`` with ``--evaluation-steps 1
    --preview-steps 1 --profile-steps 1:1`` and a tiny VAE landed by
    ``convert_cli``: the metric logged at both steps, both previews and
-   the trace written.
+   the trace written. The evaluate config and its landed VAE stay for
+   phase 28(f). The CLIs build their models on the card
+   (``train.build_pipeline``), their random weights from its generator;
 
 25. the depth branch (``run_unet_depth_train``): first the projection of
    the depth loss at this phase's geometry on the card and on the host
@@ -376,7 +383,9 @@ Phases; any failure raises and exits non-zero:
 28. multi-device (``run_multidevice_phase``). One card gives NCCL a
    process group of world size 1 only (it refuses two ranks on one
    device), so no collective at a larger world size runs here. Under an
-   NCCL group of one over a FileStore: (a) phase 6's DiT, 3 steps under
+   NCCL group of one over a FileStore: (a) phase 6's DiT cut to
+   ``MD_TRAIN_LAYERS`` = 4 of its 24 layers (a reduction: every block
+   type of the full depth stays), 3 steps under
    its config's ``fsdp`` policy (FSDP2, one unit a block) against 3
    unsharded steps on the same draws: step 1's loss within
    ``MD_LOSS_REL`` (the reference's sharded-step record), the later ones
@@ -395,18 +404,28 @@ Phases; any failure raises and exits non-zero:
    bf16 bar (bit-equal: the same shapes), and the DiT through it; (c) the ring's per-rank steps of 2 and 7 ranks run in
    one process (not a collective) at the joint attention's (36, 602, 24,
    64) against K1 and K2 over the whole sequence, within 0.6% per
-   gradient. Then (e) the train CLI under ``torchrun --standalone
-   --nproc-per-node 1`` (a loopback rendezvous): 2 steps of
-   ``TINY_CONFIG``, its state placed by the config's fsdp policy and its
-   checkpoint sharded.
+   gradient; (f) ``evaluate.main --device cuda`` on phase 24's evaluate
+   config at full width (phase 5's DiT, 4 steps, CFG 3.0, the landed VAE,
+   ``fid_proxy``), its train state placed by the config's fsdp policy on
+   the group: each rank scores its rows of the global batch and the
+   metrics' states are merged over the data ranks
+   (``parallel.collectives.reduce_metric_states``); its metrics equal
+   phase 24's one-process ones within ``EVAL_RANKS_REL`` (at world 1 the
+   merge is the identity), the merge's collectives counted on NCCL
+   (``EVAL_RANKS_COLLECTIVES``), K1 at (72, 602 | 448, 24, 64) and (192,
+   168, 24, 64) only, K3 62 and K4 47 a CFG forward at (72, 448 | 154,
+   1536) only, on their Hopper bodies (the ``eval_ranks`` path). Then (e)
+   the train CLI under ``torchrun --standalone --nproc-per-node 1`` (a
+   loopback rendezvous): 2 steps of ``TINY_CONFIG``, its state placed by
+   the config's fsdp policy and its checkpoint sharded.
 
 Each slice is freed before the next. K7-seg must have launched on no path
 but the shoot-out and ``segment_grad``, every K1 and K7 forward launch of
-the twenty-six model paths must have run the Hopper forward, every K2 and
-K7 backward launch of the eleven training paths the Hopper backward,
+the twenty-seven model paths must have run the Hopper forward, every K2
+and K7 backward launch of the eleven training paths the Hopper backward,
 every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
-of the fourteen DiT paths and of the LiDAR DiT's serving and training the
+of the fifteen DiT paths and of the LiDAR DiT's serving and training the
 ring (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
@@ -436,6 +455,7 @@ from opendwm_tpu_torch.perf.measure import (  # noqa: E402
     card_line,
     clock_line,
     cold_copies,
+    device_events,
     host_us,
     max_err,
     packed_segment_ids,
@@ -448,7 +468,7 @@ from opendwm_tpu_torch.perf.measure import (  # noqa: E402
     time_pair,
 )
 
-STARTED = time.perf_counter()  # the run's seconds so far, in log_clocks
+STARTED = time.perf_counter()  # the run's seconds so far (log, log_clocks)
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_35_tirda_nwao.json"
 UNET_CONFIG = REPO / "configs/ctsd/multi_datasets/ctsd_21_tirda_nwao.json"
@@ -473,10 +493,11 @@ MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
                "branch_types", "mask_step", "lidar_dit_train",
                "lidar_unet_serve", "lidar_unet_train", "lidar_unet_data",
                "land_eval", "unet_depth_train", "fsdp_train", "sp_serve",
-               "pp_serve", "ring_steps", "segment_grad")
+               "pp_serve", "ring_steps", "segment_grad", "eval_ranks")
 DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
              "int8_serve", "unimlvg_serve", "unimlvg_train", "branch_types",
-             "mask_step", "land_eval", "fsdp_train", "sp_serve", "pp_serve")
+             "mask_step", "land_eval", "fsdp_train", "sp_serve", "pp_serve",
+             "eval_ranks")
 # LiDAR serving (bench.py:228-394's geometry): MaskGIT generation on the
 # layout config (bf16 compute, as bench.py:247-252 sets it), the temporal
 # vq80k config's autoregressive rollout, and the temporal LiDAR DiT (its
@@ -669,6 +690,18 @@ MD_LOSS_REL = 6.1e-5
 MD_PARAM_REL = 1e-3
 MD_UPDATE_REL = 0.25
 MD_CKPT_LAYERS = 2
+# (a)'s DiT is phase 6's cut to this depth (a reduction for the smoke's
+# time; layers 0-3 hold dual-attention blocks, a cross-view and two
+# temporal branches: every block type of the full depth).
+MD_TRAIN_LAYERS = 4
+# (f): the evaluate CLI under the NCCL group of one against phase 24's
+# one-process run of the same config and seed: each metric within this
+# relative difference (at world 1 the merge of the data ranks' states is
+# the identity), and the collectives the merge of its one
+# FrechetPairedMetric issues (its fp32 sums in one all_gather, its counts
+# in one all_gather_object).
+EVAL_RANKS_REL = 1e-6
+EVAL_RANKS_COLLECTIVES = {"nccl:all_gather": 1, "nccl:all_gather_object": 1}
 MD_RING = (36, 602, 24)
 MD_RING_N = (2, 7)
 MD_CLI_STEPS = 2
@@ -744,7 +777,8 @@ DQ_ORDER_TOL = 2 ** -7
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` after the run's seconds so far (where the time goes)."""
+    print(f"[{time.perf_counter() - STARTED:7.1f} s] {msg}", flush=True)
 
 
 def fail(msg: str):
@@ -2383,15 +2417,15 @@ FAMILIES = (  # kernel families of the profiles, matched in order, lowercase
 
 
 def _device_kernels(prof) -> list:
-    """(self device µs, calls, name) of each kernel in ``key_averages``
-    (operator entries also carry their kernels' time and are skipped, as
-    are annotation ranges on the GPU timeline)."""
-    from torch.autograd import DeviceType
-
-    return [(evt.self_device_time_total, evt.count, evt.key)
-            for evt in prof.key_averages()
-            if getattr(evt, "device_type", None) == DeviceType.CUDA and
-            not getattr(evt, "is_user_annotation", False)]
+    """(self device µs, calls, name) of each kernel of a profile, by name,
+    as ``key_averages`` lists them (annotation ranges on the GPU timeline
+    skipped), read from its device timeline (``measure.device_events``)."""
+    by_name: dict = {}
+    for e in device_events(prof):
+        if not e.annotation:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + (e.end - e.start) / 1e3, n + 1)
+    return [(us, n, name) for name, (us, n) in by_name.items()]
 
 
 def adaln_profile_ms(prof) -> dict:
@@ -4568,6 +4602,8 @@ def run_data_phase(dev, create_instance_from_config, ops):
 
 # Phase 24's files in the released layout: (folder, stem) of each source
 # (an HF model's folder, or a file of the weights directory's root).
+# Phase 24's evaluate config and its landed VAE, kept for phase 28(f).
+EVAL_RANKS_WORK = REPO / "build" / "eval_ranks"
 LAND_LAYOUT = {"vae": ("base/vae", "diffusion_pytorch_model"),
                "clip_l": ("base/text_encoder", "model"),
                "fid_inception": ("", "pt_inception-2015-12-05"),
@@ -4759,6 +4795,41 @@ def land_eval_config(vae_file: Path) -> dict:
     return land_eval.with_vae(config, vae, vae_file)
 
 
+def check_eval_census(counts: dict, tag: str) -> None:
+    """The evaluate CLI's launches at phase 5's geometry (``STEPS`` CFG
+    forwards of its one batch): K3 ``K3_PER_FORWARD`` and K4
+    ``K4_PER_FORWARD`` times a forward, at the serving shapes (72, 448 |
+    154, 1536) only, and K1 at the serving shapes (72, 602 | 448, 24, 64)
+    and (192, 168, 24, 64) only."""
+    forwards = STEPS
+    k3, k4 = counts["adaln_modulate"], counts["residual_adaln_modulate"]
+    if k3 != K3_PER_FORWARD * forwards or k4 != K4_PER_FORWARD * forwards:
+        fail(f"{tag}: K3/K4 launched {k3}/{k4} times in {forwards} CFG "
+             f"forwards, not {K3_PER_FORWARD}/{K4_PER_FORWARD} a forward")
+    check_launch_shapes(counts, {
+        "flash_tail_by_shape": [(b, s, 24, 64) for b, s in ATTN_SHAPES],
+        "adaln_modulate_by_shape": ADALN_SHAPES[:2],
+        "residual_adaln_modulate_by_shape": ADALN_SHAPES[:2]}, tag)
+
+
+def check_eval_ranks(results: dict, want: dict, collectives: dict) -> None:
+    """Phase 28(f)'s gate: the evaluate CLI under the NCCL group of one
+    returned phase 24's one-process metrics (finite, each within
+    ``EVAL_RANKS_REL`` relative), and the merge of its metrics' states
+    issued ``EVAL_RANKS_COLLECTIVES`` (on NCCL, none elsewhere)."""
+    if not want or set(results) != set(want):
+        fail(f"eval ranks: metrics {sorted(results)}, phase 24 gave "
+             f"{sorted(want)}")
+    for k, v in results.items():
+        if not math.isfinite(v) or \
+                abs(v - want[k]) > EVAL_RANKS_REL * abs(want[k]):
+            fail(f"eval ranks: {k} {v!r} under the group, {want[k]!r} in "
+                 f"one process (tol {EVAL_RANKS_REL} relative)")
+    if collectives != EVAL_RANKS_COLLECTIVES:
+        fail(f"eval ranks: the merge issued {collectives}, not "
+             f"{EVAL_RANKS_COLLECTIVES}")
+
+
 def run_eval_cli(dev, ops, config_path: Path, out: Path) -> tuple:
     """Part 2 of phase 24: ``evaluate.main --device cuda`` on the
     full-width config, the metric's decoded frames tapped; then the FID /
@@ -4818,16 +4889,7 @@ def run_eval_cli(dev, ops, config_path: Path, out: Path) -> tuple:
         f"{LAT_W}, the decode of real and generated frames, the metric); "
         f"peak {metrics['peak_gib']:.2f} GiB; {json.dumps(results)}")
     log(f"land eval: launches {json.dumps(counts)}")
-    forwards = STEPS
-    k3, k4 = counts["adaln_modulate"], counts["residual_adaln_modulate"]
-    if k3 != K3_PER_FORWARD * forwards or k4 != K4_PER_FORWARD * forwards:
-        fail(f"land eval: K3/K4 launched {k3}/{k4} times in {forwards} CFG "
-             f"forwards, not {K3_PER_FORWARD}/{K4_PER_FORWARD} a forward")
-    check_launch_shapes(counts, {
-        "flash_tail_by_shape": [(b, s, 24, 64) for b, s in ATTN_SHAPES],
-        "adaln_modulate_by_shape": ADALN_SHAPES[:2],
-        "residual_adaln_modulate_by_shape": ADALN_SHAPES[:2]},
-        "land eval")
+    check_eval_census(counts, "land eval")
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     drill = land_eval.frames_drill(real, fake, dev)
@@ -4920,7 +4982,9 @@ def run_land_eval_phase(dev, create_instance_from_config, ops) -> tuple:
     """Phase 24: weight landing and evaluation (``land_weights``,
     ``run_eval_cli``, the preview CLI, ``run_maskgit_eval``,
     ``run_train_flags``). Returns the evaluate CLI's launch counts (the
-    ``land_eval`` path) and the phase's numbers."""
+    ``land_eval`` path), the phase's numbers, and the evaluate config
+    (kept under ``EVAL_RANKS_WORK`` with its landed VAE) with its
+    results, for phase 28(f)."""
     import shutil
 
     from opendwm_tpu_torch import preview
@@ -4928,6 +4992,7 @@ def run_land_eval_phase(dev, create_instance_from_config, ops) -> tuple:
 
     work = REPO / "build" / "land_eval"
     shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(EVAL_RANKS_WORK, ignore_errors=True)
     metrics: dict = {}
     try:
         t0 = time.perf_counter()
@@ -4939,8 +5004,11 @@ def run_land_eval_phase(dev, create_instance_from_config, ops) -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
 
-        cfg = land_eval.write_config(land_eval_config(vae_file),
-                                     work / "eval.json")
+        # the config and its landed VAE stay for phase 28(f)
+        EVAL_RANKS_WORK.mkdir(parents=True)
+        kept = Path(shutil.move(str(vae_file), EVAL_RANKS_WORK))
+        cfg = land_eval.write_config(land_eval_config(kept),
+                                     EVAL_RANKS_WORK / "eval.json")
         counts, metrics["evaluate"] = run_eval_cli(dev, ops, cfg,
                                                    work / "eval_out")
         gc.collect()
@@ -4966,7 +5034,8 @@ def run_land_eval_phase(dev, create_instance_from_config, ops) -> tuple:
         metrics["train_cli"] = run_train_flags(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return counts, metrics
+    return counts, metrics, {"config": cfg,
+                             "results": metrics["evaluate"]["results"]}
 
 
 # -- the depth branch, the BEV world VAE and the tools (phases 25-27) --------
@@ -5556,6 +5625,19 @@ def _md_pipeline(cfg, create_instance_from_config, dev, mesh):
     return pipe
 
 
+def depth_cut(cfg: dict, layers: int) -> dict:
+    """A copy of a DiT pipeline config cut to its first ``layers`` joint
+    blocks (its branch and dual-attention layer lists cut to match)."""
+    cut = copy.deepcopy(cfg)
+    m = cut["model"]
+    m["num_layers"] = layers
+    for key in ("dual_attention_layers", "crossview_block_layers",
+                "temporal_block_layers", "remat_block_layers"):
+        if key in m:
+            m[key] = [i for i in m[key] if i < layers]
+    return cut
+
+
 def _md_steps(dev, pipe, batch, steps: int):
     """``steps`` train steps from one generator: (state, losses, seconds,
     peak GiB)."""
@@ -5574,13 +5656,15 @@ def _md_steps(dev, pipe, batch, steps: int):
 
 
 def md_fsdp_train(dev, create_instance_from_config, ops, train_metrics):
-    """(a) Phase 6's DiT trained under its config's policy on the NCCL
-    group of one, against the unsharded step on the same draws, then a
-    sharded checkpoint of a depth-cut twin saved and resumed."""
+    """(a) Phase 6's DiT, cut to ``MD_TRAIN_LAYERS`` layers, trained under
+    its config's policy on the NCCL group of one, against the unsharded
+    step on the same draws, then a sharded checkpoint of a depth-cut twin
+    saved and resumed."""
     from opendwm_tpu_torch import checkpoint
     from opendwm_tpu_torch.parallel.mesh import SingleDeviceMesh, make_mesh
 
-    cfg = json.loads(CONFIG.read_text())["pipeline"]
+    cfg = depth_cut(json.loads(CONFIG.read_text())["pipeline"],
+                    MD_TRAIN_LAYERS)
     cfg["model"]["param_dtype"] = torch.float32
     policy = cfg.get("sharding_policy") or \
         cfg["common_config"].get("distribution_framework", "fsdp")
@@ -5653,7 +5737,7 @@ def md_fsdp_train(dev, create_instance_from_config, ops, train_metrics):
              f"{loss_rels}, parameters {global_rel} (by tensor "
              f"{max(rels)}, over the update {max(upd_rels)})")
     metrics = {
-        "policy": policy, "steps": TRAIN_STEPS,
+        "policy": policy, "steps": TRAIN_STEPS, "layers": MD_TRAIN_LAYERS,
         "s_per_step": sum(secs[1:]) / (len(secs) - 1),
         "peak_gib": peak,
         "unsharded_s_per_step": sum(ref_s[1:]) / (len(ref_s) - 1),
@@ -5664,23 +5748,18 @@ def md_fsdp_train(dev, create_instance_from_config, ops, train_metrics):
         "param_rel_max": max(rels)[0],
         "zero_init_update_rel_max": max(zero_rels)[0],
         "update_rel_max": max(upd_rels)[0]}
-    log(f"fsdp train step: {metrics['s_per_step']:.3f} s a step (steps "
-        f"2-{TRAIN_STEPS}), peak {peak:.2f} GiB; unsharded here "
+    log(f"fsdp train step ({MD_TRAIN_LAYERS} of phase 6's 24 layers): "
+        f"{metrics['s_per_step']:.3f} s a step (steps 2-{TRAIN_STEPS}), "
+        f"peak {peak:.2f} GiB; unsharded here "
         f"{metrics['unsharded_s_per_step']:.3f} s, {ref_peak:.2f} GiB; "
-        f"phase 6 {train_metrics['s_per_step']:.3f} s, "
+        f"phase 6 (24 layers) {train_metrics['s_per_step']:.3f} s, "
         f"{train_metrics['peak_gib']:.2f} GiB")
     del state, pipe, ref
     gc.collect()
     torch.cuda.empty_cache()
 
     # the checkpoint: a depth-cut twin (the full depth's state is ~45 GB)
-    cut = copy.deepcopy(cfg)
-    m = cut["model"]
-    m["num_layers"] = MD_CKPT_LAYERS
-    for key in ("dual_attention_layers", "crossview_block_layers",
-                "temporal_block_layers", "remat_block_layers"):
-        if key in m:
-            m[key] = [i for i in m[key] if i < MD_CKPT_LAYERS]
+    cut = depth_cut(cfg, MD_CKPT_LAYERS)
     work = REPO / "build" / "multidevice" / "ckpt"
     a = _md_pipeline(cut, create_instance_from_config, dev, make_mesh())
     state_a, _, _, _ = _md_steps(dev, a, batch, 1)
@@ -5948,12 +6027,48 @@ def md_train_cli(dev) -> dict:
     return {"cli_s": cli_s, "losses": losses}
 
 
+def md_evaluate_cli(dev, ops, eval_ranks: dict) -> tuple:
+    """(f) ``evaluate.main --device cuda`` under the NCCL group of one, on
+    phase 24's evaluate config at full width (the pipeline's mesh over the
+    group, its train state placed by the config's fsdp policy, the
+    metrics' states merged over the data ranks): the metrics equal to
+    phase 24's one-process run's, the merge's collectives counted, and
+    the evaluation's launch census. Returns the launch counts (the
+    ``eval_ranks`` path) and the numbers."""
+    from opendwm_tpu_torch import evaluate
+    from opendwm_tpu_torch.parallel import collectives
+
+    ops.reset_launch_counts()
+    collectives.reset_collective_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = evaluate.main(evaluate.create_parser().parse_args(
+        ["-c", str(eval_ranks["config"]), "-o",
+         str(EVAL_RANKS_WORK / "out"), "--device", dev.type,
+         "--max-batches", "1"]))
+    cli_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    issued = collectives.collective_counts()
+    metrics = {"cli_s": cli_s, "results": results, "collectives": issued,
+               "one_process": eval_ranks["results"],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"eval ranks: the evaluate CLI under the NCCL group of one in "
+        f"{cli_s:.1f} s: {json.dumps(results)} (phase 24, one process: "
+        f"{json.dumps(eval_ranks['results'])}); the merge's collectives "
+        f"{json.dumps(issued)}; peak {metrics['peak_gib']:.2f} GiB")
+    log(f"eval ranks: launches {json.dumps(counts)}")
+    check_eval_ranks(results, eval_ranks["results"], issued)
+    check_eval_census(counts, "eval ranks")
+    return counts, metrics
+
+
 def run_multidevice_phase(dev, create_instance_from_config, ops,
-                          get_conditions, train_metrics):
+                          get_conditions, train_metrics, eval_ranks):
     """Phase 28: the multi-device stack on the card. One card gives NCCL a
-    process group of world size 1 only, so (a)-(d) run under that group
-    and (e) under torchrun with one process: no collective at world size
-    above 1 runs here."""
+    process group of world size 1 only, so (a)-(d) and (f) run under that
+    group and (e) under torchrun with one process: no collective at world
+    size above 1 runs here. ``eval_ranks``: phase 24's evaluate config
+    and results."""
     import shutil
 
     import torch.distributed as dist
@@ -5980,17 +6095,25 @@ def run_multidevice_phase(dev, create_instance_from_config, ops,
         ring_counts, ring_rows = md_ring_steps(dev, ring_attention,
                                                flash_tail, ops)
         seconds["ring"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eval_counts, eval_metrics = md_evaluate_cli(dev, ops, eval_ranks)
+        seconds["eval_ranks"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
+        shutil.rmtree(EVAL_RANKS_WORK, ignore_errors=True)
     t0 = time.perf_counter()
     cli = md_train_cli(dev)
     seconds["cli"] = time.perf_counter() - t0
     shutil.rmtree(work, ignore_errors=True)
     paths = {"fsdp_train": fsdp_counts, **model_counts,
              "ring_steps": merge_counts(ring_counts[MD_RING_N[0]],
-                                        ring_counts[MD_RING_N[1]])}
+                                        ring_counts[MD_RING_N[1]]),
+             "eval_ranks": eval_counts}
     return paths, {"fsdp_train": fsdp, **model_metrics, "ring": ring_rows,
-                   "train_cli": cli, "seconds": seconds}
+                   "eval_ranks": eval_metrics, "train_cli": cli,
+                   "seconds": seconds}
 
 
 def census_sm90(_build, sources, body: str) -> dict:
@@ -6159,7 +6282,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"card: {card}")
+    print(f"card: {card}", flush=True)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}")
 
@@ -6170,6 +6293,10 @@ def main() -> None:
     fused_adaln.build()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc sm_90a, one process "
         f"per source), sources under {Path(_build.CSRC).relative_to(REPO)}")
+    t0 = time.perf_counter()
+    _build.sass_listings([_build.library_path(s) for s in SOURCES])
+    log(f"cuobjdump -sass of the {len(SOURCES)} libraries, all at once: "
+        f"{time.perf_counter() - t0:.1f} s")
     for source in SOURCES:
         for line in _build.ptxas_log(_build.library_path(source)).splitlines():
             low = line.lower()
@@ -6344,7 +6471,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     log_clocks("before the weight-landing and evaluation phase")
     t0 = time.perf_counter()
-    land_counts, land_metrics = run_land_eval_phase(
+    land_counts, land_metrics, eval_ranks = run_land_eval_phase(
         dev, create_instance_from_config, ops)
     land_metrics["phase_s"] = time.perf_counter() - t0
     log(f"land and evaluate: {land_metrics['phase_s']:.1f} s")
@@ -6373,7 +6500,7 @@ def main() -> None:
     t0 = time.perf_counter()
     md_paths, md_metrics = run_multidevice_phase(
         dev, create_instance_from_config, ops, get_conditions,
-        train_metrics)
+        train_metrics, eval_ranks)
     md_metrics["phase_s"] = time.perf_counter() - t0
     log(f"multi-device on one card ({card}): " + json.dumps(md_metrics))
     log_clocks("at the end")
@@ -6496,7 +6623,7 @@ def main() -> None:
               seg_bwd_rows, replaces_also=f"{STOCK_FLASH}:1287",
               masks=f"{STOCK_FLASH}:866-872", body=bwd90_src),
     ]
-    log(f"card: {card}")
+    print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

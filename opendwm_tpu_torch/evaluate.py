@@ -16,6 +16,15 @@ CLI builds it, so that ``--checkpoint STEP`` loads that CLI's checkpoint of
 initialisation under ``generator_seed``. The frozen stages load as in the
 train CLI (``vae_checkpoint_path``: the metrics then see decoded frames;
 the JAX CLI reads no frozen stage and scores latents).
+
+Under ``torchrun`` every rank joins the process group and the pipeline's
+mesh (its train state placed by the policy, as the train CLI places it)
+and takes its rows of every batch (``train.rank_batch``; a batch that
+does not split over the data ranks is refused); each rank generates its
+rows from its rows of the global batch's noise, and the metrics' states
+are merged over the data ranks before ``compute``, so every rank returns
+the global batch's score, as the JAX CLI's global arrays give it. Rank 0
+prints and logs.
 """
 
 from __future__ import annotations
@@ -29,9 +38,10 @@ from opendwm_tpu_torch import checkpoint as ckpt_lib
 from opendwm_tpu_torch.config import create_instance_from_config
 from opendwm_tpu_torch.train import (
     JsonlLogger,
-    build_pipeline,
     NullLogger,
+    build_pipeline,
     launch,
+    rank_batch,
     read_config,
     to_device_batch,
 )
@@ -49,10 +59,7 @@ def create_parser():
 
 
 def main(args=None) -> dict:
-    """Under ``torchrun`` every rank joins the process group and the
-    pipeline's mesh (its train state placed by the policy), and runs every
-    batch whole: the metrics' running states are not reduced across ranks,
-    so each rank scores the same batches and rank 0 logs and writes."""
+    """The results of the global batches, on every rank."""
     args = args or create_parser().parse_args()
     config, device = read_config(args)
     rank = launch(device)
@@ -67,9 +74,9 @@ def main(args=None) -> dict:
     bs = config.get("batch_size", 1)
     n = (len(dataset) // bs) * bs  # whole batches only
     limit = args.max_batches or (n // bs)
-    batches = [to_device_batch(collate([dataset[j] for j in range(i, i + bs)]),
-                               device)
-               for i in range(0, min(n, limit * bs), bs)]
+    batches = [to_device_batch(rank_batch(
+        collate([dataset[j] for j in range(i, i + bs)]), pipeline), device)
+        for i in range(0, min(n, limit * bs), bs)]
 
     state = pipeline.init_state()
     if args.checkpoint is not None:

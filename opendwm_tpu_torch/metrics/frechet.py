@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.metrics.general import merge_states
 
 
 @dataclasses.dataclass
@@ -36,6 +37,11 @@ class FrechetState:
     fake_sum: torch.Tensor
     fake_cov_sum: torch.Tensor
     fake_n: int
+
+
+def _fields(state: FrechetState) -> dict:
+    return {f.name: getattr(state, f.name)
+            for f in dataclasses.fields(state)}
 
 
 def _frechet_from_stats(mu1, sigma1, mu2, sigma2, shrinkage=0.0) -> float:
@@ -101,6 +107,15 @@ class FrechetDistance:
                 getattr(state, f"{side}_cov_sum").to(s.device) + cov,
             f"{side}_n": getattr(state, f"{side}_n") + n})
 
+    @staticmethod
+    def merge(states: list, batches: int = 1) -> FrechetState:
+        """The state after every rank's features from each rank's state
+        (data-rank order): the sums added in rank order, in fp32 on the
+        first rank's device, and the counts (``merge_states``)."""
+        return FrechetState(**merge_states(
+            [_fields(s) if isinstance(s, FrechetState) else s
+             for s in states], batches))
+
     def compute(self, state: FrechetState) -> float:
         rn, fn_ = state.real_n, state.fake_n
         if rn < 2 or fn_ < 2:
@@ -153,3 +168,11 @@ class FrechetPairedMetric:
 
     def compute(self) -> float:
         return self._metric.compute(self.state)
+
+    def state_dict(self) -> dict:
+        return _fields(self.state)
+
+    def merge(self, states: list, batches: int = 1) -> None:
+        """The state of one instance fed every rank's frames
+        (``FrechetDistance.merge``)."""
+        self.state = self._metric.merge(states, batches)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from opendwm_tpu_torch.config import register
-from opendwm_tpu_torch.metrics.general import host
+from opendwm_tpu_torch.metrics.general import host, merge_states
 
 CHUNK_ELEMS = 2 ** 28  # fp32 squared distances a chunk of the minimum
 
@@ -147,6 +147,14 @@ class PointCloudChamfer:
     def reset(self):
         self.values.clear()
 
+    def state_dict(self) -> dict:
+        return {"values": list(self.values)}
+
+    def merge(self, states: list, batches: int = 1) -> None:
+        """The per-sample distances of every rank in the one-process order
+        (``merge_states``)."""
+        self.values = merge_states(states, batches)["values"]
+
 
 @register("PointCloudMMD", aliases=("dwm.metrics.pc_metrics.PointCloudMMD",))
 class PointCloudMMD:
@@ -168,6 +176,17 @@ class PointCloudMMD:
         self.pred_hists.clear()
         self.gt_hists.clear()
 
+    def state_dict(self) -> dict:
+        return {"pred_hists": list(self.pred_hists),
+                "gt_hists": list(self.gt_hists)}
+
+    def merge(self, states: list, batches: int = 1) -> None:
+        """The histograms of every rank in the one-process order
+        (``merge_states``)."""
+        merged = merge_states(states, batches)
+        self.pred_hists, self.gt_hists = merged["pred_hists"], \
+            merged["gt_hists"]
+
 
 @register("PointCloudJSD", aliases=("dwm.metrics.pc_metrics.PointCloudJSD",))
 class PointCloudJSD:
@@ -188,3 +207,12 @@ class PointCloudJSD:
     def reset(self):
         self.pred_acc[:] = 0
         self.gt_acc[:] = 0
+
+    def state_dict(self) -> dict:
+        return {"pred_acc": self.pred_acc.copy(),
+                "gt_acc": self.gt_acc.copy()}
+
+    def merge(self, states: list, batches: int = 1) -> None:
+        """The histogram sums of every rank, added (``merge_states``)."""
+        merged = merge_states(states, batches)
+        self.pred_acc, self.gt_acc = merged["pred_acc"], merged["gt_acc"]

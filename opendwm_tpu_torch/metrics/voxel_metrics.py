@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.metrics.general import merge_states
 
 
 def _grids(gt_voxel, pred_voxel):
@@ -40,6 +41,14 @@ class VoxelIoU:
     def reset(self):
         self.values.clear()
 
+    def state_dict(self) -> dict:
+        return {"values": list(self.values)}
+
+    def merge(self, states: list, batches: int = 1) -> None:
+        """The per-sample values of every rank in the one-process order
+        (``merge_states``)."""
+        self.values = merge_states(states, batches)["values"]
+
 
 @register("VoxelDiff", aliases=("dwm.metrics.voxel_metrics.VoxelDiff",))
 class VoxelDiff:
@@ -58,3 +67,11 @@ class VoxelDiff:
 
     def reset(self):
         self.values.clear()
+
+    def state_dict(self) -> dict:
+        return {"values": list(self.values)}
+
+    def merge(self, states: list, batches: int = 1) -> None:
+        """The per-sample values of every rank in the one-process order
+        (``merge_states``)."""
+        self.values = merge_states(states, batches)["values"]

@@ -107,6 +107,14 @@ def data_rank(mesh) -> int:
         axis_rank(mesh, AXIS_FSDP)
 
 
+def data_group(mesh):
+    """The process group of the data ranks, its ranks in ``data_rank``
+    order: the (dp, fsdp) axes flattened (a group of one where both have
+    one member, as on a (tp) or (pp) mesh)."""
+    sub = submesh(mesh, (AXIS_DP, AXIS_FSDP))
+    return (sub._flatten() if sub.ndim > 1 else sub).get_group()
+
+
 def is_distributed(mesh) -> bool:
     """Whether ``mesh`` lies over a process group (any world size)."""
     from opendwm_tpu_torch.parallel.mesh import SingleDeviceMesh

@@ -16,7 +16,9 @@ A distributed train step takes this data rank's slice of the global batch
 batch from a generator that every rank seeds alike, and each rank keeps
 its rows (``rank_draws``), as JAX draws over the global batch and then
 shards the draws: so the step at any data-parallel size is the step of
-one process on the global batch.
+one process on the global batch. Evaluation and preview draw their noise
+the same way (``rank_draws``, ``rank_rows``), and the metrics' states are
+merged over the data ranks (``collectives.reduce_metric_states``).
 """
 
 from __future__ import annotations
@@ -134,6 +136,17 @@ class MeshPlacement:
         if n == 1:
             return draw(rows)
         return shard_batch(draw(rows * n), self.mesh)
+
+    def rank_rows(self, x, rows: int):
+        """This data rank's rows of ``x``, a tensor of the whole global
+        batch's rows (``rows``: the leading size of this rank's slice of
+        the batch). One data rank: ``x``."""
+        n = data_parallel_size(self.mesh)
+        if x.shape[0] != rows * n:
+            raise ValueError(
+                f"a draw of {x.shape[0]} rows is not the global batch's "
+                f"{rows * n} ({rows} a data rank over {n})")
+        return x if n == 1 else shard_batch(x, self.mesh)
 
     def shard_state(self, state):
         """``state`` placed on the mesh under the policy (in place): its

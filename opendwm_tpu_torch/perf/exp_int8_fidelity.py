@@ -40,7 +40,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from opendwm_tpu_torch.config import create_instance_from_config
 from opendwm_tpu_torch.models.layers import QConv2d, QLinear
 from opendwm_tpu_torch.ops.quant import quantize_state_dict
-from opendwm_tpu_torch.perf.measure import kernels_ms, range_kernels
+from opendwm_tpu_torch.perf.measure import (
+    kernels_ms,
+    launched_by,
+    range_kernels,
+)
 
 QUANTIZED = (QLinear, QConv2d)
 # The JAX package's bars (tests/test_quant.py): cosine to the float path.
@@ -316,8 +320,7 @@ def int8_split(prof) -> dict:
     on the device timeline: casts, amax, division, rounding, padding,
     im2col, dequantize, bias) and ``other``. Each kernel is counted once,
     as the profile's own table counts it."""
-    gemms = {k.name for e in prof.events() if e.name == "aten::_int_mm"
-             for k in e.kernels}
+    gemms = launched_by(prof, "aten::_int_mm")
     inside, outside = range_kernels(prof, RANGE)
     parts = {"int8_gemm": [e for e in inside + outside if e.name in gemms],
              "quant_dequant": [e for e in inside if e.name not in gemms],

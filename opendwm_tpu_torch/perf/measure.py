@@ -6,6 +6,7 @@ from __future__ import annotations
 import bisect
 import subprocess
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -32,10 +33,10 @@ def rel_err(a, b) -> float:
     return ((a.float() - b).norm() / b.norm()).item()
 
 
-def time_ms(fn, iters: int = 10) -> float:
-    """ms per call of ``fn``: CUDA events around ``iters`` calls after 2
-    warm-ups."""
-    for _ in range(2):
+def time_ms(fn, iters: int = 10, warmups: int = 2) -> float:
+    """ms per call of ``fn``: CUDA events around ``iters`` calls after
+    ``warmups`` warm-ups."""
+    for _ in range(warmups):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -96,10 +97,20 @@ def host_us(fn, calls: int = 1000) -> float:
     return dt / calls * 1e6
 
 
+PLAIN_BUDGET_MS = 200.0  # the plain version's calls in one of its timings
+
+
 def time_pair(kernel, plain, iters: int = 10):
-    """ms per call of each, timed in turns plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = (time_ms(fn, iters) for fn in (plain, kernel, kernel,
-                                                    plain))
+    """ms per call of each, timed in turns plain, kernel, kernel, plain.
+    The plain version (the yardstick) is timed over as many of ``iters``
+    calls as fit in ``PLAIN_BUDGET_MS`` by one timed call after the
+    warm-ups, at least 2: its slowest rows (0.1-0.25 s a call) take 8
+    calls instead of 24."""
+    estimate = time_ms(plain, 1)
+    n = max(2, min(iters, int(PLAIN_BUDGET_MS // max(estimate, 1e-3))))
+    p1 = time_ms(plain, n, warmups=0)
+    k1, k2 = time_ms(kernel, iters), time_ms(kernel, iters)
+    p2 = time_ms(plain, n, warmups=1)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -189,30 +200,71 @@ def segment_attention_bound(q_ids, kv_ids, h, d, causal=False,
     return bound(flops, nbytes, peak)
 
 
+class DeviceEvent(NamedTuple):
+    """An event of a profile's device timeline (times in ns): a kernel,
+    a copy or a set, or the GPU-side span of a profiler range
+    (``annotation``); ``link``: the correlation id of the host operation
+    that launched it (0 for none)."""
+
+    name: str
+    start: int
+    end: int
+    annotation: bool
+    link: int
+
+    @property
+    def ms(self) -> float:
+        return (self.end - self.start) / 1e6
+
+
+def device_events(prof) -> list:
+    """The device timeline of a ``torch.profiler`` profile, read once a
+    profile from its Kineto results: the profiler's own table
+    (``key_averages``, ``events``) builds an event tree of every host and
+    device event first, 24 s for 200k events on the card's host (torch
+    2.11), where this reads them in about 1 s."""
+    cached = getattr(prof, "_device_events", None)
+    if cached is None:
+        from torch.autograd import DeviceType
+
+        cached = [DeviceEvent(e.name(), e.start_ns(), e.end_ns(),
+                              e.is_user_annotation(),
+                              e.linked_correlation_id())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        prof._device_events = cached
+    return cached
+
+
+def launched_by(prof, op: str) -> set:
+    """The names of the device events that host operation ``op`` (e.g.
+    ``aten::_int_mm``) launched in a profile."""
+    ids = {e.correlation_id() for e in prof.profiler.kineto_results.events()
+           if e.name() == op}
+    return {e.name for e in device_events(prof) if e.link in ids}
+
+
 def range_kernels(prof, name: str) -> tuple:
     """The kernels of a ``torch.profiler`` profile's device timeline, each
     once (the GPU-side spans of profiler ranges are not kernels), split
     into (those that ran inside a GPU-side span of a range called
     ``name``, the rest)."""
-    from torch.autograd import DeviceType
-
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device
-                   if e.name == name)
+    device = device_events(prof)
+    spans = sorted((e.start, e.end) for e in device if e.name == name)
     starts = [s for s, _ in spans]
     inside, outside = [], []
     for e in device:
-        if e.name == name or getattr(e, "is_user_annotation", False):
+        if e.name == name or e.annotation:
             continue
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        within = i >= 0 and e.time_range.end <= spans[i][1]
+        i = bisect.bisect_right(starts, e.start) - 1
+        within = i >= 0 and e.end <= spans[i][1]
         (inside if within else outside).append(e)
     return inside, outside
 
 
 def kernels_ms(kernels) -> float:
     """Device ms of profiler kernel events."""
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return sum(e.ms for e in kernels)
 
 
 def range_device_ms(prof, name: str) -> tuple:

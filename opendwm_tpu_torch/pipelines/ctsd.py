@@ -31,6 +31,7 @@ from typing import Any, Optional, Sequence
 import torch
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.parallel.collectives import reduce_metric_states
 from opendwm_tpu_torch.parallel.train_state import MeshPlacement
 from opendwm_tpu_torch.pipelines import optim
 from opendwm_tpu_torch.pipelines.depth_loss import make_depth_loss
@@ -452,7 +453,10 @@ class CTSDPipeline(MeshPlacement):
     a process group (``parallel.train_state.MeshPlacement``); each rank
     then trains on its slice of the batch (``parallel.sharding.shard_batch``)
     and the gradients are averaged over the data ranks, which gives the
-    gradient of the global batch's mean loss, as JAX's sharded step."""
+    gradient of the global batch's mean loss, as JAX's sharded step.
+    Evaluation and preview take the rank's rows likewise, with its rows of
+    the global batch's noise; the metrics' states are merged over the data
+    ranks before ``compute``, so every rank scores the global batch."""
 
     def __init__(
         self,
@@ -648,7 +652,9 @@ class CTSDPipeline(MeshPlacement):
             return latents
         return self.vae.decode_from_scaled(latents, chunk_size=chunk_size)
 
-    @torch.inference_mode()
+    # no_grad, not inference_mode: an FSDP-sharded model gathers its
+    # parameters in its forward, which inference tensors refuse
+    @torch.no_grad()
     def inference_pipeline(
         self,
         batch: dict,
@@ -763,19 +769,40 @@ class CTSDPipeline(MeshPlacement):
         device = next(self.model.parameters()).device
         return torch.Generator(device).manual_seed(int(seed))
 
-    def preview_pipeline(self, state, batch: dict, output_path: str,
-                         step: int, noise: Optional[torch.Tensor] = None):
-        """Generate from the batch's conditions (noise drawn from a
-        generator seeded with ``state.step``, unless given) and write the
-        composited preview, one row each of ground truth, the box rasters
-        when the batch has them, and the generation, to
-        ``{output_path}/preview/{step}.mp4`` (a GIF without PyAV); returns
-        the path written."""
+    def _rank_noise(self, latent_shape: tuple, generator,
+                    noise: Optional[torch.Tensor] = None):
+        """This data rank's rows of the global batch's initial noise:
+        ``noise`` (the global batch's), else a normal of the global shape
+        drawn from ``generator``, as JAX draws one normal of the global
+        batch from its key and shards it (one data rank: the batch's)."""
+        b = latent_shape[0]
+        if noise is not None:
+            return self.rank_rows(noise, b)
+        device = next(self.model.parameters()).device
+        return self.rank_draws(lambda rows: torch.randn(
+            (rows,) + tuple(latent_shape[1:]), generator=generator,
+            device=device, dtype=torch.float32), b)
+
+    def preview_pipeline(self, state, batch: dict,
+                         output_path: Optional[str], step: int,
+                         noise: Optional[torch.Tensor] = None):
+        """Generate from the batch's conditions (this data rank's rows of
+        the global batch; its noise the rows of the global batch's normal
+        from a generator seeded with ``state.step``, or of the given global
+        ``noise``) and write the composited preview of row 0, one row each
+        of ground truth, the box rasters when the batch has them, and the
+        generation, to ``{output_path}/preview/{step}.mp4`` (a GIF without
+        PyAV); returns the path written. ``output_path`` None: generate
+        (every rank runs the sharded forward) and write nothing (None)."""
         batch = self.ensure_latents(batch)
         latents = batch["latents"]
+        shape = tuple(latents.shape)
+        generator = self._generator(state.step)
         gen = self.inference_pipeline(
-            batch, tuple(latents.shape),
-            generator=self._generator(state.step), noise=noise)
+            batch, shape, generator=generator,
+            noise=self._rank_noise(shape, generator, noise))
+        if output_path is None:
+            return None
         gt = self.decode_latents(latents)
         fake = self.decode_latents(gen)
 
@@ -798,11 +825,16 @@ class CTSDPipeline(MeshPlacement):
     def evaluate_pipeline(self, state, global_step: int, batches=None,
                           logger=None, metrics: Optional[dict] = None,
                           noise: Optional[Sequence[torch.Tensor]] = None):
-        """Generate for each validation batch (noise from a generator
-        seeded with ``global_step``, the same for every batch, as the JAX
-        package's one key; or ``noise[i]`` for batch i) and update the
-        metrics (``update(real, fake)``, ``compute()``, ``reset()``) with
-        the decoded frames, or the latents without a VAE; returns and logs
+        """Generate for each validation batch (this data rank's rows of the
+        global batch) and update the metrics (``update(real, fake)``) with
+        the decoded frames, or the latents without a VAE; then merge the
+        metrics' states over the data ranks
+        (``collectives.reduce_metric_states``), ``compute()`` and
+        ``reset()`` them. Every batch's noise is this rank's rows of the
+        global batch's normal from a generator seeded with
+        ``global_step`` (the same for every batch, as the JAX package's one
+        key), or of ``noise[i]`` (the global batch's) for batch i. Every
+        rank returns, and logs, the global batch's
         ``{"evaluation/{name}": value}``."""
         metrics = metrics or self.metrics
         if not metrics or batches is None:
@@ -810,14 +842,17 @@ class CTSDPipeline(MeshPlacement):
         for i, batch in enumerate(batches):
             batch = self.ensure_latents(batch)
             latents = batch["latents"]
+            shape = tuple(latents.shape)
+            generator = self._generator(global_step)
             gen = self.inference_pipeline(
-                batch, tuple(latents.shape),
-                generator=self._generator(global_step),
-                noise=None if noise is None else noise[i])
+                batch, shape, generator=generator,
+                noise=self._rank_noise(
+                    shape, generator, None if noise is None else noise[i]))
             real = self.decode_latents(latents)
             fake = self.decode_latents(gen)
             for m in metrics.values():
                 m.update(real, fake)
+        reduce_metric_states(metrics, self.mesh, len(batches))
         results = {}
         for name, m in metrics.items():
             results[f"evaluation/{name}"] = m.compute()

@@ -12,6 +12,10 @@ The state is a dataclass (latents, the condition queue, the frame count,
 a ``torch.Generator`` for the tail noise, the unconditional text); the
 JAX ``lax.scan`` over steps is a Python loop under ``torch.no_grad()``,
 and the tail noise can be handed in, so a test can feed the JAX draw.
+
+Over data ranks a stream whose batch divides by them is split: each rank
+serves its rows, its noise its rows of the global draws; a stream that
+does not divide (batch 1, the usual stream) is served whole by every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Optional
 import torch
 
 from opendwm_tpu_torch.config import register
+from opendwm_tpu_torch.parallel.sharding import data_parallel_size
 from opendwm_tpu_torch.pipelines.ctsd import CTSDPipeline, get_conditions
 
 
@@ -34,6 +39,10 @@ class StreamingState:
     # Unconditional text for CFG: single-frame (b, 1, v, ...) tensors,
     # broadcast over the queue at guidance time. None: zeros.
     uncond_text: Optional[dict] = None
+    # Whether the data ranks split the stream's batch (each serves its
+    # rows, its noise the rows of the global draws); else every rank
+    # serves the whole stream.
+    split: bool = False
 
 
 _TEXT_KEYS = ("encoder_hidden_states", "pooled_projections")
@@ -69,23 +78,42 @@ class StreamingCTSDPipeline(CTSDPipeline):
         )
         return n // window
 
+    def splits_stream(self, latent_shape: tuple) -> bool:
+        """Whether the data ranks split a stream of the global
+        ``latent_shape``: its batch divides by them, and each rank serves
+        its rows; else every rank serves the whole stream, as JAX
+        replicates a batch that does not divide."""
+        n = data_parallel_size(self.mesh)
+        return n > 1 and latent_shape[0] % n == 0
+
     def reset_streaming(
         self, latent_shape: tuple, cond_template: dict,
         generator: Optional[torch.Generator] = None,
         uncond_text: Optional[dict] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> StreamingState:
-        """A fresh queue: all-noise latents (``noise``, else drawn from
-        ``generator``) and zeroed condition slots."""
+        """A fresh queue for the global ``latent_shape``: all-noise latents
+        (``noise``, else drawn from ``generator``) and zeroed condition
+        slots. Where the data ranks split the stream
+        (``splits_stream``), the latents are this rank's rows of the
+        global noise and ``cond_template`` holds this rank's rows
+        (``sharding.shard_batch``)."""
         device = next(self.model.parameters()).device
-        latents = noise.to(device=device, dtype=torch.float32) \
-            if noise is not None else torch.randn(
-                latent_shape, generator=generator, device=device)
+        split = self.splits_stream(latent_shape)
+        if split:
+            rows = latent_shape[0] // data_parallel_size(self.mesh)
+            latents = self._rank_noise((rows,) + tuple(latent_shape[1:]),
+                                       generator, noise)
+        elif noise is not None:
+            latents = noise.to(device=device, dtype=torch.float32)
+        else:
+            latents = torch.randn(latent_shape, generator=generator,
+                                  device=device)
         conds = {k: torch.zeros_like(v) if isinstance(v, torch.Tensor)
                  else v for k, v in cond_template.items()}
         return StreamingState(latents=latents, conditions=conds,
                               frames_received=0, generator=generator,
-                              uncond_text=uncond_text)
+                              uncond_text=uncond_text, split=split)
 
     def send_frame_condition(self, state: StreamingState,
                              frame_batch: dict) -> StreamingState:
@@ -154,8 +182,8 @@ class StreamingCTSDPipeline(CTSDPipeline):
                     fresh_noise: Optional[torch.Tensor] = None):
         """Advance the window by one frame's worth of denoise steps and
         emit the completed (oldest) frame's latent. ``fresh_noise``: the
-        (b, 1, v, h, w, c) tail noise, else drawn from the state's
-        generator. Returns (new_state, output (b, v, h, w, c), ready);
+        (b, 1, v, h, w, c) tail noise (of the global batch where the
+        stream is split), else drawn from the state's generator. Returns (new_state, output (b, v, h, w, c), ready);
         ``ready`` is False while the queue fills (fewer conditions than
         the window)."""
         latents = state.latents
@@ -206,7 +234,14 @@ class StreamingCTSDPipeline(CTSDPipeline):
                                             n_steps)
 
         output = latents[:, 0]
-        if fresh_noise is None:
+        if state.split:  # this rank's rows of the global tail noise
+            fresh_noise = self.rank_rows(fresh_noise, b) \
+                if fresh_noise is not None else self.rank_draws(
+                    lambda m: torch.randn(
+                        (m, 1) + tuple(latents.shape[2:]),
+                        generator=state.generator, device=device,
+                        dtype=latents.dtype), b)
+        elif fresh_noise is None:
             fresh_noise = torch.randn((b, 1) + tuple(latents.shape[2:]),
                                       generator=state.generator,
                                       device=device, dtype=latents.dtype)

@@ -151,7 +151,9 @@ class LidarDiffusionPipeline(CTSDPipeline):
 
     # -- inference ---------------------------------------------------------
 
-    @torch.inference_mode()
+    # no_grad, not inference_mode: an FSDP-sharded model gathers its
+    # parameters in its forward, which inference tensors refuse
+    @torch.no_grad()
     def generate(self, batch: dict, generator=None, noise=None,
                  voxel_uniforms=None, image_latents=None,
                  reference_frame_count: int = 0) -> dict:

@@ -15,6 +15,10 @@ from ``draws`` (a test feeds the JAX package's): per step the Gumbel
 noise of the categorical draw (``jax.random.categorical`` is
 ``argmax(logits + gumbel)``) and the confidence uniforms, and
 ``gumbel_sigmoid``'s two uniforms.
+Over data ranks each rank decodes its rows of the global batch, and every
+draw is made for the global batch, in one process's order and shapes,
+this rank's rows kept (``global_gumbel``, ``rank_draws``): the rows are
+those one process gives the whole batch.
 
 The categorical step never holds the fp32 logits of all rows at once:
 the head's output stays in its compute dtype and the fp32 cast, the
@@ -53,6 +57,12 @@ import torch
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.metrics import PointCloudChamfer, VoxelDiff, VoxelIoU
 from opendwm_tpu_torch.ops.voxelize import voxels_to_points
+from opendwm_tpu_torch.parallel.collectives import reduce_metric_states
+from opendwm_tpu_torch.parallel.sharding import (
+    data_parallel_size,
+    data_rank,
+    shard_batch,
+)
 from opendwm_tpu_torch.parallel.train_state import MeshPlacement
 from opendwm_tpu_torch.pipelines.ctsd import build_train_state
 from opendwm_tpu_torch.pipelines.lidar_vqvae import step_optimizer
@@ -163,6 +173,50 @@ def gumbel_noise(shape, generator=None, device=None) -> torch.Tensor:
     ``jax.random.gumbel`` draws it."""
     u = torch.rand(shape, generator=generator, device=device)
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
+
+
+def global_gumbel(generator, device, n_e: int, rows: int, rank: int = 0,
+                  ranks: int = 1):
+    """(``gumbel(r0, r1)``, ``finish()``) of one categorical step of a data
+    rank (``rank`` of ``ranks``) that holds ``rows`` of the global batch's
+    ``rows · ranks`` flat rows: the Gumbel noise is drawn for the global
+    batch as one process draws it (``sample_tokens``' chunks of
+    ``SAMPLE_CHUNK_ELEMS`` logits, in order, one chunk held at a time),
+    and ``gumbel(r0, r1)`` gives this rank's flat rows r0:r1 of it
+    (rows ``rank · rows + r0`` … of the global draw); ``finish`` draws
+    the chunks after this rank's rows, so that the generator stands where
+    one process leaves it. One rank: the draws of one process."""
+    chunk_rows = max(1, SAMPLE_CHUNK_ELEMS // n_e)
+    total, offset = rows * ranks, rank * rows
+    held = {"start": 0, "end": 0, "noise": None}
+
+    def advance():
+        start = held["end"]
+        end = min(start + chunk_rows, total)
+        held["noise"] = None  # one chunk at a time
+        held.update(start=start, end=end, noise=gumbel_noise(
+            (end - start, n_e), generator, device))
+
+    def gumbel(r0, r1):
+        a, b = offset + r0, offset + r1
+        parts = []
+        while a < b:
+            if a >= held["end"]:
+                advance()
+                continue
+            end = min(b, held["end"])
+            parts.append(held["noise"][a - held["start"]:end - held["start"]])
+            a = end
+        if a == held["end"]:  # the chunk is used up
+            held["noise"] = None
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def finish():
+        while held["end"] < total:
+            advance()
+        held["noise"] = None
+
+    return gumbel, finish
 
 
 def gumbel_sigmoid(logits: torch.Tensor, uniforms=None, generator=None,
@@ -432,7 +486,11 @@ class MaskGITPipeline(MeshPlacement):
         ``{"evaluation/{name}": value}``. ``params``: the transformer the
         JAX signature passes (the train CLI gives its state's model, which
         is this pipeline's ``model``); ``draws[i]``: batch i's draws for
-        ``inference_pipeline``, else ``generator``'s."""
+        ``inference_pipeline`` (the global batch's), else ``generator``'s.
+        Over data ranks each batch is this rank's rows, and the metrics'
+        states are merged over the data ranks before ``compute``
+        (``collectives.reduce_metric_states``): every rank returns the
+        global batch's scores."""
         if params is not None and params is not self.model:
             raise ValueError("MaskGIT evaluates its own model; params must "
                              "be the pipeline's model (or None)")
@@ -455,6 +513,7 @@ class MaskGITPipeline(MeshPlacement):
                             gp, gm = voxels_to_points(gt[bi, ti], vox)
                             pp, pm = voxels_to_points(pred[bi, ti], vox)
                             m.update(pp, gp, pm, gm)
+        reduce_metric_states(metrics, self.mesh, len(batches))
         results = {}
         for name, m in metrics.items():
             results[f"evaluation/{name}"] = m.compute()
@@ -476,20 +535,31 @@ class MaskGITPipeline(MeshPlacement):
         return self.vq.vector_quantizer.lookup(ids)
 
     def _decode_draws(self, draws: Optional[dict], step: int, n_e: int,
-                      generator, device):
-        """(gumbel(r0, r1), confidence uniforms of shape s) of ``step``."""
+                      rows: int, generator, device):
+        """(gumbel(r0, r1), confidence uniforms of shape s, finish()) of
+        ``step`` for this data rank's ``rows`` flat rows: from ``draws``
+        (this rank's rows of them), else drawn for the global batch from
+        ``generator`` as one process draws them (``global_gumbel``, then
+        the confidence uniforms of the global shape), this rank's rows
+        kept."""
+        if draws is not None:
+            def gumbel(r0, r1):
+                return draws["sample"][step].reshape(-1, n_e)[r0:r1] \
+                    .to(device)
 
-        def gumbel(r0, r1):
-            if draws is None:
-                return gumbel_noise((r1 - r0, n_e), generator, device)
-            return draws["sample"][step].reshape(-1, n_e)[r0:r1].to(device)
+            return (gumbel,
+                    lambda shape: draws["confidence"][step].to(device),
+                    lambda: None)
+        gumbel, finish = global_gumbel(
+            generator, device, n_e, rows,
+            data_rank(self.mesh), data_parallel_size(self.mesh))
 
         def confidence(shape):
-            if draws is None:
-                return torch.rand(shape, generator=generator, device=device)
-            return draws["confidence"][step].to(device)
+            return self.rank_draws(lambda m: torch.rand(
+                (m,) + tuple(shape[1:]), generator=generator, device=device),
+                shape[0])
 
-        return gumbel, confidence
+        return gumbel, confidence, finish
 
     @torch.inference_mode()
     def _iterative_decode(self, code_dtype, init_idx, ctx, b: int, t: int,
@@ -522,11 +592,13 @@ class MaskGITPipeline(MeshPlacement):
             logits = self.model(x_in, idx_in, context=ctx,
                                 batch_size=2 * b if do_cfg else b,
                                 num_frames=t)
-            gumbel, confidence = self._decode_draws(
-                draws, step, logits.shape[-1], generator, device)
+            gumbel, confidence, finish = self._decode_draws(
+                draws, step, logits.shape[-1], init_idx.numel(), generator,
+                device)
             sample_ids, prob = sample_tokens(
                 logits, gumbel, guidance=guidance,
                 blank=blank if step < BLANK_STEPS else None)
+            finish()
             del logits
             known = code_idx != -1
             sample_ids = torch.where(known, code_idx, sample_ids)
@@ -558,9 +630,13 @@ class MaskGITPipeline(MeshPlacement):
         """Iterative unmasking decode of one window: gt, predicted and
         VQ-reconstructed voxels (binary) and the code indices. ``draws``:
         ``{"decode": {"sample": [T], "confidence": [T]}, "pred_voxels":
-        (u1, u2), "vq_voxels": (u1, u2)}``."""
+        (u1, u2), "vq_voxels": (u1, u2)}`` of the global batch (over data
+        ranks, ``batch`` is this rank's rows and it keeps its rows of the
+        draws); without them, the generator's draws for the global batch,
+        this rank's rows kept."""
         do_cfg = self.inference_config.get("do_classifier_free_guidance",
                                            False)
+        draws = None if draws is None else shard_batch(draws, self.mesh)
         points = batch["lidar_points"]
         b, t = points.shape[:2]
         voxels, code, code_indices = self.tokenize(
@@ -593,7 +669,8 @@ class MaskGITPipeline(MeshPlacement):
         sampled codes as the next window's pinned tokens; the BEV layout is
         re-sliced per window by absolute frame range (a short last window
         repeats its last frame). ``draws``: one ``{"decode": ...,
-        "voxels": (u1, u2)}`` a window. Returns pred/gt voxels (b, total,
+        "voxels": (u1, u2)}`` a window, of the global batch as in
+        ``inference_pipeline``. Returns pred/gt voxels (b, total,
         D, H, W), the predicted indices and points with their masks."""
         ic, cc, tc = (self.inference_config, self.common_config,
                       self.training_config)
@@ -608,6 +685,8 @@ class MaskGITPipeline(MeshPlacement):
         n_windows = max(1, -(-(total - ref) // (tw - ref)))
         if draws is not None and len(draws) != n_windows:
             raise ValueError(f"{n_windows} windows need {n_windows} draws")
+        draws = None if draws is None else [shard_batch(d, self.mesh)
+                                            for d in draws]
 
         gt_voxels, _, all_indices = self.tokenize(
             points, batch["lidar_points_mask"])
@@ -655,8 +734,8 @@ class MaskGITPipeline(MeshPlacement):
                 torch.float32, init_idx, ctx, b, tw, generator,
                 None if win is None else win["decode"])
             _, logits = self.vq.lidar_decoder(x_final)
-            vox = gumbel_sigmoid(logits, None if win is None
-                                 else win["voxels"], generator)
+            vox = gumbel_sigmoid(logits, self._sigmoid_uniforms(
+                logits, generator) if win is None else win["voxels"])
             vox = vox.reshape(b, tw, *vox.shape[1:])
             ids = idx_final.reshape(b, tw, l)
             crop = 0 if w == 0 else ref
@@ -673,13 +752,22 @@ class MaskGITPipeline(MeshPlacement):
                 "pred_points_mask": pred_points_mask,
                 "task_type": "autoregressive_prediction"}
 
+    def _sigmoid_uniforms(self, logits, generator):
+        """``gumbel_sigmoid``'s two uniforms for this data rank's rows of
+        ``logits``: drawn for the global batch's rows, this rank's kept."""
+        return self.rank_draws(lambda m: [
+            torch.rand((m,) + tuple(logits.shape[1:]), generator=generator,
+                       device=logits.device) for _ in range(2)],
+            logits.shape[0])
+
     def _finish_inference(self, pred_logits, code, voxels, idx_final, b, t,
                           task_type, generator=None, draws=None):
         _, vq_logits = self.vq.lidar_decoder(code)
-        pred = gumbel_sigmoid(pred_logits, None if draws is None
-                              else draws["pred_voxels"], generator)
-        vq = gumbel_sigmoid(vq_logits, None if draws is None
-                            else draws["vq_voxels"], generator)
+        pred = gumbel_sigmoid(pred_logits, self._sigmoid_uniforms(
+            pred_logits, generator) if draws is None
+            else draws["pred_voxels"])
+        vq = gumbel_sigmoid(vq_logits, self._sigmoid_uniforms(
+            vq_logits, generator) if draws is None else draws["vq_voxels"])
         return {
             "gt_voxels": voxels.reshape(b, t, *voxels.shape[2:]),
             "pred_voxels": pred.reshape(b, t, *pred.shape[1:]),

@@ -194,7 +194,9 @@ class UnimlvgPipeline(CTSDPipeline):
 
     # -- inference -----------------------------------------------------------
 
-    @torch.inference_mode()
+    # no_grad, not inference_mode: an FSDP-sharded model gathers its
+    # parameters in its forward, which inference tensors refuse
+    @torch.no_grad()
     def inference_pipeline(
         self,
         batch: dict,

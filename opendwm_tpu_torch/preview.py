@@ -9,19 +9,24 @@ composited preview written under ``{output}/preview``.
 ``--device`` defaults to ``cuda`` and raises without a card; the model and
 its frozen stages are built as in the evaluate CLI, and ``--checkpoint``
 loads the train CLI's checkpoint of that step under ``output/``.
+
+Under ``torchrun`` every rank takes its rows of each batch
+(``train.rank_batch``) and generates them from its rows of the global
+batch's noise (the sharded forward runs on every rank); rank 0 writes the
+preview of its row 0, which is the global batch's row 0, as the JAX CLI
+writes ``[0]``, and the other ranks write nothing.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 
 import torch
 
 from opendwm_tpu_torch import checkpoint as ckpt_lib
 from opendwm_tpu_torch.config import create_instance_from_config
-from opendwm_tpu_torch.train import build_pipeline, launch, read_config, \
-    to_device_batch
+from opendwm_tpu_torch.train import build_pipeline, launch, rank_batch, \
+    read_config, to_device_batch
 
 
 def rewrite_prompts(batch: dict, settings: dict) -> dict:
@@ -67,9 +72,10 @@ def create_parser():
 
 
 def main(args=None) -> list:
+    """The paths written (rank 0; None a batch on the other ranks)."""
     args = args or create_parser().parse_args()
     config, device = read_config(args)
-    rank = launch(device)  # under torchrun: every rank, rank 0 writes
+    rank = launch(device)
     torch.manual_seed(config.get("generator_seed", 0))
     pipeline = build_pipeline(config, device)
     dataset = create_instance_from_config(config["preview_dataset"])
@@ -87,8 +93,8 @@ def main(args=None) -> list:
         if prompt_settings:
             host = rewrite_prompts(host, prompt_settings)
         path = pipeline.preview_pipeline(
-            state, to_device_batch(host, device), args.output_path if
-            rank == 0 else os.path.join(args.output_path, f".rank{rank}"), i)
+            state, to_device_batch(rank_batch(host, pipeline), device),
+            args.output_path if rank == 0 else None, i)
         if rank == 0:
             print(f"wrote {path}", flush=True)
         paths.append(path)

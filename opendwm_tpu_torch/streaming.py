@@ -11,6 +11,14 @@ standard library; otherwise numbered PNGs in the output directory.
 
 ``--device`` defaults to ``cuda`` and raises without a card; it never
 falls back to the CPU.
+
+Under ``torchrun`` the pipeline's mesh spans every rank (built after the
+process group, as in the other CLIs). Where ``latent_shape``'s batch divides by the data ranks, each rank
+serves its rows of the stream (its rows of the global noise and of each
+tick's conditions, ``sharding.shard_batch``) and rank 0 writes its row 0,
+the global row 0, as the JAX CLI writes ``frame[0]``; where it does not
+(batch 1, the usual stream), every rank serves the whole stream, as JAX
+replicates it, and rank 0 writes. Other ranks write nothing.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import numpy as np
 import torch
 
 from opendwm_tpu_torch.config import create_instance_from_config, global_state
+from opendwm_tpu_torch.parallel.sharding import data_parallel_size, \
+    shard_batch
 from opendwm_tpu_torch.train import (
     _JAX_ONLY_KEYS,
     _device,
@@ -191,7 +201,7 @@ def main(args=None):
     with open(args.config_path) as f:
         config = json.load(f)
     device = _device(args.device)
-    rank = launch(device)  # under torchrun: every rank serves, rank 0 writes
+    rank = launch(device)
     for key in _JAX_ONLY_KEYS:
         if key in config:
             print(f"ignoring JAX-only config key {key}={config[key]!r}",
@@ -207,6 +217,13 @@ def main(args=None):
     latent_shape = tuple(config["latent_shape"])  # (b, T, v, h, w, c)
     window = latent_shape[1]
     generator = torch.Generator(device).manual_seed(seed)
+    split = pipeline.splits_stream(latent_shape)
+    rows = latent_shape[0] // data_parallel_size(pipeline.mesh) if split \
+        else latent_shape[0]  # the rows of the stream this rank serves
+
+    def query():
+        data = to_device_batch(adapter.query_data(), device)
+        return shard_batch(data, pipeline.mesh) if split else data
 
     def tile_window(x):
         # single-frame (b, 1, v, ...) conditions → full-window templates
@@ -214,29 +231,29 @@ def main(args=None):
             return torch.cat([x] * window, 1)
         return x
 
-    first = to_device_batch(adapter.query_data(), device)
+    first = query()
     cond_template = {
         k: tile_window(v) for k, v in first.items()
         if k in ("encoder_hidden_states", "pooled_projections",
                  "condition_image_tensor")
     } or {"pooled_projections": torch.zeros(
-        (latent_shape[0], window, latent_shape[2], 16), device=device)}
+        (rows, window, latent_shape[2], 16), device=device)}
     stream = pipeline.reset_streaming(latent_shape, cond_template, generator)
 
-    os.makedirs(args.output_path, exist_ok=True)
+    if rank == 0:
+        os.makedirs(args.output_path, exist_ok=True)
     frame_idx = 0
     writer = None
     try:
         while args.max_frames is None or frame_idx < args.max_frames:
-            data = to_device_batch(adapter.query_data(), device)
-            stream = pipeline.send_frame_condition(stream, data)
+            stream = pipeline.send_frame_condition(stream, query())
             stream, latent, ready = pipeline.receive_frame(stream)
             if not ready:
                 continue
-            image8 = frame_to_image(pipeline.decode_latents(latent)[0])
             frame_idx += 1
             if rank != 0:
                 continue
+            image8 = frame_to_image(pipeline.decode_latents(latent)[0])
             if writer is None:
                 writer = make_writer(
                     args.streaming_path, args.output_path, args.fps,

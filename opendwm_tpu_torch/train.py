@@ -59,8 +59,12 @@ slice of every batch (``parallel.sharding.shard_batch``; the batch must
 divide by the data ranks) and its rows of the randoms drawn for the whole
 batch from the generator every rank seeds alike, so that the step is the
 one-process step on the same batch; rank 0 alone logs and writes (a
-checkpoint is written by every rank, sharded). Without ``torchrun`` the
-single-process path is unchanged.
+checkpoint is written by every rank, sharded). The evaluation and the
+preview take the rank's rows too: each rank generates its rows from its
+rows of the global batch's draws, the metrics' states are merged over the
+data ranks before ``compute``, so the logged ``evaluation/*`` values are
+the global batch's, and rank 0 writes the preview of the global row 0.
+Without ``torchrun`` the single-process path is unchanged.
 """
 
 from __future__ import annotations
@@ -255,12 +259,16 @@ def build_pipeline(config: dict, device: torch.device):
     """The config's pipeline with fp32 master weights under the config's
     compute dtype (as flax keeps its params; the LiDAR tokenizers and
     MaskGIT hold fp32 parameters whatever their dtype) and its frozen
-    stages, every module it holds on ``device``."""
+    stages, every module it holds on ``device``. The modules are built on
+    ``device``: their default initialisation runs there, from its
+    generator (a full-width DiT's 3.8B parameters take ~31 s on the host,
+    0.5 s on an H100)."""
     pipe_cfg = dict(config["pipeline"])
     if "model" in pipe_cfg:
         pipe_cfg["model"] = dict(pipe_cfg["model"],
                                  param_dtype=torch.float32)
-    pipeline = create_instance_from_config(pipe_cfg)
+    with torch.device(device):
+        pipeline = create_instance_from_config(pipe_cfg)
     load_frozen_stages(pipeline, config)
     for module in vars(pipeline).values():
         if isinstance(module, torch.nn.Module):
@@ -382,8 +390,9 @@ class StepProfiler:
 
 def evaluate(pipeline, state, batches, seed: int, device, logger) -> dict:
     """``evaluate_pipeline`` in the signature the pipeline has: MaskGIT's
-    (the model first, then the batches and a generator) or CTSD's (the
-    state and the step)."""
+    (the model first, then the batches and a generator seeded alike on
+    every rank, whose draws are made for the global batch) or CTSD's (the
+    state and the step); the global batch's results on every rank."""
     first = next(iter(inspect.signature(
         pipeline.evaluate_pipeline).parameters))
     if first == "params":
@@ -494,8 +503,7 @@ def _train(args, config: dict, device: torch.device, rank: int):
                     hasattr(pipeline, "preview_pipeline"):
                 # every rank runs the (collective) forward; rank 0 writes
                 pipeline.preview_pipeline(
-                    state, batch, args.output_path if rank == 0 else
-                    os.path.join(args.output_path, f".rank{rank}"),
+                    state, batch, args.output_path if rank == 0 else None,
                     state.step)
     finally:
         if profiler.active:  # the loop ended inside the traced steps

@@ -264,3 +264,115 @@ def test_nanmedian_is_numpys():
                                                            float("nan")))))
     az, el, d = ray_metrics.spherical_projection(torch.tensor([[0.0, 5, 0]]))
     assert (float(az), float(el), float(d)) == (0.0, 0.0, 5.0)
+
+
+# -- the merge of running states over data ranks ---------------------------
+
+def _merge_updates(rng):
+    """Per metric class: (a fresh instance, its update's arguments for each
+    batch of 2 rows a rank over 2 ranks) — ``update`` is called once a
+    batch's rows of a rank, or once a sample (Chamfer, MMD, JSD)."""
+    def images(n):
+        return torch.from_numpy(rng.standard_normal((n, 2, 4, 4, 3))
+                                .astype(np.float32))
+
+    def grids(n):
+        return torch.from_numpy(rng.uniform(size=(n, 4, 4, 4)) > 0.5)
+
+    def cloud():
+        return torch.from_numpy(rng.uniform(-60, 60, (40, 3))
+                                .astype(np.float32))
+
+    batch, per_sample = 2, {"chamfer", "mmd", "jsd"}
+    cases = {
+        "frechet_paired": (lambda: frechet.FrechetPairedMetric(5),
+                           lambda: (images(batch), images(batch) + 0.3)),
+        "mean": (general.CustomMeanMetric,
+                 lambda: (torch.from_numpy(rng.standard_normal(
+                     (batch, 5)).astype(np.float32)),)),
+        "voxel_iou": (voxel_metrics.VoxelIoU,
+                      lambda: (grids(batch), grids(batch))),
+        "voxel_diff": (voxel_metrics.VoxelDiff,
+                       lambda: (grids(batch), grids(batch))),
+        "chamfer": (pc_metrics.PointCloudChamfer, lambda: (cloud(), cloud())),
+        "mmd": (lambda: pc_metrics.PointCloudMMD(bins=8),
+                lambda: (cloud(), cloud())),
+        "jsd": (lambda: pc_metrics.PointCloudJSD(bins=8),
+                lambda: (cloud(), cloud())),
+    }
+    out = {}
+    for name, (make, draw) in cases.items():
+        # updates[b][r]: the update calls of batch b on rank r
+        calls = batch if name in per_sample else 1
+        updates = [[[draw() for _ in range(calls)] for _ in range(2)]
+                   for _ in range(2)]
+        out[name] = (make, updates)
+    return out
+
+
+def _same_state(got: dict, want: dict):
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, list):  # per-sample values: the same, in order
+            assert len(g) == len(w), k
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b, err_msg=k)
+        elif isinstance(w, torch.Tensor):
+            assert g.dtype == w.dtype
+            assert _rel(g, w) <= SUM_REL, k
+        else:
+            assert type(g) is type(w) and np.allclose(g, w, rtol=1e-12,
+                                                      atol=0), k
+
+
+@pytest.mark.parametrize("name", sorted(_merge_updates(
+    np.random.default_rng(0))))
+def test_merge_of_two_ranks_is_one_instance_fed_in_order(name):
+    """Two instances, each fed its rank's rows of 2 batches, merged:
+    the state of one instance fed every batch's rows in order, and its
+    result."""
+    make, updates = _merge_updates(np.random.default_rng(5))[name]
+    ranks = [make() for _ in range(2)]
+    one = make()
+    for batch in updates:
+        for r, calls in enumerate(batch):
+            for args in calls:
+                ranks[r].update(*args)
+                one.update(*args)
+    merged = make()
+    merged.merge([m.state_dict() for m in ranks], batches=len(updates))
+    _same_state(merged.state_dict(), one.state_dict())
+    want = one.compute()
+    assert np.isfinite(want)
+    assert merged.compute() == pytest.approx(want, rel=1e-6, abs=1e-9)
+    # one rank: the merge is the identity
+    alone = make()
+    alone.merge([one.state_dict()], batches=len(updates))
+    _same_state(alone.state_dict(), one.state_dict())
+
+
+def test_frechet_distance_merge_sums_the_states():
+    rng = np.random.default_rng(2)
+    feats = [torch.from_numpy(rng.standard_normal((6, 4)).astype(np.float32))
+             for _ in range(4)]
+    m = frechet.FrechetDistance(4)
+    states = [m.init(), m.init()]
+    one = m.init()
+    for i, f in enumerate(feats):
+        states[i % 2] = m.update(states[i % 2], f, real=i < 2)
+        one = m.update(one, f, real=i < 2)
+    merged = m.merge(states)
+    assert (merged.real_n, merged.fake_n) == (one.real_n, one.fake_n) == \
+        (12, 12)
+    for part in ("real_sum", "real_cov_sum", "fake_sum", "fake_cov_sum"):
+        assert _rel(getattr(merged, part), getattr(one, part)) <= SUM_REL
+    assert m.compute(merged) == pytest.approx(m.compute(one), rel=DIST_REL)
+
+
+def test_merge_refuses_what_it_cannot_put_in_order():
+    with pytest.raises(ValueError, match="do not split into 2 batches"):
+        general.merge_states([{"values": [1.0, 2.0, 3.0]},
+                              {"values": [1.0]}], batches=2)
+    with pytest.raises(TypeError, match="cannot merge"):
+        general.merge_states([{"x": "a"}, {"x": "b"}])

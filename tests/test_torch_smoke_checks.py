@@ -21,7 +21,9 @@ and the LiDAR UNet's train census, their shapes from the configs and
 phase 3's lists, the UNet's parameters that may stay; the data phase's
 gates: its launch census, the native data plane against its fallbacks,
 the items through the two filesystems bit for bit, the train CLI's logged
-steps. No kernel runs here.
+steps; phase 28(f)'s gates: the evaluate CLI's metrics under the group
+against the one-process run's, the merge's collectives, its launch
+census; and phase 28(a)'s depth cut. No kernel runs here.
 """
 
 import importlib.util
@@ -217,6 +219,7 @@ def _counts(**over):
     ("mask_step", {"flash_tail_backward_sm90": 3}, False),
     ("mask_step", {}, True),
     ("land_eval", {"flash_tail_sm90": 9}, False),
+    ("eval_ranks", {"flash_tail_sm90": 9}, False),
     ("unet_depth_train", {"flash_attention_backward_sm90": 1}, False),
     ("unet_depth_train", {}, True),
 ])
@@ -279,18 +282,19 @@ def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
     ("branch_types", {"k4_fixed": 46}, False),
     ("mask_step", {"k3": 0, "k3_fixed": 0}, False),
     ("land_eval", {"k4_fixed": 187}, False),
+    ("eval_ranks", {"k3_fixed": 247}, False),
     ("fsdp_train", {"k3_fixed": 245}, False),
     ("sp_serve", {}, True),
     ("pp_serve", {"k4": 0, "k4_fixed": 0}, False),
 ])
 def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
-    """Every K3/K4 launch of the fourteen DiT paths must have run the ring
+    """Every K3/K4 launch of the fifteen DiT paths must have run the ring
     of ``csrc/adaln.cu``, and each path must have launched both."""
     assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train",
                                     "stream", "int8_serve", "unimlvg_serve",
                                     "unimlvg_train", "branch_types",
                                     "mask_step", "land_eval", "fsdp_train",
-                                    "sp_serve", "pp_serve"}
+                                    "sp_serve", "pp_serve", "eval_ranks"}
     paths = {p: _adaln_counts() for p in smoke.DIT_PATHS}
     paths[path] = _adaln_counts(**over)
     if ok:
@@ -404,19 +408,56 @@ def test_adaln_ring_census(smoke, case):
             smoke.census_adaln_ring(build)
 
 
-class _KernelEvent:
-    def __init__(self, key, us, count):
+class _KinetoEvent:
+    """A Kineto event as ``torch.profiler`` hands them over (times in ns)."""
+
+    def __init__(self, name, start, end, device=True, annotation=False,
+                 correlation=0, link=0):
         from torch.autograd import DeviceType
-        self.key, self.self_device_time_total, self.count = key, us, count
-        self.device_type = DeviceType.CUDA
+
+        self._name, self._start, self._end = name, start, end
+        self._device = DeviceType.CUDA if device else DeviceType.CPU
+        self._annotation = annotation
+        self._correlation, self._link = correlation, link
+
+    def name(self):
+        return self._name
+
+    def start_ns(self):
+        return self._start
+
+    def end_ns(self):
+        return self._end
+
+    def device_type(self):
+        return self._device
+
+    def is_user_annotation(self):
+        return self._annotation
+
+    def correlation_id(self):
+        return self._correlation
+
+    def linked_correlation_id(self):
+        return self._link
 
 
-class _KernelProfile:
-    def __init__(self, *events):
-        self.events = events
+def _kineto_profile(events):
+    """A profile whose Kineto results hold ``events``."""
+    from types import SimpleNamespace
 
-    def key_averages(self):
-        return self.events
+    return SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: list(events))))
+
+
+def _KernelEvent(key, us, count):
+    """``count`` launches of kernel ``key``, ``us`` µs in all."""
+    edges = [round(i * us * 1e3 / count) for i in range(count + 1)]
+    return [_KinetoEvent(key, a, b) for a, b in zip(edges, edges[1:])]
+
+
+def _KernelProfile(*kernels):
+    return _kineto_profile([e for k in kernels for e in k])
 
 
 def test_adaln_profile_ms_reads_the_residual_flag(smoke):
@@ -763,48 +804,33 @@ def test_random_init_sets_the_rotary_frequencies(smoke):
     torch.testing.assert_close(block.rope.freqs.detach(), want)
 
 
-class _Span:
-    def __init__(self, start, end):
-        self.start, self.end = start, end
-
-    def elapsed_us(self):
-        return self.end - self.start
-
-
-class _Event:
-    def __init__(self, name, start, end, annotation=False):
-        from torch.autograd import DeviceType
-
-        self.name, self.device_type = name, DeviceType.CUDA
-        self.time_range = _Span(start, end)
-        self.is_user_annotation = annotation
-
-
 def test_range_split_counts_kernels_inside_the_spans():
     """``range_device_ms`` sums the kernels that ran inside the GPU-side
     spans of a range (each once) and nothing outside them; ``int8_split``
     splits by the same rule, the int8 GEMM's kernels apart wherever they
-    ran."""
-    from types import SimpleNamespace
-
+    ran (the kernels its host operation launched)."""
     from opendwm_tpu_torch.perf.exp_int8_fidelity import RANGE, int8_split
     from opendwm_tpu_torch.perf.measure import range_device_ms
 
-    def events(name):
-        return [_Event(name, 100, 200),
-                _Event("gemm", 110, 150), _Event("softmax", 150, 190),
-                _Event("gemm", 210, 260),
-                _Event(name, 300, 350),
-                _Event("gemm", 305, 345), _Event("other", 340, 360),
-                _Event("annotation", 301, 302, annotation=True)]
+    def events(name):  # µs, as ns
+        us = 1000
+        return [_KinetoEvent(name, 100 * us, 200 * us),
+                _KinetoEvent("gemm", 110 * us, 150 * us, link=7),
+                _KinetoEvent("softmax", 150 * us, 190 * us),
+                _KinetoEvent("gemm", 210 * us, 260 * us, link=8),
+                _KinetoEvent(name, 300 * us, 350 * us),
+                _KinetoEvent("gemm", 305 * us, 345 * us, link=9),
+                _KinetoEvent("other", 340 * us, 360 * us),
+                _KinetoEvent("annotation", 301 * us, 302 * us,
+                             annotation=True)]
 
-    prof = SimpleNamespace(events=lambda: events("plain_attention"))
+    prof = _kineto_profile(events("plain_attention"))
     ms, n = range_device_ms(prof, "plain_attention")
     assert n == 3 and ms == pytest.approx((40 + 40 + 40) / 1e3)
 
-    int_mm = SimpleNamespace(name="aten::_int_mm", device_type=None,
-                             kernels=[SimpleNamespace(name="gemm")])
-    prof = SimpleNamespace(events=lambda: events(RANGE) + [int_mm])
+    int_mm = [_KinetoEvent("aten::_int_mm", 0, 1, device=False,
+                           correlation=c) for c in (7, 8, 9)]
+    prof = _kineto_profile(events(RANGE) + int_mm)
     split = int8_split(prof)
     assert split["int8_gemm"] == {"ms": pytest.approx(0.13), "kernels": 3}
     assert split["quant_dequant"] == {"ms": pytest.approx(0.04),
@@ -1412,3 +1438,83 @@ def test_multidevice_and_segment_grad_paths_are_gated(smoke):
     assert "segment_grad" not in smoke.TRAIN_PATHS
     assert smoke.MD_RING[1] % smoke.MD_RING_N[0] == 0
     assert smoke.MD_RING[1] % smoke.MD_RING_N[1] == 0
+
+
+# -- phase 28(f): the evaluate CLI under the NCCL group of one ------------
+
+@pytest.mark.parametrize("results,collectives,ok", [
+    ({"evaluation/fid_proxy": 2.5}, None, True),
+    ({"evaluation/fid_proxy": 2.5 * (1 + 5e-7)}, None, True),
+    ({"evaluation/fid_proxy": 2.5 * (1 + 2e-6)}, None, False),  # not equal
+    ({"evaluation/fid_proxy": float("nan")}, None, False),
+    ({}, None, False),  # no metric
+    ({"evaluation/fid_proxy": 2.5, "evaluation/x": 1.0}, None, False),
+    ({"evaluation/fid_proxy": 2.5}, {}, False),  # no collective issued
+    ({"evaluation/fid_proxy": 2.5},
+     {"gloo:all_gather": 1, "gloo:all_gather_object": 1}, False),
+    ({"evaluation/fid_proxy": 2.5},
+     {"nccl:all_gather": 2, "nccl:all_gather_object": 1}, False),
+])
+def test_eval_ranks_gate(smoke, results, collectives, ok):
+    """The metrics under the group must be phase 24's one-process ones
+    within 1e-6 relative, and the merge's collectives those of one
+    Fréchet metric, on NCCL."""
+    want = {"evaluation/fid_proxy": 2.5}
+    issued = dict(smoke.EVAL_RANKS_COLLECTIVES) if collectives is None \
+        else collectives
+    if ok:
+        smoke.check_eval_ranks(results, want, issued)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_eval_ranks(results, want, issued)
+
+
+def _eval_counts(smoke, **over):
+    counts = {"adaln_modulate": smoke.K3_PER_FORWARD * smoke.STEPS,
+              "residual_adaln_modulate": smoke.K4_PER_FORWARD * smoke.STEPS,
+              "flash_tail_by_shape": {
+                  f"{b},{s},24,64": 4 for b, s in smoke.ATTN_SHAPES},
+              "adaln_modulate_by_shape": {
+                  ",".join(map(str, x)): 4 for x in smoke.ADALN_SHAPES[:2]},
+              "residual_adaln_modulate_by_shape": {
+                  ",".join(map(str, x)): 4 for x in smoke.ADALN_SHAPES[:2]}}
+    counts.update(over)
+    return counts
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"adaln_modulate": 1}, False),  # not 62 a forward
+    ({"residual_adaln_modulate": 0}, False),
+    ({"flash_tail_by_shape": {"72,602,24,64": 4}}, False),  # a shape missing
+    ({"adaln_modulate_by_shape": {"72,448,1536": 4, "36,448,1536": 1,
+                                  "72,154,1536": 4}}, False),  # another
+])
+def test_eval_census_gate(smoke, over, ok):
+    """Phases 24 and 28(f): K3/K4 62/47 a CFG forward, K1/K3/K4 at the
+    serving shapes only."""
+    counts = _eval_counts(smoke, **over)
+    if ok:
+        smoke.check_eval_census(counts, "eval")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_eval_census(counts, "eval")
+
+
+def test_multidevice_depth_cut(smoke):
+    """Phase 28(a)'s DiT is phase 6's cut to ``MD_TRAIN_LAYERS`` layers,
+    every block type of the full depth kept; the cut config leaves the
+    full one as it is."""
+    import json
+
+    cfg = json.loads(smoke.CONFIG.read_text())["pipeline"]
+    cut = smoke.depth_cut(cfg, smoke.MD_TRAIN_LAYERS)
+    m, full = cut["model"], cfg["model"]
+    assert m["num_layers"] == smoke.MD_TRAIN_LAYERS < full["num_layers"]
+    for key in ("dual_attention_layers", "crossview_block_layers",
+                "temporal_block_layers"):
+        assert m[key] and all(i < m["num_layers"] for i in m[key]), key
+        assert m[key] == [i for i in full[key] if i < m["num_layers"]]
+    assert full["num_layers"] == 24
+    assert "eval_ranks" in smoke.MODEL_PATHS and \
+        "eval_ranks" in smoke.DIT_PATHS

@@ -9,6 +9,7 @@ re-raised in the parent with its traceback.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 import traceback
@@ -205,24 +206,31 @@ def sharded_step(rank, world, cfg, state_dict, batch, draws, mesh_spec,
             "moments": moments, "step": state.step}
 
 
-def train_cli(rank, world, argv):
-    """The train CLI as ``torchrun`` starts it (RANK, WORLD_SIZE and
-    LOCAL_RANK set; the group is the one this rank joined): the state's
-    step and every parameter after it, whole."""
-    from opendwm_tpu_torch import train
-
+@contextlib.contextmanager
+def torchrun_env(rank, world):
+    """RANK, WORLD_SIZE and LOCAL_RANK set as ``torchrun`` sets them (the
+    group is the one this rank joined)."""
     env = {"RANK": str(rank), "WORLD_SIZE": str(world),
            "LOCAL_RANK": str(rank)}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        state = train.main(train.create_parser().parse_args(argv))
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
+
+
+def train_cli(rank, world, argv):
+    """The train CLI as ``torchrun`` starts it: the state's step and every
+    parameter after it, whole."""
+    from opendwm_tpu_torch import train
+
+    with torchrun_env(rank, world):
+        state = train.main(train.create_parser().parse_args(argv))
     return {"step": state.step,
             "params": {n: full(p).detach().clone()
                        for n, p in state.model.named_parameters()}}
@@ -370,3 +378,139 @@ def flagship_tp_case(rank, world, stage_kw, seed, pp, tp, microbatches):
         ref = dit_pipeline.flagship_sequential_apply(plain, stacked, h0,
                                                      temb0)
     return {"out": out, "ref": ref}
+
+
+# ---------------------------------------------------------------------------
+# Evaluation, preview and streaming across data ranks
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def saved_preview_frames():
+    """The CTSD preview writes, beside each file, the frames it encodes
+    (``<path>.npy``), so that they can be compared without the codec."""
+    import numpy as np
+
+    from opendwm_tpu_torch.pipelines import ctsd
+
+    save = ctsd.save_tensor_to_video
+
+    def save_and_keep(path, fps, frames):
+        out = save(path, fps, frames)
+        np.save(out + ".npy", np.asarray(frames))
+        return out
+
+    ctsd.save_tensor_to_video = save_and_keep
+    try:
+        yield
+    finally:
+        ctsd.save_tensor_to_video = save
+
+
+def cli_case(rank, world, module, argv):
+    """The port's CLI ``module`` (``train``, ``evaluate``, ``preview``,
+    ``streaming``) as ``torchrun`` starts it, ``{rank}`` in an argument
+    replaced by the rank: what its ``main`` returns (the train CLI: the
+    state's step), the preview's frames saved beside its file."""
+    import importlib
+
+    argv = [a.replace("{rank}", str(rank)) for a in argv]
+    cli = importlib.import_module(f"opendwm_tpu_torch.{module}")
+    with torchrun_env(rank, world), saved_preview_frames():
+        out = cli.main(cli.create_parser().parse_args(argv))
+    return out.step if module == "train" else out
+
+
+def ctsd_eval_case(rank, world, cfg, state_dict, batches, step, noise,
+                   features):
+    """CTSD's ``evaluate_pipeline`` (``FrechetPairedMetric`` of
+    ``features`` over the latents, plain and with shrinkage) on this data
+    rank's rows of the global ``batches``, given the global batches'
+    ``noise``: its results."""
+    from opendwm_tpu_torch.metrics.frechet import FrechetPairedMetric
+    from opendwm_tpu_torch.parallel.sharding import shard_batch
+
+    pipe = ctsd_pipeline(cfg, state_dict)
+    return pipe.evaluate_pipeline(
+        None, step, batches=[shard_batch(b, pipe.mesh) for b in batches],
+        metrics={"fid_proxy": FrechetPairedMetric(features),
+                 "shrunk": FrechetPairedMetric(features, shrinkage=1e-3)},
+        noise=noise)
+
+
+def maskgit_eval_case(rank, world, state_dict, batches, seed, chunk_elems):
+    """The small MaskGIT's ``evaluate_pipeline`` on a (dp = world) mesh, on
+    this data rank's rows of the global ``batches``, its draws from a
+    generator seeded with ``seed`` (the categorical steps in chunks of
+    ``chunk_elems`` logits): its results."""
+    from opendwm_tpu_torch.parallel.sharding import shard_batch
+    from opendwm_tpu_torch.pipelines import lidar_maskgit
+
+    lidar_maskgit.SAMPLE_CHUNK_ELEMS = chunk_elems
+    pipe = maskgit_pipeline({"dp": world, "fsdp": 1, "tp": 1})
+    pipe.model.load_state_dict(state_dict["model"])
+    pipe.vq.load_state_dict(state_dict["vq"])
+    return pipe.evaluate_pipeline(
+        pipe.model, [shard_batch(b, pipe.mesh) for b in batches],
+        torch.Generator().manual_seed(seed))
+
+
+def stream_case(rank, world, cfg, state_dict, latent_shape, ticks, seed):
+    """``ticks`` ticks of the streaming pipeline of ``cfg`` for the global
+    ``latent_shape`` (``ticks``: the global conditions of each tick), its
+    initial and tail noise from a generator seeded with ``seed``: whether
+    the stream is split over the data ranks, and the frames this rank
+    emits."""
+    from opendwm_tpu_torch.parallel.sharding import shard_batch
+
+    pipe = ctsd_pipeline(cfg, state_dict)
+    split = pipe.splits_stream(latent_shape)
+
+    def rows(batch):
+        return shard_batch(batch, pipe.mesh) if split else batch
+
+    template = rows({k: torch.cat([v] * latent_shape[1], 1)
+                     for k, v in ticks[0].items()})
+    state = pipe.reset_streaming(latent_shape, template,
+                                 torch.Generator().manual_seed(seed))
+    frames = []
+    for tick in ticks:
+        state = pipe.send_frame_condition(state, rows(tick))
+        state, frame, ready = pipe.receive_frame(state)
+        if ready:
+            frames.append(frame)
+    return {"split": state.split, "frames": frames}
+
+
+def metric_states_case(rank, world, mesh_spec, updates, by_rank=False):
+    """Metrics of every kind fed ``updates`` (``by_rank``: ``updates[rank]``,
+    else every rank the same rows, as the ranks of a (tp) mesh share them)
+    on a mesh of ``mesh_spec``, then merged over the data ranks: their
+    results, the data group's size and the collectives issued."""
+    import torch.distributed as dist
+
+    from opendwm_tpu_torch.metrics import (
+        CustomMeanMetric,
+        FrechetPairedMetric,
+        PointCloudJSD,
+        VoxelIoU,
+    )
+    from opendwm_tpu_torch.parallel import collectives
+    from opendwm_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from opendwm_tpu_torch.parallel.sharding import data_group
+
+    mesh = make_mesh(MeshSpec(**mesh_spec))
+    if by_rank:
+        updates = updates[rank]
+    metrics = {"mean": CustomMeanMetric(), "fid": FrechetPairedMetric(4),
+               "iou": VoxelIoU(), "jsd": PointCloudJSD(bins=8)}
+    for real, fake, gt, pred, points in updates:
+        metrics["mean"].update(real)
+        metrics["fid"].update(real, fake)
+        metrics["iou"].update(gt, pred)
+        metrics["jsd"].update(points, points * 0.5)
+    collectives.reset_collective_counts()
+    collectives.reduce_metric_states(metrics, mesh, len(updates))
+    return {"results": {k: m.compute() for k, m in metrics.items()},
+            "data_group": dist.get_world_size(data_group(mesh)),
+            "collectives": collectives.collective_counts()}
