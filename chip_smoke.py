@@ -15,8 +15,10 @@ profile), the CTSD-2.1 UNet's depth branch in training, the BEV world VAE,
 the blank-code tool and the LiDAR visualizer, the multi-device stack (FSDP
 training, ring attention, the GPipe schedule and the stage-sliced flagship
 DiT, the train CLI under torchrun, the full-width evaluate CLI with its
-metrics merged over the data ranks) on an NCCL group of one, the
-tail-attention tiling experiment and the attention shoot-out on one GPU.
+metrics merged over the data ranks) on an NCCL group of one, the training
+of the temporal LiDAR MaskGIT, the layout UNet and DFoT diffusion forcing
+(with its sampling), the tail-attention tiling experiment and the
+attention shoot-out on one GPU.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile-dit] [--profile-stream]
@@ -418,14 +420,40 @@ Phases; any failure raises and exits non-zero:
    the train CLI under ``torchrun --standalone --nproc-per-node 1`` (a
    loopback rendezvous): 2 steps of ``TINY_CONFIG``, its state placed by
    the config's fsdp policy and its checkpoint sharded.
+29. the temporal LiDAR MaskGIT trained
+   (``run_lidar_maskgit_temporal_train``):
+   ``configs/lidar/lidar_maskgit_temporal_vq80k_layout_ns.json`` at full
+   width in its fp32 (24 Swin and 24 temporal blocks at 512, 80,000
+   codes, the vq80k tokenizer frozen), 3 steps of 1 x 6 frames with 640²
+   box and map rasters, the prediction task in steps 1 and 3 and the
+   generation task in step 2; finite ``ce_loss``, every temporal block's
+   tensor moved by ``MD_UPDATE_REL`` of its own update; the peak against
+   the logits' reckoning (the head runs a chunk of masked rows at a time),
+   and the head over every row beside the chunked head at 3 frames.
+30. the bm UNet trained (``run_unet_train_slice`` on
+   ``configs/ctsd/multi_datasets/ctsd_21_tirda_bm_nwa.json``): phase 8
+   from pixels (``vae_images`` at 256 x 448 through the SD2.1 encoder in
+   bf16) with 256 x 448 box and map rasters; its census as phase 8's, K7,
+   its backward, K1 and K2 at the shapes phase 3 holds, and every
+   ImageAdapter tensor with a non-zero gradient.
+31. DFoT (``run_dfot_phase``:
+   ``configs/ctsd/multi_datasets/ctsd_35_df16_tirda_bm_nwao.json``,
+   diffusion forcing, action ids): trained as phase 11 (per-frame
+   timesteps and the action ids held first); one window sampled at full
+   width in ``DFOT_STEPS`` = 36 steps (the config's 40 cannot divide over
+   6 frames) with CFG 4.0 from image latents and decoded 6 frames a call,
+   K1 at the serving shapes and K3/K4 62/47 a CFG forward; the drift gate
+   at 4 of the 24 layers, the 36 steps run with the kernels in bf16, the
+   plain versions in bf16 and the plain versions in fp32: the kernels'
+   gap to fp32 within ``DFOT_DRIFT_FACTOR`` x the plain bf16 gap.
 
 Each slice is freed before the next. K7-seg must have launched on no path
 but the shoot-out and ``segment_grad``, every K1 and K7 forward launch of
-the twenty-seven model paths must have run the Hopper forward, every K2
-and K7 backward launch of the eleven training paths the Hopper backward,
+the thirty model paths must have run the Hopper forward, every K2
+and K7 backward launch of the thirteen training paths the Hopper backward,
 every bf16 K5 and K6
 launch of the tailvar path the Hopper tilings, and every K3 and K4 launch
-of the fifteen DiT paths and of the LiDAR DiT's serving and training the
+of the seventeen DiT paths and of the LiDAR DiT's serving and training the
 ring (their launch counters).
 The line before the last is the kernels JSON; the last is the device JSON.
 """
@@ -486,18 +514,19 @@ RASTER_MIN_MOVE = 1e-3
 TRAIN_PATHS = ("train", "unet_train", "bm_train", "unimlvg_train",
                "mask_step", "lidar_dit_train", "lidar_unet_train",
                "lidar_unet_data", "unet_depth_train", "fsdp_train",
-               "ring_steps")
+               "ring_steps", "bm_unet_train", "dfot_train")
 MODEL_PATHS = ("serve", "train", "unet_serve", "unet_train", "bm_serve",
                "bm_unet_serve", "bm_train", "stream", "int8_serve",
                "int8_unet", "lidar_dit", "unimlvg_serve", "unimlvg_train",
                "branch_types", "mask_step", "lidar_dit_train",
                "lidar_unet_serve", "lidar_unet_train", "lidar_unet_data",
                "land_eval", "unet_depth_train", "fsdp_train", "sp_serve",
-               "pp_serve", "ring_steps", "segment_grad", "eval_ranks")
+               "pp_serve", "ring_steps", "segment_grad", "eval_ranks",
+               "bm_unet_train", "dfot_train", "dfot_serve")
 DIT_PATHS = ("serve", "train", "bm_serve", "bm_train", "stream",
              "int8_serve", "unimlvg_serve", "unimlvg_train", "branch_types",
              "mask_step", "land_eval", "fsdp_train", "sp_serve", "pp_serve",
-             "eval_ranks")
+             "eval_ranks", "dfot_train", "dfot_serve")
 # LiDAR serving (bench.py:228-394's geometry): MaskGIT generation on the
 # layout config (bf16 compute, as bench.py:247-252 sets it), the temporal
 # vq80k config's autoregressive rollout, and the temporal LiDAR DiT (its
@@ -705,6 +734,33 @@ EVAL_RANKS_COLLECTIVES = {"nccl:all_gather": 1, "nccl:all_gather_object": 1}
 MD_RING = (36, 602, 24)
 MD_RING_N = (2, 7)
 MD_CLI_STEPS = 2
+# Phases 29-31: the training of three published configurations at full
+# width. 29: the temporal vq80k MaskGIT (``LIDAR_ROLLOUT_CONFIG``) in the
+# config's fp32, one sample of its 6-frame sequences (a data rank's share
+# of its batch of 4: two samples do not fit), one step a task draw of
+# ``MASKGIT_TEMPORAL_TASKS`` (task_type_ratio 0.5: prediction, generation,
+# prediction); the head over every row (``smoothed_cross_entropy`` of all
+# rows' logits) and the chunked head measured side by side at
+# ``MASKGIT_TEMPORAL_SIDE_FRAMES`` frames, where both fit. Every temporal
+# block's tensor must move by ``MD_UPDATE_REL`` of its own update.
+MASKGIT_TEMPORAL_FRAMES = 6
+MASKGIT_TEMPORAL_TASKS = (0.25, 0.75, 0.25)
+MASKGIT_TEMPORAL_SIDE_FRAMES = 3
+# 31: DFoT (diffusion forcing), trained as phase 11's bm DiT, then one
+# window sampled at its CFG 4.0 in ``DFOT_STEPS`` steps: the most at or
+# under the config's 40 that diffusion forcing admits over 6 frames (the
+# steps must divide by the frames, ``opendwm_tpu/pipelines/ctsd.py:724``),
+# decoded ``DFOT_DECODE_CHUNK`` frames a call; and the drift gate: the
+# sampling at ``DFOT_DRIFT_LAYERS`` of the 24 layers (widths unchanged)
+# with the kernels in bf16, with the plain versions in bf16 and with the
+# plain versions in fp32; the kernels' relative gap to fp32 within
+# ``DFOT_DRIFT_FACTOR`` times the plain bf16 gap.
+DFOT_CONFIG = \
+    REPO / "configs/ctsd/multi_datasets/ctsd_35_df16_tirda_bm_nwao.json"
+DFOT_STEPS = 36
+DFOT_DECODE_CHUNK = 6
+DFOT_DRIFT_LAYERS = 4
+DFOT_DRIFT_FACTOR = 2.0
 # The UNet's level-0 self-attention (K7) in each forward: 2 down and 3 up
 # transformer models; a train step runs them forward, again in the remat
 # recompute, and backward.
@@ -1857,12 +1913,27 @@ def profile_ms(fn) -> float:
     return sum(t for t, _, _ in _device_kernels(prof)) / 1e3
 
 
+def ego_poses(dev, b: int, t: int, v: int) -> torch.Tensor:
+    """(b, t, v, 4, 4) ego poses of a car that drives 2 m a frame on a
+    bend of 0.05 rad a frame (the same pose for each sensor), so that the
+    action ids' speed and steering are finite and conditioned (not the
+    unconditioned -1000)."""
+    yaw = torch.arange(t, device=dev, dtype=torch.float32) * 0.05
+    ego = torch.eye(4, device=dev).repeat(b, t, v, 1, 1)
+    ego[..., 0, 0], ego[..., 0, 1] = yaw.cos()[:, None], -yaw.sin()[:, None]
+    ego[..., 1, 0], ego[..., 1, 1] = yaw.sin()[:, None], yaw.cos()[:, None]
+    ego[..., 0, 3] = torch.cumsum(2.0 * yaw.cos(), 0)[:, None]
+    ego[..., 1, 3] = torch.cumsum(2.0 * yaw.sin(), 0)[:, None]
+    return ego
+
+
 def make_batch(dev, gen, text_tokens: int = TEXT_TOKENS,
                text_dim: int = 4096, pooled_dim: int | None = 2048,
-               layout: bool = False) -> dict:
+               layout: bool = False, ego: bool = False) -> dict:
     """One canonical latent-space batch: 6 frames x 6 views, pre-encoded
     text (the DiT's 154 tokens, 4096 wide, pooled 2048 by default) and ring
-    cameras; with ``layout``, box and map rasters too."""
+    cameras; with ``layout``, box and map rasters too; with ``ego``, the
+    ego poses that the action ids read (``ego_poses``)."""
     b, t, v = 1, FRAMES, VIEWS
     w_img, h_img = 8 * LAT_W, 8 * LAT_H
     intr = torch.zeros(b, t, v, 3, 3, device=dev)
@@ -1883,6 +1954,8 @@ def make_batch(dev, gen, text_tokens: int = TEXT_TOKENS,
             b, t, v, pooled_dim, generator=gen, device=dev)
     if layout:
         batch.update(layout_rasters(dev, gen))
+    if ego:
+        batch["ego_transforms"] = ego_poses(dev, b, t, v)
     return {
         **batch,
         "camera_intrinsics": intr,
@@ -2489,6 +2562,21 @@ def profile_forward(model, kwargs: dict, what: str):
     return dt, prof
 
 
+def attach_pixels(pipe, vae_factory, batch: dict, dev, gen) -> None:
+    """A train path from pixels: a bf16 VAE from ``vae_factory`` drawn on
+    the card, frozen and attached to ``pipe``, and ``batch``'s
+    ``vae_images`` (uniform in [-1, 1], 8 x the latents' size), which the
+    step encodes."""
+    with torch.device("meta"):
+        vae = vae_factory(dtype=torch.bfloat16)
+    vae.to_empty(device=dev)
+    random_init_(vae, gen)
+    pipe.set_vae(vae.eval().requires_grad_(False))
+    batch["vae_images"] = torch.rand(
+        1, FRAMES, VIEWS, 8 * LAT_H, 8 * LAT_W, 3, generator=gen,
+        device=dev) * 2 - 1
+
+
 def run_train_slice(dev, create_instance_from_config, ops,
                     profile: bool = False, config: Path = CONFIG,
                     sd35_vae=None, tag: str = "train"):
@@ -2501,6 +2589,8 @@ def run_train_slice(dev, create_instance_from_config, ops,
     cfg = json.loads(config.read_text())["pipeline"]
     cfg["model"]["param_dtype"] = torch.float32
     mc, oc, tc = cfg["model"], cfg["optimizer_config"], cfg["training_config"]
+    cc = cfg["common_config"]
+    action = cc.get("added_time_ids") == "fps_camera_transforms_action"
     if layout:
         oc.update(BM_OPTIMIZER)
     moments = oc.get("mu_dtype", "float32") if oc.get("flat") else "float32"
@@ -2525,19 +2615,21 @@ def run_train_slice(dev, create_instance_from_config, ops,
         f"{model.dtype}; reckoned state {state_bytes / 1e9:.1f} GB = "
         f"{state_bytes / 2**30:.1f} GiB (4 B param + 4 B grad + "
         f"{moment_bytes} B AdamW moments)")
-    batch = make_batch(dev, gen, layout=layout)
+    batch = make_batch(dev, gen, layout=layout, ego=action)
     if layout:
-        with torch.device("meta"):
-            vae = sd35_vae(dtype=torch.bfloat16)
-        vae.to_empty(device=dev)
-        random_init_(vae, gen)
-        pipe.set_vae(vae.eval().requires_grad_(False))
-        batch["vae_images"] = torch.rand(
-            1, FRAMES, VIEWS, 8 * LAT_H, 8 * LAT_W, 3, generator=gen,
-            device=dev) * 2 - 1
+        attach_pixels(pipe, sd35_vae, batch, dev, gen)
     else:
         batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W, 16,
                                        generator=gen, device=dev)
+    if cc.get("frame_prediction_style") == "diffusion_forcing" or action:
+        from opendwm_tpu_torch.pipelines.ctsd import get_conditions
+
+        draws = pipe.draw_randoms(
+            (1, FRAMES, VIEWS, LAT_H, LAT_W, 16),
+            torch.Generator(dev).manual_seed(SEED + 9), dev, vae=layout)
+        ids = get_conditions(batch, cc)["added_time_ids"]
+        check_step_inputs(tuple(draws["time"].shape), ids[..., -2:] if
+                          action else None, cc, tag)
     counts, metrics = drive_train(dev, pipe, batch, ops, tag, profile)
     check_train_seqs(counts, tag)
     check_moment_bytes(*metrics["moments"], moment_bytes // 2, tag)
@@ -2556,6 +2648,26 @@ def run_train_slice(dev, create_instance_from_config, ops,
             f"{step_ms:.1f} ms wall); ImageAdapter forward "
             f"{metrics['adapter_ms']:.3f} device ms (profiler)")
     return counts, metrics
+
+
+def check_step_inputs(time_shape: tuple, action_ids, common_config: dict,
+                      tag: str) -> None:
+    """A train step's inputs as its config asks: under diffusion forcing a
+    timestep draw a sample and frame ((1, ``FRAMES``)), else one a sample;
+    with ``fps_camera_transforms_action`` the action ids (speed, steering)
+    finite and not all the unconditioned -1000."""
+    df = common_config.get("frame_prediction_style") == "diffusion_forcing"
+    want = (1, FRAMES) if df else (1,)
+    log(f"{tag}: the timestep draw {time_shape} (want {want}); action ids "
+        + ("none" if action_ids is None else
+           f"speed {action_ids[..., 0].flatten()[:FRAMES].tolist()}, "
+           f"steering {action_ids[..., 1].flatten()[:FRAMES].tolist()}"))
+    if time_shape != want:
+        fail(f"{tag}: the timestep draw is {time_shape}, not {want}")
+    if action_ids is not None and (
+            not bool(torch.isfinite(action_ids).all())
+            or bool((action_ids == -1000.0).all())):
+        fail(f"{tag}: the action ids are unconditioned or not finite")
 
 
 def check_train_seqs(counts: dict, tag: str) -> None:
@@ -2679,12 +2791,52 @@ def drive_train(dev, pipe, batch, ops, tag: str, profile: bool = False,
                     "last_metrics": extras[-1]}
 
 
+def check_unet_train_census(counts: dict, tag: str) -> None:
+    """A UNet train path's timed steps: K7 ``UNET_K7_PER_FORWARD`` x 2 a
+    step (forward and remat recompute) and its backward
+    ``UNET_K7_PER_FORWARD`` a step, all at the level-0 self-attention's
+    (36, 1792, 5, 64); K1 and K2 at s = 336, 448, 168."""
+    k7_key = f"{FRAMES * VIEWS},{LAT_H * LAT_W},{LAT_H * LAT_W},5,64"
+    steps = TRAIN_STEPS - 1
+    for what, want in (("flash_attention", 2 * UNET_K7_PER_FORWARD * steps),
+                       ("flash_attention_backward",
+                        UNET_K7_PER_FORWARD * steps)):
+        n = counts[f"{what}_by_shape"].get(k7_key, 0)
+        log(f"{tag}: {what} at ({k7_key}): {n} launches in {steps} steps")
+        if n != want or counts[what] != want:
+            fail(f"{what} launched {counts[f'{what}_by_shape']} in the {tag} "
+                 f"steps, not {want} times at ({k7_key})")
+    for s in (336, 448, 168):
+        if counts["flash_tail_by_seq"].get(s, 0) == 0:
+            fail(f"flash_tail never launched at s={s} in the {tag} steps")
+        if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
+            fail(f"the K2 backward never launched at s={s} in the {tag} "
+                 "steps")
+
+
+def check_adapter_grads(norms: dict, tag: str) -> None:
+    """Every ImageAdapter tensor (``norms``: name → its gradient's norm)
+    got a finite, non-zero gradient."""
+    zero = [n for n, g in norms.items() if not (math.isfinite(g) and g > 0)]
+    log(f"{tag}: ImageAdapter gradients over {len(norms)} tensors: norms "
+        f"{min(norms.values(), default=0.0):.3e} to "
+        f"{max(norms.values(), default=0.0):.3e}")
+    if not norms or zero:
+        fail(f"{tag}: ImageAdapter tensors without a gradient: "
+             f"{zero[:5] if zero else 'no adapter'}")
+
+
 def run_unet_train_slice(dev, create_instance_from_config, ops,
-                         profile: bool = False):
+                         profile: bool = False, config: Path = UNET_CONFIG,
+                         sd21_vae=None, tag: str = "unet train"):
     """The CTSD-2.1 UNet's ``train_step`` at full width and depth on a
     synthetic batch: DDPM v-prediction, fp32 masters, remat as the config
-    sets it."""
-    cfg = json.loads(UNET_CONFIG.read_text())["pipeline"]
+    sets it; given ``sd21_vae``, the layout path: a batch of pixels
+    (``vae_images``) and box/map rasters, encoded by the SD2.1 VAE in the
+    step, and one more forward and backward whose every ImageAdapter
+    tensor must get a gradient."""
+    layout = sd21_vae is not None
+    cfg = json.loads(config.read_text())["pipeline"]
     cfg["model"]["param_dtype"] = torch.float32
     mc, oc, tc = cfg["model"], cfg["optimizer_config"], cfg["training_config"]
     with torch.device("meta"):
@@ -2694,7 +2846,7 @@ def run_unet_train_slice(dev, create_instance_from_config, ops,
     model.to_empty(device=dev)
     random_init_(model, gen)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"unet train: {UNET_CONFIG.relative_to(REPO)}, channels "
+    log(f"{tag}: {config.relative_to(REPO)}, channels "
         f"{mc['block_out_channels']}, {n_params / 1e9:.3f}B params in fp32, "
         f"compute {model.dtype}; {type(pipe.train_scheduler).__name__} "
         f"{pipe.train_scheduler.prediction_type}; AdamW lr {oc['lr']}, "
@@ -2703,28 +2855,41 @@ def run_unet_train_slice(dev, create_instance_from_config, ops,
         f"{mc.get('gradient_checkpointing', False)}; reckoned state "
         f"{n_params * 16 / 2**30:.1f} GiB (4 B param + 4 B grad + 8 B AdamW "
         f"moments)")
-    batch = make_batch(dev, gen, UNET_TEXT_TOKENS, UNET_TEXT_DIM, None)
-    batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W,
-                                   UNET_LAT_C, generator=gen, device=dev)
-    counts, metrics = drive_train(dev, pipe, batch, ops, "unet train",
-                                  profile)
-    k7_key = f"{FRAMES * VIEWS},{LAT_H * LAT_W},{LAT_H * LAT_W},5,64"
-    steps = TRAIN_STEPS - 1
-    # forward and remat recompute; backward
-    for what, want in (("flash_attention", 2 * UNET_K7_PER_FORWARD * steps),
-                       ("flash_attention_backward",
-                        UNET_K7_PER_FORWARD * steps)):
-        n = counts[f"{what}_by_shape"].get(k7_key, 0)
-        log(f"{what} at ({k7_key}): {n} launches in {steps} steps")
-        if n != want or counts[what] != want:
-            fail(f"{what} launched {counts[f'{what}_by_shape']} in the unet "
-                 f"train steps, not {want} times at ({k7_key})")
-    for s in (336, 448, 168):
-        if counts["flash_tail_by_seq"].get(s, 0) == 0:
-            fail(f"flash_tail never launched at s={s} in the unet train steps")
-        if counts["flash_tail_backward_by_seq"].get(s, 0) == 0:
-            fail(f"the K2 backward never launched at s={s} in the unet train "
-                 "steps")
+    batch = make_batch(dev, gen, UNET_TEXT_TOKENS, UNET_TEXT_DIM, None,
+                       layout=layout)
+    if layout:
+        attach_pixels(pipe, sd21_vae, batch, dev, gen)
+    else:
+        batch["latents"] = torch.randn(1, FRAMES, VIEWS, LAT_H, LAT_W,
+                                       UNET_LAT_C, generator=gen, device=dev)
+    counts, metrics = drive_train(dev, pipe, batch, ops, tag, profile)
+    check_unet_train_census(counts, tag)
+    if layout:
+        check_launch_shapes(counts, {
+            "flash_attention_by_shape": (
+                (FRAMES * VIEWS, LAT_H * LAT_W, LAT_H * LAT_W, 5, 64),),
+            "flash_attention_backward_by_shape": (
+                (FRAMES * VIEWS, LAT_H * LAT_W, LAT_H * LAT_W, 5, 64),),
+            "flash_tail_by_shape": tuple(s + (64,) for s in UNET_K2_SHAPES),
+            "flash_tail_backward_by_shape": tuple(
+                s + (64,) for s in UNET_K2_SHAPES)}, tag)
+        loss, _ = pipe.loss_fn(batch, torch.Generator(dev).manual_seed(
+            SEED + 4))
+        loss.backward()
+        del loss
+        check_adapter_grads({
+            n: float(p.grad.float().norm()) if p.grad is not None else 0.0
+            for n, p in model.condition_image_adapter.named_parameters()},
+            tag)
+        for p in model.parameters():
+            p.grad = None
+        with torch.no_grad():
+            metrics["encoder_ms"] = profile_ms(
+                lambda: pipe.ensure_latents(batch))
+        share = metrics["encoder_ms"] / (1e3 * metrics["s_per_step"])
+        log(f"{tag}: SD2.1 VAE encoder {metrics['encoder_ms']:.3f} device "
+            f"ms for {tuple(batch['vae_images'].shape)} images "
+            f"({100 * share:.2f}% of a step's wall)")
     return counts, metrics
 
 
@@ -4253,6 +4418,154 @@ def run_lidar_maskgit_train(dev, create_instance_from_config, ops):
              "the tiny-sequence form)")
     return counts, {k: out[k] for k in ("s_per_step", "step_s", "peak_gib",
                                         "metrics")}
+
+
+def check_moved(moves: dict, lr: float, tag: str) -> None:
+    """Every tensor of ``moves`` (name → (the norm of its move over the
+    steps, its entries)) moved by at least ``MD_UPDATE_REL`` of its own
+    update: AdamW's first step moves each entry that has a gradient by lr,
+    a tensor of n entries by lr·√n; a tensor without a gradient moves by
+    its weight decay alone (~3e-4 of that a step at the configs' 0.01 on
+    N(0, 1/fan_in) weights)."""
+    rels = {n: m / (lr * math.sqrt(k)) for n, (m, k) in moves.items()}
+    low = sorted((r, n) for n, r in rels.items()
+                 if not r >= MD_UPDATE_REL)
+    log(f"{tag}: {len(rels)} tensors moved by {min(rels.values()):.3f} to "
+        f"{max(rels.values()):.3f} of their own update (lr·√n; gate "
+        f"{MD_UPDATE_REL})" if rels else f"{tag}: no tensor to hold")
+    if not rels or low:
+        fail(f"{tag}: tensors moved by less than {MD_UPDATE_REL} of their "
+             f"own update: {low[:5]}")
+
+
+def run_lidar_maskgit_temporal_train(dev, create_instance_from_config, ops):
+    """Phase 29: the temporal vq80k MaskGIT (``LIDAR_ROLLOUT_CONFIG``: 24
+    Swin blocks and 24 temporal blocks at 512, 80,000 cosine codes, the
+    extra embedding and its perturbation, 6-channel 640² rasters) trained
+    at full width in the config's fp32 (parameters and compute; the
+    tokenizer frozen): ``MASKGIT_TEMPORAL_TASKS``' steps of 1 x
+    ``MASKGIT_TEMPORAL_FRAMES`` frames, steps 2 and 3 timed, finite
+    ``ce_loss``, every temporal block's tensor moved (``check_moved``);
+    the peak against the logits' reckoning, and the head over every row
+    beside the chunked head at ``MASKGIT_TEMPORAL_SIDE_FRAMES`` frames."""
+    from opendwm_tpu_torch.pipelines import lidar_maskgit
+
+    tag = "lidar maskgit temporal train"
+    pipe, gen = build_lidar(create_instance_from_config,
+                            LIDAR_ROLLOUT_CONFIG, dev, ("vq", "model"))
+    model, tc = pipe.model, pipe.training_config
+    t = MASKGIT_TEMPORAL_FRAMES
+    batch = lidar_batch(dev, gen, t)
+    state = pipe.init_state()
+    temporal = {n: p for n, p in model.named_parameters()
+                if n.startswith("blocks.temporal_blocks.")}
+    before = {n: p.detach().clone() for n, p in temporal.items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    vq_bytes = sum(p.numel() * p.element_size()
+                   for p in pipe.vq.parameters())
+    state_bytes = 16 * n_params  # fp32 param, grad and two moments
+    h, w = model.img_size
+    rows, n_e = t * h * w, model.n_e
+    logit_bytes = 4 * rows * n_e
+    log(f"{tag}: {LIDAR_ROLLOUT_CONFIG.relative_to(REPO)}, "
+        f"{len(model.blocks.blocks)} Swin + "
+        f"{len(model.blocks.temporal_blocks)} temporal blocks at "
+        f"{model.hidden_dim}, {n_e} codes, compute {model.dtype}, "
+        f"{n_params / 1e6:.1f}M params (state {state_bytes / 2**30:.2f} "
+        f"GiB), the tokenizer {vq_bytes / 2**30:.2f} GiB; 1 x {t} frames = "
+        f"{rows} rows; task_type_ratio {tc['task_type_ratio']}, AdamW lr "
+        f"{pipe.optimizer_config['lr']}")
+    generator = torch.Generator(dev).manual_seed(SEED + 1)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, last = [], {}
+    for i, task in enumerate(MASKGIT_TEMPORAL_TASKS, 1):
+        draws = pipe.draw_training_randoms(batch, generator)
+        draws["task"] = torch.tensor(task, device=dev)
+        kind = "prediction" if task < tc["task_type_ratio"] else "generation"
+        (state, metrics), dt = sync_s(lambda: pipe.train_step(
+            state, batch, draws=draws))
+        last = {k: float(v) for k, v in metrics.items()}
+        times.append(dt)
+        log(f"{tag} step {i} ({kind}, n_ref {draws['ref'].tolist()}): "
+            f"{dt:.3f} s, {json.dumps(last)}")
+        if not all(math.isfinite(v) for v in last.values()):
+            fail(f"{tag}: a metric of step {i} is not finite: {last}")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_moved({n: (float((p.detach() - before[n]).norm()), p.numel())
+                 for n, p in temporal.items()},
+                pipe.optimizer_config["lr"], tag)
+    del before
+    if counts["flash_tail"] or counts["flash_attention"]:
+        fail(f"{tag}: an attention kernel launched (4-token windows and "
+             f"{t}-frame temporal attention run plain)")
+
+    # the head over every row against the chunked head, where both fit
+    side = MASKGIT_TEMPORAL_SIDE_FRAMES
+    few = {k: v[:, :side] if k.startswith("lidar_points") else v[:side]
+           for k, v in batch.items()}
+    draws = pipe.draw_training_randoms(few, generator)
+    chunked = lidar_maskgit.head_cross_entropy
+
+    def every_row(features, head, labels, mask,
+                  eps=lidar_maskgit.LABEL_SMOOTHING):
+        return lidar_maskgit.smoothed_cross_entropy(head(features), labels,
+                                                    mask, eps)
+
+    side_peak, side_loss = {}, {}
+    for name, head_loss in (("chunked", chunked), ("every_row", every_row)):
+        lidar_maskgit.head_cross_entropy = head_loss
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _ = pipe.loss_from_draws(few, draws)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            lidar_maskgit.head_cross_entropy = chunked
+        side_peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        side_loss[name] = float(loss.detach())
+        del loss
+        for p in model.parameters():
+            p.grad = None
+    if abs(side_loss["chunked"] - side_loss["every_row"]) > \
+            1e-5 * side_loss["every_row"]:
+        fail(f"{tag}: the chunked head's loss {side_loss['chunked']} is not "
+             f"the head over every row's {side_loss['every_row']}")
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    per_frame = (peak - state_bytes - vq_bytes) / t
+    chunk_bytes = 4 * lidar_maskgit.CE_CHUNK_ELEMS
+    reckon = {b: state_bytes + vq_bytes + b * t * per_frame
+              for b in (1, 2, 4)}
+    metrics = {
+        "frames": t, "rows": rows,
+        "s_per_step": sum(times[1:]) / (len(times) - 1),
+        "step_s": times, "peak_gib": peak / 2**30,
+        "state_gib": state_bytes / 2**30,
+        "logits_gb": logit_bytes / 1e9, "chunk_gb": chunk_bytes / 1e9,
+        "side_frames": side, "side_peak_gib": side_peak,
+        "side_loss": side_loss, "metrics": last,
+        "reckoned_gib": {b: r / 2**30 for b, r in reckon.items()},
+        "fits": {b: r < total for b, r in reckon.items()}}
+    log(f"{tag}: {metrics['s_per_step']:.3f} s a step (steps 2-"
+        f"{len(times)}; {t / metrics['s_per_step']:.2f} frames/s), peak "
+        f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f}; the head over every "
+        f"row would hold {logit_bytes / 1e9:.1f} GB of fp32 logits and "
+        f"{logit_bytes / 1e9:.1f} GB of their gradient at 1 x {t} "
+        f"({4 * logit_bytes / 1e9:.1f} + {4 * logit_bytes / 1e9:.1f} GB at "
+        f"the config's batch of 4), the chunked head one chunk of "
+        f"{chunk_bytes / 1e9:.2f} GB and its gradient; at 1 x {side} "
+        f"frames: peak {side_peak['chunked']:.2f} GiB chunked, "
+        f"{side_peak['every_row']:.2f} GiB over every row (loss "
+        f"{side_loss['chunked']:.6f} / {side_loss['every_row']:.6f})")
+    log(f"{tag}: reckoned from this peak ({per_frame / 2**30:.2f} GiB a "
+        f"frame above the state and the tokenizer), batch 1 / 2 / 4 x {t}: "
+        + ", ".join(f"{r / 2**30:.1f} GiB ("
+                    f"{'fits' if r < total else 'does not fit'})"
+                    for r in reckon.values()))
+    return counts, metrics
 
 
 def check_lidar_dit_train_census(c: dict, steps: int) -> None:
@@ -6116,6 +6429,171 @@ def run_multidevice_phase(dev, create_instance_from_config, ops,
                    "seconds": seconds}
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """The DiT's kernels swapped for their plain versions while the block
+    runs: K1 and K7 (through ``ops.attention``'s dispatch) and K3/K4 (as
+    ``models/mmdit.py`` calls them)."""
+    from opendwm_tpu_torch.models import mmdit
+    from opendwm_tpu_torch.ops import flash_attention, flash_tail, fused_adaln
+
+    swaps = ((flash_tail, "tail_masked_attention",
+              flash_tail.tail_masked_attention_plain),
+             (flash_attention, "flash_attention",
+              flash_attention.flash_attention_plain),
+             (mmdit, "adaln_modulate", fused_adaln.adaln_modulate_plain),
+             (mmdit, "residual_adaln_modulate",
+              fused_adaln.residual_adaln_modulate_plain))
+    saved = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        for (module, name, _), kept in zip(swaps, saved):
+            setattr(module, name, kept)
+
+
+def dfot_drift(sample, bf16_pipe, fp32_pipe) -> dict:
+    """The drift of a sampling run (``sample(pipe)`` → latents) run three
+    ways: ``bf16_pipe`` with the kernels, ``bf16_pipe`` and ``fp32_pipe``
+    with their plain versions (``plain_kernels``); the relative gaps of the
+    first two to the third."""
+    kernel = sample(bf16_pipe)
+    with plain_kernels():
+        plain = sample(bf16_pipe)
+        exact = sample(fp32_pipe)
+    return {"kernel_rel": rel_err(kernel, exact),
+            "plain_rel": rel_err(plain, exact),
+            "kernel_to_plain_rel": rel_err(kernel, plain)}
+
+
+def check_drift(gaps: dict, tag: str,
+                factor: float = DFOT_DRIFT_FACTOR) -> None:
+    """The kernels' gap to fp32 within ``factor`` times the plain bf16
+    gap, both finite."""
+    k, p = gaps["kernel_rel"], gaps["plain_rel"]
+    log(f"{tag}: relative gap to the fp32 plain run: kernels {k:.4e}, plain "
+        f"bf16 {p:.4e} (ratio {k / p if p else math.inf:.3f}, gate "
+        f"{factor}); kernels to plain bf16 {gaps['kernel_to_plain_rel']:.4e}")
+    if not (math.isfinite(k) and math.isfinite(p) and k <= factor * p):
+        fail(f"{tag}: the kernels drift {k} from fp32, more than {factor} x "
+             f"the plain bf16 run's {p}")
+
+
+def dfot_config(layers: int = 0) -> dict:
+    """``DFOT_CONFIG``'s pipeline at ``DFOT_STEPS`` steps; with ``layers``,
+    cut to that depth (``depth_cut``) and its adapter to as many stages."""
+    cfg = json.loads(DFOT_CONFIG.read_text())["pipeline"]
+    cfg["inference_config"]["inference_steps"] = DFOT_STEPS
+    if layers:
+        cfg = depth_cut(cfg, layers)
+        adapter = cfg["model"]["condition_image_adapter_config"]
+        for key in ("channels", "is_downblocks"):
+            adapter[key] = adapter[key][:layers]
+    return cfg
+
+
+def run_dfot_phase(dev, create_instance_from_config, sd35_vae, ops):
+    """Phase 31: DFoT (``DFOT_CONFIG``, diffusion forcing with action ids):
+    trained as phase 11 (``run_train_slice``: from pixels through the SD3.5
+    encoder, flat AdamW, bf16 moments; per-frame timesteps and the action
+    ids held by ``check_step_inputs``); one window of 1 x 6 frames x 6
+    views sampled at full width in ``DFOT_STEPS`` steps with CFG 4.0,
+    seeded from image latents (a normal draw), K1 at the serving shapes,
+    K3 62 and K4 47 a CFG forward, decoded ``DFOT_DECODE_CHUNK`` frames a
+    call; then the drift gate at ``DFOT_DRIFT_LAYERS`` layers
+    (``dfot_drift``, ``check_drift``)."""
+    train_counts, train_metrics = run_train_slice(
+        dev, create_instance_from_config, ops, config=DFOT_CONFIG,
+        sd35_vae=sd35_vae, tag="dfot train")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tag = "dfot serve"
+    cfg = dfot_config()
+    log(f"{tag}: {DFOT_CONFIG.relative_to(REPO)}, diffusion forcing, "
+        f"inference_steps 40 -> {DFOT_STEPS} (the most at or under 40 that "
+        f"divides by its {FRAMES} frames), guidance "
+        f"{cfg['inference_config']['guidance_scale']}")
+    with torch.device("meta"):
+        pipe = create_instance_from_config(cfg)
+        vae = sd35_vae(dtype=torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    for module in (pipe.model, vae):
+        module.to_empty(device=dev)
+        random_init_(module, gen)
+        module.eval()
+    pipe.set_vae(vae)
+    batch = make_batch(dev, gen, layout=True, ego=True)
+    shape = (1, FRAMES, VIEWS, LAT_H, LAT_W, 16)
+    image_latents = torch.randn(shape, generator=gen, device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    latents, sample_s = sync_s(lambda: pipe.inference_pipeline(
+        batch, shape, image_latents=image_latents))
+    counts = ops.launch_counts()
+    frames, decode_s = sync_s(lambda: pipe.decode_latents(
+        latents, chunk_size=DFOT_DECODE_CHUNK))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if tuple(latents.shape) != shape or not torch.isfinite(latents).all() \
+            or not torch.isfinite(frames).all() or \
+            tuple(frames.shape) != shape[:3] + (8 * LAT_H, 8 * LAT_W, 3):
+        fail(f"{tag}: latents {tuple(latents.shape)} or frames "
+             f"{tuple(frames.shape)} not finite or not expected")
+    moved = rel_err(latents, image_latents)
+    log(f"{tag}: {DFOT_STEPS} CFG forwards in {sample_s:.3f} s "
+        f"({sample_s / DFOT_STEPS:.4f} s a step), decode of {FRAMES} x "
+        f"{VIEWS} frames in chunks of {DFOT_DECODE_CHUNK}: {decode_s:.3f} s; "
+        f"peak {peak:.2f} GiB; the latents moved {moved:.4f} from the image "
+        f"latents")
+    log(f"launches during the {tag} sampling: {json.dumps(counts)}")
+    check_launch_shapes(counts, {"flash_tail_by_shape": tuple(
+        (b, s_, 24, 64) for b, s_ in ATTN_SHAPES)}, tag)
+    k3, k4 = counts["adaln_modulate"], counts["residual_adaln_modulate"]
+    if k3 != K3_PER_FORWARD * DFOT_STEPS or \
+            k4 != K4_PER_FORWARD * DFOT_STEPS or not moved > 1e-2:
+        fail(f"{tag}: K3/K4 launched {k3}/{k4} times in {DFOT_STEPS} CFG "
+             f"forwards (want {K3_PER_FORWARD}/{K4_PER_FORWARD} a forward); "
+             f"latents moved {moved}")
+    del pipe, vae, latents, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the drift gate at DFOT_DRIFT_LAYERS layers, the widths unchanged
+    tag = "dfot drift"
+    pipes = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cut = dfot_config(DFOT_DRIFT_LAYERS)
+        cut["model"]["dtype"] = dtype
+        with torch.device("meta"):
+            pipes[name] = create_instance_from_config(cut)
+        pipes[name].model.to_empty(device=dev)
+        pipes[name].model.eval()
+    random_init_(pipes["fp32"].model, torch.Generator(dev).manual_seed(SEED))
+    pipes["bf16"].model.load_state_dict(pipes["fp32"].model.state_dict())
+
+    def sample(p):
+        return p.inference_pipeline(batch, shape,
+                                    image_latents=image_latents)
+
+    ops.reset_launch_counts()
+    gaps, drift_s = sync_s(lambda: dfot_drift(sample, pipes["bf16"],
+                                              pipes["fp32"]))
+    log(f"{tag}: {DFOT_DRIFT_LAYERS} of 24 layers, {DFOT_STEPS} steps three "
+        f"ways in {drift_s:.1f} s")
+    check_drift(gaps, tag)
+    del pipes
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics = {"train": {k: v for k, v in train_metrics.items()
+                         if k != "moments"},
+               "sample_s": sample_s, "s_per_step": sample_s / DFOT_STEPS,
+               "decode_s": decode_s, "peak_gib": peak, "drift": gaps,
+               "drift_s": drift_s}
+    return train_counts, counts, metrics
+
+
 def census_sm90(_build, sources, body: str) -> dict:
     """ptxas's registers and spills (from the report kept beside each
     library, so a library built by an earlier run is held too) and a SASS
@@ -6503,7 +6981,35 @@ def main() -> None:
         train_metrics, eval_ranks)
     md_metrics["phase_s"] = time.perf_counter() - t0
     log(f"multi-device on one card ({card}): " + json.dumps(md_metrics))
+    published = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the temporal MaskGIT train phase")
+    t0 = time.perf_counter()
+    maskgit_temporal, published["maskgit_temporal_train"] = \
+        run_lidar_maskgit_temporal_train(dev, create_instance_from_config,
+                                         ops)
+    published["maskgit_temporal_train"]["phase_s"] = \
+        time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the bm UNet train phase")
+    t0 = time.perf_counter()
+    bm_unet_train, published["bm_unet_train"] = run_unet_train_slice(
+        dev, create_instance_from_config, ops, config=BM_UNET_CONFIG,
+        sd21_vae=sd21_vae, tag="bm unet train")
+    published["bm_unet_train"]["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_clocks("before the DFoT phase")
+    t0 = time.perf_counter()
+    dfot_train, dfot_serve, published["dfot"] = run_dfot_phase(
+        dev, create_instance_from_config, sd35_vae, ops)
+    published["dfot"]["phase_s"] = time.perf_counter() - t0
     log_clocks("at the end")
+    log(f"the temporal MaskGIT, the bm UNet and DFoT trained ({card}): "
+        + json.dumps({k: {n: v for n, v in m.items() if n != "moments"}
+                      for k, m in published.items()}))
     log(f"the depth branch, the BEV world VAE and the tools ({card}): "
         + json.dumps({"unet_depth_train": {
             k: v for k, v in depth_metrics.items() if k != "moments"},
@@ -6536,7 +7042,10 @@ def main() -> None:
              "mask_step": mask_step, "unimlvg_train": unimlvg_train,
              "temporal_vae": temporal_vae, **lidar_train,
              "land_eval": land_counts, "unet_depth_train": depth_counts,
-             "segment_grad": segment_grad, **md_paths}
+             "segment_grad": segment_grad, **md_paths,
+             "maskgit_temporal_train": maskgit_temporal,
+             "bm_unet_train": bm_unet_train, "dfot_train": dfot_train,
+             "dfot_serve": dfot_serve}
     strays = {p: c["flash_attention_segment"] for p, c in paths.items()
               if p not in ("attn602", "segment_grad")
               and c["flash_attention_segment"]}

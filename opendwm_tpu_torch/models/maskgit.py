@@ -177,9 +177,14 @@ class BidirectionalTransformer(nn.Module):
                 context: Optional[torch.Tensor] = None,
                 batch_size: Optional[int] = None,
                 num_frames: Optional[int] = None,
-                perturb_draws: Optional[dict] = None) -> torch.Tensor:
+                perturb_draws: Optional[dict] = None, head=None):
         """``perturb_draws`` (``draw_perturbation``) turns the extra
-        embedding's perturbation on, where the model enables it."""
+        embedding's perturbation on, where the model enables it. ``head``,
+        a function of the head's input ``gelu(norm(h))`` (N, L,
+        hidden_dim) and the head ``self.pred``, replaces the logits by its
+        result: training applies the head with its loss, a chunk of rows
+        at a time, inside the forward, so that a data-parallel wrapper's
+        hooks see every use of the weights."""
         masked = (x_id == -1)[..., None]
         if self.extra_embedding is not None:
             if self.enable_perturbation and perturb_draws is not None:
@@ -196,7 +201,10 @@ class BidirectionalTransformer(nn.Module):
             ctx = [f.reshape(f.shape[0], -1, f.shape[-1])
                    for f in self.condition_adapter(context.to(self.dtype))]
         h = self.blocks(h, ctx, batch_size=batch_size, num_frames=num_frames)
-        return self.pred(F.gelu(self.norm(h)))
+        features = F.gelu(self.norm(h))
+        if head is not None:
+            return head(features, self.pred)
+        return self.pred(features)
 
     def draw_perturbation(self, shape, generator=None, device=None) -> dict:
         """The perturbation's draws for ids of ``shape``, in the JAX

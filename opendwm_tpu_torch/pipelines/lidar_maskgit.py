@@ -37,8 +37,11 @@ package's order (``draw_training_randoms``) or are given
 (``loss_from_draws``). The cross-entropy never forms the one-hot target
 or the fp32 log-softmax of all logits: ``smoothed_cross_entropy`` works on
 the masked rows, ``CE_CHUNK_ELEMS`` logits at a time, forward and
-backward (a full-width batch has 51,200 tokens x 80,000 codes: 16.4 GB a
-copy in fp32).
+backward. Training never holds the logits of all rows either
+(``head_cross_entropy``): the head runs on the masked rows only, a chunk
+at a time, and each chunk's logits are recomputed in the backward. The
+temporal config's batch of 4 x 6 frames has 153,600 tokens x 80,000
+codes: 49.2 GB of fp32 logits and as much again for their gradient.
 
 ``save_results`` writes the BEV previews and point dumps of a generation,
 ``evaluate_pipeline`` scores generations with voxel IoU, voxel difference
@@ -53,6 +56,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from opendwm_tpu_torch.config import register
 from opendwm_tpu_torch.metrics import PointCloudChamfer, VoxelDiff, VoxelIoU
@@ -166,6 +170,45 @@ def smoothed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                    for r0 in range(0, rows.shape[0], step))
         acc = torch.tensor(float(hits), device=flat.device) / denom
     return loss, acc
+
+
+def _head_chunk(head, features, labels, weights, eps):
+    """Σ w · ce over one chunk of rows of ``head(features)`` and the count
+    of rows whose argmax logit is the label."""
+    logits = head(features)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    loss = SmoothedCrossEntropy.apply(logits, rows, labels, weights, eps)
+    return loss, (logits.argmax(-1) == labels).sum()
+
+
+def head_cross_entropy(features: torch.Tensor, head, labels: torch.Tensor,
+                       mask: torch.Tensor, eps: float = LABEL_SMOOTHING):
+    """``smoothed_cross_entropy(head(features), labels, mask)`` without the
+    logits of all rows: the head (a ``Linear`` to n codes) runs on the
+    masked rows only, ``CE_CHUNK_ELEMS`` logits a chunk, and each chunk's
+    logits are recomputed in the backward (``torch.utils.checkpoint``), so
+    one chunk's logits and their gradient exist at a time. The other
+    rows' logits get no gradient from the loss, so the function and its
+    gradients are those of the head over every row. features (N, L, c),
+    labels and mask (N, L)."""
+    flat = features.reshape(-1, features.shape[-1])
+    maskf = mask.reshape(-1).to(torch.promote_types(head.dtype,
+                                                    torch.float32))
+    denom = maskf.sum() + 1e-5
+    rows = mask.reshape(-1).nonzero()[:, 0]
+    y = labels.reshape(-1)[rows]
+    weights = maskf[rows] / denom
+    step = max(1, CE_CHUNK_ELEMS // head.out_features)
+    loss, hits = 0, 0
+    # at least one chunk, so that no masked row still gives a loss of 0
+    # in the graph
+    for r0 in range(0, max(rows.shape[0], 1), step):
+        r = rows[r0:r0 + step]
+        part, hit = checkpoint(_head_chunk, head, flat[r], y[r0:r0 + step],
+                               weights[r0:r0 + step], eps,
+                               use_reentrant=False)
+        loss, hits = loss + part, hits + hit
+    return loss, hits.to(denom.dtype) / denom
 
 
 def gumbel_noise(shape, generator=None, device=None) -> torch.Tensor:
@@ -391,9 +434,11 @@ class MaskGITPipeline(MeshPlacement):
             < tc.get("3dbox_condition_ratio", 1.0),
             hdmap_condition_mask=draws["map"].to(dev)
             < tc.get("hdmap_condition_ratio", 1.0))
-        logits = self.model(code, x_indices, context=ctx, batch_size=b,
-                            num_frames=t, perturb_draws=draws["perturb"])
-        loss, acc = smoothed_cross_entropy(logits, idx, mask)
+        loss, acc = self.model(
+            code, x_indices, context=ctx, batch_size=b, num_frames=t,
+            perturb_draws=draws["perturb"],
+            head=lambda features, pred: head_cross_entropy(features, pred,
+                                                           idx, mask))
         return loss, {"ce_loss": loss, "acc_0": acc}
 
     def loss_fn(self, batch: dict, generator=None):

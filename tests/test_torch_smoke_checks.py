@@ -34,6 +34,8 @@ import torch
 
 from opendwm_tpu_torch.ops import flash_tail
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -286,15 +288,18 @@ def _adaln_counts(k3=62, k4=47, k3_fixed=None, k4_fixed=None) -> dict:
     ("fsdp_train", {"k3_fixed": 245}, False),
     ("sp_serve", {}, True),
     ("pp_serve", {"k4": 0, "k4_fixed": 0}, False),
+    ("dfot_train", {"k3_fixed": 245}, False),
+    ("dfot_serve", {"k4": 0, "k4_fixed": 0}, False),
 ])
 def test_dit_paths_run_the_row_kernel(smoke, path, over, ok):
-    """Every K3/K4 launch of the fifteen DiT paths must have run the ring
+    """Every K3/K4 launch of the seventeen DiT paths must have run the ring
     of ``csrc/adaln.cu``, and each path must have launched both."""
     assert set(smoke.DIT_PATHS) == {"serve", "train", "bm_serve", "bm_train",
                                     "stream", "int8_serve", "unimlvg_serve",
                                     "unimlvg_train", "branch_types",
                                     "mask_step", "land_eval", "fsdp_train",
-                                    "sp_serve", "pp_serve", "eval_ranks"}
+                                    "sp_serve", "pp_serve", "eval_ranks",
+                                    "dfot_train", "dfot_serve"}
     paths = {p: _adaln_counts() for p in smoke.DIT_PATHS}
     paths[path] = _adaln_counts(**over)
     if ok:
@@ -1518,3 +1523,200 @@ def test_multidevice_depth_cut(smoke):
     assert full["num_layers"] == 24
     assert "eval_ranks" in smoke.MODEL_PATHS and \
         "eval_ranks" in smoke.DIT_PATHS
+
+
+# -- phases 29-31: the temporal MaskGIT, the bm UNet and DFoT trained ---------
+
+@pytest.fixture(scope="module")
+def tiny_dfot(smoke):
+    """The CPU twin of ``tests/test_torch_dfot.py`` (the DFoT config cut to
+    3 layers of 4 x 8 heads) in fp32 and, with the same weights, in bf16,
+    at 4 sampling steps; its conditions and image latents; and the
+    sampling run ``dfot_drift`` takes."""
+    import copy
+
+    import numpy as np
+
+    from opendwm_tpu_torch import config
+    from test_torch_dfot import B, C, H, T, V, W, _batch, _pipeline_config
+
+    cfg = _pipeline_config()
+    cfg["inference_config"]["inference_steps"] = 4
+    pipes = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cut = copy.deepcopy(cfg)
+        cut["model"]["dtype"] = dtype
+        pipes[name] = config.create_instance_from_config(cut)
+    smoke.random_init_(pipes["fp32"].model, torch.Generator().manual_seed(0))
+    pipes["bf16"].model.load_state_dict(pipes["fp32"].model.state_dict())
+    batch = {k: torch.from_numpy(v)
+             for k, v in _batch(np.random.default_rng(0)).items()
+             if k != "latents"}
+    shape = (B, T, V, H, W, C)
+    image_latents = torch.randn(shape, generator=torch.Generator()
+                                .manual_seed(1))
+
+    def sample(pipe):
+        return pipe.inference_pipeline(batch, shape,
+                                       image_latents=image_latents)
+
+    return pipes, sample
+
+
+@pytest.mark.parametrize("k1_scale,ok", [(1.0, True), (1.25, False),
+                                         (0.75, False)])
+def test_drift_gate_fails_a_wrong_k1_scale(smoke, tiny_dfot, monkeypatch,
+                                           k1_scale, ok):
+    """Phase 31's drift gate on the tiny DFoT DiT: the "kernel" run with
+    K1's softmax scale multiplied by ``k1_scale`` (on the CPU the K1
+    wrapper runs the plain version; ``plain_kernels`` puts the true plain
+    version back for the two reference runs). Unperturbed, the kernel run
+    is the plain one (ratio 1); a scale off by 25% either way drifts past
+    2x the bf16 gap (3.2x at 1.25; at this size a scale off by 10% stays
+    within it, 1.6x)."""
+    pipes, sample = tiny_dfot
+    plain = flash_tail.tail_masked_attention_plain
+    calls = []
+
+    def k1(q, k, v, scale):
+        calls.append(q.shape)
+        return plain(q, k, v, scale * k1_scale)
+
+    monkeypatch.setattr(flash_tail, "tail_masked_attention", k1)
+    gaps = smoke.dfot_drift(sample, pipes["bf16"], pipes["fp32"])
+    assert calls and flash_tail.tail_masked_attention is k1
+    assert gaps["plain_rel"] > 0
+    if ok:
+        assert gaps["kernel_to_plain_rel"] == 0.0
+        smoke.check_drift(gaps, "tiny dfot")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_drift(gaps, "tiny dfot")
+
+
+def test_plain_kernels_swaps_and_restores(smoke):
+    from opendwm_tpu_torch.models import mmdit
+    from opendwm_tpu_torch.ops import flash_attention, fused_adaln
+
+    kept = (flash_tail.tail_masked_attention, flash_attention.flash_attention,
+            mmdit.adaln_modulate, mmdit.residual_adaln_modulate)
+    with smoke.plain_kernels():
+        assert flash_tail.tail_masked_attention is \
+            flash_tail.tail_masked_attention_plain
+        assert flash_attention.flash_attention is \
+            flash_attention.flash_attention_plain
+        assert mmdit.adaln_modulate is fused_adaln.adaln_modulate_plain
+        assert mmdit.residual_adaln_modulate is \
+            fused_adaln.residual_adaln_modulate_plain
+    assert (flash_tail.tail_masked_attention, flash_attention.flash_attention,
+            mmdit.adaln_modulate, mmdit.residual_adaln_modulate) == kept
+
+
+@pytest.mark.parametrize("moves,ok", [
+    ({"a": (1e-4 * 30.0, 900), "b": (2e-4 * 10.0, 100)}, True),
+    ({"a": (1e-4 * 30.0, 900), "b": (0.0, 100)}, False),  # left unmoved
+    ({"a": (1e-4 * 30.0, 900), "b": (3e-4 * 1e-4 * 10.0, 100)}, False),
+    ({}, False),
+])
+def test_temporal_blocks_must_move(smoke, moves, ok):
+    """Phase 29: every temporal block's tensor moves by ``MD_UPDATE_REL``
+    of its own update (lr·√n at lr 1e-4); a tensor without a gradient,
+    moved by weight decay alone, fails."""
+    if ok:
+        smoke.check_moved(moves, 1e-4, "temporal")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_moved(moves, 1e-4, "temporal")
+
+
+@pytest.mark.parametrize("norms,ok", [
+    ({"conv_in.weight": 0.3, "body.0.resnets.0.block1.bias": 1e-6}, True),
+    ({"conv_in.weight": 0.3, "body.0.resnets.0.block1.bias": 0.0}, False),
+    ({"conv_in.weight": float("nan")}, False),
+    ({}, False),
+])
+def test_adapter_gradient_gate(smoke, norms, ok):
+    """Phase 30: every ImageAdapter tensor gets a finite, non-zero
+    gradient."""
+    if ok:
+        smoke.check_adapter_grads(norms, "bm unet train")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_adapter_grads(norms, "bm unet train")
+
+
+def _unet_train_counts(smoke, **over) -> dict:
+    steps = smoke.TRAIN_STEPS - 1
+    k7 = f"{smoke.FRAMES * smoke.VIEWS},{smoke.LAT_H * smoke.LAT_W}," \
+        f"{smoke.LAT_H * smoke.LAT_W},5,64"
+    fwd, bwd = 2 * smoke.UNET_K7_PER_FORWARD * steps, \
+        smoke.UNET_K7_PER_FORWARD * steps
+    seqs = {336: 4, 448: 2, 168: 4}
+    counts = {"flash_attention": fwd,
+              "flash_attention_by_shape": {k7: fwd},
+              "flash_attention_backward": bwd,
+              "flash_attention_backward_by_shape": {k7: bwd},
+              "flash_tail_by_seq": dict(seqs),
+              "flash_tail_backward_by_seq": dict(seqs)}
+    counts.update(over)
+    return counts
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"flash_attention_backward": 0,
+      "flash_attention_backward_by_shape": {}}, False),  # no K7 backward
+    ({"flash_attention": 10}, False),  # no remat recompute
+    ({"flash_tail_backward_by_seq": {336: 4, 448: 2}}, False),  # no K2 168
+])
+def test_unet_train_census(smoke, over, ok):
+    """Phases 8 and 30: K7 10 a step and its backward 5 a step at the
+    level-0 self-attention, K1 and K2 at s = 336, 448, 168."""
+    counts = _unet_train_counts(smoke, **over)
+    if ok:
+        smoke.check_unet_train_census(counts, "bm unet train")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_unet_train_census(counts, "bm unet train")
+
+
+@pytest.mark.parametrize("time_shape,action,ok", [
+    ((1, 6), [[30.0, 4.0]], True),
+    ((1,), [[30.0, 4.0]], False),  # one timestep a sample
+    ((1, 6), [[-1000.0, -1000.0]], False),  # unconditioned
+    ((1, 6), [[float("nan"), 4.0]], False),
+])
+def test_dfot_step_inputs_gate(smoke, time_shape, action, ok):
+    """Phase 31's train step: a timestep a sample and frame under
+    diffusion forcing, conditioned action ids."""
+    common = {"frame_prediction_style": "diffusion_forcing"}
+    ids = torch.tensor(action)
+    if ok:
+        smoke.check_step_inputs(time_shape, ids, common, "dfot")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_step_inputs(time_shape, ids, common, "dfot")
+
+
+def test_published_phases_are_gated(smoke):
+    """The new paths' launches are held by the body and ring gates; the
+    DFoT configs' cut keeps the widths and the adapter stages it feeds."""
+    import json
+
+    for path in ("bm_unet_train", "dfot_train"):
+        assert path in smoke.TRAIN_PATHS and path in smoke.MODEL_PATHS
+    for path in ("dfot_train", "dfot_serve"):
+        assert path in smoke.DIT_PATHS
+    assert "dfot_serve" in smoke.MODEL_PATHS
+    cfg = json.loads(smoke.DFOT_CONFIG.read_text())["pipeline"]
+    assert cfg["inference_config"]["inference_steps"] == 40
+    assert smoke.DFOT_STEPS % smoke.FRAMES == 0 and \
+        all((smoke.DFOT_STEPS + i) % smoke.FRAMES
+            for i in range(1, 40 - smoke.DFOT_STEPS + 1))
+    cut = smoke.dfot_config(smoke.DFOT_DRIFT_LAYERS)
+    m = cut["model"]
+    assert m["num_layers"] == smoke.DFOT_DRIFT_LAYERS
+    assert m["attention_head_dim"] * m["num_attention_heads"] == 1536
+    assert len(m["condition_image_adapter_config"]["channels"]) == \
+        smoke.DFOT_DRIFT_LAYERS
+    assert cut["inference_config"]["inference_steps"] == smoke.DFOT_STEPS
